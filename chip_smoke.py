@@ -5,18 +5,31 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-1. builds the CUDA kernels from ``pydnmfk_tpu_torch/csrc`` with nvcc;
+1. builds the CUDA kernels from ``pydnmfk_tpu_torch/csrc`` with nvcc, one
+   process per source, all at once;
 2. checks each kernel against its plain PyTorch version at the shapes the
-   main path gives it (57600 x 38400, k = 32: the reference's
-   strong-scaling geometry; and a 10-member 14400 x 9600, k = 8 ensemble),
-   times both with CUDA events, and checks NMF.fit on the card against the
-   CPU path on a small input;
-3. drives the main path with every launch counter at zero: NMF.fit for 10
-   FRO-MU and 10 KL-MU iterations at 57600 x 38400, k = 32, then the NMFk
-   sweep through the CLI entry point on a planted rank-4 14400 x 9600 matrix
-   (k = 2..7, 10 perturbations, 400 iterations), FRO-MU and KL-MU, which
-   must choose k = 4;
-4. prints the card's name and power limit, one JSON line of kernels, and as
+   main paths give it, and times kernel, plain version and, where one
+   PyTorch call computes the same function, that call, with CUDA events:
+   - K1, K2a, K2b at 57600 x 38400, k = 32 (the reference's strong-scaling
+     geometry) and on a 10-member 14400 x 9600, k = 8 ensemble;
+   - K4 in its four modes (rows/columns, plain/ratio) at the shape and nnz
+     of the NYTimes bag-of-words corpus (300000 x 102660, 69.7 M nnz,
+     k = 32), and on a 10-member stack of the planted topic matrix of 5;
+   profiles one batched FRO-MU and KL-MU step on that stack (wall and
+   device ms, idle share, top kernels); and checks NMF.fit on the card
+   against the CPU path on a small input;
+3. the dense main path, launch counters at zero before each run and read
+   after it: NMF.fit for 10 FRO-MU and 10 KL-MU iterations at 57600 x 38400,
+   k = 32, then the NMFk sweep through the CLI on a planted rank-4
+   14400 x 9600 matrix (k = 2..7, 10 perturbations, 400 iterations), FRO-MU
+   and KL-MU, which must choose k = 4;
+4. the sparse main path, the same way: NMF.fit on the NYTimes-shaped matrix,
+   10 FRO-MU and 10 KL-MU iterations, k = 32, on the ELL format the policy
+   must choose;
+5. the sparse NMFk sweep through the CLI on a planted rank-4 block-sparse
+   200000 x 50000 ``.npz`` (about 50 nnz per row, 10 M nnz; the same sweep
+   settings), FRO-MU and KL-MU, which must choose k = 4 on the ELL format;
+6. prints the card's name and power limit, one JSON line of kernels, and as
    its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -30,6 +43,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -39,11 +53,19 @@ M, N, K = 57600, 38400, 32               # reference strong-scaling geometry
 ENS, EM, EN, EK = 10, 14400, 9600, 8     # ensemble kernel check
 PLANTED = dict(m=14400, n=9600, k=4)     # NMFk sweep input
 SWEEP = ["--start_k=2", "--end_k=7", "--perturbations=10", "--itr=400"]
+# NYTimes bag of words (UCI Machine Learning Repository, "Bag of Words"):
+# documents x vocabulary and nnz; drawn with replacement, ~79 k repeats drop
+NYT_M, NYT_N, NYT_NNZ = 300_000, 102_660, 69_679_427
+TOPIC = dict(m=200_000, n=50_000, k=4, nnz_per_row=50)   # sparse sweep input
+TOPIC_K = 7                              # K4 stack check: the sweep's top k
+PROFILE_STEPS = 20                       # MU steps profiled on that stack
 # kernel vs plain, max |difference| / max |plain| over all outputs: f32
 # sums taken in another order (and, for K1's W'^T A, with atomics in an
 # order that changes from run to run); a bf16 A also rounds W' to bf16 where
 # kernel and plain W' may differ in the last f32 bit
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM: f32 non-tensor, HBM3
+PEAK_BF16 = 989e12                       # H100 SXM: bf16 tensor cores, dense
 
 
 def check(cond, msg):
@@ -80,15 +102,79 @@ def compare(kernel_out, plain_out):
     return abs_err, rel_err
 
 
+def bound(flops, nbytes, peak=PEAK_FLOPS):
+    """(least ms the card could take, what bounds it): the larger of the
+    operations over the peak of their type (f32 unless given) and the bytes
+    over the memory rate."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def csr(rows, cols, vals, shape):
+    """A CSR tensor of the triplet (rows, cols, vals), for the library
+    call that chip_smoke times beside K4; the port never calls it."""
+    order = torch.argsort(rows.long() * shape[1] + cols.long())
+    crow = torch.zeros(shape[0] + 1, dtype=torch.int64, device=rows.device)
+    crow[1:] = torch.cumsum(torch.bincount(rows.long(), minlength=shape[0]), 0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)     # CSR is "beta"
+        return torch.sparse_csr_tensor(crow, cols[order].long(), vals[order],
+                                       shape, check_invariants=False)
+
+
+def profile_step(norm, E, W, H, eps):
+    """One batched MU step on the member stack E, W, H: its wall time (host
+    clock, synchronized, profiler off), its device time (the sum of the
+    CUDA kernels' own times under torch.profiler), the device's idle share,
+    and the kernels that take the most device time."""
+    from pydnmfk_tpu_torch.models import updates
+    step = updates.mu_fro_step if norm == "fro" else updates.mu_kl_step
+    for _ in range(3):                                   # warm-up
+        W, H = step(E, W, H, eps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PROFILE_STEPS):
+        W, H = step(E, W, H, eps)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / PROFILE_STEPS * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(PROFILE_STEPS):
+            W, H = step(E, W, H, eps)
+        torch.cuda.synchronize()
+    # the kernels themselves (an operator's row repeats its kernels' time)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = (sum(e.self_device_time_total for e in kernels)
+              / PROFILE_STEPS / 1e3)
+    print(f"[profile] {norm.upper()}-MU step, {W.shape[0]} members x "
+          f"{E.shape[0]}x{E.shape[1]} ({E.nse} nnz) k={W.shape[-1]}: wall "
+          f"{wall_ms:.3f} ms, device {dev_ms:.3f} ms, idle share "
+          f"{1 - dev_ms / wall_ms:.3f}", flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"  {e.self_device_time_total / PROFILE_STEPS / 1e3:9.3f} ms "
+              f"{e.count / PROFILE_STEPS:6.1f}/step  {e.key[:90]}", flush=True)
+    # a device time above the wall time is a count taken twice
+    check(dev_ms <= 1.1 * wall_ms, f"profile {norm}: device {dev_ms:.3f} ms "
+                                   f"above wall {wall_ms:.3f} ms")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
     sys.path.insert(0, ROOT)
     from pydnmfk_tpu_torch import NMF, NMFConfig, cli
     from pydnmfk_tpu_torch.models.nmf import init_factors_rand
-    from pydnmfk_tpu_torch.ops import cuda_lib, fused_mu, kl, linalg
+    from pydnmfk_tpu_torch.ops import (cuda_lib, ell, ell_gather, fused_mu,
+                                       kl, linalg, sparse)
     from pydnmfk_tpu_torch.utils import timing
-    from pydnmfk_tpu_torch.utils.data_generator import generate_data
+    from pydnmfk_tpu_torch.utils.data_generator import (generate_data,
+                                                        generate_topic_sparse)
     from pydnmfk_tpu_torch.utils.io import RESULT_DATASETS, read_cluster_results
 
     torch.backends.cuda.matmul.allow_tf32 = False     # true-f32 products
@@ -98,7 +184,24 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.get_device_name(0)}", flush=True)
+          f"{torch.cuda.get_device_name(0)}, {smi}", flush=True)
+    counters = (fused_mu.launches, kl.launches, ell_gather.launches)
+
+    def counts():
+        return {k: v for c in counters for k, v in c.items()}
+
+    def zero_counts():
+        for c in counters:
+            for key in c:
+                c[key] = 0
+
+    main_path = {key: 0 for key in counts()}     # launches on the main path
+
+    def read_counts():
+        ran = counts()
+        for key, n in ran.items():
+            main_path[key] += n
+        return ran
 
     # -- 1. build -------------------------------------------------------
     t0 = time.perf_counter()
@@ -113,20 +216,31 @@ def main():
     eps = float(torch.finfo(torch.float32).eps)
     rows = {}
 
-    def kernel_case(name, label, kernel, plain, tol):
+    def kernel_case(name, label, kernel, plain, tol, work, library=None):
+        """Checks kernel() against plain() and times both (and library(),
+        the one PyTorch call that computes the same function); ``work`` is
+        the (flops, bytes[, peak]) the function needs. The first case of a
+        kernel is its headline in the JSON line."""
         k_out, p_out = kernel(), plain()
         abs_err, rel_err = compare(k_out, p_out)
         del k_out, p_out
         ms, plain_ms = median_ms(kernel), median_ms(plain)
+        lib_ms = median_ms(library) if library is not None else None
+        bound_ms, bound_by = bound(*work)
         print(f"[kernel] {name} {label}: max rel err {rel_err:.3e} "
               f"(tol {tol:g}), max abs err {abs_err:.3e}, kernel "
-              f"{ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms, library "
+              f"{'none' if lib_ms is None else f'{lib_ms:.3f} ms'}, bound "
+              f"{bound_ms:.3f} ms ({bound_by})", flush=True)
         check(rel_err <= tol, f"{name} {label} disagrees with its plain "
                               f"version: {rel_err:.3e} > {tol:g}")
-        row = rows.setdefault(name, {"max_abs_err": 0.0})
+        row = rows.setdefault(name, {"max_abs_err": 0.0, "ms": ms,
+                                     "plain_ms": plain_ms,
+                                     "bound_ms": bound_ms,
+                                     "bound_by": bound_by,
+                                     "library_ms": lib_ms})
         row["max_abs_err"] = max(row["max_abs_err"], abs_err)
-        row.setdefault("ms", ms)              # the first case is the headline
-        row.setdefault("plain_ms", plain_ms)
+        return ms
 
     A = torch.rand((M, K), generator=gen, device=dev) @ torch.rand(
         (K, N), generator=gen, device=dev)                     # planted rank K
@@ -134,25 +248,31 @@ def main():
     H = torch.rand((K, N), generator=gen, device=dev)
     HHT = linalg.gram_t(H)
     shape = f"{M}x{N} k={K}"
-    kernel_case("K1 fused_mu_fro", f"f32 {shape}",
-                lambda: fused_mu.fused_w_pass(A, W, H, HHT, eps),
-                lambda: fused_mu.fused_w_pass_plain(A, W, H, HHT, eps),
-                TOL[torch.float32])
+    dense_ms = []
+    dense_ms.append(kernel_case(
+        "K1 fused_mu_fro", f"f32 {shape}",
+        lambda: fused_mu.fused_w_pass(A, W, H, HHT, eps),
+        lambda: fused_mu.fused_w_pass_plain(A, W, H, HHT, eps),
+        TOL[torch.float32], (4 * M * N * K, nbytes(A, W, H, HHT, W, H, HHT)),
+        library=lambda: (torch.matmul(A, H.mT), torch.matmul(W.mT, A))))
+    # a bf16 A: the same products on bf16 operands (the JAX package's
+    # operand rounding), so the bf16 tensor-core peak bounds the operations
     A16 = A.to(torch.bfloat16)
     kernel_case("K1 fused_mu_fro", f"bf16-A {shape}",
                 lambda: fused_mu.fused_w_pass(A16, W, H, HHT, eps),
                 lambda: fused_mu.fused_w_pass_plain(A16, W, H, HHT, eps),
-                TOL[torch.bfloat16])
+                TOL[torch.bfloat16],
+                (4 * M * N * K, nbytes(A16, W, H, HHT, W, H, HHT), PEAK_BF16))
     del A16
     chunk = linalg.error_chunk_rows(M, N)
-    kernel_case("K2a kl_uht", f"f32 {shape}",
-                lambda: kl.kl_uht(A, W, H, eps),
-                lambda: kl.kl_uht_plain(A, W, H, eps, chunk),
-                TOL[torch.float32])
-    kernel_case("K2b kl_wtu", f"f32 {shape}",
-                lambda: kl.kl_wtu(A, W, H, eps),
-                lambda: kl.kl_wtu_plain(A, W, H, eps, chunk),
-                TOL[torch.float32])
+    dense_ms.append(kernel_case(
+        "K2a kl_uht", f"f32 {shape}", lambda: kl.kl_uht(A, W, H, eps),
+        lambda: kl.kl_uht_plain(A, W, H, eps, chunk), TOL[torch.float32],
+        (4 * M * N * K, nbytes(A, W, H, W))))
+    dense_ms.append(kernel_case(
+        "K2b kl_wtu", f"f32 {shape}", lambda: kl.kl_wtu(A, W, H, eps),
+        lambda: kl.kl_wtu_plain(A, W, H, eps, chunk), TOL[torch.float32],
+        (4 * M * N * K, nbytes(A, W, H, H))))
     del W, H, HHT
     torch.cuda.empty_cache()
     Ae = torch.rand((ENS, EM, EN), generator=gen, device=dev)
@@ -160,20 +280,115 @@ def main():
     He = torch.rand((ENS, EK, EN), generator=gen, device=dev)
     HHTe = linalg.gram_t(He)
     eshape = f"{ENS} x {EM}x{EN} k={EK}"
+    ework = 4 * ENS * EM * EN * EK
     kernel_case("K1 fused_mu_fro", f"f32 {eshape}",
                 lambda: fused_mu.fused_w_pass(Ae, We, He, HHTe, eps),
                 lambda: fused_mu.fused_w_pass_plain(Ae, We, He, HHTe, eps),
-                TOL[torch.float32])
+                TOL[torch.float32],
+                (ework, nbytes(Ae, We, He, HHTe, We, He, HHTe)))
     ech = linalg.error_chunk_rows(EM, EN)
     kernel_case("K2a kl_uht", f"f32 {eshape}",
                 lambda: kl.kl_uht(Ae, We, He, eps),
                 lambda: kl.kl_uht_plain(Ae, We, He, eps, ech),
-                TOL[torch.float32])
+                TOL[torch.float32], (ework, nbytes(Ae, We, He, We)))
     kernel_case("K2b kl_wtu", f"f32 {eshape}",
                 lambda: kl.kl_wtu(Ae, We, He, eps),
                 lambda: kl.kl_wtu_plain(Ae, We, He, eps, ech),
-                TOL[torch.float32])
+                TOL[torch.float32], (ework, nbytes(Ae, We, He, He)))
     del Ae, We, He, HHTe
+    torch.cuda.empty_cache()
+
+    # K4 at the NYTimes shape: flat positions drawn uniformly with
+    # replacement, repeats dropped by unique; positive counts-like values
+    # (geometric, from 1 - U in (0, 1]: torch.rand can return 0)
+    t0 = time.perf_counter()
+    flat = torch.unique(torch.randint(0, NYT_M * NYT_N, (NYT_NNZ,),
+                                      generator=gen, device=dev))
+    vals = torch.floor(-2.0 * torch.log1p(-torch.rand(
+        flat.shape, generator=gen, device=dev))) + 1.0
+    nyt = sparse.SparseTriplet(vals, (flat // NYT_N).to(torch.int32),
+                               (flat % NYT_N).to(torch.int32), (NYT_M, NYT_N))
+    del flat, vals
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    E = ell.ell_pack(nyt)
+    torch.cuda.synchronize()
+    check(E is not None, "the NYTimes-shaped matrix does not ELL-pack")
+    print(f"[sparse] NYTimes-shaped {NYT_M}x{NYT_N}: {nyt.nse} nnz "
+          f"({NYT_NNZ - nyt.nse} repeats dropped), drawn in {t1 - t0:.2f} s; "
+          f"ell_pack on the card {time.perf_counter() - t1:.2f} s: widths "
+          f"{E.rvals.shape[1]} (rows) / {E.cvals.shape[1]} (columns), tails "
+          f"{E.rtail_d.numel()} / {E.ctail_d.numel()}", flush=True)
+
+    def k4_cases(tag, E, W, H, library=True):
+        """K4's four modes on the ELL E with factors W (.., m, k), H
+        (.., k, n); returns the kernel ms of the two plain modes and the
+        nonzeros each orientation's ELL holds."""
+        Ht = H.mT.contiguous()
+        nz_r = E.nse - E.rtail_d.shape[-1]
+        nz_c = E.nse - E.ctail_d.shape[-1]
+        k = W.shape[-1]
+        lib_r = lib_c = None
+        if library:
+            A_r = csr(nyt.rows, nyt.cols, nyt.data, nyt.shape)
+            A_c = csr(nyt.cols, nyt.rows, nyt.data, nyt.shape[::-1])
+            lib_r = lambda: torch.sparse.mm(A_r, Ht)
+            lib_c = lambda: torch.sparse.mm(A_c, W)
+        cases = (("rows plain", E.rvals, E.rcols, Ht, None, nz_r, lib_r),
+                 ("columns plain", E.cvals, E.crows, W, None, nz_c, lib_c),
+                 ("rows ratio", E.rvals, E.rcols, Ht, W, nz_r, None),
+                 ("columns ratio", E.cvals, E.crows, W, Ht, nz_c, None))
+        out = []
+        for label, v, i, T, X, nz, lib in cases:
+            # the work of the function, over the nonzeros that the ELL holds
+            # (the padding slots are the format's cost, not the product's):
+            # each member's values and the shared indices read once, the
+            # tables (and X) once, the output written once
+            members = v.numel() // i.numel()
+            flops = (2 if X is None else 4) * nz * k * members
+            tables = nbytes(T) + (0 if X is None else nbytes(X))
+            out_bytes = 4 * members * i.shape[0] * k
+            work = (nz * (members * v.element_size() + i.element_size())
+                    + tables + out_bytes)
+            out.append(kernel_case(
+                "K4 ell_gather", f"{label} {tag}",
+                lambda: ell_gather.ell_gather_product(v, i, T, X, eps),
+                lambda: ell_gather.ell_gather_product_plain(v, i, T, X, eps),
+                TOL[torch.float32], (flops, work), lib))
+        return out[:2], (nz_r, nz_c)
+
+    Wn = torch.rand((NYT_M, K), generator=gen, device=dev)
+    Hn = torch.rand((K, NYT_N), generator=gen, device=dev)
+    k4_ms, k4_nz = k4_cases(f"{NYT_M}x{NYT_N} k={K} f32", E, Wn, Hn)
+    del Wn, Hn
+    torch.cuda.empty_cache()
+    # the time model's constants (ops/ell.py), from this run's readings
+    s_slot = sum(t / nz for t, nz in zip(k4_ms, k4_nz)) / 2e3
+    s_elem = sum(dense_ms) / len(dense_ms) / (M * N) / 1e3
+    print(f"[model] K4 {s_slot:.3e} s per nonzero at k={K} (ops/ell.py has "
+          f"{ell.ELL_S_PER_SLOT:.3e}); K1/K2 {s_elem:.3e} s per element of A "
+          f"at k={K} (ops/ell.py has {ell.DENSE_S_PER_ELEM:.3e})", flush=True)
+
+    # K4 on a 10-member stack of the sparse sweep's planted topic matrix
+    r, c, v, tshape = generate_topic_sparse(**TOPIC, seed=7)
+    topic = sparse.from_coo(*(torch.from_numpy(x).to(dev) for x in (r, c, v)),
+                            tshape)
+    del r, c, v
+    Et, *perms = ell.ell_pack(topic, return_perms=True)
+    print(f"[sparse] topic {tshape[0]}x{tshape[1]}: {topic.nse} nnz, widths "
+          f"{Et.rvals.shape[1]} (rows) / {Et.cvals.shape[1]} (columns), "
+          f"tails {Et.rtail_d.numel()} / {Et.ctail_d.numel()}", flush=True)
+    noise = 1.0 + 0.03 * torch.rand((ENS, topic.nse), generator=gen,
+                                    device=dev)
+    stack = ell.ell_with_data(Et, *perms, topic.data * noise)
+    Ws = torch.rand((ENS, tshape[0], TOPIC_K), generator=gen, device=dev)
+    Hs = torch.rand((ENS, TOPIC_K, tshape[1]), generator=gen, device=dev)
+    k4_cases(f"{ENS} x {tshape[0]}x{tshape[1]} ({topic.nse} nnz) "
+             f"k={TOPIC_K} f32", stack, Ws, Hs, library=False)
+    # where the time of one batched MU step of the sparse sweep goes
+    for norm in ("fro", "kl"):
+        profile_step(norm, stack, Ws, Hs, eps)
+    del topic, Et, perms, noise, stack, Ws, Hs
     torch.cuda.empty_cache()
 
     # NMF.fit through the kernels against the CPU path, small planted input
@@ -191,14 +406,10 @@ def main():
         check(rel_err < 1e-3 and abs(eg - ec) < 1e-4 * ec,
               f"NMF.fit {norm} on the card disagrees with the CPU path")
 
-    # -- 3. the main path, counters from zero ---------------------------
-    counters = (fused_mu.launches, kl.launches)
-    for c in counters:
-        for key in c:
-            c[key] = 0
+    # -- 3. the dense main path, counters from zero ----------------------
     timing.enable(True)
-    for norm, name in (("fro", "fused_mu_fro"), ("kl", "kl_uht")):
-        before = {**fused_mu.launches, **kl.launches}
+    none = {key: 0 for key in counts()}
+    for norm in ("fro", "kl"):
         cfg = NMFConfig(k=K, norm=norm, itr=10)
         g = torch.Generator(dev)
         g.manual_seed(cfg.seed)
@@ -206,12 +417,12 @@ def main():
         init_err = float(linalg.relative_error(A, W0, H0, chunk))
         del W0, H0
         timing.reset()
+        zero_counts()
         t0 = time.perf_counter()
         W, H, err = NMF(cfg, dev).fit(A)          # same seed: same init
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        now = {**fused_mu.launches, **kl.launches}
-        ran = {k: now[k] - before[k] for k in now}
+        ran = read_counts()
         solve_s = timing.TIMINGS["solve"]
         print(f"[nmf] {norm.upper()}-MU {M}x{N} k={K} f32, 10 iterations: "
               f"fit {secs:.3f} s, solve {solve_s:.3f} s "
@@ -221,63 +432,134 @@ def main():
         check(np.isfinite(err) and err < init_err,
               f"NMF.fit {norm}: error {err} not below the init's {init_err}")
         check(W.shape == (M, K) and H.shape == (K, N), "factor shapes")
-        want = ({"fused_mu_fro": 10, "kl_uht": 0, "kl_wtu": 0} if norm == "fro"
-                else {"fused_mu_fro": 0, "kl_uht": 10, "kl_wtu": 10})
+        want = {**none, **({"fused_mu_fro": 10} if norm == "fro"
+                           else {"kl_uht": 10, "kl_wtu": 10})}
         check(ran == want, f"NMF.fit {norm} launches {ran}, expected {want}")
         del W, H
     del A
     torch.cuda.empty_cache()
 
+    def sweep(tmp, ftype, fname, norm, expect, shape):
+        """The NMFk sweep through the CLI entry point, counters from zero;
+        checks nopt = 4, every k's results, and that the kernels of
+        ``expect`` (and no other) launched."""
+        timing.reset()
+        res_path = os.path.join(tmp, f"res_{fname}_{norm}") + "/"
+        zero_counts()
+        t0 = time.perf_counter()
+        out = cli.main(["--process=pyDNMFk", "--p_r=1", "--p_c=1",
+                        f"--ftype={ftype}", f"--fpath={tmp}/",
+                        f"--fname={fname}", f"--norm={norm}",
+                        f"--results_path={res_path}", "--timing_stats=true",
+                        *SWEEP])
+        secs = time.perf_counter() - t0
+        ran = read_counts()
+        stages = {s: round(timing.TIMINGS.get(s, 0.0), 3) for s in
+                  ("read", "sparse_format", "ensemble_solve", "clustering",
+                   "regression")}
+        print(f"[nmfk] {norm.upper()}-MU {ftype} {shape[0]}x{shape[1]} "
+              f"{' '.join(SWEEP)}: nopt {out['nopt']}, {secs:.2f} s, stage "
+              f"seconds {stages}, launches {ran}", flush=True)
+        check(out["nopt"] == 4, f"NMFk {norm} {ftype} chose k={out['nopt']}, "
+                                f"not 4")
+        for k in range(2, 8):
+            res = read_cluster_results(os.path.join(res_path, fname, str(k)))
+            check(set(res) == set(RESULT_DATASETS), f"k={k} datasets")
+            check(res["clusterSilhouetteCoefficients"].shape == (k,)
+                  and res["L_err"].shape == (shape[1],)
+                  and res["ErrTol"].shape == (10,)
+                  and all(np.isfinite(v).all() for v in res.values()),
+                  f"NMFk {norm} {ftype} k={k} results")
+        check(all(ran[key] > 0 for key in expect)
+              and not any(ran[key] for key in ran if key not in expect),
+              f"NMFk {norm} {ftype} launched {ran}, expected {expect} only")
+
     _, _, X = generate_data(**PLANTED)
     with tempfile.TemporaryDirectory() as tmp:
         np.save(os.path.join(tmp, "X.npy"), X.astype(np.float32))
         del X
-        for norm in ("fro", "kl"):
-            before = {**fused_mu.launches, **kl.launches}
-            timing.reset()
-            res_path = os.path.join(tmp, f"res_{norm}") + "/"
-            t0 = time.perf_counter()
-            out = cli.main(["--process=pyDNMFk", "--p_r=1", "--p_c=1",
-                            "--ftype=npy", f"--fpath={tmp}/", "--fname=X",
-                            f"--norm={norm}", f"--results_path={res_path}",
-                            "--timing_stats=true", *SWEEP])
-            secs = time.perf_counter() - t0
-            now = {**fused_mu.launches, **kl.launches}
-            ran = {k: now[k] - before[k] for k in now}
-            stages = {s: round(timing.TIMINGS.get(s, 0.0), 3) for s in
-                      ("read", "ensemble_solve", "clustering", "regression")}
-            print(f"[nmfk] {norm.upper()}-MU planted rank-4 "
-                  f"{PLANTED['m']}x{PLANTED['n']} {' '.join(SWEEP)}: "
-                  f"nopt {out['nopt']}, {secs:.2f} s, stage seconds "
-                  f"{stages}, launches {ran}", flush=True)
-            check(out["nopt"] == 4, f"NMFk {norm} chose k={out['nopt']}, not 4")
-            for k in range(2, 8):
-                res = read_cluster_results(os.path.join(res_path, "X", str(k)))
-                check(set(res) == set(RESULT_DATASETS), f"k={k} datasets")
-                check(res["clusterSilhouetteCoefficients"].shape == (k,)
-                      and res["L_err"].shape == (PLANTED["n"],)
-                      and res["ErrTol"].shape == (10,)
-                      and all(np.isfinite(v).all() for v in res.values()),
-                      f"NMFk {norm} k={k} results")
-            key = "fused_mu_fro" if norm == "fro" else "kl_uht"
-            check(ran[key] > 0 and (norm == "fro" or ran["kl_wtu"] > 0),
-                  f"NMFk {norm} launched no kernel: {ran}")
-    launches = {**fused_mu.launches, **kl.launches}
-    for name, n in launches.items():
+        sweep(tmp, "npy", "X", "fro", ("fused_mu_fro",),
+              (PLANTED["m"], PLANTED["n"]))
+        sweep(tmp, "npy", "X", "kl", ("kl_uht", "kl_wtu"),
+              (PLANTED["m"], PLANTED["n"]))
+
+    # -- 4. the sparse main path: NMF.fit at the NYTimes shape ------------
+    for norm in ("fro", "kl"):
+        cfg = NMFConfig(k=K, norm=norm, itr=10)
+        g = torch.Generator(dev)
+        g.manual_seed(cfg.seed)
+        W0, H0 = init_factors_rand(g, NYT_M, NYT_N, K, torch.float32, dev)
+        init_err = float(linalg.relative_error(E, W0, H0))
+        del W0, H0
+        timing.reset()
+        zero_counts()
+        t0 = time.perf_counter()
+        model = NMF(cfg, dev)
+        W, H, err = model.fit(nyt)                # same seed: same init
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        ran = read_counts()
+        solve_s = timing.TIMINGS["solve"]
+        print(f"[nmf] {norm.upper()}-MU sparse {NYT_M}x{NYT_N} ({nyt.nse} "
+              f"nnz) k={K} f32, 10 iterations: fit {secs:.3f} s (format "
+              f"{timing.TIMINGS['sparse_format']:.3f} s), solve "
+              f"{solve_s:.3f} s ({10 / solve_s:.2f} it/s incl. final "
+              f"error), relative error {init_err:.6f} (rand init) -> "
+              f"{err:.6f}, launches {ran}", flush=True)
+        check(isinstance(model._A, ell.EllSparse),
+              f"the format policy chose {type(model._A).__name__}, not ELL")
+        check(np.isfinite(err) and err < init_err,
+              f"sparse NMF.fit {norm}: error {err} not below the init's "
+              f"{init_err}")
+        check(W.shape == (NYT_M, K) and H.shape == (K, NYT_N), "factor shapes")
+        # each MU iteration makes two ELL products, one K4 launch each (FRO:
+        # A H^T and W^T A, plain; KL: UHT and WTU, ratio), and the final
+        # Gram-identity error one more, W^T A (plain): FRO 2 x 10 + 1 = 21
+        # plain; KL 2 x 10 = 20 ratio + 1 plain
+        want = {**none, **({"ell_gather": 21} if norm == "fro"
+                           else {"ell_gather": 1, "ell_gather_ratio": 20})}
+        check(ran == want, f"sparse NMF.fit {norm} launches {ran}, expected "
+                           f"{want}")
+        del model, W, H
+    del nyt, E
+    torch.cuda.empty_cache()
+
+    # -- 5. the sparse NMFk sweep through the CLI on an .npz --------------
+    from scipy import sparse as sp
+    r, c, v, tshape = generate_topic_sparse(**TOPIC, seed=7)
+    # dense f32 would not fit the budget, and the time model takes ELL; the
+    # sweeps' launch checks show that the run took it (K4 only)
+    budget = sparse.BUDGET_FRAC * torch.cuda.mem_get_info(dev)[1]
+    ladder = sparse.format_ladder(*tshape, len(v), 7, 4, budget, "cuda")
+    check(tshape[0] * tshape[1] * 4 > budget and ladder[0] == "ell",
+          f"the planted topic matrix should take ELL first, ladder {ladder}")
+    with tempfile.TemporaryDirectory() as tmp:
+        sp.save_npz(os.path.join(tmp, "T.npz"),
+                    sp.csr_matrix((v, (r, c)), shape=tshape), compressed=False)
+        del r, c, v
+        sweep(tmp, "npz", "T", "fro", ("ell_gather",), tshape)
+        sweep(tmp, "npz", "T", "kl", ("ell_gather", "ell_gather_ratio"),
+              tshape)
+
+    for name, n in main_path.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
 
-    # -- 4. report -------------------------------------------------------
+    # -- 6. report -------------------------------------------------------
     sources = {"K1 fused_mu_fro": ("fused_mu_fro.cu", "ops/fused_mu.py:50",
-                                   "fused_mu_fro"),
+                                   ("fused_mu_fro",)),
                "K2a kl_uht": ("kl_ratio.cu", "ops/pallas_kernels.py:78",
-                              "kl_uht"),
+                              ("kl_uht",)),
                "K2b kl_wtu": ("kl_ratio.cu", "ops/pallas_kernels.py:96",
-                              "kl_wtu")}
+                              ("kl_wtu",)),
+               "K4 ell_gather": ("ell_gather.cu", "ops/pallas_ell.py:52",
+                                 ("ell_gather", "ell_gather_ratio"))}
     kernels = [{"name": name, "route": "cuda",
                 "source": f"pydnmfk_tpu_torch/csrc/{src}",
                 "replaces": f"pydnmfk_tpu/{tpu}",
-                "launches": launches[counter], **rows[name]}
-               for name, (src, tpu, counter) in sources.items()]
+                "launches": sum(main_path[c] for c in keys),
+                "launches_by_mode": {c: main_path[c] for c in keys},
+                **rows[name]}
+               for name, (src, tpu, keys) in sources.items()]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

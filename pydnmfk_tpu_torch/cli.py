@@ -38,7 +38,7 @@ def build_parser():
     p.add_argument("--p_c", type=int, required=True, help="grid cols (1)")
     p.add_argument("--k", type=int, default=4, help="feature count")
     p.add_argument("--fpath", type=str, default="data/")
-    p.add_argument("--ftype", type=str, default="mat", help="mat/npy/csv/txt")
+    p.add_argument("--ftype", type=str, default="mat", help="mat/npy/csv/txt/npz")
     p.add_argument("--fname", type=str, default="A_")
     p.add_argument("--init", type=str, default="rand", help="rand")
     p.add_argument("--itr", type=int, default=5000)
@@ -91,7 +91,6 @@ def _reject_not_ported(args):
         (args.init != "rand", f"--init={args.init}", "queue 1 item 13"),
         (args.method.lower() != "mu", f"--method={args.method}",
          "queue 1 item 12"),
-        (args.ftype == "npz", "--ftype=npz", "queue 1 item 14"),
         (args.ftype == "folder", "--ftype=folder", "queue 1 item 9"),
         (args.prune, "--prune", "queue 1 item 8"),
         ((args.p_r, args.p_c) != (1, 1), f"--p_r={args.p_r} --p_c={args.p_c}",

@@ -24,6 +24,15 @@ class NotPortedError(NotImplementedError):
                          f"(ROADMAP.md {item})")
 
 
+def check_device(device: torch.device) -> torch.device:
+    """The device of an entry point, which runs on the CUDA card unless the
+    caller asks for the CPU; raises where there is no card."""
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device is available; pass device="cpu" '
+                           "to run on the CPU")
+    return device
+
+
 @dataclasses.dataclass(frozen=True)
 class NMFConfig:
     """One NMF factorization (one k); mirror of ``pydnmfk_tpu.NMFConfig``."""

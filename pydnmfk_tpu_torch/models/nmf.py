@@ -21,8 +21,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import NMFConfig
-from ..ops import fused_mu, linalg
+from ..config import NMFConfig, check_device
+from ..ops import fused_mu, linalg, sparse
 from ..utils import timing
 from . import updates
 
@@ -37,7 +37,11 @@ def step_for(A, W, norm: str, W_update: bool, chunk: int):
       always the two-pass step, as in JAX.
     * KL takes the ratio products, which are kernels K2a/K2b on CUDA for an
       f32 or bf16 A (``updates.mu_kl_step``).
+    * A sparse A takes the two-pass steps over its format's products: K4 on
+      CUDA for the dual ELL (``ops/ell.py``); K1 and K2 never see it.
     """
+    if norm == "fro" and linalg.is_sparse(A):
+        return partial(updates.mu_fro_step, W_update=W_update)
     if norm == "fro":
         if (W_update and A.is_cuda and W.shape[-1] <= fused_mu.MAX_K
                 and A.dtype in (torch.float32, torch.bfloat16)
@@ -70,7 +74,7 @@ def _solve(A, W, H, eps, *, norm: str, itr: int, W_update: bool, chunk: int,
         n_full = itr // chunk_n
         errdt = linalg.acc_dtype(A.dtype)
         big = torch.finfo(errdt).max / 4
-        batch = A.shape[:-2]
+        batch = W.shape[:-2]
         err_prev = torch.full(batch, big, dtype=errdt, device=A.device)
         err = torch.full(batch, big / 2, dtype=errdt, device=A.device)
 
@@ -100,14 +104,17 @@ def _solve(A, W, H, eps, *, norm: str, itr: int, W_update: bool, chunk: int,
 
 def solve(A, W, H, eps, cfg: NMFConfig):
     """Run the full iteration loop on one matrix, or on a stack of ensemble
-    members along a leading axis of A, W and H (``nmf.py::solve``)."""
+    members along a leading axis of A, W and H (``nmf.py::solve``). A
+    sparse A comes in the format that its caller's ``_prepare`` chose
+    (``ops/sparse.py::densify_for_backend``), and needs no row chunks."""
     m, n = A.shape[-2:]
     norm = cfg.norm.lower()
-    chunk = linalg.error_chunk_rows(m, n) if norm == "kl" else 0
+    dense_chunk = 0 if linalg.is_sparse(A) else linalg.error_chunk_rows(m, n)
     return _solve(A, W, H, eps, norm=norm, itr=cfg.itr, W_update=cfg.W_update,
-                  chunk=chunk, tol=float(cfg.tol),
+                  chunk=dense_chunk if norm == "kl" else 0,
+                  tol=float(cfg.tol),
                   tol_check_every=int(cfg.tol_check_every),
-                  err_chunk=linalg.error_chunk_rows(m, n))
+                  err_chunk=dense_chunk)
 
 
 def init_factors_rand(generator: torch.Generator, m: int, n: int, k: int,
@@ -120,19 +127,38 @@ def init_factors_rand(generator: torch.Generator, m: int, n: int, k: int,
 
 class NMF:
     """One NMF fit: init -> iterate -> normalize -> error; mirror of
-    ``pydnmfk_tpu.NMF`` on one device."""
+    ``pydnmfk_tpu.NMF`` on one device, the CUDA card unless ``device``
+    says otherwise."""
 
-    def __init__(self, cfg: NMFConfig, device="cpu"):
+    def __init__(self, cfg: NMFConfig, device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
         self.recon_err = None
+
+    def _prepare(self, A):
+        """A on the device at its storage dtype. A sparse A (SparseTriplet
+        or EllSparse) goes through the format policy (nmf.py:351-380): the
+        triplet stays on the CPU; on the card it becomes the dual ELL or a
+        dense A. ``a_precision`` applies to the nnz values of a sparse A;
+        a dense A that the policy narrowed to bf16 keeps bf16. The
+        rejections of the JAX package for sparse A (BCD, nnsvd, prune,
+        uint8 storage) are the config's: none of them is ported yet."""
+        cfg = self.cfg
+        if not linalg.is_sparse(A):
+            return torch.as_tensor(A).to(self.device, cfg.a_dtype).contiguous()
+        with timing.timed("sparse_format"):
+            A = sparse.densify_for_backend(A.to(self.device), k_hint=cfg.k)
+        if linalg.is_sparse(A):
+            return A.astype(cfg.a_dtype)
+        return A if A.dtype == torch.bfloat16 else A.to(cfg.a_dtype)
 
     def fit(self, A, factors: Optional[Tuple] = None):
         """Returns (W, H, recon_err) as the reference PyNMF.fit does
         (pyDNMF.py:137-182). ``factors`` gives (W0, H0); otherwise they are
         drawn from a generator seeded with ``cfg.seed``."""
         cfg = self.cfg
-        A = torch.as_tensor(A).to(self.device, cfg.a_dtype).contiguous()
+        check_device(self.device)
+        A = self._prepare(A)
         m, n = A.shape
         with timing.timed("init_factors"):
             if factors is not None:

@@ -6,6 +6,10 @@ Port of ``pydnmfk_tpu/models/sampler.py`` (reference pyDNMFk.py:8-67):
     [1 + nv, 1 + 3 nv) -- the reference's implementation, not its docstring;
   * poisson: X_per[i, j] ~ Poisson(X[i, j]).
 
+A sparse A is perturbed through its flat nnz value vector, which is what
+``models/nmfk.py`` hands to :func:`sample_ensemble` (sampler.py:65-75): both
+kinds of noise map 0 to 0, so this is exact against the dense formula.
+
 Every member draws from its own ``torch.Generator``, seeded from (seed,
 global member index, stream), so a member's noise and init factors do not
 depend on how the ensemble is cut into batches. torch cannot reproduce

@@ -1,9 +1,11 @@
-"""One-step multiplicative updates (Frobenius and KL), dense A.
+"""One-step multiplicative updates (Frobenius and KL).
 
-Port of the dense branches of ``pydnmfk_tpu/models/updates.py::mu_fro_step``
-and ``mu_kl_step``; the numerical semantics are the reference's
-(dist_nmf.py:715-751 and :803-849). Inputs are one matrix or a stack with the
-ensemble member as the leading axis.
+Port of ``pydnmfk_tpu/models/updates.py::mu_fro_step`` and ``mu_kl_step`` on
+one device; the numerical semantics are the reference's (dist_nmf.py:715-751
+and :803-849). Inputs are one matrix or a stack with the ensemble member as
+the leading axis. A sparse A takes the products of its format
+(``ops/linalg.py`` dispatches the FRO products; :func:`mu_kl_step` picks the
+KL ones).
 """
 from __future__ import annotations
 
@@ -30,16 +32,31 @@ def mu_kl_step(A, W, H, eps, W_update: bool = True, chunk: int = 0):
     K2a/K2b for an f32 or bf16 A; an f64 A keeps the plain products, since
     the kernels accumulate in f32 (as ``pydnmfk_tpu/models/nmf.py:200-208``
     keeps f64 off its Pallas kernels). ``chunk`` bounds the plain products'
-    ratio slab to that many rows."""
-    if A.is_cuda and A.dtype == torch.float64:
-        uht, wtu = kl.kl_uht_plain, kl.kl_wtu_plain
+    ratio slab to that many rows.
+
+    A sparse A takes its format's products: the dual ELL's gathers (kernel
+    K4 on CUDA, ``ops/ell.py``) or the triplet's, over nnz chunks
+    (``ops/sparse.py``). U exists only on A's nonzeros, so ``chunk`` does
+    not apply."""
+    if linalg.is_sparse(A):
+        from ..ops import ell, sparse
+        if isinstance(A, ell.EllSparse):
+            uht, wtu = ell.ell_kl_uht, ell.ell_kl_wtu
+        else:
+            nc = sparse.nnz_chunk_size(A.nse, W.shape[-1])
+            uht = lambda a, w, h, e: sparse.kl_uht_sparse(a, w, h, e, nc)
+            wtu = lambda a, w, h, e: sparse.kl_wtu_sparse(a, w, h, e, nc)
+    elif A.is_cuda and A.dtype == torch.float64:
+        uht = lambda a, w, h, e: kl.kl_uht_plain(a, w, h, e, chunk)
+        wtu = lambda a, w, h, e: kl.kl_wtu_plain(a, w, h, e, chunk)
     else:
-        uht, wtu = kl.kl_uht, kl.kl_wtu
+        uht = lambda a, w, h, e: kl.kl_uht(a, w, h, e, chunk)
+        wtu = lambda a, w, h, e: kl.kl_wtu(a, w, h, e, chunk)
     if W_update:
         h_rowsum = linalg.sum_axis(H, axis=-1)            # (..., k)
-        UHT = uht(A, W, H, eps, chunk)                    # (..., m, k)
+        UHT = uht(A, W, H, eps)                           # (..., m, k)
         W = W * UHT / (h_rowsum.unsqueeze(-2) + eps)
     w_colsum = linalg.sum_axis(W, axis=-2)                # (..., k)
-    WTU = wtu(A, W, H, eps, chunk)                        # uses the updated W
+    WTU = wtu(A, W, H, eps)                               # uses the updated W
     H = H * WTU / (w_colsum.unsqueeze(-1) + eps)
     return W, H

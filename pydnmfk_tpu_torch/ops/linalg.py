@@ -1,8 +1,11 @@
-"""Dense linear-algebra primitives of the NMF updates.
+"""Linear-algebra primitives of the NMF updates.
 
-Port of the dense parts of ``pydnmfk_tpu/ops/linalg.py``. These stay plain
-PyTorch, as the JAX package leaves them to XLA. Every function takes a single
-matrix or a stack of them with the ensemble member as the leading axis.
+Port of ``pydnmfk_tpu/ops/linalg.py`` on one device. The dense products stay
+plain PyTorch, as the JAX package leaves them to XLA. Every function takes a
+single matrix or a stack of them with the ensemble member as the leading
+axis. A sparse A (``ops/sparse.py`` triplet, ``ops/ell.py`` dual ELL) takes
+the sparse products, and its errors come from the Gram identity, so the
+dense m x n residual never exists.
 
 Precision policy: f32 products run in true f32 (TF32 off, PyTorch's default
 for matrix products); f64 runs in f64. A bf16-stored A meets an f32 factor as
@@ -12,6 +15,11 @@ products summed in f32, result in f32.
 from __future__ import annotations
 
 import torch
+
+
+def is_sparse(x) -> bool:
+    """True for the port's sparse formats (SparseTriplet, EllSparse)."""
+    return getattr(x, "_pydnmfk_sparse", False)
 
 
 def acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -46,14 +54,37 @@ def gram_t(X: torch.Tensor) -> torch.Tensor:
     return matmul(X, X.mT)
 
 
-def matmul_WTA(W: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+def matmul_WTA(W: torch.Tensor, A) -> torch.Tensor:
     """W^T A -> (k, n)."""
+    if is_sparse(A):
+        from . import ell, sparse
+        if isinstance(A, ell.EllSparse):
+            return ell.ell_wt_a(A, W)
+        return sparse.wt_a_triplet(A, W,
+                                   sparse.nnz_chunk_size(A.nse, W.shape[-1]))
     return matmul(W.mT, A)
 
 
-def matmul_AHT(A: torch.Tensor, H: torch.Tensor) -> torch.Tensor:
+def matmul_AHT(A, H: torch.Tensor) -> torch.Tensor:
     """A H^T -> (m, k)."""
+    if is_sparse(A):
+        from . import ell, sparse
+        if isinstance(A, ell.EllSparse):
+            return ell.ell_a_ht(A, H)
+        return sparse.a_ht_triplet(A, H,
+                                   sparse.nnz_chunk_size(A.nse, H.shape[-2]))
     return matmul(A, H.mT)
+
+
+def sqnorm(X) -> torch.Tensor:
+    """Squared Frobenius norm with f32/f64 accumulation; one value per
+    member for a stack. A sparse X sums its stored values (padding slots of
+    an ELL X are zero)."""
+    if is_sparse(X):
+        d = X.data.to(acc_dtype(X.dtype))
+        return (d * d).sum(-1)
+    Xa = X.to(acc_dtype(X.dtype))
+    return (Xa * Xa).sum((-2, -1))
 
 
 def sum_axis(X: torch.Tensor, axis: int) -> torch.Tensor:
@@ -84,6 +115,8 @@ def relative_error(A: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
     """||A - W H||_F / ||A||_F (reference pyDNMF.py:204-210); one value per
     member for a stack. ``chunk`` > 0 bounds the residual to that many rows
     (linalg.py:193-207)."""
+    if is_sparse(A):
+        return _sparse_relative_error(A, W, H)
     if A.dim() == 3:
         return torch.stack([relative_error(a, w, h, chunk)
                             for a, w, h in zip(A, W, H)])
@@ -95,6 +128,8 @@ def column_error(A: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
                  chunk: int = 0) -> torch.Tensor:
     """Per-column relative L2 error, length n (reference pyDNMF.py:220-239).
     ``chunk`` as in relative_error."""
+    if is_sparse(A):
+        return _sparse_column_error(A, W, H)
     num, den = _residual_sums(A, W, H, chunk, per_column=True)
     return torch.sqrt(num / den)
 
@@ -113,3 +148,34 @@ def normalize_features(W: torch.Tensor, H: torch.Tensor, eps: float):
     """L1-normalize W columns, rescale H rows (reference pyDNMF.py:184-194)."""
     s = sum_axis(W, axis=-2).unsqueeze(-2)            # (..., 1, k)
     return W / (s + eps), H * s.mT
+
+
+# ---------------------------------------------------------------------------
+# Sparse-A error identities (linalg.py:295-331). ||A - WH||^2 expands to
+#   ||A||^2 - 2 <A, WH> + ||WH||^2
+# with <A, WH> = sum(H o (W^T A)) and ||WH||^2 = sum((W^T W) o (H H^T)):
+# every term is nnz- or k-sized. f32 cancellation limits the resolution to
+# about 1e-3 of the relative error, fine for NMF errors of 1e-2..1.
+# ---------------------------------------------------------------------------
+def _sparse_relative_error(A, W, H):
+    acc = acc_dtype(W.dtype)
+    WTA = matmul_WTA(W, A).to(acc)
+    a2 = sqnorm(A)
+    cross = (H.to(acc) * WTA).sum((-2, -1))
+    wh2 = (gram(W).to(acc) * gram_t(H).to(acc)).sum((-2, -1))
+    num = (a2 - 2.0 * cross + wh2).clamp_min(0.0)
+    return torch.sqrt(num) / torch.sqrt(a2)
+
+
+def _sparse_column_error(A, W, H):
+    from . import ell, sparse
+    acc = acc_dtype(W.dtype)
+    Ha = H.to(acc)
+    cross = (Ha * matmul_WTA(W, A).to(acc)).sum(-2)          # (..., n)
+    wh2 = (Ha * matmul(gram(W).to(acc), Ha)).sum(-2)
+    if isinstance(A, ell.EllSparse):
+        a2 = ell.ell_col_sqsum(A)
+    else:
+        a2 = sparse.col_sqsum(A.data, A.cols, A.shape[1])
+    num = (a2 - 2.0 * cross + wh2).clamp_min(0.0)
+    return torch.sqrt(num / a2.clamp_min(torch.finfo(acc).tiny))

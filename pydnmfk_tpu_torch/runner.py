@@ -2,7 +2,8 @@
 
 Port of ``pydnmfk_tpu/runner.py`` (reference ``pyDNMFk_Runner``,
 pyDNMFk/runner.py:12-176) on one device: construct with hyperparameters and
-a device, call ``.run(fpath=..., ...)``; returns ``{"nopt": ...}`` for
+a device (the CUDA card unless ``device="cpu"``), call
+``.run(fpath=..., ...)``; returns ``{"nopt": ...}`` for
 process="pyDNMFk" or ``{"W", "H", "err"}`` for process="pyDNMF".
 """
 from __future__ import annotations
@@ -10,7 +11,9 @@ from __future__ import annotations
 import os
 from typing import Sequence
 
-from .config import NMFConfig, NMFkConfig, NotPortedError
+import torch
+
+from .config import NMFConfig, NMFkConfig, NotPortedError, check_device
 from .models.nmf import NMF
 from .models.nmfk import NMFk
 from .utils import timing
@@ -23,7 +26,7 @@ class Runner:
                  precision="float32", perturbations=20, noise_var=0.015,
                  sill_thr=0.6, sampling="uniform", process="pyDNMF",
                  a_precision=None, seed=100, tol=0.0, ensemble_batch=0,
-                 save_factors=False, device="cpu"):
+                 save_factors=False, device="cuda"):
         if process not in ("pyDNMF", "pyDNMFk"):
             raise ValueError("process should be either pyDNMFk or pyDNMF")
         self.init = init
@@ -44,7 +47,7 @@ class Runner:
         self.tol = tol
         self.ensemble_batch = ensemble_batch
         self.save_factors = save_factors
-        self.device = device
+        self.device = torch.device(device)
         timing.enable(timing_stats)
 
     def run(self, grid: Sequence[int] = (1, 1), fpath="data/", ftype="mat",
@@ -55,6 +58,7 @@ class Runner:
         if tuple(grid) != (1, 1):
             raise NotPortedError(f"grid={tuple(grid)} (device meshes)",
                                  "queue 1 item 15")
+        check_device(self.device)
         nmf_cfg = NMFConfig(
             k=k, init=self.init, itr=self.itr, norm=self.norm,
             method=self.method, precision=self.precision,

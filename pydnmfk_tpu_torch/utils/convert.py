@@ -2,8 +2,10 @@
 
 :func:`config_from_jax` takes ``dataclasses.asdict`` of a
 ``pydnmfk_tpu`` NMFConfig or NMFkConfig; :func:`factors_from_numpy` takes
-its factors as numpy arrays. Neither imports JAX: the caller converts its
-arrays with ``numpy.asarray``.
+its factors as numpy arrays; :func:`sparse_from_numpy` and
+:func:`ell_from_numpy` take the arrays of a BCOO or an ``EllSparse``, so
+that both packages compute on the same operands. None of them imports JAX:
+the caller converts its arrays with ``numpy.asarray``.
 """
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ import numpy as np
 import torch
 
 from ..config import NMFConfig, NMFkConfig, NotPortedError
+from ..ops.ell import EllSparse
+from ..ops.sparse import SparseTriplet, from_coo
 
 # JAX fields the port has no counterpart for: the values the port runs the
 # same as (the JAX defaults, or settings that give the same results) and the
@@ -69,3 +73,21 @@ def factors_from_numpy(W, H, device, dtype=torch.float32):
                          f"pair as W (..., m, k) and H (..., k, n)")
     return (torch.as_tensor(W).to(device, dtype).contiguous(),
             torch.as_tensor(H).to(device, dtype).contiguous())
+
+
+def sparse_from_numpy(rows, cols, vals, shape, device="cpu") -> SparseTriplet:
+    """A BCOO's ``indices[:, 0]``, ``indices[:, 1]`` and ``data`` as a
+    canonical triplet (sorted row-major, duplicates summed) on ``device``."""
+    t = lambda x: torch.from_numpy(np.array(x)).to(device)
+    return from_coo(t(rows), t(cols), t(vals), shape)
+
+
+def ell_from_numpy(rvals, rcols, rtail_d, rtail_r, rtail_c, cvals, crows,
+                   ctail_d, ctail_r, ctail_c, shape, nse,
+                   device="cpu") -> EllSparse:
+    """An ``EllSparse``'s arrays, in its constructor's order, as the port's
+    EllSparse on ``device``."""
+    arrays = (rvals, rcols, rtail_d, rtail_r, rtail_c, cvals, crows, ctail_d,
+              ctail_r, ctail_c)
+    return EllSparse(*(torch.from_numpy(np.array(x)).to(device)
+                       for x in arrays), shape, nse)

@@ -2,8 +2,10 @@
 
 Port of ``pydnmfk_tpu/utils/io.py`` (reference pyDNMFk/data_io.py) for a 1x1
 grid: the reader loads a whole .npy, .mat (variable ``X``) or .csv/.txt
-matrix; the writer keeps the reference's layout of factors
-(``W_[reg_]factors/W.npy``, ``H_[reg_]factors/H.npy``) and per-k statistics.
+matrix, or a scipy.sparse ``save_npz`` file (.npz) as a canonical
+``ops/sparse.py::SparseTriplet``; the writer keeps the reference's layout
+of factors (``W_[reg_]factors/W.npy``, ``H_[reg_]factors/H.npy``) and
+per-k statistics.
 
 The statistics go to ``results.h5`` with the reference's dataset names
 (data_io.py:198-209) where ``h5py`` is installed, and otherwise to
@@ -38,20 +40,20 @@ class DataReader:
 
     def __init__(self, fpath: str, fname: str, ftype: str = "mat",
                  precision: str = "float32"):
-        if ftype == "npz":
-            raise config.NotPortedError("ftype='npz' (sparse input)",
-                                        "queue 1 item 14")
         if ftype == "folder":
             raise config.NotPortedError("ftype='folder'", "queue 1 item 9")
-        if ftype not in ("npy", "mat", "csv", "txt"):
+        if ftype not in ("npy", "mat", "csv", "txt", "npz"):
             raise ValueError(f"unknown ftype {ftype!r}")
         self.fpath = fpath
         self.fname = fname
         self.ftype = ftype
         self.precision = precision
 
-    def read(self) -> np.ndarray:
+    def read(self):
+        """The matrix: a numpy array, or a SparseTriplet for npz."""
         path = os.path.join(self.fpath, self.fname + "." + self.ftype)
+        if self.ftype == "npz":
+            return self._read_sparse(path)
         if self.ftype == "npy":
             data = np.load(path)
         elif self.ftype == "mat":
@@ -60,6 +62,18 @@ class DataReader:
         else:
             data = np.loadtxt(path, delimiter=",", ndmin=2)
         return np.asarray(data).astype(self.precision)
+
+    def _read_sparse(self, path):
+        """A save_npz matrix as a canonical triplet: duplicates summed,
+        row-major order (``utils/io.py:150-161``), on the CPU."""
+        from scipy import sparse as sp
+        from ..ops.sparse import from_coo
+        M = sp.load_npz(path).tocoo()
+        M.sum_duplicates()
+        return from_coo(torch.from_numpy(M.row.astype(np.int32)),
+                        torch.from_numpy(M.col.astype(np.int32)),
+                        torch.from_numpy(M.data.astype(self.precision)),
+                        M.shape)
 
 
 def _host(x) -> np.ndarray:

@@ -1,15 +1,17 @@
-"""Kernels K1, K2a and K2b on the card against their plain versions, at
+"""Kernels K1, K2a, K2b and K4 on the card against their plain versions, at
 ragged shapes, every padded width of k, both A dtypes and member stacks.
 These need a CUDA device and nvcc and skip without them; on a machine with a
 card run ``python -m pytest -m gpu tests/test_torch_cuda.py``.
 
 Tolerance: max |kernel - plain| / max |plain| <= 1e-4 with an f32 A (sums in
 another order; K1's W'^T A also in atomic order), 1e-3 with a bf16 A (W'
-rounded to bf16 where the two W' may differ in the last f32 bit)."""
+rounded to bf16 where the two W' may differ in the last f32 bit). K4 sums
+in another order only: 1e-4 for f32 and bf16 values alike (bf16 values are
+widened exactly)."""
 import pytest
 import torch
 
-from pydnmfk_tpu_torch.ops import fused_mu, kl, linalg
+from pydnmfk_tpu_torch.ops import ell, ell_gather, fused_mu, kl, linalg, sparse
 
 pytestmark = pytest.mark.gpu
 EPS = 1.19e-7
@@ -68,3 +70,64 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         kl.kl_uht(A.double(), W, H, EPS)
     with pytest.raises(ValueError, match="contiguous"):
         kl.kl_wtu(A.mT.contiguous().mT, W, H, EPS)
+
+
+def _ell_inputs(dev, b, m, n, k, nnz_per_row, w_cap):
+    """A (b-member) ELL matrix with ragged lines and COO tails (width cap
+    ``w_cap``), and factors W (b, m, k), H (b, k, n)."""
+    g = torch.Generator(dev)
+    g.manual_seed(m * n + k)
+    rows = torch.randint(0, m, (m * nnz_per_row,), generator=g, device=dev)
+    cols = torch.randint(0, n, (m * nnz_per_row,), generator=g, device=dev)
+    A = sparse.from_coo(rows, cols, torch.rand(rows.shape, generator=g,
+                                               device=dev) + 0.1, (m, n))
+    E, *perms = ell.ell_pack(A, return_perms=True, w_cap=w_cap,
+                             max_tail_frac=1.0)
+    data = A.data * (1 + torch.rand((b, A.nse), generator=g, device=dev))
+    return (ell.ell_with_data(E, *perms, data),
+            torch.rand((b, m, k), generator=g, device=dev),
+            torch.rand((b, k, n), generator=g, device=dev))
+
+
+@pytest.mark.parametrize("b,m,n", [(1, 300, 97), (3, 1000, 777), (2, 77, 4000)])
+@pytest.mark.parametrize("k", [7, 8, 32, 256])
+@pytest.mark.parametrize("vals_dtype", [torch.float32, torch.bfloat16])
+def test_k4_matches_plain(cuda, b, m, n, k, vals_dtype):
+    """K4's four modes (rows/columns, plain/ratio) on a member stack,
+    directly and through the ELL products with their COO tails."""
+    E, W, H = _ell_inputs(cuda, b, m, n, k, nnz_per_row=9, w_cap=6)
+    E = E.astype(vals_dtype)
+    Ht = H.mT.contiguous()
+    before = dict(ell_gather.launches)
+    for v, i, T, X in ((E.rvals, E.rcols, Ht, None), (E.cvals, E.crows, W, None),
+                       (E.rvals, E.rcols, Ht, W), (E.cvals, E.crows, W, Ht)):
+        out = ell_gather.ell_gather_product(v, i, T, X, EPS)
+        ref = ell_gather.ell_gather_product_plain(v, i, T, X, EPS)
+        assert _rel([out], [ref]) <= 1e-4
+        assert _rel([out[0]], [ell_gather.ell_gather_product(
+            v[0], i, T[0], None if X is None else X[0].contiguous(), EPS)]) == 0
+    assert ell_gather.launches == {
+        "ell_gather": before["ell_gather"] + 4,
+        "ell_gather_ratio": before["ell_gather_ratio"] + 4}
+    Ec = E.to("cpu")
+    Wc, Hc = W.cpu(), H.cpu()
+    for out, ref in ((ell.ell_a_ht(E, H), ell.ell_a_ht(Ec, Hc)),
+                     (ell.ell_wt_a(E, W), ell.ell_wt_a(Ec, Wc)),
+                     (ell.ell_kl_uht(E, W, H, EPS), ell.ell_kl_uht(Ec, Wc, Hc, EPS)),
+                     (ell.ell_kl_wtu(E, W, H, EPS), ell.ell_kl_wtu(Ec, Wc, Hc, EPS))):
+        assert _rel([out.cpu()], [ref]) <= 1e-4
+
+
+def test_k4_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    E, W, H = _ell_inputs(cuda, 1, 64, 48, 257, nnz_per_row=3, w_cap=4)
+    with pytest.raises(ValueError, match="k <= 256"):
+        ell_gather.ell_gather_product(E.rvals, E.rcols, H.mT.contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        ell_gather.ell_gather_product(E.rvals, E.rcols, H.mT[..., :8])
+    with pytest.raises(TypeError, match="int32"):
+        ell_gather.ell_gather_product(E.rvals, E.rcols.long(), W[..., :8])
+    # f64 takes the plain path on the card: the kernel accumulates in f32
+    before = dict(ell_gather.launches)
+    out = ell_gather.ell_gather_product(E.rvals.double(), E.rcols,
+                                        W[..., :8].double().contiguous())
+    assert out.dtype == torch.float64 and ell_gather.launches == before

@@ -1,0 +1,176 @@
+"""pydnmfk_tpu_torch.ops.ell and ops.ell_gather (the dual ELL format and the
+plain version of kernel K4) against pydnmfk_tpu.ops.ell and the Pallas ELL
+kernel in interpret mode, on the same numpy inputs.
+
+Tolerance: the packed arrays are equal; the products agree at rtol 1e-5 /
+atol 1e-6 at f32 (summation order of the gathers and the tail scatters)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import sparse as jsparse
+
+from _parity import interpret_pallas, np_  # noqa: F401  (fixture)
+from test_torch_sparse import lowrank
+from pydnmfk_tpu.ops import ell as jell
+from pydnmfk_tpu.ops import linalg as jl
+from pydnmfk_tpu.ops.pallas_ell import ell_gather_product as pallas_gather
+from pydnmfk_tpu_torch.ops import ell as tell
+from pydnmfk_tpu_torch.ops import ell_gather as teg
+from pydnmfk_tpu_torch.ops import linalg as tl
+from pydnmfk_tpu_torch.utils.convert import ell_from_numpy
+
+TOL = dict(rtol=1e-5, atol=1e-6)
+EPS = 1.19e-7
+PACKS = [dict(), dict(w_cap=3, max_tail_frac=1.0), dict(cap_q=0.5)]
+
+
+@pytest.mark.parametrize("kw", PACKS, ids=["default", "w_cap3", "median"])
+def test_ell_pack_matches_jax(kw):
+    """Array for array, perms included, with forced tails (w_cap=3) and a
+    median width cap."""
+    _, B, T = lowrank(50, 30, 3, 0.3, 0)
+    Ej, *pj = jell.ell_pack(B, return_perms=True, **kw)
+    Et, *pt = tell.ell_pack(T, return_perms=True, **kw)
+    if kw:
+        assert Et.rtail_d.shape[0] > 0 and Et.ctail_d.shape[0] > 0
+    for name in tell.FIELDS:
+        a, b = getattr(Et, name), np.asarray(getattr(Ej, name))
+        assert a.shape == b.shape and str(a.dtype)[6:] == str(b.dtype), name
+        np.testing.assert_array_equal(a.numpy(), b, err_msg=name)
+    for a, b in zip(pt, pj):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert Et.shape == Ej.shape and Et.nse == Ej.nse
+    np.testing.assert_array_equal(Et.data.numpy(), np.asarray(Ej.data))
+
+
+def test_ell_pack_rejects_skew():
+    """One dense row in an otherwise near-empty matrix: the capped width
+    would blow up, so both packages refuse it (test_ell_pack_rejects_skew
+    of tests/test_sparse.py)."""
+    m, n = 200, 300
+    dense = np.zeros((m, n), np.float32)
+    dense[0, :] = 1.0
+    dense[np.arange(1, m), np.arange(1, m) % n] = 1.0
+    B = jsparse.BCOO.fromdense(jnp.asarray(dense))
+    from pydnmfk_tpu_torch.utils.convert import sparse_from_numpy
+    T = sparse_from_numpy(np.asarray(B.indices[:, 0]),
+                          np.asarray(B.indices[:, 1]), np.asarray(B.data),
+                          (m, n))
+    assert jell.ell_pack(B) is None and tell.ell_pack(T) is None
+    # too heavy a tail is refused too
+    assert tell.ell_pack(T, w_cap=1, max_tail_frac=0.1, max_blowup=1e9) is None
+
+
+@pytest.mark.parametrize("kw", PACKS[:2], ids=["default", "w_cap3"])
+def test_ell_products_match_jax(kw):
+    _, B, T = lowrank(50, 36, 3, 0.2, 1)
+    Ej = jell.ell_pack(B, **kw)
+    Et = ell_from_numpy(*(np.asarray(getattr(Ej, f)) for f in tell.FIELDS),
+                        Ej.shape, Ej.nse)
+    rng = np.random.default_rng(2)
+    W, H = (rng.random((50, 4)).astype(np.float32),
+            rng.random((4, 36)).astype(np.float32))
+    Wj, Hj, Wt, Ht = jnp.asarray(W), jnp.asarray(H), *map(torch.from_numpy,
+                                                          (W, H))
+    pairs = [
+        (tell.ell_a_ht(Et, Ht), jell.ell_a_ht(Ej, Hj)),
+        (tell.ell_wt_a(Et, Wt), jell.ell_wt_a(Ej, Wj)),
+        (tell.ell_kl_uht(Et, Wt, Ht, EPS), jell.ell_kl_uht(Ej, Wj, Hj, EPS)),
+        (tell.ell_kl_wtu(Et, Wt, Ht, EPS), jell.ell_kl_wtu(Ej, Wj, Hj, EPS)),
+        (tell.ell_col_sqsum(Et), jell.ell_col_sqsum(Ej)),
+        (tl.relative_error(Et, Wt, Ht), jl.relative_error(Ej, Wj, Hj)),
+        (tl.column_error(Et, Wt, Ht), jl.column_error(Ej, Wj, Hj)),
+        (tl.matmul_AHT(Et, Ht), jl.matmul_AHT(Ej, Hj)),
+        (tl.matmul_WTA(Wt, Et), jl.matmul_WTA(Wj, Ej)),
+    ]
+    for out, ref in pairs:
+        assert tuple(out.shape) == tuple(ref.shape)
+        np.testing.assert_allclose(np_(out), np_(ref), rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("m,n,k,w,seed", [
+    (700, 300, 32, 9, 0),        # ragged over the Pallas kernel's 512 rows
+    (130, 97, 7, 3, 1),          # k not a multiple of 4
+])
+@pytest.mark.parametrize("ratio", [False, True])
+def test_gather_plain_matches_pallas(m, n, k, w, seed, ratio,
+                                     interpret_pallas):
+    """ell_gather_product_plain against the Pallas ELL kernel
+    (pallas_ell.py::_kernel) in interpret mode, plain and ratio."""
+    rng = np.random.default_rng(seed)
+    vals = (rng.random((m, w)) * (rng.random((m, w)) < 0.7)).astype(np.float32)
+    idx = rng.integers(0, n, (m, w)).astype(np.int32)
+    T = (rng.random((n, k)) + 0.1).astype(np.float32)
+    X = (rng.random((m, k)) + 0.1).astype(np.float32) if ratio else None
+    ref = pallas_gather(jnp.asarray(vals), jnp.asarray(idx), jnp.asarray(T),
+                        None if X is None else jnp.asarray(X), eps=EPS,
+                        interpret=True)
+    out = teg.ell_gather_product(
+        torch.from_numpy(vals), torch.from_numpy(idx), torch.from_numpy(T),
+        None if X is None else torch.from_numpy(X), EPS)
+    np.testing.assert_allclose(np_(out), np_(ref), **TOL)
+
+
+@pytest.mark.parametrize("ratio", [False, True])
+def test_gather_member_stack_matches_each_member(ratio, interpret_pallas):
+    """A (3, dim, w) stack over shared indices, each member with its own
+    table, in one plain call, against the Pallas kernel per member; the line
+    chunks of block_rows (a small budget forces several) change nothing."""
+    rng = np.random.default_rng(3)
+    b, m, n, k, w = 3, 90, 40, 8, 5
+    vals = rng.random((b, m, w)).astype(np.float32)
+    idx = rng.integers(0, n, (m, w)).astype(np.int32)
+    T = rng.random((b, n, k)).astype(np.float32)
+    X = rng.random((b, m, k)).astype(np.float32) if ratio else None
+    tX = None if X is None else torch.from_numpy(X)
+    out = teg.ell_gather_product(torch.from_numpy(vals), torch.from_numpy(idx),
+                                 torch.from_numpy(T), tX, EPS)
+    assert teg.block_rows(m, w, k * b, budget_elems=400) == 8
+    for i in range(b):
+        ref = pallas_gather(jnp.asarray(vals[i]), jnp.asarray(idx),
+                            jnp.asarray(T[i]),
+                            None if X is None else jnp.asarray(X[i]), eps=EPS,
+                            interpret=True)
+        np.testing.assert_allclose(np_(out[i]), np_(ref), **TOL)
+
+
+def test_block_rows_matches_jax():
+    for dim, w, k in [(100, 5, 8), (300_000, 272, 32), (50_000, 250, 256)]:
+        assert teg.block_rows(dim, w, k) == jell._block_rows(dim, w, k)
+
+
+def test_ell_with_data_matches_the_jax_orientation():
+    """Member values gathered into both orientations through the perms, as
+    the JAX ELL ensemble program's ``orient`` does (nmfk.py:301-309)."""
+    _, B, T = lowrank(40, 30, 3, 0.3, 4)
+    E, *perms = tell.ell_pack(T, return_perms=True, w_cap=2,
+                              max_tail_frac=1.0)
+    data = torch.rand((2, T.nse), generator=torch.Generator().manual_seed(0))
+    M = tell.ell_with_data(E, *perms, data)
+    nnz = T.nse
+    for i in range(2):
+        d = data[i].numpy()
+        for got, perm in ((M.rvals[i], perms[0]), (M.cvals[i], perms[1])):
+            p = perm.numpy()
+            want = np.where(p < nnz, d[np.minimum(p, nnz - 1)], 0.0)
+            np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(M.rtail_d[i].numpy(),
+                                      d[perms[2].numpy()])
+        np.testing.assert_array_equal(M.ctail_d[i].numpy(),
+                                      d[perms[3].numpy()])
+    # each member's values, gathered back, equal its flat data
+    np.testing.assert_allclose(np_(tl.sqnorm(M)), np_((data ** 2).sum(-1)),
+                               rtol=1e-6)
+
+
+def test_non_cpu_tensor_never_takes_the_plain_path():
+    """Off the CPU the dispatch launches K4 or raises; here (meta tensors, no
+    nvcc or card) it must raise rather than compute the plain version."""
+    vals, T = torch.empty((64, 5), device="meta"), torch.empty((40, 8),
+                                                                device="meta")
+    idx = torch.empty((64, 5), dtype=torch.int32, device="meta")
+    for X in (None, torch.empty((64, 8), device="meta")):
+        with pytest.raises(Exception):
+            teg.ell_gather_product(vals, idx, T, X, EPS)
+    assert teg.launches == {"ell_gather": 0, "ell_gather_ratio": 0}

@@ -44,7 +44,7 @@ def test_fit_matches_jax(norm, precision, W_update):
                                  W_update=W_update)
     Wj, Hj, ej = _jax_fit(jcfg, A, W0, H0)
     cfg = config_from_jax(dataclasses.asdict(jcfg))
-    W, H, e = port.NMF(cfg).fit(A, factors=(W0, H0))
+    W, H, e = port.NMF(cfg, "cpu").fit(A, factors=(W0, H0))
     rtol = RTOL[precision]
     np.testing.assert_allclose(np_(W), Wj, rtol=rtol, atol=rtol * 1e-3)
     np.testing.assert_allclose(np_(H), Hj, rtol=rtol, atol=rtol * 1e-3)
@@ -100,7 +100,7 @@ def test_column_err_matches_jax():
         jm = pydnmfk_tpu.NMF(jcfg)
         jm.fit(A, factors=(W0, H0))
         ref = np.asarray(jm.column_err())
-    tm = port.NMF(config_from_jax(dataclasses.asdict(jcfg)))
+    tm = port.NMF(config_from_jax(dataclasses.asdict(jcfg)), "cpu")
     tm.fit(A, factors=(W0, H0))
     np.testing.assert_allclose(tm.column_err(), ref, rtol=1e-9)
 
@@ -110,8 +110,8 @@ def test_rand_init_fit_converges():
     the fit reduces the error well below that of the init."""
     _, _, X = generate_data(64, 48, 3)
     cfg = port.NMFConfig(k=3, norm="fro", itr=200)
-    W, H, err = port.NMF(cfg).fit(X)
-    W2, H2, err2 = port.NMF(cfg).fit(X)
+    W, H, err = port.NMF(cfg, "cpu").fit(X)
+    W2, H2, err2 = port.NMF(cfg, "cpu").fit(X)
     assert err == err2 and err < 0.05
     assert W.shape == (64, 3) and H.shape == (3, 48)
 
@@ -128,3 +128,99 @@ def test_config_from_jax_rejects_unported():
     cfg = config_from_jax(dataclasses.asdict(pydnmfk_tpu.NMFkConfig(
         nmf=pydnmfk_tpu.NMFConfig(k=5, norm="fro"), end_k=7)))
     assert cfg.nmf.k == 5 and cfg.nmf.norm == "fro" and cfg.end_k == 7
+
+
+# ---------------------------------------------------------------------------
+# sparse A: the triplet (the CPU's format) and the dual ELL (the card's),
+# against the JAX package on BCOO and on its EllSparse, same init factors.
+# Tolerance: rtol 1e-9 at f64 (summation order); the bf16-A case at rtol
+# 1e-3 after 50 iterations at f32.
+# ---------------------------------------------------------------------------
+def _sparse_problem(seed, m=48, n=36, k=3, density=0.3):
+    rng = np.random.default_rng(seed)
+    A = rng.random((m, k)) @ rng.random((k, n)) * (rng.random((m, n)) < density)
+    return A, rng.random((m, k)), rng.random((k, n))
+
+
+def _jax_format(A, fmt, dtype):
+    from jax.experimental import sparse as jsparse
+    from pydnmfk_tpu.ops.ell import ell_pack
+    B = jsparse.BCOO.fromdense(jnp.asarray(A, dtype))
+    return ell_pack(B, w_cap=3, max_tail_frac=1.0) if fmt == "ell" else B
+
+
+def _port_format(A, fmt, dtype):
+    from pydnmfk_tpu_torch.ops.ell import ell_pack
+    from pydnmfk_tpu_torch.utils.convert import sparse_from_numpy
+    rows, cols = np.nonzero(A)
+    T = sparse_from_numpy(rows, cols, A[rows, cols].astype(dtype), A.shape)
+    return ell_pack(T, w_cap=3, max_tail_frac=1.0) if fmt == "ell" else T
+
+
+@pytest.mark.parametrize("fmt", ["triplet", "ell"])
+@pytest.mark.parametrize("norm", ["fro", "kl"])
+@pytest.mark.parametrize("W_update", [True, False])
+def test_sparse_fit_matches_jax(fmt, norm, W_update):
+    """NMF.fit on a sparse A at f64, with the same init factors; the ELL
+    case has COO tails (width cap 3). W_update=False is the W-frozen refit
+    of NMFk. column_err goes through the sparse identity too."""
+    A, W0, H0 = _sparse_problem(4)
+    jcfg = pydnmfk_tpu.NMFConfig(k=3, norm=norm, itr=50, precision="float64",
+                                 W_update=W_update)
+    with x64():
+        Bj = _jax_format(A, fmt, np.float64)
+        jm = pydnmfk_tpu.NMF(jcfg)
+        Wj, Hj, ej = jm.fit(Bj, factors=(W0, H0))
+        Wj, Hj, colj = np_(Wj), np_(Hj), np.asarray(jm.column_err())
+    At = _port_format(A, fmt, np.float64)
+    tm = port.NMF(config_from_jax(dataclasses.asdict(jcfg)), "cpu")
+    W, H, e = tm.fit(At, factors=(W0, H0))
+    np.testing.assert_allclose(np_(W), Wj, rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(np_(H), Hj, rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(e, float(ej), rtol=1e-9)
+    np.testing.assert_allclose(tm.column_err(), colj, rtol=1e-8, atol=1e-12)
+
+
+@pytest.mark.parametrize("fmt", ["triplet", "ell"])
+def test_sparse_fit_bf16_values_match_jax(fmt):
+    """a_precision="bfloat16" applies to the nnz values (nmf.py:369-381)."""
+    A, W0, H0 = _sparse_problem(5)
+    jcfg = pydnmfk_tpu.NMFConfig(k=3, norm="fro", itr=50,
+                                 a_precision="bfloat16")
+    Bj, At = _jax_format(A, fmt, np.float32), _port_format(A, fmt, np.float32)
+    jm = pydnmfk_tpu.NMF(jcfg)
+    Wj, Hj, ej = jm.fit(Bj, factors=(W0, H0))
+    assert jm._A.dtype == jnp.bfloat16
+    tm = port.NMF(config_from_jax(dataclasses.asdict(jcfg)), "cpu")
+    W, H, e = tm.fit(At, factors=(W0, H0))
+    assert tm._A.dtype == torch.bfloat16
+    np.testing.assert_allclose(np_(W), np_(Wj), rtol=1e-3, atol=1e-6)
+    np.testing.assert_allclose(e, float(ej), rtol=1e-3)
+
+
+def test_sparse_rejections_are_the_configs():
+    """The JAX package rejects BCD, nnsvd, prune and uint8 storage for a
+    sparse A; none of them is ported, so the port's config refuses them
+    before any A is seen."""
+    for kw in (dict(method="bcd"), dict(init="nnsvd"),
+               dict(a_precision="uint8")):
+        with pytest.raises(port.NotPortedError):
+            port.NMFConfig(**kw)
+    assert not hasattr(port.NMFConfig(), "prune")
+
+
+def test_entry_points_default_to_the_card():
+    """NMF, NMFk and Runner run on the CUDA card unless the caller passes
+    device="cpu"; without a card, fit/run say so."""
+    assert port.NMF(port.NMFConfig()).device.type == "cuda"
+    assert port.NMFk(port.NMFkConfig()).device.type == "cuda"
+    assert port.Runner().device.type == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing raises")
+    A = np.ones((8, 6))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        port.NMF(port.NMFConfig(k=2, itr=2)).fit(A)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        port.NMFk(port.NMFkConfig(nmf=port.NMFConfig(itr=2), end_k=2)).fit(A)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        port.Runner(itr=2).run(fpath="/nonexistent/", ftype="npy", fname="A")
