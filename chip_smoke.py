@@ -10,8 +10,11 @@ Run from the root of a checkout, with no arguments:
 2. checks each kernel against its plain PyTorch version at the shapes the
    main paths give it, and times kernel, plain version and, where one
    PyTorch call computes the same function, that call, with CUDA events:
-   - K1, K2a, K2b at 57600 x 38400, k = 32 (the reference's strong-scaling
-     geometry) and on a 10-member 14400 x 9600, k = 8 ensemble;
+   - K1, K2a, K2b and K3 at 57600 x 38400, k = 32 (the reference's
+     strong-scaling geometry): K1 on an f32, a bf16 and a uint8 A (the
+     ``quantize_uint8`` of the f32 one), K2a/K2b on the f32 and the uint8
+     A, K3 on all three; and each on a 10-member 14400 x 9600, k = 8
+     ensemble (f32);
    - K4 in its four modes (rows/columns, plain/ratio) at the shape and nnz
      of the NYTimes bag-of-words corpus (300000 x 102660, 69.7 M nnz,
      k = 32), and on a 10-member stack of the planted topic matrix of 5;
@@ -19,10 +22,12 @@ Run from the root of a checkout, with no arguments:
    device ms, idle share, top kernels); and checks NMF.fit on the card
    against the CPU path on a small input;
 3. the dense main path, launch counters at zero before each run and read
-   after it: NMF.fit for 10 FRO-MU and 10 KL-MU iterations at 57600 x 38400,
-   k = 32, then the NMFk sweep through the CLI on a planted rank-4
-   14400 x 9600 matrix (k = 2..7, 10 perturbations, 400 iterations), FRO-MU
-   and KL-MU, which must choose k = 4;
+   after it: NMF.fit for 10 iterations at 57600 x 38400, k = 32, of FRO-MU
+   and KL-MU (f32), of both on the uint8-quantized A, and of KL-MU with
+   ``use_fused=True`` (K3); then the NMFk sweep through the CLI on a planted
+   rank-4 14400 x 9600 matrix (k = 2..7, 10 perturbations, 400 iterations),
+   FRO-MU and KL-MU, which must choose k = 4, and one FRO-MU factorization
+   of that matrix through the CLI with and without ``--a_precision=uint8``;
 4. the sparse main path, the same way: NMF.fit on the NYTimes-shaped matrix,
    10 FRO-MU and 10 KL-MU iterations, k = 32, on the ELL format the policy
    must choose;
@@ -60,10 +65,13 @@ TOPIC = dict(m=200_000, n=50_000, k=4, nnz_per_row=50)   # sparse sweep input
 TOPIC_K = 7                              # K4 stack check: the sweep's top k
 PROFILE_STEPS = 20                       # MU steps profiled on that stack
 # kernel vs plain, max |difference| / max |plain| over all outputs: f32
-# sums taken in another order (and, for K1's W'^T A, with atomics in an
-# order that changes from run to run); a bf16 A also rounds W' to bf16 where
-# kernel and plain W' may differ in the last f32 bit
-TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
+# sums taken in another order (and, for K1's W'^T A and K3's W'^T U', with
+# atomics in an order that changes from run to run); a bf16 or uint8 A also
+# rounds factor operands (and K3's ratios) to bf16 where kernel and plain
+# values may differ in the last f32 bit
+TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3, torch.uint8: 1e-3}
+ITR = 10                                 # MU iterations of the NMF.fit runs
+CLI_ITR = 100    # the CLI factorization: the uint8 error floor stays below
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM: f32 non-tensor, HBM3
 PEAK_BF16 = 989e12                       # H100 SXM: bf16 tensor cores, dense
 
@@ -170,8 +178,8 @@ def main():
     sys.path.insert(0, ROOT)
     from pydnmfk_tpu_torch import NMF, NMFConfig, cli
     from pydnmfk_tpu_torch.models.nmf import init_factors_rand
-    from pydnmfk_tpu_torch.ops import (cuda_lib, ell, ell_gather, fused_mu,
-                                       kl, linalg, sparse)
+    from pydnmfk_tpu_torch.ops import (cuda_lib, ell, ell_gather, fused_kl,
+                                       fused_mu, kl, linalg, sparse)
     from pydnmfk_tpu_torch.utils import timing
     from pydnmfk_tpu_torch.utils.data_generator import (generate_data,
                                                         generate_topic_sparse)
@@ -185,7 +193,8 @@ def main():
                          text=True, check=True).stdout.strip()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}, {smi}", flush=True)
-    counters = (fused_mu.launches, kl.launches, ell_gather.launches)
+    counters = (fused_mu.launches, kl.launches, fused_kl.launches,
+                ell_gather.launches)
 
     def counts():
         return {k: v for c in counters for k, v in c.items()}
@@ -263,7 +272,6 @@ def main():
                 lambda: fused_mu.fused_w_pass_plain(A16, W, H, HHT, eps),
                 TOL[torch.bfloat16],
                 (4 * M * N * K, nbytes(A16, W, H, HHT, W, H, HHT), PEAK_BF16))
-    del A16
     chunk = linalg.error_chunk_rows(M, N)
     dense_ms.append(kernel_case(
         "K2a kl_uht", f"f32 {shape}", lambda: kl.kl_uht(A, W, H, eps),
@@ -273,7 +281,34 @@ def main():
         "K2b kl_wtu", f"f32 {shape}", lambda: kl.kl_wtu(A, W, H, eps),
         lambda: kl.kl_wtu_plain(A, W, H, eps, chunk), TOL[torch.float32],
         (4 * M * N * K, nbytes(A, W, H, H))))
-    del W, H, HHT
+    # the uint8 A that NMF.fit solves on: K1 rounds its factor operands to
+    # bf16 (bf16 peak); K2 computes in f32 (f32 peak)
+    Q, _ = linalg.quantize_uint8(A)
+    kernel_case("K1 fused_mu_fro", f"uint8-A {shape}",
+                lambda: fused_mu.fused_w_pass(Q, W, H, HHT, eps),
+                lambda: fused_mu.fused_w_pass_plain(Q, W, H, HHT, eps),
+                TOL[torch.uint8],
+                (4 * M * N * K, nbytes(Q, W, H, HHT, W, H, HHT), PEAK_BF16))
+    kernel_case("K2a kl_uht", f"uint8-A {shape}",
+                lambda: kl.kl_uht(Q, W, H, eps),
+                lambda: kl.kl_uht_plain(Q, W, H, eps, chunk), TOL[torch.uint8],
+                (4 * M * N * K, nbytes(Q, W, H, W)))
+    kernel_case("K2b kl_wtu", f"uint8-A {shape}",
+                lambda: kl.kl_wtu(Q, W, H, eps),
+                lambda: kl.kl_wtu_plain(Q, W, H, eps, chunk), TOL[torch.uint8],
+                (4 * M * N * K, nbytes(Q, W, H, H)))
+    # K3 reads A once for 8 m n k operations: f32 on CUDA cores; bf16
+    # operands for a bf16 or uint8 A (bf16 peak)
+    hrs = linalg.sum_axis(H, axis=-1)
+    for label, a, peak in (("f32", A, PEAK_FLOPS), ("bf16-A", A16, PEAK_BF16),
+                           ("uint8-A", Q, PEAK_BF16)):
+        kernel_case("K3 fused_mu_kl", f"{label} {shape}",
+                    lambda: fused_kl.fused_kl_pass(a, W, H, hrs, eps),
+                    lambda: fused_kl.fused_kl_pass_plain(a, W, H, hrs, eps,
+                                                         chunk),
+                    TOL[a.dtype],
+                    (8 * M * N * K, nbytes(a, W, H, hrs, W, H), peak))
+    del A16, Q, W, H, HHT, hrs
     torch.cuda.empty_cache()
     Ae = torch.rand((ENS, EM, EN), generator=gen, device=dev)
     We = torch.rand((ENS, EM, EK), generator=gen, device=dev)
@@ -295,7 +330,14 @@ def main():
                 lambda: kl.kl_wtu(Ae, We, He, eps),
                 lambda: kl.kl_wtu_plain(Ae, We, He, eps, ech),
                 TOL[torch.float32], (ework, nbytes(Ae, We, He, He)))
-    del Ae, We, He, HHTe
+    hrse = linalg.sum_axis(He, axis=-1)
+    kernel_case("K3 fused_mu_kl", f"f32 {eshape}",
+                lambda: fused_kl.fused_kl_pass(Ae, We, He, hrse, eps),
+                lambda: fused_kl.fused_kl_pass_plain(Ae, We, He, hrse, eps,
+                                                     ech),
+                TOL[torch.float32],
+                (2 * ework, nbytes(Ae, We, He, hrse, We, He)))
+    del Ae, We, He, HHTe, hrse
     torch.cuda.empty_cache()
 
     # K4 at the NYTimes shape: flat positions drawn uniformly with
@@ -395,27 +437,37 @@ def main():
     _, _, X = generate_data(m=300, n=200, k=5)
     rng = np.random.default_rng(0)
     W0, H0 = rng.random((300, 5)), rng.random((5, 200))
-    for norm in ("fro", "kl"):
-        cfg = NMFConfig(k=5, norm=norm, itr=50)
+    for norm, kw in (("fro", {}), ("kl", {}), ("kl", {"use_fused": True})):
+        cfg = NMFConfig(k=5, norm=norm, itr=50, **kw)
         Wg, Hg, eg = NMF(cfg, dev).fit(X, factors=(W0, H0))
         Wc, Hc, ec = NMF(cfg, "cpu").fit(X, factors=(W0, H0))
         _, rel_err = compare((Wg.cpu(), Hg.cpu()), (Wc, Hc))
-        print(f"[check] NMF.fit {norm} 300x200 k=5, 50 iterations, card vs "
-              f"CPU: max rel err {rel_err:.3e}, error {eg:.6f} vs {ec:.6f}",
-              flush=True)
+        print(f"[check] NMF.fit {norm} {kw} 300x200 k=5, 50 iterations, card "
+              f"vs CPU: max rel err {rel_err:.3e}, error {eg:.6f} vs "
+              f"{ec:.6f}", flush=True)
         check(rel_err < 1e-3 and abs(eg - ec) < 1e-4 * ec,
-              f"NMF.fit {norm} on the card disagrees with the CPU path")
+              f"NMF.fit {norm} {kw} on the card disagrees with the CPU path")
 
     # -- 3. the dense main path, counters from zero ----------------------
     timing.enable(True)
     none = {key: 0 for key in counts()}
-    for norm in ("fro", "kl"):
-        cfg = NMFConfig(k=K, norm=norm, itr=10)
-        g = torch.Generator(dev)
-        g.manual_seed(cfg.seed)
-        W0, H0 = init_factors_rand(g, M, N, K, torch.float32, dev)
-        init_err = float(linalg.relative_error(A, W0, H0, chunk))
-        del W0, H0
+    g = torch.Generator(dev)
+    g.manual_seed(NMFConfig().seed)
+    W0, H0 = init_factors_rand(g, M, N, K, torch.float32, dev)
+    init_err = float(linalg.relative_error(A, W0, H0, chunk))
+    del W0, H0
+    errs = {}
+    # (label, norm, config options, the launches it must make)
+    for label, norm, kw, want in (
+            ("FRO-MU f32", "fro", {}, {"fused_mu_fro": ITR}),
+            ("KL-MU f32", "kl", {}, {"kl_uht": ITR, "kl_wtu": ITR}),
+            ("FRO-MU uint8-A", "fro", {"a_precision": "uint8"},
+             {"fused_mu_fro_u8": ITR}),
+            ("KL-MU uint8-A", "kl", {"a_precision": "uint8"},
+             {"kl_uht": ITR, "kl_wtu": ITR}),
+            ("KL-MU f32 use_fused", "kl", {"use_fused": True},
+             {"fused_mu_kl": ITR})):
+        cfg = NMFConfig(k=K, norm=norm, itr=ITR, **kw)
         timing.reset()
         zero_counts()
         t0 = time.perf_counter()
@@ -424,18 +476,27 @@ def main():
         secs = time.perf_counter() - t0
         ran = read_counts()
         solve_s = timing.TIMINGS["solve"]
-        print(f"[nmf] {norm.upper()}-MU {M}x{N} k={K} f32, 10 iterations: "
-              f"fit {secs:.3f} s, solve {solve_s:.3f} s "
-              f"({10 / solve_s:.2f} it/s incl. final error), relative "
-              f"error {init_err:.6f} (rand init) -> {err:.6f}, launches "
-              f"{ran}", flush=True)
+        print(f"[nmf] {label} {M}x{N} k={K}, {ITR} iterations: fit "
+              f"{secs:.3f} s, solve {solve_s:.3f} s ({ITR / solve_s:.2f} "
+              f"it/s incl. final error), relative error {init_err:.6f} "
+              f"(rand init) -> {err:.6f}, launches {ran}", flush=True)
         check(np.isfinite(err) and err < init_err,
-              f"NMF.fit {norm}: error {err} not below the init's {init_err}")
+              f"NMF.fit {label}: error {err} not below the init's {init_err}")
         check(W.shape == (M, K) and H.shape == (K, N), "factor shapes")
-        want = {**none, **({"fused_mu_fro": 10} if norm == "fro"
-                           else {"kl_uht": 10, "kl_wtu": 10})}
-        check(ran == want, f"NMF.fit {norm} launches {ran}, expected {want}")
+        check(ran == {**none, **want},
+              f"NMF.fit {label} launches {ran}, expected {want}")
+        errs[label] = err
         del W, H
+    # the quantized solve tracks the f32 one; K3 and K2 differ in summation
+    # order only at f32
+    for label, ref, tol in (("FRO-MU uint8-A", "FRO-MU f32", 0.02),
+                            ("KL-MU f32 use_fused", "KL-MU f32", 1e-3)):
+        rel = abs(errs[label] / errs[ref] - 1)
+        print(f"[check] {label} error {errs[label]:.6f} vs {ref} "
+              f"{errs[ref]:.6f}: relative difference {rel:.2e} (limit "
+              f"{tol:g})", flush=True)
+        check(rel <= tol, f"{label} error {errs[label]} is not within "
+                          f"{tol:g} of {ref}'s {errs[ref]}")
     del A
     torch.cuda.empty_cache()
 
@@ -482,6 +543,32 @@ def main():
               (PLANTED["m"], PLANTED["n"]))
         sweep(tmp, "npy", "X", "kl", ("kl_uht", "kl_wtu"),
               (PLANTED["m"], PLANTED["n"]))
+        # one FRO factorization through the CLI, on the uint8-quantized A
+        # (K1's uint8 instantiation) and on the f32 A (K1)
+        cli_err = {}
+        for a_prec, key in (("uint8", "fused_mu_fro_u8"),
+                            (None, "fused_mu_fro")):
+            zero_counts()
+            t0 = time.perf_counter()
+            out = cli.main(["--process=pyDNMF", "--p_r=1", "--p_c=1",
+                            "--ftype=npy", f"--fpath={tmp}/", "--fname=X",
+                            "--norm=fro", "--k=4", f"--itr={CLI_ITR}",
+                            f"--results_path={tmp}/res_pydnmf/",
+                            "--timing_stats=true"]
+                           + ([f"--a_precision={a_prec}"] if a_prec else []))
+            secs = time.perf_counter() - t0
+            ran = read_counts()
+            cli_err[a_prec] = out["err"]
+            print(f"[cli] pyDNMF FRO-MU k=4 {CLI_ITR} iterations, "
+                  f"a_precision={a_prec}: relative error {out['err']:.6f}, "
+                  f"{secs:.2f} s, launches {ran}", flush=True)
+            check(ran == {**none, key: CLI_ITR},
+                  f"CLI a_precision={a_prec} launched {ran}")
+            check(out["H"].shape == (4, PLANTED["n"])
+                  and bool(torch.isfinite(out["H"]).all()), "CLI factors")
+        rel = abs(cli_err["uint8"] / cli_err[None] - 1)
+        check(rel <= 0.02, f"CLI uint8 error {cli_err['uint8']} is not "
+                           f"within 2 % of {cli_err[None]}")
 
     # -- 4. the sparse main path: NMF.fit at the NYTimes shape ------------
     for norm in ("fro", "kl"):
@@ -546,11 +633,13 @@ def main():
 
     # -- 6. report -------------------------------------------------------
     sources = {"K1 fused_mu_fro": ("fused_mu_fro.cu", "ops/fused_mu.py:50",
-                                   ("fused_mu_fro",)),
+                                   ("fused_mu_fro", "fused_mu_fro_u8")),
                "K2a kl_uht": ("kl_ratio.cu", "ops/pallas_kernels.py:78",
                               ("kl_uht",)),
                "K2b kl_wtu": ("kl_ratio.cu", "ops/pallas_kernels.py:96",
                               ("kl_wtu",)),
+               "K3 fused_mu_kl": ("fused_mu_kl.cu", "ops/fused_kl.py:44",
+                                  ("fused_mu_kl",)),
                "K4 ell_gather": ("ell_gather.cu", "ops/pallas_ell.py:52",
                                  ("ell_gather", "ell_gather_ratio"))}
     kernels = [{"name": name, "route": "cuda",

@@ -64,8 +64,10 @@ def build_parser():
     # flags of the JAX package
     p.add_argument("--multihost", type=str2bool, default=False)
     p.add_argument("--a_precision", type=str, default=None,
-                   help="storage dtype for A only (bfloat16); factors and "
-                        "accumulation stay at --precision")
+                   help="storage dtype for A only (bfloat16, or uint8: "
+                        "A quantized to round(A/s), s = max(A)/255, the "
+                        "returned H carries s); factors and accumulation "
+                        "stay at --precision")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU instead of the CUDA card")
     p.add_argument("--seed_grid", type=str, default=None)

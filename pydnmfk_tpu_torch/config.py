@@ -1,9 +1,9 @@
 """Typed configuration for the PyTorch/CUDA port.
 
-The dataclasses of ``pydnmfk_tpu/config.py`` without the TPU knobs (Pallas
-and fusion switches, matmul precision, the XLA compilation cache, the
-K-padded sweep and HBM sizing) and without the features not yet ported,
-which the entry points reject with :class:`NotPortedError`.
+The dataclasses of ``pydnmfk_tpu/config.py`` without the TPU knobs (the
+Pallas switch, matmul precision, the XLA compilation cache, the K-padded
+sweep and HBM sizing) and without the features not yet ported, which the
+entry points reject with :class:`NotPortedError`.
 """
 from __future__ import annotations
 
@@ -11,9 +11,11 @@ import dataclasses
 
 import torch
 
-# Factor precisions the port runs. A may be stored narrower (a_precision).
+# Factor precisions the port runs. A may be stored narrower (a_precision):
+# in bf16, or quantized to uint8 (ops/linalg.py::quantize_uint8).
 _PRECISIONS = {"float32": torch.float32, "float64": torch.float64}
-_A_PRECISIONS = {"bfloat16": torch.bfloat16, **_PRECISIONS}
+_A_PRECISIONS = {"bfloat16": torch.bfloat16, "uint8": torch.uint8,
+                 **_PRECISIONS}
 
 
 class NotPortedError(NotImplementedError):
@@ -48,9 +50,14 @@ class NMFConfig:
     save_factors: bool = False
     W_update: bool = True
     results_path: str = "results/"
-    # storage dtype of A only ("bfloat16"); W/H and accumulation stay at
-    # `precision`. None stores A at `precision`.
+    # storage dtype of A only ("bfloat16", or "uint8": the solve factorizes
+    # Q = round(A / s) and the returned H carries the scale s); W/H and
+    # accumulation stay at `precision`. None stores A at `precision`.
     a_precision: str | None = None
+    # one-pass kernels (pydnmfk_tpu/config.py:80-84): None = the card's
+    # dispatch (K1 for FRO, K2 for KL); True = K1 for FRO and K3 for KL;
+    # False = the two-pass FRO step of plain products (KL keeps K2)
+    use_fused: bool | None = None
     tol: float = 0.0         # early stop when relative error improves < tol
     tol_check_every: int = 50   # iterations between convergence checks
 
@@ -66,7 +73,7 @@ class NMFConfig:
                                  "queue 1 item 1")
         if self.a_precision not in (None, *_A_PRECISIONS):
             raise NotPortedError(f"a_precision={self.a_precision!r}",
-                                 "queue 2, K1 uint8-A")
+                                 "queue 1 item 1")
 
     @property
     def dtype(self) -> torch.dtype:

@@ -28,14 +28,23 @@
 // halves the bytes. Tensor cores (wgmma), TMA pipelines and tuning are later
 // work.
 //
-// bf16 A: the products take bf16 operands with f32 accumulation, exactly as
-// the plain path does (ops/linalg.py::matmul rounds the f32 factor to bf16):
-// H is rounded as it is loaded for sweep 1, W' is rounded for sweep 2, and
-// WTW uses the unrounded f32 W'.
+// bf16 or uint8 A: the products take bf16 operands with f32 accumulation,
+// exactly as the plain path does (ops/linalg.py::matmul rounds the f32
+// factor to bf16; a uint8 value is exact in bf16): H is rounded as it is
+// loaded for sweep 1, W' is rounded for sweep 2, and WTW uses the unrounded
+// f32 W'. This is the JAX package's rule for an integer A too
+// (pydnmfk_tpu/ops/fused_mu.py:53-60, :166-172), whose uint8 variant is
+// tools/fused_u8_probe.py::make_kernel.
+//
+// uint8 A: each element is one byte load, widened exactly to f32 (no
+// alignment needed, so any n works). A quarter of the f32 bytes, but the
+// same shared-memory operand traffic, so at k = 32 it is bound where the
+// f32 and bf16 instantiations are; vector loads are later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 #include <type_traits>
 
 namespace {
@@ -47,12 +56,13 @@ constexpr int LDA = TN + 1;   // padded row stride of the A tile in shared memor
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(uint8_t x) { return static_cast<float>(x); }
 
 // A factor value as an operand of a product with A: unchanged for an f32 A,
-// rounded to bf16 for a bf16 A.
+// rounded to bf16 for a bf16 or uint8 A.
 template <typename T>
 __device__ __forceinline__ float operand(float x) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+  if constexpr (!std::is_same<T, float>::value) {
     return __bfloat162float(__float2bfloat16(x));
   } else {
     return x;
@@ -165,7 +175,7 @@ fused_mu_fro_kernel(const T* __restrict__ A, const float* __restrict__ W,
       atomicAdd(&WTW[c * k + d], s);
     }
   }
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+  if constexpr (!std::is_same<T, float>::value) {
     __syncthreads();
     for (int e = tid; e < TM * KP; e += NT) {
       const int r = e / KP, c = e % KP;
@@ -237,7 +247,7 @@ cudaError_t dispatch(const void* A, const void* W, const void* H,
 
 }  // namespace
 
-// Plain C interface, bound with ctypes. A is (B, m, n) in f32 or bf16; W and
+// Plain C interface, bound with ctypes. A is (B, m, n) in f32, bf16 or uint8; W and
 // W_out are (B, m, k), H is (B, k, n), HHT is (B, k, k), WTA is (B, k, n) and
 // WTW is (B, k, k), all f32, contiguous, and WTA/WTW zeroed by the caller.
 // Returns the CUDA error code of the launch (0 on success).
@@ -255,6 +265,14 @@ extern "C" int fused_mu_fro_bf16(const void* A, const void* W, const void* H,
                                  void* WTW, void* stream) {
   return (int)dispatch<__nv_bfloat16>(A, W, H, HHT, eps, B, m, n, k, W_out, WTA,
                                       WTW, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int fused_mu_fro_u8(const void* A, const void* W, const void* H,
+                               const void* HHT, float eps, int B, int m, int n,
+                               int k, void* W_out, void* WTA, void* WTW,
+                               void* stream) {
+  return (int)dispatch<uint8_t>(A, W, H, HHT, eps, B, m, n, k, W_out, WTA, WTW,
+                                static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* fused_mu_fro_error_string(int code) {

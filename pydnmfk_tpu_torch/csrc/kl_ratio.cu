@@ -25,12 +25,15 @@
 // product) plus one division against 4 bytes read once, far above the card's
 // f32 CUDA-core balance, so the kernels are bound by shared-memory operand
 // traffic into CUDA-core FMAs and by the division. Tensor cores (wgmma) for
-// both products, TMA pipelines and tuning are later work. A bf16 A is widened
-// to f32 as it is loaded; all arithmetic is f32, as in the plain path.
+// both products, TMA pipelines and tuning are later work. A bf16 or uint8 A
+// is widened exactly to f32 as it is loaded (a uint8 A one byte load per
+// element, so any n works); all arithmetic is f32, as in the plain path and
+// in pydnmfk_tpu/ops/kl.py:33-34, which divides the integer A by an f32 WH.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
@@ -41,6 +44,7 @@ constexpr int LDA = TN + 1;   // padded row stride of the A / U tile
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(uint8_t x) { return static_cast<float>(x); }
 
 template <typename T>
 __device__ __forceinline__ void load_a_tile(float* As, const T* __restrict__ A,
@@ -246,7 +250,7 @@ cudaError_t dispatch(bool uht, const void* A, const void* W, const void* H,
 
 }  // namespace
 
-// Plain C interface, bound with ctypes. A is (B, m, n) in f32 or bf16; W is
+// Plain C interface, bound with ctypes. A is (B, m, n) in f32, bf16 or uint8; W is
 // (B, m, k) and H is (B, k, n) in f32, all contiguous. out is (B, m, k) for
 // UHT and (B, k, n) for WTU, f32; every element is written. Returns the CUDA
 // error code of the launch (0 on success).
@@ -276,6 +280,20 @@ extern "C" int kl_wtu_bf16(const void* A, const void* W, const void* H,
                            void* stream) {
   return (int)dispatch<__nv_bfloat16>(false, A, W, H, eps, B, m, n, k, out,
                                       static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int kl_uht_u8(const void* A, const void* W, const void* H,
+                         float eps, int B, int m, int n, int k, void* out,
+                         void* stream) {
+  return (int)dispatch<uint8_t>(true, A, W, H, eps, B, m, n, k, out,
+                                static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int kl_wtu_u8(const void* A, const void* W, const void* H,
+                         float eps, int B, int m, int n, int k, void* out,
+                         void* stream) {
+  return (int)dispatch<uint8_t>(false, A, W, H, eps, B, m, n, k, out,
+                                static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* kl_ratio_error_string(int code) {

@@ -22,39 +22,50 @@ import numpy as np
 import torch
 
 from ..config import NMFConfig, check_device
-from ..ops import fused_mu, linalg, sparse
+from ..ops import cuda_lib, fused_kl, fused_mu, linalg, sparse
 from ..utils import timing
 from . import updates
 
 
-def step_for(A, W, norm: str, W_update: bool, chunk: int):
+def step_for(A, W, norm: str, W_update: bool, chunk: int,
+             use_fused: bool | None = None):
     """The update step for these operands (``nmf.py:62-75`` and the fusion
-    rule of :209-231, restated for the card):
+    rule of :209-233, restated for the card). ``use_fused`` is the config's:
 
-    * FRO with a W update on CUDA takes kernel K1 for k <= 64 and an f32 or
-      bf16 A with f32 factors; otherwise the two-pass step of plain products,
-      which is what JAX runs outside any kernel. The W-frozen refit is
-      always the two-pass step, as in JAX.
-    * KL takes the ratio products, which are kernels K2a/K2b on CUDA for an
-      f32 or bf16 A (``updates.mu_kl_step``).
+    * FRO with a W update on CUDA takes kernel K1 for k <= 64 and an f32,
+      bf16 or uint8 A with f32 factors, unless ``use_fused`` is False;
+      otherwise the two-pass step of plain products, which is what JAX runs
+      outside any kernel. The W-frozen refit is always the two-pass step,
+      as in JAX.
+    * KL with ``use_fused=True`` and a W update takes the one-pass step,
+      kernel K3 on CUDA, for k <= 64, a non-f64 A and f32 factors (on the
+      CPU its plain version); f64 keeps the plain products, as
+      ``updates.mu_kl_step`` does for K2.
+    * Otherwise KL takes the ratio products, kernels K2a/K2b on CUDA for an
+      f32, bf16 or uint8 A (``updates.mu_kl_step``).
     * A sparse A takes the two-pass steps over its format's products: K4 on
-      CUDA for the dual ELL (``ops/ell.py``); K1 and K2 never see it.
+      CUDA for the dual ELL (``ops/ell.py``); K1, K2 and K3 never see it.
     """
-    if norm == "fro" and linalg.is_sparse(A):
-        return partial(updates.mu_fro_step, W_update=W_update)
+    if linalg.is_sparse(A):
+        step = updates.mu_fro_step if norm == "fro" else updates.mu_kl_step
+        return partial(step, W_update=W_update)
+    k = W.shape[-1]
+    kernel_types = A.dtype in cuda_lib.A_SUFFIX and W.dtype == torch.float32
     if norm == "fro":
-        if (W_update and A.is_cuda and W.shape[-1] <= fused_mu.MAX_K
-                and A.dtype in (torch.float32, torch.bfloat16)
-                and W.dtype == torch.float32):
+        if (W_update and use_fused is not False and A.is_cuda and kernel_types
+                and k <= fused_mu.MAX_K):
             return fused_mu.fused_mu_fro_step
         return partial(updates.mu_fro_step, W_update=W_update)
+    if use_fused and W_update and kernel_types and k <= fused_kl.MAX_K:
+        return partial(fused_kl.fused_mu_kl_step, chunk=chunk)
     return partial(updates.mu_kl_step, W_update=W_update, chunk=chunk)
 
 
 def _solve(A, W, H, eps, *, norm: str, itr: int, W_update: bool, chunk: int,
-           tol: float = 0.0, tol_check_every: int = 50, err_chunk: int = 0):
+           use_fused: bool | None = None, tol: float = 0.0,
+           tol_check_every: int = 50, err_chunk: int = 0):
     """The iteration loop of ``pydnmfk_tpu/models/nmf.py::_solve`` (MU)."""
-    step = step_for(A, W, norm, W_update, chunk)
+    step = step_for(A, W, norm, W_update, chunk, use_fused)
 
     def body(i, W, H):
         W, H = step(A, W, H, eps)
@@ -112,7 +123,7 @@ def solve(A, W, H, eps, cfg: NMFConfig):
     dense_chunk = 0 if linalg.is_sparse(A) else linalg.error_chunk_rows(m, n)
     return _solve(A, W, H, eps, norm=norm, itr=cfg.itr, W_update=cfg.W_update,
                   chunk=dense_chunk if norm == "kl" else 0,
-                  tol=float(cfg.tol),
+                  use_fused=cfg.use_fused, tol=float(cfg.tol),
                   tol_check_every=int(cfg.tol_check_every),
                   err_chunk=dense_chunk)
 
@@ -136,16 +147,24 @@ class NMF:
         self.recon_err = None
 
     def _prepare(self, A):
-        """A on the device at its storage dtype. A sparse A (SparseTriplet
-        or EllSparse) goes through the format policy (nmf.py:351-380): the
+        """A on the device at its storage dtype; a uint8 ``a_precision``
+        keeps A at the factor dtype here, and ``fit`` quantizes it just
+        before the solve (nmf.py:383-386). A sparse A (SparseTriplet or
+        EllSparse) goes through the format policy (nmf.py:351-380): the
         triplet stays on the CPU; on the card it becomes the dual ELL or a
-        dense A. ``a_precision`` applies to the nnz values of a sparse A;
-        a dense A that the policy narrowed to bf16 keeps bf16. The
-        rejections of the JAX package for sparse A (BCD, nnsvd, prune,
-        uint8 storage) are the config's: none of them is ported yet."""
+        dense A. ``a_precision`` applies to the nnz values of a sparse A,
+        uint8 excepted (nmf.py:364-368); a dense A that the policy narrowed
+        to bf16 keeps bf16. The JAX package's other rejections for a sparse
+        A (BCD, nnsvd, prune) are the config's: none of them is ported."""
         cfg = self.cfg
+        quantized = not cfg.a_dtype.is_floating_point
         if not linalg.is_sparse(A):
-            return torch.as_tensor(A).to(self.device, cfg.a_dtype).contiguous()
+            dtype = cfg.dtype if quantized else cfg.a_dtype
+            return torch.as_tensor(A).to(self.device, dtype).contiguous()
+        if quantized:
+            raise ValueError("quantized (uint8) A storage applies to dense A "
+                             "(the sparse formats store only the nnz values); "
+                             "drop a_precision for sparse inputs")
         with timing.timed("sparse_format"):
             A = sparse.densify_for_backend(A.to(self.device), k_hint=cfg.k)
         if linalg.is_sparse(A):
@@ -155,7 +174,10 @@ class NMF:
     def fit(self, A, factors: Optional[Tuple] = None):
         """Returns (W, H, recon_err) as the reference PyNMF.fit does
         (pyDNMF.py:137-182). ``factors`` gives (W0, H0); otherwise they are
-        drawn from a generator seeded with ``cfg.seed``."""
+        drawn from a generator seeded with ``cfg.seed``. With a uint8
+        ``a_precision`` the solve factorizes Q = round(A / s): the error and
+        ``column_err`` are Q's, and the returned H carries s
+        (nmf.py:477-480, :501-504)."""
         cfg = self.cfg
         check_device(self.device)
         A = self._prepare(A)
@@ -169,10 +191,15 @@ class NMF:
                 generator.manual_seed(cfg.seed)
                 W, H = init_factors_rand(generator, m, n, cfg.k, cfg.dtype,
                                          self.device)
+        a_scale = None
+        if not cfg.a_dtype.is_floating_point:     # _prepare refused sparse
+            A, a_scale = linalg.quantize_uint8(A)
         with timing.timed("solve"):
             W, H, err = solve(A, W.contiguous(), H.contiguous(), cfg.eps, cfg)
         self.recon_err = float(err)
-        self._A, self._W, self._H = A, W, H
+        self._A, self._W, self._H = A, W, H       # Q-scale, for column_err
+        if a_scale is not None:
+            H = H * a_scale.to(H.dtype)
         if cfg.save_factors:
             from ..utils.io import DataWriter
             with timing.timed("save_factors"):

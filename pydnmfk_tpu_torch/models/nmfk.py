@@ -55,6 +55,12 @@ class NMFk:
         """Run the sweep; returns the estimated k (reference PyNMFk.fit,
         pyDNMFk.py:168-215)."""
         cfg = self.cfg
+        if not cfg.nmf.a_dtype.is_floating_point:
+            raise ValueError(
+                "quantized (uint8) A storage is an NMF-level option: the NMFk "
+                "ensemble perturbs A multiplicatively and would re-round every "
+                "member; use a_precision='bfloat16' for the ensemble "
+                "(nmfk.py:647-652)")
         check_device(self.device)
         os.makedirs(self.results_path, exist_ok=True)
         A = self._prepare(A)

@@ -29,10 +29,10 @@ def mu_fro_step(A, W, H, eps, W_update: bool = True):
 
 def mu_kl_step(A, W, H, eps, W_update: bool = True, chunk: int = 0):
     """MU-KL step over the ratio products. On CUDA the products are kernels
-    K2a/K2b for an f32 or bf16 A; an f64 A keeps the plain products, since
-    the kernels accumulate in f32 (as ``pydnmfk_tpu/models/nmf.py:200-208``
-    keeps f64 off its Pallas kernels). ``chunk`` bounds the plain products'
-    ratio slab to that many rows.
+    K2a/K2b for an f32, bf16 or uint8 A with f32 factors; an f64 A or f64
+    factors keep the plain products, since the kernels accumulate in f32 (as
+    ``pydnmfk_tpu/models/nmf.py:200-208`` keeps f64 off its Pallas kernels).
+    ``chunk`` bounds the plain products' ratio slab to that many rows.
 
     A sparse A takes its format's products: the dual ELL's gathers (kernel
     K4 on CUDA, ``ops/ell.py``) or the triplet's, over nnz chunks
@@ -46,7 +46,7 @@ def mu_kl_step(A, W, H, eps, W_update: bool = True, chunk: int = 0):
             nc = sparse.nnz_chunk_size(A.nse, W.shape[-1])
             uht = lambda a, w, h, e: sparse.kl_uht_sparse(a, w, h, e, nc)
             wtu = lambda a, w, h, e: sparse.kl_wtu_sparse(a, w, h, e, nc)
-    elif A.is_cuda and A.dtype == torch.float64:
+    elif A.is_cuda and torch.float64 in (A.dtype, W.dtype):
         uht = lambda a, w, h, e: kl.kl_uht_plain(a, w, h, e, chunk)
         wtu = lambda a, w, h, e: kl.kl_wtu_plain(a, w, h, e, chunk)
     else:

@@ -25,7 +25,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pydnmfk_tpu_torch"
-KERNEL_SOURCES = ("fused_mu_fro", "kl_ratio", "ell_gather")
+KERNEL_SOURCES = ("fused_mu_fro", "kl_ratio", "ell_gather", "fused_mu_kl")
+# the A dtypes of the dense kernels (K1, K2, K3) and their C-name suffixes
+A_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16", torch.uint8: "u8"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -75,10 +77,11 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def check_operands(kernel: str, A, **factors) -> None:
-    """Raises unless A is f32 or bf16 and the factors are f32, all on A's
-    device and contiguous: what the kernels take."""
-    if A.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{kernel} takes an f32 or bf16 A, got {A.dtype}")
+    """Raises unless A is f32, bf16 or uint8 and the factors are f32, all on
+    A's device and contiguous: what the dense kernels take."""
+    if A.dtype not in A_SUFFIX:
+        raise TypeError(f"{kernel} takes an f32, bf16 or uint8 A, got "
+                        f"{A.dtype}")
     for name, t in factors.items():
         if t.dtype != torch.float32:
             raise TypeError(f"{kernel} takes an f32 {name}, got {t.dtype}")

@@ -13,7 +13,9 @@ W'^T W', which the H update needs:
 :func:`fused_w_pass` is the dispatch: for a CPU tensor it runs
 :func:`fused_w_pass_plain`, the same maths as two plain products; for a CUDA
 tensor it launches K1 or raises. Inputs are one matrix or a stack with the
-ensemble member as the leading axis.
+ensemble member as the leading axis. A is f32, bf16 or uint8 (the quantized
+A of ``linalg.quantize_uint8``); the uint8 instantiation counts its
+launches under its own key.
 """
 from __future__ import annotations
 
@@ -23,10 +25,11 @@ import functools
 import torch
 
 from . import linalg
-from .cuda_lib import check, check_operands, load
+from .cuda_lib import A_SUFFIX, check, check_operands, load
 
-# K1 launches since the last reset (counted where the kernel is launched)
-launches = {"fused_mu_fro": 0}
+# K1 launches since the last reset (counted where the kernel is launched);
+# the uint8-A instantiation under its own key
+launches = {"fused_mu_fro": 0, "fused_mu_fro_u8": 0}
 
 MAX_K = 64          # the kernel keeps k <= 64 factor columns per thread block
 
@@ -42,7 +45,8 @@ def fused_w_pass_plain(A, W, H, HHT, eps):
 def _lib():
     lib = load("fused_mu_fro")
     p, i = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.fused_mu_fro_f32, lib.fused_mu_fro_bf16):
+    for fn in (lib.fused_mu_fro_f32, lib.fused_mu_fro_bf16,
+               lib.fused_mu_fro_u8):
         fn.argtypes = [p, p, p, p, ctypes.c_float, i, i, i, i, p, p, p, p]
         fn.restype = i
     lib.fused_mu_fro_error_string.argtypes = [i]
@@ -66,14 +70,15 @@ def _fused_w_pass_cuda(A, W, H, HHT, eps):
     WTA = torch.zeros((B, k, n), dtype=torch.float32, device=A.device)
     WTW = torch.zeros((B, k, k), dtype=torch.float32, device=A.device)
     lib = _lib()
-    fn = lib.fused_mu_fro_f32 if A.dtype == torch.float32 else lib.fused_mu_fro_bf16
+    fn = getattr(lib, f"fused_mu_fro_{A_SUFFIX[A.dtype]}")
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
         rc = fn(A.data_ptr(), W.data_ptr(), H.data_ptr(), HHT.data_ptr(),
                 float(eps), B, m, n, k, W_out.data_ptr(), WTA.data_ptr(),
                 WTW.data_ptr(), stream)
     check(rc, lib, "fused_mu_fro_error_string", "K1 fused_mu_fro")
-    launches["fused_mu_fro"] += 1
+    launches["fused_mu_fro_u8" if A.dtype == torch.uint8
+             else "fused_mu_fro"] += 1
     if single:
         return W_out[0], WTA[0], WTW[0]
     return W_out, WTA, WTW

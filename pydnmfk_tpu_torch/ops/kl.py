@@ -11,7 +11,9 @@ ratio U = A / (W H + eps),
 tensor they run the plain versions, which bound U to ``chunk`` rows at a
 time (``kl.py::_chunked``); for a CUDA tensor they launch the kernel, which
 never writes U to device memory, or raise. Inputs are one matrix or a stack
-with the ensemble member as the leading axis.
+with the ensemble member as the leading axis. A is f32, bf16 or uint8, and
+the ratio is f32 for each of them, as ``pydnmfk_tpu/ops/kl.py:33-34``
+divides the integer A by an f32 WH.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import functools
 
 import torch
 
-from .cuda_lib import check, check_operands, load
+from .cuda_lib import A_SUFFIX, check, check_operands, load
 from .linalg import matmul
 
 # K2a / K2b launches since the last reset (counted where a kernel launches)
@@ -62,8 +64,8 @@ def kl_wtu_plain(A, W, H, eps, chunk: int = 0):
 def _lib():
     lib = load("kl_ratio")
     p, i = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.kl_uht_f32, lib.kl_uht_bf16, lib.kl_wtu_f32,
-               lib.kl_wtu_bf16):
+    for fn in (getattr(lib, f"kl_{which}_{suffix}")
+               for which in ("uht", "wtu") for suffix in A_SUFFIX.values()):
         fn.argtypes = [p, p, p, ctypes.c_float, i, i, i, i, p, p]
         fn.restype = i
     lib.kl_ratio_error_string.argtypes = [i]
@@ -86,8 +88,7 @@ def _launch(which: str, A, W, H, eps):
     shape = (B, m, k) if which == "kl_uht" else (B, k, n)
     out = torch.empty(shape, dtype=torch.float32, device=A.device)
     lib = _lib()
-    suffix = "f32" if A.dtype == torch.float32 else "bf16"
-    fn = getattr(lib, f"{which}_{suffix}")
+    fn = getattr(lib, f"{which}_{A_SUFFIX[A.dtype]}")
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
         rc = fn(A.data_ptr(), W.data_ptr(), H.data_ptr(), float(eps), B, m,

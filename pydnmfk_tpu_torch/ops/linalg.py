@@ -10,7 +10,9 @@ dense m x n residual never exists.
 Precision policy: f32 products run in true f32 (TF32 off, PyTorch's default
 for matrix products); f64 runs in f64. A bf16-stored A meets an f32 factor as
 the JAX package's mixed-precision rule has it: both operands rounded to bf16,
-products summed in f32, result in f32.
+products summed in f32, result in f32. A uint8-quantized A
+(:func:`quantize_uint8`) takes the JAX package's integer rule: bf16 operands
+(exact for 8-bit values), f32 sums.
 """
 from __future__ import annotations
 
@@ -33,15 +35,35 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     Same-dtype f32/f64 operands multiply as they are. Mixed dtypes round both
     operands to the narrower one, accumulate in the wider one's accumulation
     dtype and return the wider dtype (``pydnmfk_tpu/ops/linalg.py:81-88``):
-    bf16 operands are widened exactly to f32 before the f32 product."""
+    bf16 operands are widened exactly to f32 before the f32 product. An
+    integer operand takes the integer rule (:func:`_matmul_int`)."""
     if a.dtype == b.dtype and a.dtype in (torch.float32, torch.float64):
         return torch.matmul(a, b)
+    if not (a.dtype.is_floating_point and b.dtype.is_floating_point):
+        return _matmul_int(a, b)
     narrow, wide = ((a.dtype, b.dtype)
                     if torch.finfo(a.dtype).bits <= torch.finfo(b.dtype).bits
                     else (b.dtype, a.dtype))
     acc = acc_dtype(wide)
     out = torch.matmul(a.to(narrow).to(acc), b.to(narrow).to(acc))
     return out.to(wide)
+
+
+def _matmul_int(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The integer rule of ``pydnmfk_tpu/ops/linalg.py:60-80``: an 8-bit
+    operand meets a non-f64 factor as bf16 operands (exact for 8-bit values)
+    with f32 sums, and the result takes the float side's dtype; wider
+    integers, or f64 factors, compute at the accumulation dtype."""
+    int_dt, wide = ((a.dtype, b.dtype) if not a.dtype.is_floating_point
+                    else (b.dtype, a.dtype))
+    if not wide.is_floating_point:
+        wide = torch.float32
+    if int_dt.itemsize == 1 and wide != torch.float64:
+        bf = torch.bfloat16
+        out = torch.matmul(a.to(bf).float(), b.to(bf).float())
+        return out.to(wide)
+    acc = acc_dtype(wide)
+    return torch.matmul(a.to(acc), b.to(acc)).to(wide)
 
 
 def gram(X: torch.Tensor) -> torch.Tensor:
@@ -142,6 +164,30 @@ def error_chunk_rows(m: int, n: int, budget_elems: int = 1 << 27) -> int:
     if m * n <= budget_elems:
         return 0
     return max(8, (budget_elems // max(n, 1)) // 8 * 8)
+
+
+def quantize_uint8(A: torch.Tensor):
+    """Global-scale uint8 quantization of a nonnegative A
+    (``pydnmfk_tpu/ops/linalg.py:245-284``): Q = clip(round(A / s), 0, 255)
+    with s = max(A) / 255 in f32 (1 where the max is 0). Returns (Q, s), s a
+    0-d f32 tensor. ``torch.round`` rounds half to even, as ``jnp.round``
+    does, so Q equals the JAX package's. Rows go in slabs of
+    :func:`error_chunk_rows`, so no full-size f32 temporary exists."""
+    scale = A.max().to(torch.float32) / 255.0
+    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+
+    def q_block(a):
+        return torch.round(a.to(torch.float32) / scale).clamp_(0, 255).to(
+            torch.uint8)
+
+    m = A.shape[-2]
+    chunk = error_chunk_rows(m, A.shape[-1])
+    if not chunk or chunk >= m:
+        return q_block(A), scale
+    Q = torch.empty(A.shape, dtype=torch.uint8, device=A.device)
+    for r0 in range(0, m, chunk):
+        Q[..., r0:r0 + chunk, :] = q_block(A[..., r0:r0 + chunk, :])
+    return Q, scale
 
 
 def normalize_features(W: torch.Tensor, H: torch.Tensor, eps: float):

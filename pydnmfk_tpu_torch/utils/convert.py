@@ -26,7 +26,6 @@ _JAX_ONLY = {
     "prune": ((False,), "queue 1 item 8"),
     "kl_chunk": ((0,), "queue 1 item 11"),
     "use_pallas": ((None, False), "queue 2"),
-    "use_fused": ((None,), "queue 2"),
     "matmul_precision": ((None, "highest", "float32"), "queue 1 item 1"),
     "hals_block": ((None,), "queue 1 item 12"),
     "sparse_grid_format": ((None,), "queue 1 item 14"),

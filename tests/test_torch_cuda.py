@@ -1,17 +1,20 @@
-"""Kernels K1, K2a, K2b and K4 on the card against their plain versions, at
-ragged shapes, every padded width of k, both A dtypes and member stacks.
-These need a CUDA device and nvcc and skip without them; on a machine with a
-card run ``python -m pytest -m gpu tests/test_torch_cuda.py``.
+"""Kernels K1, K2a, K2b, K3 and K4 on the card against their plain versions,
+at ragged shapes (odd n, so uint8 rows are not 4-byte aligned), every padded
+width of k, every A dtype (f32, bf16, uint8) and member stacks. These need a
+CUDA device and nvcc and skip without them; on a machine with a card run
+``python -m pytest -m gpu tests/test_torch_cuda.py``.
 
 Tolerance: max |kernel - plain| / max |plain| <= 1e-4 with an f32 A (sums in
-another order; K1's W'^T A also in atomic order), 1e-3 with a bf16 A (W'
-rounded to bf16 where the two W' may differ in the last f32 bit). K4 sums
-in another order only: 1e-4 for f32 and bf16 values alike (bf16 values are
-widened exactly)."""
+another order; K1's W'^T A and K3's W'^T U' also in atomic order), 1e-3 with
+a bf16 or uint8 A in K1 and K3 (operands rounded to bf16 where kernel and
+plain values may differ in the last f32 bit). K2 computes in f32 for every
+A dtype: 1e-4. K4 sums in another order only: 1e-4 for f32 and bf16 values
+alike (bf16 values are widened exactly)."""
 import pytest
 import torch
 
-from pydnmfk_tpu_torch.ops import ell, ell_gather, fused_mu, kl, linalg, sparse
+from pydnmfk_tpu_torch.ops import (ell, ell_gather, fused_kl, fused_mu, kl,
+                                   linalg, sparse)
 
 pytestmark = pytest.mark.gpu
 EPS = 1.19e-7
@@ -27,9 +30,11 @@ def cuda():
 
 
 def _inputs(dev, b, m, n, k, dtype):
+    """A (b, m, n) in dtype (a uint8 A holds 0..255), W and H in f32."""
     g = torch.Generator(dev)
     g.manual_seed(b * m * n + k)
-    A = torch.rand((b, m, n), generator=g, device=dev).to(dtype)
+    A = torch.rand((b, m, n), generator=g, device=dev)
+    A = (A * 255).round().to(dtype) if dtype == torch.uint8 else A.to(dtype)
     return (A, torch.rand((b, m, k), generator=g, device=dev),
             torch.rand((b, k, n), generator=g, device=dev))
 
@@ -39,22 +44,39 @@ def _rel(out, ref):
                      / b.double().abs().max()) for a, b in zip(out, ref))
 
 
+DTYPES = [torch.float32, torch.bfloat16, torch.uint8]
+
+
 @pytest.mark.parametrize("b,m,n", SHAPES)
 @pytest.mark.parametrize("k", [1, 3, 8, 9, 17, 32, 33, 64])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_k1_matches_plain(cuda, b, m, n, k, dtype):
     A, W, H = _inputs(cuda, b, m, n, k, dtype)
     HHT = linalg.gram_t(H)
-    before = fused_mu.launches["fused_mu_fro"]
+    key = "fused_mu_fro_u8" if dtype == torch.uint8 else "fused_mu_fro"
+    before = dict(fused_mu.launches)
     out = fused_mu.fused_w_pass(A, W, H, HHT, EPS)
-    assert fused_mu.launches["fused_mu_fro"] == before + 1
+    assert fused_mu.launches == {**before, key: before[key] + 1}
     ref = fused_mu.fused_w_pass_plain(A, W, H, HHT, EPS)
     assert _rel(out, ref) <= (1e-4 if dtype == torch.float32 else 1e-3)
 
 
 @pytest.mark.parametrize("b,m,n", SHAPES)
+@pytest.mark.parametrize("k", [1, 3, 8, 9, 17, 32, 33, 64])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k3_matches_plain(cuda, b, m, n, k, dtype):
+    A, W, H = _inputs(cuda, b, m, n, k, dtype)
+    hrs = linalg.sum_axis(H, axis=-1)
+    before = fused_kl.launches["fused_mu_kl"]
+    out = fused_kl.fused_kl_pass(A, W, H, hrs, EPS)
+    assert fused_kl.launches["fused_mu_kl"] == before + 1
+    ref = fused_kl.fused_kl_pass_plain(A, W, H, hrs, EPS, 50)
+    assert _rel(out, ref) <= (1e-4 if dtype == torch.float32 else 1e-3)
+
+
+@pytest.mark.parametrize("b,m,n", SHAPES)
 @pytest.mark.parametrize("k", [1, 3, 9, 33, 65, 130, 256])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_k2_matches_plain(cuda, b, m, n, k, dtype):
     A, W, H = _inputs(cuda, b, m, n, k, dtype)
     out = (kl.kl_uht(A, W, H, EPS), kl.kl_wtu(A, W, H, EPS))
@@ -66,6 +88,11 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     A, W, H = _inputs(cuda, 1, 64, 48, 65, torch.float32)
     with pytest.raises(ValueError, match="k <= 64"):
         fused_mu.fused_w_pass(A, W, H, linalg.gram_t(H), EPS)
+    with pytest.raises(ValueError, match="k <= 64"):
+        fused_kl.fused_kl_pass(A, W, H, linalg.sum_axis(H, axis=-1), EPS)
+    with pytest.raises(TypeError):
+        fused_kl.fused_kl_pass(A.to(torch.int32), W[..., :8], H[:, :8],
+                               linalg.sum_axis(H[:, :8], axis=-1), EPS)
     with pytest.raises(TypeError):
         kl.kl_uht(A.double(), W, H, EPS)
     with pytest.raises(ValueError, match="contiguous"):

@@ -119,7 +119,7 @@ def test_rand_init_fit_converges():
 def test_config_from_jax_rejects_unported():
     with pytest.raises(port.NotPortedError, match="ROADMAP"):
         config_from_jax(dataclasses.asdict(
-            pydnmfk_tpu.NMFConfig(use_fused=True)))
+            pydnmfk_tpu.NMFConfig(use_pallas=True)))
     with pytest.raises(port.NotPortedError, match="ROADMAP"):
         config_from_jax(dataclasses.asdict(pydnmfk_tpu.NMFkConfig(
             seed_grid=(2, 2))))
@@ -198,15 +198,23 @@ def test_sparse_fit_bf16_values_match_jax(fmt):
     np.testing.assert_allclose(e, float(ej), rtol=1e-3)
 
 
-def test_sparse_rejections_are_the_configs():
+@pytest.mark.parametrize("kw", [dict(method="bcd"), dict(init="nnsvd"),
+                                dict(a_precision="uint8")])
+def test_sparse_rejections_are_the_configs(kw):
     """The JAX package rejects BCD, nnsvd, prune and uint8 storage for a
-    sparse A; none of them is ported, so the port's config refuses them
-    before any A is seen."""
-    for kw in (dict(method="bcd"), dict(init="nnsvd"),
-               dict(a_precision="uint8")):
+    sparse A. BCD, nnsvd and prune are not ported, so the port's config
+    refuses them before any A is seen; uint8 storage is ported for a dense
+    A, and NMF.fit refuses it on a sparse A with the JAX package's
+    ValueError (nmf.py:364-368)."""
+    assert not hasattr(port.NMFConfig(), "prune")
+    if "a_precision" not in kw:
         with pytest.raises(port.NotPortedError):
             port.NMFConfig(**kw)
-    assert not hasattr(port.NMFConfig(), "prune")
+        return
+    A, W0, H0 = _sparse_problem(6)
+    with pytest.raises(ValueError, match="uint8"):
+        port.NMF(port.NMFConfig(k=3, itr=2, **kw), "cpu").fit(
+            _port_format(A, "triplet", np.float32), factors=(W0, H0))
 
 
 def test_entry_points_default_to_the_card():
