@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -120,6 +121,27 @@ def bound(flops, nbytes, peak=PEAK_FLOPS):
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def ptxas_f32(log):
+    """{(KP, vec): (registers, spill store bytes, spill load bytes)} of K1's
+    f32 kernel, from the ptxas report (``-Xptxas -v``) kept beside the
+    library."""
+    out, cur, spill = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*fused_mu_fro_f32_kernel"
+                      r"ILi(\d+)ELb([01])E", line)
+        if m:
+            cur, spill = (int(m.group(1)), m.group(2) == "1"), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out[cur] = (int(m.group(1)), *spill)
+            cur = None
+    return out
 
 
 def csr(rows, cols, vals, shape):
@@ -251,6 +273,26 @@ def main():
         row["max_abs_err"] = max(row["max_abs_err"], abs_err)
         return ms
 
+    # K1's f32 kernel as ptxas built it: registers and spills of each
+    # instantiation (KP = k padded to 8, 16, 32, 64; vec: 16-byte loads)
+    regs = ptxas_f32(cuda_lib.library_path("fused_mu_fro").with_suffix(
+        ".log").read_text())
+    print("[ptxas] K1 f32 kernel (registers, spill store / load bytes): "
+          + ", ".join(f"KP={kp}{' vec' if vec else ''} {r} registers, "
+                      f"{ss}/{sl} B spilled"
+                      for (kp, vec), (r, ss, sl) in sorted(regs.items())),
+          flush=True)
+    check(len(regs) == 8 and not any(ss or sl for _, ss, sl in regs.values()),
+          f"K1 f32 kernel: ptxas report {regs} (expected no spills)")
+
+    def two_read_floor(a):
+        """K1 reads A twice (sweep 2 needs all of A_i H^T first): that
+        traffic alone over the memory rate, beside the function's bound."""
+        ms = 2 * nbytes(a) / PEAK_BYTES * 1e3
+        print(f"[kernel] K1 fused_mu_fro f32 {tuple(a.shape)}: two-read floor "
+              f"{ms:.3f} ms (A read twice at {PEAK_BYTES / 1e12:g} TB/s)",
+              flush=True)
+
     A = torch.rand((M, K), generator=gen, device=dev) @ torch.rand(
         (K, N), generator=gen, device=dev)                     # planted rank K
     W = torch.rand((M, K), generator=gen, device=dev)
@@ -264,14 +306,19 @@ def main():
         lambda: fused_mu.fused_w_pass_plain(A, W, H, HHT, eps),
         TOL[torch.float32], (4 * M * N * K, nbytes(A, W, H, HHT, W, H, HHT)),
         library=lambda: (torch.matmul(A, H.mT), torch.matmul(W.mT, A))))
+    two_read_floor(A)
     # a bf16 A: the same products on bf16 operands (the JAX package's
-    # operand rounding), so the bf16 tensor-core peak bounds the operations
+    # operand rounding), so the bf16 tensor-core peak bounds the operations;
+    # the library call takes the factors cast to bf16 beforehand
     A16 = A.to(torch.bfloat16)
+    W16, H16 = W.to(torch.bfloat16), H.to(torch.bfloat16)
     kernel_case("K1 fused_mu_fro", f"bf16-A {shape}",
                 lambda: fused_mu.fused_w_pass(A16, W, H, HHT, eps),
                 lambda: fused_mu.fused_w_pass_plain(A16, W, H, HHT, eps),
                 TOL[torch.bfloat16],
-                (4 * M * N * K, nbytes(A16, W, H, HHT, W, H, HHT), PEAK_BF16))
+                (4 * M * N * K, nbytes(A16, W, H, HHT, W, H, HHT), PEAK_BF16),
+                library=lambda: (torch.matmul(A16, H16.mT),
+                                 torch.matmul(W16.mT, A16)))
     chunk = linalg.error_chunk_rows(M, N)
     dense_ms.append(kernel_case(
         "K2a kl_uht", f"f32 {shape}", lambda: kl.kl_uht(A, W, H, eps),
@@ -284,11 +331,17 @@ def main():
     # the uint8 A that NMF.fit solves on: K1 rounds its factor operands to
     # bf16 (bf16 peak); K2 computes in f32 (f32 peak)
     Q, _ = linalg.quantize_uint8(A)
+    # torch.matmul takes no uint8 on the card: the library call multiplies a
+    # bf16 copy of Q (exact: every uint8 value is a bf16 value)
+    Q16 = Q.to(torch.bfloat16)
     kernel_case("K1 fused_mu_fro", f"uint8-A {shape}",
                 lambda: fused_mu.fused_w_pass(Q, W, H, HHT, eps),
                 lambda: fused_mu.fused_w_pass_plain(Q, W, H, HHT, eps),
                 TOL[torch.uint8],
-                (4 * M * N * K, nbytes(Q, W, H, HHT, W, H, HHT), PEAK_BF16))
+                (4 * M * N * K, nbytes(Q, W, H, HHT, W, H, HHT), PEAK_BF16),
+                library=lambda: (torch.matmul(Q16, H16.mT),
+                                 torch.matmul(W16.mT, Q16)))
+    del Q16
     kernel_case("K2a kl_uht", f"uint8-A {shape}",
                 lambda: kl.kl_uht(Q, W, H, eps),
                 lambda: kl.kl_uht_plain(Q, W, H, eps, chunk), TOL[torch.uint8],
@@ -308,7 +361,7 @@ def main():
                                                          chunk),
                     TOL[a.dtype],
                     (8 * M * N * K, nbytes(a, W, H, hrs, W, H), peak))
-    del A16, Q, W, H, HHT, hrs
+    del A16, W16, H16, Q, W, H, HHT, hrs
     torch.cuda.empty_cache()
     Ae = torch.rand((ENS, EM, EN), generator=gen, device=dev)
     We = torch.rand((ENS, EM, EK), generator=gen, device=dev)
@@ -320,7 +373,10 @@ def main():
                 lambda: fused_mu.fused_w_pass(Ae, We, He, HHTe, eps),
                 lambda: fused_mu.fused_w_pass_plain(Ae, We, He, HHTe, eps),
                 TOL[torch.float32],
-                (ework, nbytes(Ae, We, He, HHTe, We, He, HHTe)))
+                (ework, nbytes(Ae, We, He, HHTe, We, He, HHTe)),
+                library=lambda: (torch.matmul(Ae, He.mT),
+                                 torch.matmul(We.mT, Ae)))
+    two_read_floor(Ae)
     ech = linalg.error_chunk_rows(EM, EN)
     kernel_case("K2a kl_uht", f"f32 {eshape}",
                 lambda: kl.kl_uht(Ae, We, He, eps),

@@ -13,7 +13,7 @@ import sys
 
 import torch
 
-from .config import NotPortedError
+from .config import NotPortedError, check_jax_only
 
 
 def str2bool(v):
@@ -94,25 +94,24 @@ def _reject_not_ported(args):
         (args.method.lower() != "mu", f"--method={args.method}",
          "queue 1 item 12"),
         (args.ftype == "folder", "--ftype=folder", "queue 1 item 9"),
-        (args.prune, "--prune", "queue 1 item 8"),
         ((args.p_r, args.p_c) != (1, 1), f"--p_r={args.p_r} --p_c={args.p_c}",
          "queue 1 item 15"),
         (args.multihost, "--multihost", "queue 1 item 15"),
-        (args.seed_grid is not None, "--seed_grid", "queue 1 item 6"),
-        (args.solve_checkpoint_every > 0, "--solve_checkpoint_every",
-         "queue 1 item 13"),
-        (args.bcd_obj is not None, "--bcd_obj", "queue 1 item 12"),
-        (args.sparse_grid_format not in (None, "auto"),
-         "--sparse_grid_format", "queue 1 item 15"),
-        (bool(args.k_sweep_batch), "--k_sweep_batch", "queue 1 item 10"),
-        (bool(args.k_sweep_merge), "--k_sweep_merge", "queue 1 item 10"),
-        (args.matmul_precision not in (None, "highest", "float32"),
-         f"--matmul_precision={args.matmul_precision} (the port runs true "
-         f"f32 products)", "queue 1 item 1"),
     ]
     for bad, what, item in checks:
         if bad:
             raise NotPortedError(what, item)
+    check_jax_only(**_jax_only_knobs(args))
+
+
+def _jax_only_knobs(args):
+    """The JAX Runner's knobs among the flags, as Runner takes them."""
+    return dict(prune=args.prune, seed_grid=args.seed_grid,
+                solve_checkpoint_every=args.solve_checkpoint_every,
+                matmul_precision=args.matmul_precision, bcd_obj=args.bcd_obj,
+                sparse_grid_format=args.sparse_grid_format,
+                k_sweep_batch=args.k_sweep_batch,
+                k_sweep_merge=args.k_sweep_merge)
 
 
 def main(argv=None):
@@ -138,7 +137,7 @@ def main(argv=None):
         sill_thr=args.sill_thr, sampling=args.sampling, process=args.process,
         a_precision=args.a_precision, seed=args.seed, tol=args.tol,
         ensemble_batch=args.ensemble_batch, save_factors=args.save_factors,
-        device=device)
+        device=device, **_jax_only_knobs(args))
     results = runner.run(
         grid=[args.p_r, args.p_c], fpath=args.fpath, ftype=args.ftype,
         fname=args.fname, results_path=args.results_path,

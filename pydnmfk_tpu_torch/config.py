@@ -21,9 +21,45 @@ _A_PRECISIONS = {"bfloat16": torch.bfloat16, "uint8": torch.uint8,
 class NotPortedError(NotImplementedError):
     """A feature of the JAX package that the port does not run yet."""
 
-    def __init__(self, what: str, item: str):
-        super().__init__(f"{what} is not yet ported to pydnmfk_tpu_torch "
-                         f"(ROADMAP.md {item})")
+    def __init__(self, what: str, item: str,
+                 why: str = "is not yet ported to pydnmfk_tpu_torch"):
+        super().__init__(f"{what} {why} (ROADMAP.md {item})")
+
+
+# Knobs of the JAX package's configs and Runner that the port has no
+# counterpart for: the values it runs the same as (the JAX defaults, or
+# settings that give the same results) and the ROADMAP item that ports the
+# rest. The CLI, Runner and utils/convert.py refuse any other value.
+JAX_ONLY = {
+    "grid": (((1, 1),), "queue 1 item 15"),
+    "prune": ((False,), "queue 1 item 8"),
+    "kl_chunk": ((0,), "queue 1 item 11"),
+    "use_pallas": ((None, False), '"Not to port"'),
+    "matmul_precision": ((None, "highest", "float32"), "queue 1 item 1"),
+    "hals_block": ((None,), "queue 1 item 12"),
+    "sparse_grid_format": ((None, "auto"), "queue 1 item 15"),
+    "bcd_obj": ((None,), "queue 1 item 12"),
+    "solve_checkpoint_every": ((0,), "queue 1 item 13"),
+    "hbm_budget": ((0,), "queue 1 item 11"),
+    # the K-padded sweep gives the per-k path's results (tests/test_k_sweep.py)
+    "k_sweep_batch": ((None, False), "queue 1 item 10"),
+    "k_sweep_merge": ((None, False), "queue 1 item 10"),
+    "seed_grid": ((None, (1, 1)), "queue 1 item 6"),
+}
+
+
+def check_jax_only(**knobs) -> None:
+    """Raises NotPortedError for a JAX-only knob (``JAX_ONLY``) set to a
+    value the port does not run the same as."""
+    for key, val in knobs.items():
+        accepted, item = JAX_ONLY[key]
+        if (tuple(val) if isinstance(val, list) else val) in accepted:
+            continue
+        if key == "use_pallas":
+            raise NotPortedError(f"{key}={val!r}", item, "is no knob of "
+                                 "pydnmfk_tpu_torch: its dispatch picks the "
+                                 "kernel")
+        raise NotPortedError(f"{key}={val!r}", item)
 
 
 def check_device(device: torch.device) -> torch.device:

@@ -13,7 +13,8 @@ from typing import Sequence
 
 import torch
 
-from .config import NMFConfig, NMFkConfig, NotPortedError, check_device
+from .config import (NMFConfig, NMFkConfig, NotPortedError, check_device,
+                     check_jax_only)
 from .models.nmf import NMF
 from .models.nmfk import NMFk
 from .utils import timing
@@ -26,9 +27,21 @@ class Runner:
                  precision="float32", perturbations=20, noise_var=0.015,
                  sill_thr=0.6, sampling="uniform", process="pyDNMF",
                  a_precision=None, seed=100, tol=0.0, ensemble_batch=0,
-                 save_factors=False, device="cuda"):
+                 save_factors=False, device="cuda", prune=False,
+                 seed_grid=None, solve_checkpoint_every=0,
+                 matmul_precision=None, bcd_obj=None,
+                 sparse_grid_format=None, k_sweep_batch=None,
+                 k_sweep_merge=None):
         if process not in ("pyDNMF", "pyDNMFk"):
             raise ValueError("process should be either pyDNMFk or pyDNMF")
+        # the JAX Runner's knobs (pydnmfk_tpu/runner.py:22-31), taken at the
+        # values the port runs the same as
+        check_jax_only(
+            prune=prune, seed_grid=seed_grid,
+            solve_checkpoint_every=solve_checkpoint_every,
+            matmul_precision=matmul_precision, bcd_obj=bcd_obj,
+            sparse_grid_format=sparse_grid_format,
+            k_sweep_batch=k_sweep_batch, k_sweep_merge=k_sweep_merge)
         self.init = init
         self.itr = itr
         self.norm = norm

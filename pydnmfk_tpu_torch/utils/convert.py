@@ -14,30 +14,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..config import NMFConfig, NMFkConfig, NotPortedError
+from ..config import JAX_ONLY, NMFConfig, NMFkConfig, check_jax_only
 from ..ops.ell import EllSparse
 from ..ops.sparse import SparseTriplet, from_coo
-
-# JAX fields the port has no counterpart for: the values the port runs the
-# same as (the JAX defaults, or settings that give the same results) and the
-# ROADMAP item that ports the rest. Any other value is rejected.
-_JAX_ONLY = {
-    "grid": (((1, 1),), "queue 1 item 15"),
-    "prune": ((False,), "queue 1 item 8"),
-    "kl_chunk": ((0,), "queue 1 item 11"),
-    "use_pallas": ((None, False), "queue 2"),
-    "matmul_precision": ((None, "highest", "float32"), "queue 1 item 1"),
-    "hals_block": ((None,), "queue 1 item 12"),
-    "sparse_grid_format": ((None,), "queue 1 item 14"),
-    "bcd_obj": ((None,), "queue 1 item 12"),
-    "solve_checkpoint_every": ((0,), "queue 1 item 13"),
-    "hbm_budget": ((0,), "queue 1 item 11"),
-    # the K-padded sweep gives the per-k path's results (tests/test_k_sweep.py)
-    "k_sweep_batch": ((None, False), "queue 1 item 10"),
-    "k_sweep_merge": ((None, False), "queue 1 item 10"),
-    "seed_grid": ((None, (1, 1)), "queue 1 item 6"),
-}
-
 
 def _split(d: dict, cls):
     names = {f.name for f in dataclasses.fields(cls)}
@@ -46,11 +25,9 @@ def _split(d: dict, cls):
         if key in names:
             kept[key] = val
             continue
-        if key not in _JAX_ONLY:
+        if key not in JAX_ONLY:
             raise ValueError(f"unknown {cls.__name__} field {key!r}")
-        accepted, item = _JAX_ONLY[key]
-        if (tuple(val) if isinstance(val, list) else val) not in accepted:
-            raise NotPortedError(f"{key}={val!r}", item)
+        check_jax_only(**{key: val})
     return kept
 
 

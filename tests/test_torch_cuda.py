@@ -19,6 +19,12 @@ from pydnmfk_tpu_torch.ops import (ell, ell_gather, fused_kl, fused_mu, kl,
 pytestmark = pytest.mark.gpu
 EPS = 1.19e-7
 SHAPES = [(1, 64, 48), (1, 300, 200), (3, 130, 97), (2, 1000, 777)]
+# K1's f32 kernel takes panels of 128 rows (64 at k > 32), 64-column tiles,
+# 16-byte loads and vector atomics when n % 4 == 0: ragged panels (m = 129,
+# 257), n % 4 = 2 and 3 (scalar path), n % 4 == 0 across member bases, and
+# n below one tile
+K1_SHAPES = SHAPES + [(1, 129, 66), (2, 257, 131), (3, 257, 200),
+                      (2, 129, 20), (1, 5, 7)]
 
 
 @pytest.fixture
@@ -47,7 +53,7 @@ def _rel(out, ref):
 DTYPES = [torch.float32, torch.bfloat16, torch.uint8]
 
 
-@pytest.mark.parametrize("b,m,n", SHAPES)
+@pytest.mark.parametrize("b,m,n", K1_SHAPES)
 @pytest.mark.parametrize("k", [1, 3, 8, 9, 17, 32, 33, 64])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_k1_matches_plain(cuda, b, m, n, k, dtype):

@@ -1,0 +1,60 @@
+"""The port's Runner and ``config_from_jax`` take every knob of the JAX
+package's Runner and configs: at the values the port runs the same as they
+pass, and at any other value they raise NotPortedError naming the ROADMAP
+item that ports it (the check list of ``pydnmfk_tpu_torch/config.py``, which
+the CLI shares)."""
+import dataclasses
+import inspect
+
+import numpy as np
+import pytest
+
+import pydnmfk_tpu
+from pydnmfk_tpu.runner import Runner as JaxRunner
+from pydnmfk_tpu_torch import NotPortedError, Runner
+from pydnmfk_tpu_torch.utils.convert import config_from_jax
+
+JAX_KNOBS = ("prune", "seed_grid", "solve_checkpoint_every",
+             "matmul_precision", "bcd_obj", "sparse_grid_format",
+             "k_sweep_batch", "k_sweep_merge")
+
+
+def _run(tmp_path, **knobs):
+    rng = np.random.default_rng(0)
+    np.save(tmp_path / "X.npy", rng.random((12, 9)).astype(np.float32))
+    return Runner(itr=5, norm="fro", device="cpu", **knobs).run(
+        fpath=f"{tmp_path}/", ftype="npy", fname="X",
+        results_path=f"{tmp_path}/res/", k=2)
+
+
+def _jax_cfg(**kw):
+    return dataclasses.asdict(pydnmfk_tpu.NMFConfig(**kw))
+
+
+@pytest.mark.parametrize("call, item", [
+    (lambda p: _run(p, prune=True), "queue 1 item 8"),
+    (lambda p: _run(p, seed_grid=(2, 2)), "queue 1 item 6"),
+    (lambda p: _run(p, solve_checkpoint_every=10), "queue 1 item 13"),
+    (lambda p: _run(p, matmul_precision="bfloat16"), "queue 1 item 1"),
+    (lambda p: _run(p, bcd_obj="residual"), "queue 1 item 12"),
+    (lambda p: _run(p, sparse_grid_format="ell"), "queue 1 item 15"),
+    (lambda p: _run(p, k_sweep_batch=True), "queue 1 item 10"),
+    (lambda p: _run(p, k_sweep_merge=True), "queue 1 item 10"),
+    (lambda p: config_from_jax(_jax_cfg(sparse_grid_format="ell")),
+     "queue 1 item 15"),
+    (lambda p: config_from_jax(_jax_cfg(use_pallas=True)),
+     'dispatch picks the kernel (ROADMAP.md "Not to port")'),
+    # the JAX defaults pass
+    (lambda p: _run(p, **{
+        name: inspect.signature(JaxRunner).parameters[name].default
+        for name in JAX_KNOBS}), None),
+    (lambda p: config_from_jax(_jax_cfg(sparse_grid_format=None,
+                                        use_pallas=False)), None),
+])
+def test_jax_only_knobs(tmp_path, call, item):
+    if item is None:
+        assert call(tmp_path) is not None
+        return
+    with pytest.raises(NotPortedError) as exc:
+        call(tmp_path)
+    assert item in str(exc.value)
