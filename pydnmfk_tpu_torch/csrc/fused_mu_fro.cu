@@ -1,7 +1,6 @@
 // K1: one Frobenius-MU W pass with one read of each row panel of A.
 //
-// Replaces pydnmfk_tpu/ops/fused_mu.py::_fused_kernel (launched by
-// _fused_w_pass). For each row panel A_i of each member b:
+// For each row panel A_i of each member b:
 //
 //     AHT_i  = A_i H^T                          (panel rows x k)
 //     W'_i   = W_i * AHT_i / (W_i HHT + eps)     written to W_out
@@ -9,39 +8,24 @@
 //     WTW   += W'_i^T W'_i                       (k x k, f32 atomics)
 //
 // The H update (H * WTA / (WTW H + eps)) and HHT = H H^T are small and stay
-// in PyTorch, as the TPU version leaves them to XLA.
+// in PyTorch, as the TPU version leaves them to XLA. W'_i needs A_i H^T over
+// all of n before any of W'_i^T A_i can be formed, and a panel does not fit
+// on chip, so both kernels below sweep their panel twice: A is read twice,
+// and those bytes over the memory rate are the floor of this design (the
+// two-read floor). The TPU kernels carry WTA from one grid step to the next;
+// Hopper runs blocks in parallel, so that carry becomes f32 atomics (order
+// varies from run to run; the sums agree with the plain version to f32
+// rounding). A is never padded: the ragged edges of m and n are zero-filled
+// as tiles land.
 //
-// Design on Hopper, as the bf16 and uint8 instantiations keep it (the f32
-// one, fused_mu_fro_f32_kernel below, is redesigned for the CUDA cores). One
-// block of 256 threads owns a panel of TM = 64 rows of one member (grid =
-// row panels x members). W'_i needs A_i H^T over all of
-// n before any of W'_i^T A_i can be formed, so the block sweeps its panel
-// twice: sweep 1 accumulates AHT_i in registers over column tiles of TN = 64,
-// sweep 2 re-reads the panel and adds W'_i^T A_i into WTA. The TPU kernel
-// carries WTA from one grid step to the next; Hopper runs blocks in parallel,
-// so that carry becomes f32 atomicAdd (order varies from run to run; the
-// sums agree with the plain version to f32 rounding). A is never padded: the
-// ragged edges of m and n are masked with zeros as tiles are loaded.
-//
-// What bounds it: at k = 32 each A element costs 4k = 128 flops against 4
-// bytes (f32) read twice, which is above the card's f32 CUDA-core balance,
-// so this simple version is bound by shared-memory operand traffic into
-// CUDA-core FMAs (about 6 shared loads per 8 FMAs per thread). A bf16 A
-// halves the bytes. Tensor cores (wgmma), TMA pipelines and tuning are later
-// work.
-//
-// bf16 or uint8 A: the products take bf16 operands with f32 accumulation,
-// exactly as the plain path does (ops/linalg.py::matmul rounds the f32
-// factor to bf16; a uint8 value is exact in bf16): H is rounded as it is
-// loaded for sweep 1, W' is rounded for sweep 2, and WTW uses the unrounded
-// f32 W'. This is the JAX package's rule for an integer A too
-// (pydnmfk_tpu/ops/fused_mu.py:53-60, :166-172), whose uint8 variant is
-// tools/fused_u8_probe.py::make_kernel.
-//
-// uint8 A: each element is one byte load, widened exactly to f32 (no
-// alignment needed, so any n works). A quarter of the f32 bytes, but the
-// same shared-memory operand traffic, so at k = 32 it is bound where the
-// f32 and bf16 instantiations are; vector loads are later work.
+// Which dtype of A takes which kernel:
+// - f32 A: f32::fused_mu_fro_f32_kernel (C entry fused_mu_fro_f32), on the
+//   CUDA cores, since true f32 has no tensor-core path. Replaces
+//   pydnmfk_tpu/ops/fused_mu.py::_fused_kernel for an f32 A.
+// - bf16 or uint8 A: tc::fused_mu_fro_tc_kernel (C entries fused_mu_fro_bf16
+//   and fused_mu_fro_u8), on the bf16 tensor cores. Replaces _fused_kernel
+//   for a bf16 A and tools/fused_u8_probe.py::make_kernel for a uint8 A.
+// Each kernel's design note stands above it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -51,46 +35,241 @@
 
 namespace {
 
-constexpr int TM = 64;        // rows of A per block
-constexpr int TN = 64;        // columns of A per tile
-constexpr int NT = 256;       // threads per block (8 warps)
-constexpr int LDA = TN + 1;   // padded row stride of the A tile in shared memory
+// ---------------------------------------------------------------------------
+// The tensor-core kernel: a bf16 or uint8 A.
+//
+// Numbers: the products take bf16 operands with f32 sums, the JAX package's
+// rule (pydnmfk_tpu/ops/fused_mu.py:55-76, :166-173) and the plain version's
+// (ops/linalg.py::matmul). H arrives rounded to bf16 (the wrapper casts it,
+// a k x n pass outside the kernel), W' is rounded to bf16 for W'^T A_i, and
+// W'^T W' takes the unrounded f32 W'. Every uint8 value is exact in bf16.
+// That is what mma.sync.m16n8k16 with bf16 operands and f32 sums computes.
+//
+// What bounds it: each sweep does 2 k flops per element of A, 32 per byte of
+// a bf16 A at k = 32 (64 for uint8), far below the card's ~295 bf16 tensor
+// flops per byte, so the bytes bound it and its floor is A read twice. The
+// design keeps bytes in flight and takes the products off the CUDA cores:
+// - A block of 256 threads (8 warps) owns a panel of TM = 256 rows (128 at
+//   KP = 64) of one member; grid = row panels x members. Panels of 256 rows
+//   take a quarter of the atomics into WTA that 64-row panels would.
+// - Tiles of TM rows x 64 columns land by cp.async.cg 16-byte copies in a
+//   ring of S shared-memory stages (3 for bf16, 4 for uint8: 2-3 tiles, 60-
+//   72 KB, in flight per SM); out-of-range rows and columns are zero-filled
+//   through the src-size operand. One ring runs through both sweeps, so
+//   sweep 2's first tiles are in flight while W' is formed. The 16-byte path
+//   (VEC) needs n % 8 == 0 (bf16) or n % 16 == 0 (uint8) and A, H and WTA
+//   16-byte aligned; otherwise tiles are copied element by element into the
+//   same layout.
+// - bf16 tiles keep 128-byte rows whose 16-byte chunks are XOR-swizzled
+//   (chunk c of row r at c ^ (r & 7)), so the 8 row addresses of an ldmatrix
+//   fall on 8 distinct groups of banks.
+// - A uint8 tile lands as bytes; one pass widens each landed stage into a
+//   bf16 tile (16 bytes read, 32 written per chunk, exact through f32 and
+//   cvt.rn.bf16x2.f32). From the bf16 tile on, both dtypes share every line.
+// - Sweep 1 (A_i H^T, TM x KP, a sum over n): warp w owns TM / 8 rows and
+//   all KP factor columns. A's fragments come by ldmatrix from the row-major
+//   tile, H's by ldmatrix from its KP x 64 row-major tile, which is the
+//   "col" operand as it stands. The f32 sums stay in registers over all of
+//   n: no split over n, nothing to reduce.
+// - W' in f32 on the CUDA cores from the sums, the W panel (loaded at the
+//   start) and HHT; W_out and WTW (a sum over the panel's rows of the f32 W')
+//   as in the f32 kernel; then W' rounded to bf16 into shared memory and from
+//   there, once per panel, into each warp's registers as sweep 2's operand.
+// - Sweep 2 (C = A_i^T W', 64 columns x KP a tile, a sum over the panel's
+//   rows): the factor dimension is mma's N = 8, so k <= 8 pads nothing. Warp
+//   w owns 16 columns and half of the panel's rows; A^T's fragments come by
+//   ldmatrix.trans from the same row-major tile. The two halves are summed
+//   through shared memory, and WTA takes 16-byte red.global.add.v4.f32
+//   (scalar atomics where n % 4 != 0).
 
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(uint8_t x) { return static_cast<float>(x); }
+namespace tc {
 
-// A factor value as an operand of a product with A: unchanged for an f32 A,
-// rounded to bf16 for a bf16 or uint8 A.
-template <typename T>
-__device__ __forceinline__ float operand(float x) {
-  if constexpr (!std::is_same<T, float>::value) {
-    return __bfloat162float(__float2bfloat16(x));
-  } else {
-    return x;
-  }
-}
+constexpr int NT = 256;   // threads per block (8 warps)
+constexpr int TN = 64;    // columns of A per tile
 
-template <typename T>
-__device__ __forceinline__ void load_a_tile(float* As, const T* __restrict__ A,
-                                            int n, int rows, int j0, int cols) {
-  for (int e = threadIdx.x; e < TM * TN; e += NT) {
-    const int r = e / TN, j = e % TN;
-    As[r * LDA + j] = (r < rows && j < cols) ? to_f32(A[(size_t)r * n + j0 + j]) : 0.f;
-  }
-}
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
 template <typename T, int KP>
-__global__ void __launch_bounds__(NT)
-fused_mu_fro_kernel(const T* __restrict__ A, const float* __restrict__ W,
-                    const float* __restrict__ H, const float* __restrict__ HHT,
-                    float eps, int m, int n, int k, float* __restrict__ W_out,
-                    float* __restrict__ WTA, float* __restrict__ WTW) {
-  constexpr int LDW = KP + 1;   // padded row stride of the W panel
-  constexpr int CT = KP / 8;    // factor columns per thread: c = warp + 8 q
-  extern __shared__ float smem[];
-  float* As = smem;             // [TM][LDA]  A tile
-  float* Hs = As + TM * LDA;    // [KP][TN]   H tile; later HHT [KP][KP]
-  float* Ws = Hs + KP * TN;     // [TM][LDW]  W panel; later W'
+struct Cfg {
+  static constexpr bool U8 = std::is_same<T, uint8_t>::value;
+  static constexpr int TM = KP <= 32 ? 256 : 128;      // rows per panel
+  static constexpr int S = U8 ? 4 : 3;                 // stages of the ring
+  static constexpr int NF = KP / 8;                    // n-tiles of 8 factors
+  static constexpr int MT1 = TM / 8 / 16;              // sweep 1: m-tiles a warp
+  static constexpr int KS2 = TM / 2 / 16;              // sweep 2: k-steps a warp
+  static constexpr int LDWP = KP == 8 ? 24 : KP + 8;   // bf16 W' row stride
+  static constexpr int LDX = TN + 4;                   // sweep 2 staging stride
+  static constexpr int A_BYTES = TM * TN * (int)sizeof(T);   // a landed A tile
+  static constexpr int STAGE = A_BYTES + KP * TN * 2;  // and its bf16 H tile
+  static constexpr int WIDE = U8 ? TM * TN * 2 : 0;    // the widened uint8 tile
+  // floats: the W panel, then the f32 W', then sweep 2's two partial tiles
+  static constexpr int XF = cmax(TM * (KP + 1), 2 * KP * LDX);
+  // byte offsets in dynamic shared memory
+  static constexpr int O_WIDE = S * STAGE;
+  static constexpr int O_WP = O_WIDE + WIDE;
+  static constexpr int O_X = O_WP + TM * LDWP * 2;
+  static constexpr int O_HHT = O_X + 4 * XF;
+  static constexpr size_t SMEM = O_HHT + 4 * KP * KP;
+  static_assert(O_WP % 16 == 0 && O_X % 16 == 0 && O_HHT % 16 == 0, "alignment");
+  static_assert(SMEM <= 227 * 1024, "shared memory");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// byte offset of 16-byte chunk c of row r in a swizzled bf16 tile of 64
+// columns
+__device__ __forceinline__ int chunk_off(int r, int c) {
+  return r * 128 + ((c ^ (r & 7)) << 4);
+}
+
+// 16 bytes from global to shared, or 16 zeros where !ok
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t addr, uint32_t (&r)[2]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+// c += a b on the tensor cores: a 16 x 16 bf16 (row), b 16 x 8 bf16 (col),
+// c 16 x 8 f32
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 as packed bf16 (cvt.rn.bf16x2.f32), lo in the low half
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// bytes 2 i and 2 i + 1 of w as packed bf16, exactly (through f32)
+__device__ __forceinline__ uint32_t widen2(uint32_t w, int i) {
+  const float lo = __uint_as_float(0x4B000000u | ((w >> (16 * i)) & 0xffu)) - 8388608.f;
+  const float hi = __uint_as_float(0x4B000000u | ((w >> (16 * i + 8)) & 0xffu)) - 8388608.f;
+  return bf16x2(lo, hi);
+}
+
+// Starts the copy of the tile of columns j0 .. j0 + 63 of the panel (rows
+// [0, rows)) into `stage`, and of H's rows [0, k) of those columns if
+// with_h. VEC: cp.async, to be waited for; otherwise plain copies.
+template <typename T, int KP, bool VEC>
+__device__ __forceinline__ void load_tile(unsigned char* stage, const T* __restrict__ A,
+                                          const __nv_bfloat16* __restrict__ H,
+                                          int n, int k, int rows, int j0, bool with_h) {
+  using C = Cfg<T, KP>;
+  const int tid = threadIdx.x;
+  unsigned char* hs = stage + C::A_BYTES;
+  if constexpr (VEC) {
+    const uint32_t s = smem_u32(stage);
+    if constexpr (C::U8) {   // 4 chunks of 16 columns a row, as they come
+#pragma unroll
+      for (int i = 0; i < C::TM * 4 / NT; ++i) {
+        const int e = tid + NT * i, r = e >> 2, c = e & 3, j = j0 + 16 * c;
+        const bool ok = r < rows && j < n;
+        cp_async16(s + r * TN + 16 * c, ok ? A + (size_t)r * n + j : A, ok);
+      }
+    } else {                 // 8 chunks of 8 columns a row, swizzled
+#pragma unroll
+      for (int i = 0; i < C::TM * 8 / NT; ++i) {
+        const int e = tid + NT * i, r = e >> 3, c = e & 7, j = j0 + 8 * c;
+        const bool ok = r < rows && j < n;
+        cp_async16(s + chunk_off(r, c), ok ? A + (size_t)r * n + j : A, ok);
+      }
+    }
+    if (with_h) {
+      const uint32_t sh = smem_u32(hs);
+      for (int e = tid; e < KP * 8; e += NT) {
+        const int c = e >> 3, ch = e & 7, j = j0 + 8 * ch;
+        const bool ok = c < k && j < n;
+        cp_async16(sh + chunk_off(c, ch), ok ? H + (size_t)c * n + j : H, ok);
+      }
+    }
+  } else {
+#pragma unroll 1
+    for (int e = tid; e < C::TM * TN; e += NT) {
+      const int r = e / TN, j = e % TN;
+      const bool ok = r < rows && j0 + j < n;
+      if constexpr (C::U8) {
+        stage[r * TN + j] = ok ? A[(size_t)r * n + j0 + j] : 0;
+      } else {
+        *reinterpret_cast<unsigned short*>(stage + chunk_off(r, j >> 3) + 2 * (j & 7)) =
+            ok ? __bfloat16_as_ushort(A[(size_t)r * n + j0 + j]) : 0;
+      }
+    }
+    if (with_h) {
+#pragma unroll 1
+      for (int e = tid; e < KP * TN; e += NT) {
+        const int c = e / TN, j = e % TN;
+        const bool ok = c < k && j0 + j < n;
+        *reinterpret_cast<unsigned short*>(hs + chunk_off(c, j >> 3) + 2 * (j & 7)) =
+            ok ? __bfloat16_as_ushort(H[(size_t)c * n + j0 + j]) : 0;
+      }
+    }
+  }
+}
+
+// A landed uint8 tile (TM rows of 64 bytes) into the swizzled bf16 tile
+template <int TM>
+__device__ __forceinline__ void widen_tile(const unsigned char* src, unsigned char* dst) {
+#pragma unroll
+  for (int i = 0; i < TM * 4 / NT; ++i) {
+    const int e = threadIdx.x + NT * i, r = e >> 2, c = e & 3;
+    const uint4 v = *reinterpret_cast<const uint4*>(src + r * TN + 16 * c);
+    *reinterpret_cast<uint4*>(dst + chunk_off(r, 2 * c)) =
+        make_uint4(widen2(v.x, 0), widen2(v.x, 1), widen2(v.y, 0), widen2(v.y, 1));
+    *reinterpret_cast<uint4*>(dst + chunk_off(r, 2 * c + 1)) =
+        make_uint4(widen2(v.z, 0), widen2(v.z, 1), widen2(v.w, 0), widen2(v.w, 1));
+  }
+}
+
+template <typename T, int KP, bool VEC>
+__global__ void __launch_bounds__(NT, 1)
+fused_mu_fro_tc_kernel(const T* __restrict__ A, const float* __restrict__ W,
+                       const __nv_bfloat16* __restrict__ H,
+                       const float* __restrict__ HHT, float eps, int m, int n,
+                       int k, float* __restrict__ W_out, float* __restrict__ WTA,
+                       float* __restrict__ WTW) {
+  using C = Cfg<T, KP>;
+  constexpr int TM = C::TM, S = C::S, NF = C::NF, MT1 = C::MT1, KS2 = C::KS2;
+  constexpr int LW = KP + 1;     // row stride of the f32 W / W' panel in X
+  extern __shared__ uint4 smem_tc[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(smem_tc);
+  unsigned char* wide = sm + C::O_WIDE;
+  __nv_bfloat16* Wp = reinterpret_cast<__nv_bfloat16*>(sm + C::O_WP);
+  float* X = reinterpret_cast<float*>(sm + C::O_X);
+  float* HHs = reinterpret_cast<float*>(sm + C::O_HHT);
 
   const int b = blockIdx.y;
   const int row0 = blockIdx.x * TM;
@@ -102,154 +281,251 @@ fused_mu_fro_kernel(const T* __restrict__ A, const float* __restrict__ W,
   HHT += (size_t)b * k * k;
   WTA += (size_t)b * k * n;
   WTW += (size_t)b * k * k;
-
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;   // a fragment's row and column pair
 
-  // Sweep 1: AHT for rows {lane, lane + 32} and columns warp + 8 q.
-  float acc[2][CT];
-#pragma unroll
-  for (int q = 0; q < CT; ++q) acc[0][q] = acc[1][q] = 0.f;
-  for (int j0 = 0; j0 < n; j0 += TN) {
-    const int cols = min(TN, n - j0);
-    load_a_tile(As, A, n, rows, j0, cols);
-    for (int e = tid; e < KP * TN; e += NT) {
-      const int c = e / TN, j = e % TN;
-      Hs[e] = (c < k && j < cols) ? operand<T>(H[(size_t)c * n + j0 + j]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < TN; ++j) {
-      const float a0 = As[lane * LDA + j], a1 = As[(lane + 32) * LDA + j];
-#pragma unroll
-      for (int q = 0; q < CT; ++q) {
-        const float h = Hs[(warp + 8 * q) * TN + j];
-        acc[0][q] += a0 * h;
-        acc[1][q] += a1 * h;
-      }
-    }
-    __syncthreads();
-  }
-
-  // W'_i = W_i * AHT_i / (W_i HHT + eps). Rows past m and columns past k
-  // load as zeros, so their W' is exactly zero.
+  // the W panel (for the denominators) and HHT, zero outside [rows) x [k)
   for (int e = tid; e < TM * KP; e += NT) {
     const int r = e / KP, c = e % KP;
-    Ws[r * LDW + c] = (r < rows && c < k) ? W[(size_t)r * k + c] : 0.f;
+    X[r * LW + c] = (r < rows && c < k) ? W[(size_t)r * k + c] : 0.f;
   }
   for (int e = tid; e < KP * KP; e += NT) {
     const int c = e / KP, d = e % KP;
-    Hs[e] = (c < k && d < k) ? HHT[c * k + d] : 0.f;
+    HHs[e] = (c < k && d < k) ? HHT[c * k + d] : 0.f;
   }
-  __syncthreads();
-  float wn[2][CT];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = lane + 32 * i;
-#pragma unroll
-    for (int q = 0; q < CT; ++q) {
-      const int c = warp + 8 * q;
-      float den = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < KP; ++d) den += Ws[r * LDW + d] * Hs[d * KP + c];
-      wn[i][q] = Ws[r * LDW + c] * acc[i][q] / (den + eps);
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = lane + 32 * i;
-#pragma unroll
-    for (int q = 0; q < CT; ++q) {
-      const int c = warp + 8 * q;
-      Ws[r * LDW + c] = wn[i][q];
-      if (r < rows && c < k) W_out[(size_t)r * k + c] = wn[i][q];
-    }
-  }
-  __syncthreads();
 
-  // WTW += W'^T W' over this panel, from the unrounded W'.
-  for (int e = tid; e < KP * KP; e += NT) {
-    const int c = e / KP, d = e % KP;
-    if (c < k && d < k) {
-      float s = 0.f;
-      for (int r = 0; r < rows; ++r) s += Ws[r * LDW + c] * Ws[r * LDW + d];
-      atomicAdd(&WTW[c * k + d], s);
-    }
-  }
-  if constexpr (!std::is_same<T, float>::value) {
-    __syncthreads();
-    for (int e = tid; e < TM * KP; e += NT) {
-      const int r = e / KP, c = e % KP;
-      Ws[r * LDW + c] = operand<T>(Ws[r * LDW + c]);
-    }
-  }
-  __syncthreads();
-
-  // Sweep 2: WTA[c][j0 + j] += sum_r W'[r][c] A[r][j] for columns
-  // j in {lane, lane + 32} and factor columns c = warp + 8 q.
-  for (int j0 = 0; j0 < n; j0 += TN) {
-    const int cols = min(TN, n - j0);
-    load_a_tile(As, A, n, rows, j0, cols);
-    __syncthreads();
-    float p[CT][2];
+  // tiles 0 .. nt - 1 are sweep 1's, nt .. 2 nt - 1 sweep 2's (same columns)
+  const int nt = (n + TN - 1) / TN, ntot = 2 * nt;
+  const auto load = [&](int t) {
+    load_tile<T, KP, VEC>(sm + (t % S) * C::STAGE, A, H, n, k, rows, (t % nt) * TN,
+                          t < nt);
+  };
 #pragma unroll
-    for (int q = 0; q < CT; ++q) p[q][0] = p[q][1] = 0.f;
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < ntot) load(s);
+    cp_async_commit();
+  }
+
+  float acc[MT1][NF][4];         // sweep 1: A_i H^T, then W'
+#pragma unroll
+  for (int i = 0; i < MT1; ++i)
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][f][e] = 0.f;
+  uint32_t wf[KS2][NF][2];       // sweep 2: this warp's bf16 W' fragments
+  const int wrow = warp * (TM / 8);            // sweep 1: this warp's rows
+  const int mt2 = warp & 3, half = warp >> 2;  // sweep 2: columns, row half
+
+#pragma unroll 1
+  for (int t = 0; t < ntot; ++t) {
+    cp_async_wait<S - 2>();      // tile t has landed
+    __syncthreads();             // and every warp is done with tile t - 1
+    if (t + S - 1 < ntot) load(t + S - 1);
+    cp_async_commit();
+    unsigned char* st = sm + (t % S) * C::STAGE;
+    const unsigned char* at = st;
+    if constexpr (C::U8) {
+      widen_tile<TM>(st, wide);
+      __syncthreads();
+      at = wide;
+    }
+    const uint32_t a_s = smem_u32(at);
+    if (t < nt) {
+      // -- sweep 1: acc += A tile x H tile^T --------------------------------
+      const uint32_t h_s = smem_u32(st + C::A_BYTES);
+      uint32_t bh[NF][2][4];     // H fragments of k-steps (2p, 2p + 1)
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+          ldsm_x4(h_s + chunk_off(8 * f + (lane & 7), 4 * p + (lane >> 3)), bh[f][p]);
+#pragma unroll
+      for (int kk = 0; kk < TN / 16; ++kk) {
+#pragma unroll
+        for (int i = 0; i < MT1; ++i) {
+          uint32_t a[4];
+          const int r = wrow + 16 * i + (lane & 7) + ((lane >> 3) & 1) * 8;
+          ldsm_x4(a_s + chunk_off(r, 2 * kk + (lane >> 4)), a);
+#pragma unroll
+          for (int f = 0; f < NF; ++f)
+            mma_bf16(acc[i][f], a, bh[f][kk >> 1][2 * (kk & 1)],
+                     bh[f][kk >> 1][2 * (kk & 1) + 1]);
+        }
+      }
+      if (t == nt - 1) {
+        // -- W' = W * AHT / (W HHT + eps) on this warp's rows ---------------
+        // element e of fragment (i, f): row wrow + 16 i + g + 8 (e >> 1),
+        // factor column 8 f + 2 t4 + (e & 1)
+        float den[MT1][NF][4];
+#pragma unroll
+        for (int i = 0; i < MT1; ++i)
+#pragma unroll
+          for (int f = 0; f < NF; ++f)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) den[i][f][e] = 0.f;
 #pragma unroll 4
-    for (int r = 0; r < TM; ++r) {
-      const float a0 = As[r * LDA + lane], a1 = As[r * LDA + lane + 32];
+        for (int d = 0; d < KP; ++d) {
+          float wr[MT1][2];
 #pragma unroll
-      for (int q = 0; q < CT; ++q) {
-        const float w = Ws[r * LDW + warp + 8 * q];
-        p[q][0] += w * a0;
-        p[q][1] += w * a1;
+          for (int i = 0; i < MT1; ++i)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) wr[i][h] = X[(wrow + 16 * i + g + 8 * h) * LW + d];
+#pragma unroll
+          for (int f = 0; f < NF; ++f) {
+            const float2 hh = *reinterpret_cast<const float2*>(HHs + d * KP + 8 * f + 2 * t4);
+#pragma unroll
+            for (int i = 0; i < MT1; ++i) {
+              den[i][f][0] = fmaf(wr[i][0], hh.x, den[i][f][0]);
+              den[i][f][1] = fmaf(wr[i][0], hh.y, den[i][f][1]);
+              den[i][f][2] = fmaf(wr[i][1], hh.x, den[i][f][2]);
+              den[i][f][3] = fmaf(wr[i][1], hh.y, den[i][f][3]);
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < MT1; ++i)
+#pragma unroll
+          for (int f = 0; f < NF; ++f)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = wrow + 16 * i + g + 8 * (e >> 1), c = 8 * f + 2 * t4 + (e & 1);
+              acc[i][f][e] = X[r * LW + c] * acc[i][f][e] / (den[i][f][e] + eps);
+            }
+        __syncthreads();         // every warp has read the W panel
+        // W' (rows past m and columns past k are exactly 0) to W_out, to X
+        // in f32 and to Wp in bf16
+#pragma unroll
+        for (int i = 0; i < MT1; ++i)
+#pragma unroll
+          for (int f = 0; f < NF; ++f)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = wrow + 16 * i + g + 8 * h, c = 8 * f + 2 * t4;
+              const float w0 = acc[i][f][2 * h], w1 = acc[i][f][2 * h + 1];
+              X[r * LW + c] = w0;
+              X[r * LW + c + 1] = w1;
+              *reinterpret_cast<uint32_t*>(Wp + r * C::LDWP + c) = bf16x2(w0, w1);
+              if (r < rows) {
+                if (c < k) W_out[(size_t)r * k + c] = w0;
+                if (c + 1 < k) W_out[(size_t)r * k + c + 1] = w1;
+              }
+            }
+        __syncthreads();
+        // WTW += W'^T W' over the panel's rows, from the f32 W'
+        for (int p = tid; p < KP * KP; p += NT) {
+          const int c = p / KP, d = p % KP;
+          if (c < k && d < k) {
+            float s = 0.f;
+#pragma unroll 4
+            for (int r = 0; r < rows; ++r) s = fmaf(X[r * LW + c], X[r * LW + d], s);
+            atomicAdd(&WTW[c * k + d], s);
+          }
+        }
+        // sweep 2's B fragments: rows half TM / 2 + 16 s .., factors 8 f ..
+        const uint32_t wp_s = smem_u32(Wp);
+#pragma unroll
+        for (int s = 0; s < KS2; ++s)
+#pragma unroll
+          for (int f = 0; f < NF; ++f) {
+            const int r = half * (TM / 2) + 16 * s + (lane & 7) + ((lane >> 3) & 1) * 8;
+            ldsm_x2_t(wp_s + 2 * (r * C::LDWP + 8 * f), wf[s][f]);
+          }
+      }
+    } else {
+      // -- sweep 2: WTA[:, j0 ..] += (A tile^T W')^T --------------------------
+      const int j0 = (t - nt) * TN;
+      float c2[NF][4];
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c2[f][e] = 0.f;
+#pragma unroll
+      for (int s = 0; s < KS2; ++s) {
+        uint32_t a[4];
+        const int r = half * (TM / 2) + 16 * s + (lane & 7) + (lane >> 4) * 8;
+        ldsm_x4_t(a_s + chunk_off(r, 2 * mt2 + ((lane >> 3) & 1)), a);
+#pragma unroll
+        for (int f = 0; f < NF; ++f) mma_bf16(c2[f], a, wf[s][f][0], wf[s][f][1]);
+      }
+      // element e of fragment f: column 16 mt2 + g + 8 (e >> 1), factor
+      // 8 f + 2 t4 + (e & 1); X[half][factor][column]
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          X[(half * KP + 8 * f + 2 * t4 + (e & 1)) * C::LDX + 16 * mt2 + g + 8 * (e >> 1)] =
+              c2[f][e];
+      __syncthreads();
+      for (int q = tid; q < KP * TN / 4; q += NT) {
+        const int c = q / (TN / 4), jq = 4 * (q % (TN / 4)), j = j0 + jq;
+        if (c >= k || j >= n) continue;
+        const float4 u = *reinterpret_cast<const float4*>(X + c * C::LDX + jq);
+        const float4 v = *reinterpret_cast<const float4*>(X + (KP + c) * C::LDX + jq);
+        const float4 s = make_float4(u.x + v.x, u.y + v.y, u.z + v.z, u.w + v.w);
+        float* dst = WTA + (size_t)c * n + j;
+        if constexpr (VEC) {
+          atomicAdd(reinterpret_cast<float4*>(dst), s);   // j + 3 < n: n % 8 == 0
+        } else {
+          atomicAdd(dst, s.x);
+          if (j + 1 < n) atomicAdd(dst + 1, s.y);
+          if (j + 2 < n) atomicAdd(dst + 2, s.z);
+          if (j + 3 < n) atomicAdd(dst + 3, s.w);
+        }
       }
     }
-#pragma unroll
-    for (int q = 0; q < CT; ++q) {
-      const int c = warp + 8 * q;
-      if (c < k) {
-        if (lane < cols) atomicAdd(&WTA[(size_t)c * n + j0 + lane], p[q][0]);
-        if (lane + 32 < cols) atomicAdd(&WTA[(size_t)c * n + j0 + lane + 32], p[q][1]);
-      }
-    }
-    __syncthreads();
   }
 }
 
-template <typename T, int KP>
-cudaError_t launch(const void* A, const void* W, const void* H, const void* HHT,
-                   float eps, int B, int m, int n, int k, void* W_out,
-                   void* WTA, void* WTW, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (TM * LDA + KP * TN + TM * (KP + 1));
-  const auto kernel = &fused_mu_fro_kernel<T, KP>;
+template <typename T, int KP, bool VEC>
+cudaError_t launch(const T* A, const float* W, const __nv_bfloat16* H,
+                   const float* HHT, float eps, int B, int m, int n, int k,
+                   float* W_out, float* WTA, float* WTW, cudaStream_t stream) {
+  using C = Cfg<T, KP>;
+  const auto kernel = &fused_mu_fro_tc_kernel<T, KP, VEC>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid((m + TM - 1) / TM, B);
-  kernel<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(A), static_cast<const float*>(W),
-      static_cast<const float*>(H), static_cast<const float*>(HHT), eps, m, n, k,
-      static_cast<float*>(W_out), static_cast<float*>(WTA),
-      static_cast<float*>(WTW));
+  const dim3 grid((m + C::TM - 1) / C::TM, B);
+  kernel<<<grid, NT, C::SMEM, stream>>>(A, W, H, HHT, eps, m, n, k, W_out, WTA, WTW);
   return cudaGetLastError();
 }
 
+template <typename T, int KP>
+cudaError_t launch_kp(const T* A, const float* W, const __nv_bfloat16* H,
+                      const float* HHT, float eps, int B, int m, int n, int k,
+                      float* W_out, float* WTA, float* WTW, cudaStream_t s) {
+  // 16-byte copies and vector atomics need every row of A, H and WTA aligned
+  const bool vec = n % (16 / (int)sizeof(T)) == 0 &&
+      (reinterpret_cast<uintptr_t>(A) | reinterpret_cast<uintptr_t>(H) |
+       reinterpret_cast<uintptr_t>(WTA)) % 16 == 0;
+  return vec ? launch<T, KP, true>(A, W, H, HHT, eps, B, m, n, k, W_out, WTA, WTW, s)
+             : launch<T, KP, false>(A, W, H, HHT, eps, B, m, n, k, W_out, WTA, WTW, s);
+}
+
 template <typename T>
-cudaError_t dispatch(const void* A, const void* W, const void* H,
-                     const void* HHT, float eps, int B, int m, int n, int k,
-                     void* W_out, void* WTA, void* WTW, cudaStream_t s) {
+cudaError_t dispatch(const void* A_, const void* W_, const void* H_,
+                     const void* HHT_, float eps, int B, int m, int n, int k,
+                     void* W_out_, void* WTA_, void* WTW_, cudaStream_t s) {
   if (B < 1 || m < 1 || n < 1 || k < 1) return cudaErrorInvalidValue;
-  if (k <= 8) return launch<T, 8>(A, W, H, HHT, eps, B, m, n, k, W_out, WTA, WTW, s);
-  if (k <= 16) return launch<T, 16>(A, W, H, HHT, eps, B, m, n, k, W_out, WTA, WTW, s);
-  if (k <= 32) return launch<T, 32>(A, W, H, HHT, eps, B, m, n, k, W_out, WTA, WTW, s);
-  if (k <= 64) return launch<T, 64>(A, W, H, HHT, eps, B, m, n, k, W_out, WTA, WTW, s);
+  const auto A = static_cast<const T*>(A_);
+  const auto H = static_cast<const __nv_bfloat16*>(H_);
+  const auto W = static_cast<const float*>(W_), HHT = static_cast<const float*>(HHT_);
+  const auto W_out = static_cast<float*>(W_out_), WTA = static_cast<float*>(WTA_),
+             WTW = static_cast<float*>(WTW_);
+  if (k <= 8) return launch_kp<T, 8>(A, W, H, HHT, eps, B, m, n, k, W_out, WTA, WTW, s);
+  if (k <= 16) return launch_kp<T, 16>(A, W, H, HHT, eps, B, m, n, k, W_out, WTA, WTW, s);
+  if (k <= 32) return launch_kp<T, 32>(A, W, H, HHT, eps, B, m, n, k, W_out, WTA, WTW, s);
+  if (k <= 64) return launch_kp<T, 64>(A, W, H, HHT, eps, B, m, n, k, W_out, WTA, WTW, s);
   return cudaErrorInvalidValue;
 }
+
+}  // namespace tc
 
 // ---------------------------------------------------------------------------
 // The f32 instantiation: register micro-tiles, float4 operands, vector atomics.
 //
-// Same contract and the same two sweeps as fused_mu_fro_kernel, redesigned for
+// Same contract and the same two sweeps as the tensor-core kernel, designed for
 // the CUDA cores: a thread's 8 x 8 tile of outputs takes two float4 of each
 // operand from shared memory per 64 FMAs (1 byte per FMA, what shared memory
 // delivers to the 128 FP32 lanes of an SM per clock; a 4 x 8 tile needs 1.5,
@@ -775,10 +1051,12 @@ cudaError_t dispatch(const void* A_, const void* W_, const void* H_,
 
 }  // namespace
 
-// Plain C interface, bound with ctypes. A is (B, m, n) in f32, bf16 or uint8; W and
-// W_out are (B, m, k), H is (B, k, n), HHT is (B, k, k), WTA is (B, k, n) and
-// WTW is (B, k, k), all f32, contiguous, and WTA/WTW zeroed by the caller.
-// Returns the CUDA error code of the launch (0 on success).
+// Plain C interface, bound with ctypes. A is (B, m, n) in f32 (fused_mu_fro_f32),
+// bf16 (fused_mu_fro_bf16) or uint8 (fused_mu_fro_u8); H is (B, k, n), f32 for
+// an f32 A and bf16 (rounded by the caller) for a bf16 or uint8 A; W and W_out
+// are (B, m, k), HHT is (B, k, k), WTA is (B, k, n) and WTW is (B, k, k), all
+// f32; everything contiguous, and WTA/WTW zeroed by the caller. Returns the
+// CUDA error code of the launch (0 on success).
 extern "C" int fused_mu_fro_f32(const void* A, const void* W, const void* H,
                                 const void* HHT, float eps, int B, int m, int n,
                                 int k, void* W_out, void* WTA, void* WTW,
@@ -791,16 +1069,16 @@ extern "C" int fused_mu_fro_bf16(const void* A, const void* W, const void* H,
                                  const void* HHT, float eps, int B, int m,
                                  int n, int k, void* W_out, void* WTA,
                                  void* WTW, void* stream) {
-  return (int)dispatch<__nv_bfloat16>(A, W, H, HHT, eps, B, m, n, k, W_out, WTA,
-                                      WTW, static_cast<cudaStream_t>(stream));
+  return (int)tc::dispatch<__nv_bfloat16>(A, W, H, HHT, eps, B, m, n, k, W_out,
+                                          WTA, WTW, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int fused_mu_fro_u8(const void* A, const void* W, const void* H,
                                const void* HHT, float eps, int B, int m, int n,
                                int k, void* W_out, void* WTA, void* WTW,
                                void* stream) {
-  return (int)dispatch<uint8_t>(A, W, H, HHT, eps, B, m, n, k, W_out, WTA, WTW,
-                                static_cast<cudaStream_t>(stream));
+  return (int)tc::dispatch<uint8_t>(A, W, H, HHT, eps, B, m, n, k, W_out, WTA, WTW,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* fused_mu_fro_error_string(int code) {

@@ -14,8 +14,11 @@ W'^T W', which the H update needs:
 :func:`fused_w_pass_plain`, the same maths as two plain products; for a CUDA
 tensor it launches K1 or raises. Inputs are one matrix or a stack with the
 ensemble member as the leading axis. A is f32, bf16 or uint8 (the quantized
-A of ``linalg.quantize_uint8``); the uint8 instantiation counts its
-launches under its own key.
+A of ``linalg.quantize_uint8``); each dtype counts its launches under its
+own key. A bf16 or uint8 A takes the tensor-core kernel, which gets H
+rounded to bf16 here (the JAX package's rule, ``pydnmfk_tpu/ops/
+fused_mu.py:170-173``); the plain version rounds the same H inside its
+products, so both compute the same function.
 """
 from __future__ import annotations
 
@@ -27,9 +30,11 @@ import torch
 from . import linalg
 from .cuda_lib import A_SUFFIX, check, check_operands, load
 
-# K1 launches since the last reset (counted where the kernel is launched);
-# the uint8-A instantiation under its own key
-launches = {"fused_mu_fro": 0, "fused_mu_fro_u8": 0}
+# K1 launches since the last reset (counted where the kernel is launched):
+# f32 A, bf16 A and uint8 A
+launches = {"fused_mu_fro": 0, "fused_mu_fro_bf16": 0, "fused_mu_fro_u8": 0}
+_KEY = {torch.float32: "fused_mu_fro", torch.bfloat16: "fused_mu_fro_bf16",
+        torch.uint8: "fused_mu_fro_u8"}
 
 MAX_K = 64          # the kernel keeps k <= 64 factor columns per thread block
 
@@ -66,6 +71,8 @@ def _fused_w_pass_cuda(A, W, H, HHT, eps):
     if not 1 <= k <= MAX_K:
         raise ValueError(f"K1 takes 1 <= k <= {MAX_K}, got k={k}")
     check_operands("K1", A, W=W, H=H, HHT=HHT)
+    if A.dtype != torch.float32:       # the tensor-core kernel's operand
+        H = H.to(torch.bfloat16)
     W_out = torch.empty_like(W)
     WTA = torch.zeros((B, k, n), dtype=torch.float32, device=A.device)
     WTW = torch.zeros((B, k, k), dtype=torch.float32, device=A.device)
@@ -77,8 +84,7 @@ def _fused_w_pass_cuda(A, W, H, HHT, eps):
                 float(eps), B, m, n, k, W_out.data_ptr(), WTA.data_ptr(),
                 WTW.data_ptr(), stream)
     check(rc, lib, "fused_mu_fro_error_string", "K1 fused_mu_fro")
-    launches["fused_mu_fro_u8" if A.dtype == torch.uint8
-             else "fused_mu_fro"] += 1
+    launches[_KEY[A.dtype]] += 1
     if single:
         return W_out[0], WTA[0], WTW[0]
     return W_out, WTA, WTW

@@ -22,9 +22,16 @@ SHAPES = [(1, 64, 48), (1, 300, 200), (3, 130, 97), (2, 1000, 777)]
 # K1's f32 kernel takes panels of 128 rows (64 at k > 32), 64-column tiles,
 # 16-byte loads and vector atomics when n % 4 == 0: ragged panels (m = 129,
 # 257), n % 4 = 2 and 3 (scalar path), n % 4 == 0 across member bases, and
-# n below one tile
+# n below one tile. Its tensor-core kernel (bf16, uint8 A) takes panels of
+# 256 rows (128 at k > 32), 64-column tiles and 16-byte copies when n % 8
+# (bf16) or n % 16 (uint8) is 0: n % 16 == 0 off the tile width (208, 400,
+# 1040), m ragged at the panel height (129, 257, 513), n of one 16-byte chunk
+# (8 bf16, 16 uint8 values) and a 3-member stack
 K1_SHAPES = SHAPES + [(1, 129, 66), (2, 257, 131), (3, 257, 200),
-                      (2, 129, 20), (1, 5, 7)]
+                      (2, 129, 20), (1, 5, 7), (1, 129, 208), (2, 513, 400),
+                      (1, 257, 1040), (1, 33, 8), (2, 70, 16), (3, 300, 416)]
+K1_KEY = {torch.float32: "fused_mu_fro", torch.bfloat16: "fused_mu_fro_bf16",
+          torch.uint8: "fused_mu_fro_u8"}
 
 
 @pytest.fixture
@@ -59,7 +66,7 @@ DTYPES = [torch.float32, torch.bfloat16, torch.uint8]
 def test_k1_matches_plain(cuda, b, m, n, k, dtype):
     A, W, H = _inputs(cuda, b, m, n, k, dtype)
     HHT = linalg.gram_t(H)
-    key = "fused_mu_fro_u8" if dtype == torch.uint8 else "fused_mu_fro"
+    key = K1_KEY[dtype]
     before = dict(fused_mu.launches)
     out = fused_mu.fused_w_pass(A, W, H, HHT, EPS)
     assert fused_mu.launches == {**before, key: before[key] + 1}
