@@ -53,9 +53,10 @@ namespace {
 //   KP = 64) of one member; grid = row panels x members. Panels of 256 rows
 //   take a quarter of the atomics into WTA that 64-row panels would.
 // - Tiles of TM rows x 64 columns land by cp.async.cg 16-byte copies in a
-//   ring of S shared-memory stages (3 for bf16, 4 for uint8: 2-3 tiles, 60-
-//   72 KB, in flight per SM); out-of-range rows and columns are zero-filled
-//   through the src-size operand. One ring runs through both sweeps, so
+//   ring of S shared-memory stages (3 for bf16, 5 for uint8: 2 or 3 tiles,
+//   72 or 60 KB, in flight per SM); out-of-range rows and columns are
+//   zero-filled through the src-size operand. One ring runs through both
+//   sweeps, so
 //   sweep 2's first tiles are in flight while W' is formed. The 16-byte path
 //   (VEC) needs n % 8 == 0 (bf16) or n % 16 == 0 (uint8) and A, H and WTA
 //   16-byte aligned; otherwise tiles are copied element by element into the
@@ -64,8 +65,11 @@ namespace {
 //   (chunk c of row r at c ^ (r & 7)), so the 8 row addresses of an ldmatrix
 //   fall on 8 distinct groups of banks.
 // - A uint8 tile lands as bytes; one pass widens each landed stage into a
-//   bf16 tile (16 bytes read, 32 written per chunk, exact through f32 and
-//   cvt.rn.bf16x2.f32). From the bf16 tile on, both dtypes share every line.
+//   bf16 tile (16 bytes read, 32 written per chunk, exact through f32 by
+//   byte permutes and one subtraction, see widen2). It runs one tile ahead,
+//   into the other of two bf16 tiles, in the same barrier phase as the
+//   products of the tile before, so one warp's widening overlaps another's
+//   products. From the bf16 tile on, both dtypes share every line.
 // - Sweep 1 (A_i H^T, TM x KP, a sum over n): warp w owns TM / 8 rows and
 //   all KP factor columns. A's fragments come by ldmatrix from the row-major
 //   tile, H's by ldmatrix from its KP x 64 row-major tile, which is the
@@ -93,7 +97,8 @@ template <typename T, int KP>
 struct Cfg {
   static constexpr bool U8 = std::is_same<T, uint8_t>::value;
   static constexpr int TM = KP <= 32 ? 256 : 128;      // rows per panel
-  static constexpr int S = U8 ? 4 : 3;                 // stages of the ring
+  static constexpr int S = U8 ? 5 : 3;                 // stages of the ring
+  static constexpr int MINB = 1;                       // blocks per SM
   static constexpr int NF = KP / 8;                    // n-tiles of 8 factors
   static constexpr int MT1 = TM / 8 / 16;              // sweep 1: m-tiles a warp
   static constexpr int KS2 = TM / 2 / 16;              // sweep 2: k-steps a warp
@@ -101,12 +106,12 @@ struct Cfg {
   static constexpr int LDX = TN + 4;                   // sweep 2 staging stride
   static constexpr int A_BYTES = TM * TN * (int)sizeof(T);   // a landed A tile
   static constexpr int STAGE = A_BYTES + KP * TN * 2;  // and its bf16 H tile
-  static constexpr int WIDE = U8 ? TM * TN * 2 : 0;    // the widened uint8 tile
+  static constexpr int WIDE = U8 ? TM * TN * 2 : 0;    // a widened uint8 tile (2)
   // floats: the W panel, then the f32 W', then sweep 2's two partial tiles
   static constexpr int XF = cmax(TM * (KP + 1), 2 * KP * LDX);
   // byte offsets in dynamic shared memory
   static constexpr int O_WIDE = S * STAGE;
-  static constexpr int O_WP = O_WIDE + WIDE;
+  static constexpr int O_WP = O_WIDE + 2 * WIDE;
   static constexpr int O_X = O_WP + TM * LDWP * 2;
   static constexpr int O_HHT = O_X + 4 * XF;
   static constexpr size_t SMEM = O_HHT + 4 * KP * KP;
@@ -174,11 +179,14 @@ __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// bytes 2 i and 2 i + 1 of w as packed bf16, exactly (through f32)
+// bytes 2 i and 2 i + 1 of w as packed bf16, exactly: a byte permute makes
+// byte x the f32 2^23 + x, one subtraction leaves the f32 x, and since x has
+// at most 8 significant bits, the upper half of that f32 is its bf16 (no
+// conversion instruction, no rounding)
 __device__ __forceinline__ uint32_t widen2(uint32_t w, int i) {
-  const float lo = __uint_as_float(0x4B000000u | ((w >> (16 * i)) & 0xffu)) - 8388608.f;
-  const float hi = __uint_as_float(0x4B000000u | ((w >> (16 * i + 8)) & 0xffu)) - 8388608.f;
-  return bf16x2(lo, hi);
+  const float lo = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7440 + 2 * i)) - 8388608.f;
+  const float hi = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7441 + 2 * i)) - 8388608.f;
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
 }
 
 // Starts the copy of the tile of columns j0 .. j0 + 63 of the panel (rows
@@ -255,7 +263,7 @@ __device__ __forceinline__ void widen_tile(const unsigned char* src, unsigned ch
 }
 
 template <typename T, int KP, bool VEC>
-__global__ void __launch_bounds__(NT, 1)
+__global__ void __launch_bounds__(NT, Cfg<T, KP>::MINB)
 fused_mu_fro_tc_kernel(const T* __restrict__ A, const float* __restrict__ W,
                        const __nv_bfloat16* __restrict__ H,
                        const float* __restrict__ HHT, float eps, int m, int n,
@@ -266,7 +274,6 @@ fused_mu_fro_tc_kernel(const T* __restrict__ A, const float* __restrict__ W,
   constexpr int LW = KP + 1;     // row stride of the f32 W / W' panel in X
   extern __shared__ uint4 smem_tc[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(smem_tc);
-  unsigned char* wide = sm + C::O_WIDE;
   __nv_bfloat16* Wp = reinterpret_cast<__nv_bfloat16*>(sm + C::O_WP);
   float* X = reinterpret_cast<float*>(sm + C::O_X);
   float* HHs = reinterpret_cast<float*>(sm + C::O_HHT);
@@ -305,6 +312,14 @@ fused_mu_fro_tc_kernel(const T* __restrict__ A, const float* __restrict__ W,
     if (s < ntot) load(s);
     cp_async_commit();
   }
+  // a uint8 tile is widened one iteration ahead, into the other of two bf16
+  // tiles, in the same barrier phase as the products of the tile before it
+  const auto wide = [&](int t) { return sm + C::O_WIDE + (t & 1) * C::WIDE; };
+  if constexpr (C::U8) {
+    cp_async_wait<S - 2>();
+    __syncthreads();
+    widen_tile<TM>(sm, wide(0));
+  }
 
   float acc[MT1][NF][4];         // sweep 1: A_i H^T, then W'
 #pragma unroll
@@ -319,16 +334,17 @@ fused_mu_fro_tc_kernel(const T* __restrict__ A, const float* __restrict__ W,
 
 #pragma unroll 1
   for (int t = 0; t < ntot; ++t) {
-    cp_async_wait<S - 2>();      // tile t has landed
-    __syncthreads();             // and every warp is done with tile t - 1
+    // tile t has landed (uint8: tile t + 1, and tile t is widened), and
+    // every warp is done with tile t - 1
+    cp_async_wait<C::U8 ? S - 3 : S - 2>();
+    __syncthreads();
     if (t + S - 1 < ntot) load(t + S - 1);
     cp_async_commit();
-    unsigned char* st = sm + (t % S) * C::STAGE;
+    const unsigned char* st = sm + (t % S) * C::STAGE;
     const unsigned char* at = st;
     if constexpr (C::U8) {
-      widen_tile<TM>(st, wide);
-      __syncthreads();
-      at = wide;
+      if (t + 1 < ntot) widen_tile<TM>(sm + ((t + 1) % S) * C::STAGE, wide(t + 1));
+      at = wide(t);
     }
     const uint32_t a_s = smem_u32(at);
     if (t < nt) {
