@@ -14,7 +14,8 @@ Run from the root of a checkout, with no arguments:
      strong-scaling geometry): K1 on an f32, a bf16 and a uint8 A (the
      ``quantize_uint8`` of the f32 one), K2a/K2b on the f32 and the uint8
      A, K3 on all three; and each on a 10-member 14400 x 9600, k = 8
-     ensemble (f32);
+     ensemble (f32; K1 also on its bf16 copy, the NMFk ensemble under
+     ``--a_precision=bfloat16``); K1's two-read floor beside each K1 row;
    - K4 in its four modes (rows/columns, plain/ratio) at the shape and nnz
      of the NYTimes bag-of-words corpus (300000 x 102660, 69.7 M nnz,
      k = 32), and on a 10-member stack of the planted topic matrix of 5;
@@ -23,11 +24,13 @@ Run from the root of a checkout, with no arguments:
    against the CPU path on a small input;
 3. the dense main path, launch counters at zero before each run and read
    after it: NMF.fit for 10 iterations at 57600 x 38400, k = 32, of FRO-MU
-   and KL-MU (f32), of both on the uint8-quantized A, and of KL-MU with
-   ``use_fused=True`` (K3); then the NMFk sweep through the CLI on a planted
-   rank-4 14400 x 9600 matrix (k = 2..7, 10 perturbations, 400 iterations),
-   FRO-MU and KL-MU, which must choose k = 4, and one FRO-MU factorization
-   of that matrix through the CLI with and without ``--a_precision=uint8``;
+   and KL-MU (f32), of both on the uint8-quantized A, of FRO-MU on a bf16
+   A, and of KL-MU with ``use_fused=True`` (K3); then the NMFk sweep
+   through the CLI on a planted rank-4 14400 x 9600 matrix (k = 2..7, 10
+   perturbations, 400 iterations), FRO-MU and KL-MU, and FRO-MU with
+   ``--a_precision=bfloat16``, which must choose k = 4, and one FRO-MU
+   factorization of that matrix through the CLI with and without
+   ``--a_precision=uint8``;
 4. the sparse main path, the same way: NMF.fit on the NYTimes-shaped matrix,
    10 FRO-MU and 10 KL-MU iterations, k = 32, on the ELL format the policy
    must choose;
@@ -123,16 +126,18 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def ptxas_f32(log):
-    """{(KP, vec): (registers, spill store bytes, spill load bytes)} of K1's
-    f32 kernel, from the ptxas report (``-Xptxas -v``) kept beside the
+def ptxas_k1(log):
+    """{(A dtype, KP, vec): (registers, spill store bytes, spill load
+    bytes)} of K1's two kernels (the f32 one; the tensor-core one for a bf16
+    or uint8 A), from the ptxas report (``-Xptxas -v``) kept beside the
     library."""
     out, cur, spill = {}, None, (0, 0)
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*fused_mu_fro_f32_kernel"
-                      r"ILi(\d+)ELb([01])E", line)
+        m = re.search(r"Compiling entry function '\S*fused_mu_fro_(?:f32|tc)"
+                      r"_kernelI(13__nv_bfloat16|h)?Li(\d+)ELb([01])E", line)
         if m:
-            cur, spill = (int(m.group(1)), m.group(2) == "1"), (0, 0)
+            dtype = {None: "f32", "h": "uint8"}.get(m.group(1), "bf16")
+            cur, spill = (dtype, int(m.group(2)), m.group(3) == "1"), (0, 0)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and cur:
@@ -273,25 +278,28 @@ def main():
         row["max_abs_err"] = max(row["max_abs_err"], abs_err)
         return ms
 
-    # K1's f32 kernel as ptxas built it: registers and spills of each
-    # instantiation (KP = k padded to 8, 16, 32, 64; vec: 16-byte loads)
-    regs = ptxas_f32(cuda_lib.library_path("fused_mu_fro").with_suffix(
+    # K1's kernels as ptxas built them: registers and spills of each
+    # instantiation (f32; tensor cores for bf16 and uint8; KP = k padded to
+    # 8, 16, 32, 64; vec: 16-byte loads or copies)
+    regs = ptxas_k1(cuda_lib.library_path("fused_mu_fro").with_suffix(
         ".log").read_text())
-    print("[ptxas] K1 f32 kernel (registers, spill store / load bytes): "
-          + ", ".join(f"KP={kp}{' vec' if vec else ''} {r} registers, "
-                      f"{ss}/{sl} B spilled"
-                      for (kp, vec), (r, ss, sl) in sorted(regs.items())),
-          flush=True)
-    check(len(regs) == 8 and not any(ss or sl for _, ss, sl in regs.values()),
-          f"K1 f32 kernel: ptxas report {regs} (expected no spills)")
+    for dtype in ("f32", "bf16", "uint8"):
+        print(f"[ptxas] K1 {dtype}-A kernel (registers, spill store / load "
+              f"bytes): " + ", ".join(
+                  f"KP={kp}{' vec' if vec else ''} {r} registers, "
+                  f"{ss}/{sl} B spilled"
+                  for (dt, kp, vec), (r, ss, sl) in sorted(regs.items())
+                  if dt == dtype), flush=True)
+    check(len(regs) == 24 and not any(ss or sl for _, ss, sl in regs.values()),
+          f"K1 kernels: ptxas report {regs} (expected 24 instantiations, no "
+          f"spills)")
 
-    def two_read_floor(a):
+    def two_read_floor(label, a):
         """K1 reads A twice (sweep 2 needs all of A_i H^T first): that
         traffic alone over the memory rate, beside the function's bound."""
         ms = 2 * nbytes(a) / PEAK_BYTES * 1e3
-        print(f"[kernel] K1 fused_mu_fro f32 {tuple(a.shape)}: two-read floor "
-              f"{ms:.3f} ms (A read twice at {PEAK_BYTES / 1e12:g} TB/s)",
-              flush=True)
+        print(f"[kernel] K1 fused_mu_fro {label}: two-read floor {ms:.3f} ms "
+              f"(A read twice at {PEAK_BYTES / 1e12:g} TB/s)", flush=True)
 
     A = torch.rand((M, K), generator=gen, device=dev) @ torch.rand(
         (K, N), generator=gen, device=dev)                     # planted rank K
@@ -306,7 +314,7 @@ def main():
         lambda: fused_mu.fused_w_pass_plain(A, W, H, HHT, eps),
         TOL[torch.float32], (4 * M * N * K, nbytes(A, W, H, HHT, W, H, HHT)),
         library=lambda: (torch.matmul(A, H.mT), torch.matmul(W.mT, A))))
-    two_read_floor(A)
+    two_read_floor(f"f32 {shape}", A)
     # a bf16 A: the same products on bf16 operands (the JAX package's
     # operand rounding), so the bf16 tensor-core peak bounds the operations;
     # the library call takes the factors cast to bf16 beforehand
@@ -319,6 +327,7 @@ def main():
                 (4 * M * N * K, nbytes(A16, W, H, HHT, W, H, HHT), PEAK_BF16),
                 library=lambda: (torch.matmul(A16, H16.mT),
                                  torch.matmul(W16.mT, A16)))
+    two_read_floor(f"bf16-A {shape}", A16)
     chunk = linalg.error_chunk_rows(M, N)
     dense_ms.append(kernel_case(
         "K2a kl_uht", f"f32 {shape}", lambda: kl.kl_uht(A, W, H, eps),
@@ -341,6 +350,7 @@ def main():
                 (4 * M * N * K, nbytes(Q, W, H, HHT, W, H, HHT), PEAK_BF16),
                 library=lambda: (torch.matmul(Q16, H16.mT),
                                  torch.matmul(W16.mT, Q16)))
+    two_read_floor(f"uint8-A {shape}", Q)
     del Q16
     kernel_case("K2a kl_uht", f"uint8-A {shape}",
                 lambda: kl.kl_uht(Q, W, H, eps),
@@ -376,7 +386,19 @@ def main():
                 (ework, nbytes(Ae, We, He, HHTe, We, He, HHTe)),
                 library=lambda: (torch.matmul(Ae, He.mT),
                                  torch.matmul(We.mT, Ae)))
-    two_read_floor(Ae)
+    two_read_floor(f"f32 {eshape}", Ae)
+    # the members of the NMFk ensemble under --a_precision=bfloat16
+    Ae16 = Ae.to(torch.bfloat16)
+    We16, He16 = We.to(torch.bfloat16), He.to(torch.bfloat16)
+    kernel_case("K1 fused_mu_fro", f"bf16-A {eshape}",
+                lambda: fused_mu.fused_w_pass(Ae16, We, He, HHTe, eps),
+                lambda: fused_mu.fused_w_pass_plain(Ae16, We, He, HHTe, eps),
+                TOL[torch.bfloat16],
+                (ework, nbytes(Ae16, We, He, HHTe, We, He, HHTe), PEAK_BF16),
+                library=lambda: (torch.matmul(Ae16, He16.mT),
+                                 torch.matmul(We16.mT, Ae16)))
+    two_read_floor(f"bf16-A {eshape}", Ae16)
+    del Ae16, We16, He16
     ech = linalg.error_chunk_rows(EM, EN)
     kernel_case("K2a kl_uht", f"f32 {eshape}",
                 lambda: kl.kl_uht(Ae, We, He, eps),
@@ -519,6 +541,8 @@ def main():
             ("KL-MU f32", "kl", {}, {"kl_uht": ITR, "kl_wtu": ITR}),
             ("FRO-MU uint8-A", "fro", {"a_precision": "uint8"},
              {"fused_mu_fro_u8": ITR}),
+            ("FRO-MU bf16-A", "fro", {"a_precision": "bfloat16"},
+             {"fused_mu_fro_bf16": ITR}),
             ("KL-MU uint8-A", "kl", {"a_precision": "uint8"},
              {"kl_uht": ITR, "kl_wtu": ITR}),
             ("KL-MU f32 use_fused", "kl", {"use_fused": True},
@@ -543,9 +567,10 @@ def main():
               f"NMF.fit {label} launches {ran}, expected {want}")
         errs[label] = err
         del W, H
-    # the quantized solve tracks the f32 one; K3 and K2 differ in summation
-    # order only at f32
+    # the quantized and the bf16 solves track the f32 one; K3 and K2 differ
+    # in summation order only at f32
     for label, ref, tol in (("FRO-MU uint8-A", "FRO-MU f32", 0.02),
+                            ("FRO-MU bf16-A", "FRO-MU f32", 0.02),
                             ("KL-MU f32 use_fused", "KL-MU f32", 1e-3)):
         rel = abs(errs[label] / errs[ref] - 1)
         print(f"[check] {label} error {errs[label]:.6f} vs {ref} "
@@ -556,26 +581,27 @@ def main():
     del A
     torch.cuda.empty_cache()
 
-    def sweep(tmp, ftype, fname, norm, expect, shape):
+    def sweep(tmp, ftype, fname, norm, expect, shape, a_precision=None):
         """The NMFk sweep through the CLI entry point, counters from zero;
         checks nopt = 4, every k's results, and that the kernels of
         ``expect`` (and no other) launched."""
         timing.reset()
-        res_path = os.path.join(tmp, f"res_{fname}_{norm}") + "/"
+        res_path = os.path.join(tmp, f"res_{fname}_{norm}_{a_precision}") + "/"
+        extra = [f"--a_precision={a_precision}"] if a_precision else []
         zero_counts()
         t0 = time.perf_counter()
         out = cli.main(["--process=pyDNMFk", "--p_r=1", "--p_c=1",
                         f"--ftype={ftype}", f"--fpath={tmp}/",
                         f"--fname={fname}", f"--norm={norm}",
                         f"--results_path={res_path}", "--timing_stats=true",
-                        *SWEEP])
+                        *SWEEP, *extra])
         secs = time.perf_counter() - t0
         ran = read_counts()
         stages = {s: round(timing.TIMINGS.get(s, 0.0), 3) for s in
                   ("read", "sparse_format", "ensemble_solve", "clustering",
                    "regression")}
         print(f"[nmfk] {norm.upper()}-MU {ftype} {shape[0]}x{shape[1]} "
-              f"{' '.join(SWEEP)}: nopt {out['nopt']}, {secs:.2f} s, stage "
+              f"{' '.join(SWEEP + extra)}: nopt {out['nopt']}, {secs:.2f} s, stage "
               f"seconds {stages}, launches {ran}", flush=True)
         check(out["nopt"] == 4, f"NMFk {norm} {ftype} chose k={out['nopt']}, "
                                 f"not 4")
@@ -599,6 +625,9 @@ def main():
               (PLANTED["m"], PLANTED["n"]))
         sweep(tmp, "npy", "X", "kl", ("kl_uht", "kl_wtu"),
               (PLANTED["m"], PLANTED["n"]))
+        # the ensemble on bf16 members: K1's tensor-core kernel
+        sweep(tmp, "npy", "X", "fro", ("fused_mu_fro_bf16",),
+              (PLANTED["m"], PLANTED["n"]), a_precision="bfloat16")
         # one FRO factorization through the CLI, on the uint8-quantized A
         # (K1's uint8 instantiation) and on the f32 A (K1)
         cli_err = {}
@@ -689,7 +718,8 @@ def main():
 
     # -- 6. report -------------------------------------------------------
     sources = {"K1 fused_mu_fro": ("fused_mu_fro.cu", "ops/fused_mu.py:50",
-                                   ("fused_mu_fro", "fused_mu_fro_u8")),
+                                   ("fused_mu_fro", "fused_mu_fro_bf16",
+                                    "fused_mu_fro_u8")),
                "K2a kl_uht": ("kl_ratio.cu", "ops/pallas_kernels.py:78",
                               ("kl_uht",)),
                "K2b kl_wtu": ("kl_ratio.cu", "ops/pallas_kernels.py:96",

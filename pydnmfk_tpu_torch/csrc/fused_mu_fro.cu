@@ -48,43 +48,50 @@ namespace {
 // What bounds it: each sweep does 2 k flops per element of A, 32 per byte of
 // a bf16 A at k = 32 (64 for uint8), far below the card's ~295 bf16 tensor
 // flops per byte, so the bytes bound it and its floor is A read twice. The
-// design keeps bytes in flight and takes the products off the CUDA cores:
+// design keeps bytes in flight, in long runs of each row, and takes the
+// products off the CUDA cores:
 // - A block of 256 threads (8 warps) owns a panel of TM = 256 rows (128 at
 //   KP = 64) of one member; grid = row panels x members. Panels of 256 rows
-//   take a quarter of the atomics into WTA that 64-row panels would.
-// - Tiles of TM rows x 64 columns land by cp.async.cg 16-byte copies in a
-//   ring of S shared-memory stages (3 for bf16, 5 for uint8: 2 or 3 tiles,
-//   72 or 60 KB, in flight per SM); out-of-range rows and columns are
-//   zero-filled through the src-size operand. One ring runs through both
-//   sweeps, so
-//   sweep 2's first tiles are in flight while W' is formed. The 16-byte path
-//   (VEC) needs n % 8 == 0 (bf16) or n % 16 == 0 (uint8) and A, H and WTA
-//   16-byte aligned; otherwise tiles are copied element by element into the
-//   same layout.
-// - bf16 tiles keep 128-byte rows whose 16-byte chunks are XOR-swizzled
-//   (chunk c of row r at c ^ (r & 7)), so the 8 row addresses of an ldmatrix
-//   fall on 8 distinct groups of banks.
-// - A uint8 tile lands as bytes; one pass widens each landed stage into a
+//   take a quarter of the atomics into WTA (and of the H tiles read from
+//   L2) that 64-row panels would; 128-row panels measured slower.
+// - Tiles land by cp.async.cg 16-byte copies in a ring of S shared-memory
+//   stages (3; 5 for uint8 at KP = 64), so 2 tiles (4) are in flight while
+//   one is multiplied; out-of-range rows and columns are zero-filled through
+//   the src-size operand. One ring runs through both sweeps, so sweep 2's
+//   first tiles are in flight while W' is formed. A tile spans 128 bytes of
+//   each row: 64 bf16 columns, or 128 uint8 columns (64 at KP = 64); rows
+//   read 64 bytes at a time stream far slower (PERF.md, section 6). The
+//   16-byte path (VEC) needs n % 8 == 0 (bf16) or
+//   n % 16 == 0 (uint8) and A, H and WTA 16-byte aligned; otherwise tiles
+//   are copied element by element into the same layout.
+// - bf16 tiles are 64 columns wide, 128-byte rows whose 16-byte chunks are
+//   XOR-swizzled (chunk c of row r at c ^ (r & 7)), so the 8 row addresses
+//   of an ldmatrix fall on 8 distinct groups of banks; a 128-column tile is
+//   two of them.
+// - A uint8 tile lands as bytes and is widened in shared memory into one
 //   bf16 tile (16 bytes read, 32 written per chunk, exact through f32 by
-//   byte permutes and one subtraction, see widen2). It runs one tile ahead,
-//   into the other of two bf16 tiles, in the same barrier phase as the
-//   products of the tile before, so one warp's widening overlaps another's
+//   byte permutes and one subtraction, see widen2). Each warp widens the
+//   part of the tile that it multiplies, so no block barrier stands between
+//   widening and products, and one warp's widening overlaps another's
 //   products. From the bf16 tile on, both dtypes share every line.
 // - Sweep 1 (A_i H^T, TM x KP, a sum over n): warp w owns TM / 8 rows and
 //   all KP factor columns. A's fragments come by ldmatrix from the row-major
 //   tile, H's by ldmatrix from its KP x 64 row-major tile, which is the
 //   "col" operand as it stands. The f32 sums stay in registers over all of
 //   n: no split over n, nothing to reduce.
-// - W' in f32 on the CUDA cores from the sums, the W panel (loaded at the
-//   start) and HHT; W_out and WTW (a sum over the panel's rows of the f32 W')
-//   as in the f32 kernel; then W' rounded to bf16 into shared memory and from
-//   there, once per panel, into each warp's registers as sweep 2's operand.
-// - Sweep 2 (C = A_i^T W', 64 columns x KP a tile, a sum over the panel's
-//   rows): the factor dimension is mma's N = 8, so k <= 8 pads nothing. Warp
-//   w owns 16 columns and half of the panel's rows; A^T's fragments come by
-//   ldmatrix.trans from the same row-major tile. The two halves are summed
-//   through shared memory, and WTA takes 16-byte red.global.add.v4.f32
-//   (scalar atomics where n % 4 != 0).
+// - W' in f32 on the CUDA cores from the sums, W (read from L2) and HHT;
+//   W_out and WTW (a sum over the panel's rows of the f32 W') as in the f32
+//   kernel; then W' rounded to bf16 into shared memory and from there, once
+//   per panel, into each warp's registers as sweep 2's operand.
+// - Sweep 2 (C = A_i^T W', a sum over the panel's rows): the factor
+//   dimension is mma's N = 8, so k <= 8 pads nothing. Warp w owns 16 (32
+//   for a 128-column tile) columns and half of the panel's rows; A^T's
+//   fragments come by ldmatrix.trans from the same row-major tile. The two
+//   halves are summed through shared memory, and WTA takes 16-byte
+//   red.global.add.v4.f32 (scalar atomics where n % 4 != 0).
+// - The f32 W' of WTW and sweep 2's partial sums use the widened uint8 tile
+//   as scratch where they fit (the tile is free at both points), which is
+//   what leaves room for three 128-column uint8 stages.
 
 namespace tc {
 
@@ -96,24 +103,30 @@ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 template <typename T, int KP>
 struct Cfg {
   static constexpr bool U8 = std::is_same<T, uint8_t>::value;
+  // columns of a landed tile: uint8 lands rows of 128 bytes at KP <= 32
+  static constexpr int TNP = U8 && KP <= 32 ? 2 * TN : TN;
+  static constexpr int SUB = TNP / TN;                 // 64-column tiles in it
   static constexpr int TM = KP <= 32 ? 256 : 128;      // rows per panel
-  static constexpr int S = U8 ? 5 : 3;                 // stages of the ring
-  static constexpr int MINB = 1;                       // blocks per SM
+  static constexpr int S = U8 && KP > 32 ? 5 : 3;      // stages of the ring
   static constexpr int NF = KP / 8;                    // n-tiles of 8 factors
   static constexpr int MT1 = TM / 8 / 16;              // sweep 1: m-tiles a warp
-  static constexpr int KS2 = TM / 2 / 16;              // sweep 2: k-steps a warp
+  static constexpr int RG = 2;                         // sweep 2: row groups
+  static constexpr int CBW = TNP / 64;                 // sweep 2: 16-column blocks a warp
+  static constexpr int KS2 = TM / RG / 16;             // sweep 2: k-steps a warp
   static constexpr int LDWP = KP == 8 ? 24 : KP + 8;   // bf16 W' row stride
-  static constexpr int LDX = TN + 4;                   // sweep 2 staging stride
-  static constexpr int A_BYTES = TM * TN * (int)sizeof(T);   // a landed A tile
-  static constexpr int STAGE = A_BYTES + KP * TN * 2;  // and its bf16 H tile
-  static constexpr int WIDE = U8 ? TM * TN * 2 : 0;    // a widened uint8 tile (2)
-  // floats: the W panel, then the f32 W', then sweep 2's two partial tiles
-  static constexpr int XF = cmax(TM * (KP + 1), 2 * KP * LDX);
+  static constexpr int LDX = TNP + 4;                  // sweep 2 staging stride
+  static constexpr int A_BYTES = TM * TNP * (int)sizeof(T);  // a landed A tile
+  static constexpr int STAGE = A_BYTES + SUB * KP * TN * 2;  // and its bf16 H
+  static constexpr int WIDE = U8 ? TM * TNP * 2 : 0;   // the widened uint8 tile
+  // X, floats: the f32 W' for W'^T W', then sweep 2's partial sums; in the
+  // widened tile where it fits (that tile is free at both points)
+  static constexpr int XF = cmax(TM * (KP + 1), RG * KP * LDX);
+  static constexpr bool XIN = 4 * XF <= WIDE;
   // byte offsets in dynamic shared memory
   static constexpr int O_WIDE = S * STAGE;
-  static constexpr int O_WP = O_WIDE + 2 * WIDE;
-  static constexpr int O_X = O_WP + TM * LDWP * 2;
-  static constexpr int O_HHT = O_X + 4 * XF;
+  static constexpr int O_WP = O_WIDE + WIDE;
+  static constexpr int O_X = XIN ? O_WIDE : O_WP + TM * LDWP * 2;
+  static constexpr int O_HHT = O_WP + TM * LDWP * 2 + (XIN ? 0 : 4 * XF);
   static constexpr size_t SMEM = O_HHT + 4 * KP * KP;
   static_assert(O_WP % 16 == 0 && O_X % 16 == 0 && O_HHT % 16 == 0, "alignment");
   static_assert(SMEM <= 227 * 1024, "shared memory");
@@ -127,6 +140,14 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // columns
 __device__ __forceinline__ int chunk_off(int r, int c) {
   return r * 128 + ((c ^ (r & 7)) << 4);
+}
+
+// byte offset of 16-byte chunk c of row r in a landed uint8 tile of TNP
+// columns, swizzled the same way (the widening reads several rows at one
+// column)
+template <int TNP>
+__device__ __forceinline__ int u8_off(int r, int c) {
+  return r * TNP + ((c ^ (r & (TNP / 16 - 1))) << 4);
 }
 
 // 16 bytes from global to shared, or 16 zeros where !ok
@@ -189,9 +210,11 @@ __device__ __forceinline__ uint32_t widen2(uint32_t w, int i) {
   return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
 }
 
-// Starts the copy of the tile of columns j0 .. j0 + 63 of the panel (rows
-// [0, rows)) into `stage`, and of H's rows [0, k) of those columns if
-// with_h. VEC: cp.async, to be waited for; otherwise plain copies.
+// Starts the copy of the landed tile of columns j0 .. j0 + TNP - 1 of the
+// panel (rows [0, rows)) into `stage`, and of H's rows [0, k) of those
+// columns if with_h. A bf16 A and H land as TNP / 64 swizzled tiles of 64
+// columns, one after another; a uint8 A as rows of TNP bytes, swizzled. VEC:
+// cp.async, to be waited for; otherwise plain copies.
 template <typename T, int KP, bool VEC>
 __device__ __forceinline__ void load_tile(unsigned char* stage, const T* __restrict__ A,
                                           const __nv_bfloat16* __restrict__ H,
@@ -201,69 +224,79 @@ __device__ __forceinline__ void load_tile(unsigned char* stage, const T* __restr
   unsigned char* hs = stage + C::A_BYTES;
   if constexpr (VEC) {
     const uint32_t s = smem_u32(stage);
-    if constexpr (C::U8) {   // 4 chunks of 16 columns a row, as they come
+    if constexpr (C::U8) {   // chunks of 16 columns, swizzled
+      constexpr int CPR = C::TNP / 16;
 #pragma unroll
-      for (int i = 0; i < C::TM * 4 / NT; ++i) {
-        const int e = tid + NT * i, r = e >> 2, c = e & 3, j = j0 + 16 * c;
+      for (int i = 0; i < C::TM * CPR / NT; ++i) {
+        const int e = tid + NT * i, r = e / CPR, c = e % CPR, j = j0 + 16 * c;
         const bool ok = r < rows && j < n;
-        cp_async16(s + r * TN + 16 * c, ok ? A + (size_t)r * n + j : A, ok);
+        cp_async16(s + u8_off<C::TNP>(r, c), ok ? A + (size_t)r * n + j : A, ok);
       }
-    } else {                 // 8 chunks of 8 columns a row, swizzled
+    } else {                 // chunks of 8 columns, swizzled
+      constexpr int CPR = C::TNP / 8;
 #pragma unroll
-      for (int i = 0; i < C::TM * 8 / NT; ++i) {
-        const int e = tid + NT * i, r = e >> 3, c = e & 7, j = j0 + 8 * c;
+      for (int i = 0; i < C::TM * CPR / NT; ++i) {
+        const int e = tid + NT * i, r = e / CPR, c = e % CPR, j = j0 + 8 * c;
         const bool ok = r < rows && j < n;
-        cp_async16(s + chunk_off(r, c), ok ? A + (size_t)r * n + j : A, ok);
+        cp_async16(s + c / 8 * C::TM * 128 + chunk_off(r, c % 8),
+                   ok ? A + (size_t)r * n + j : A, ok);
       }
     }
     if (with_h) {
       const uint32_t sh = smem_u32(hs);
-      for (int e = tid; e < KP * 8; e += NT) {
-        const int c = e >> 3, ch = e & 7, j = j0 + 8 * ch;
+      for (int e = tid; e < C::SUB * KP * 8; e += NT) {
+        const int u = e / (KP * 8), c = (e >> 3) % KP, ch = e & 7;
+        const int j = j0 + TN * u + 8 * ch;
         const bool ok = c < k && j < n;
-        cp_async16(sh + chunk_off(c, ch), ok ? H + (size_t)c * n + j : H, ok);
+        cp_async16(sh + u * KP * 128 + chunk_off(c, ch), ok ? H + (size_t)c * n + j : H, ok);
       }
     }
   } else {
 #pragma unroll 1
-    for (int e = tid; e < C::TM * TN; e += NT) {
-      const int r = e / TN, j = e % TN;
+    for (int e = tid; e < C::TM * C::TNP; e += NT) {
+      const int r = e / C::TNP, j = e % C::TNP;
       const bool ok = r < rows && j0 + j < n;
       if constexpr (C::U8) {
-        stage[r * TN + j] = ok ? A[(size_t)r * n + j0 + j] : 0;
+        stage[u8_off<C::TNP>(r, j >> 4) + (j & 15)] = ok ? A[(size_t)r * n + j0 + j] : 0;
       } else {
-        *reinterpret_cast<unsigned short*>(stage + chunk_off(r, j >> 3) + 2 * (j & 7)) =
+        *reinterpret_cast<unsigned short*>(stage + j / TN * C::TM * 128 +
+                                           chunk_off(r, j % TN >> 3) + 2 * (j & 7)) =
             ok ? __bfloat16_as_ushort(A[(size_t)r * n + j0 + j]) : 0;
       }
     }
     if (with_h) {
 #pragma unroll 1
-      for (int e = tid; e < KP * TN; e += NT) {
-        const int c = e / TN, j = e % TN;
-        const bool ok = c < k && j0 + j < n;
-        *reinterpret_cast<unsigned short*>(hs + chunk_off(c, j >> 3) + 2 * (j & 7)) =
-            ok ? __bfloat16_as_ushort(H[(size_t)c * n + j0 + j]) : 0;
+      for (int e = tid; e < C::SUB * KP * TN; e += NT) {
+        const int u = e / (KP * TN), c = e / TN % KP, j = e % TN, jg = j0 + TN * u + j;
+        const bool ok = c < k && jg < n;
+        *reinterpret_cast<unsigned short*>(hs + u * KP * 128 + chunk_off(c, j >> 3) +
+                                           2 * (j & 7)) =
+            ok ? __bfloat16_as_ushort(H[(size_t)c * n + jg]) : 0;
       }
     }
   }
 }
 
-// A landed uint8 tile (TM rows of 64 bytes) into the swizzled bf16 tile
-template <int TM>
-__device__ __forceinline__ void widen_tile(const unsigned char* src, unsigned char* dst) {
+// The rows r0 .. r0 + ROWS - 1 x 16-byte chunks c0 .. c0 + CPW - 1 of a
+// landed uint8 tile (TM rows of TNP bytes) into the TNP / 64 swizzled bf16
+// tiles of 64 columns, by one warp: the part of the tile it multiplies
+template <int TM, int TNP, int ROWS, int CPW>
+__device__ __forceinline__ void widen_part(const unsigned char* src, unsigned char* dst,
+                                           int r0, int c0, int lane) {
 #pragma unroll
-  for (int i = 0; i < TM * 4 / NT; ++i) {
-    const int e = threadIdx.x + NT * i, r = e >> 2, c = e & 3;
-    const uint4 v = *reinterpret_cast<const uint4*>(src + r * TN + 16 * c);
-    *reinterpret_cast<uint4*>(dst + chunk_off(r, 2 * c)) =
+  for (int i = 0; i < ROWS * CPW / 32; ++i) {
+    const int e = lane + 32 * i, r = r0 + e / CPW, c = c0 + e % CPW;
+    const uint4 v = *reinterpret_cast<const uint4*>(src + u8_off<TNP>(r, c));
+    unsigned char* d = dst + c / 4 * TM * 128;
+    *reinterpret_cast<uint4*>(d + chunk_off(r, 2 * (c % 4))) =
         make_uint4(widen2(v.x, 0), widen2(v.x, 1), widen2(v.y, 0), widen2(v.y, 1));
-    *reinterpret_cast<uint4*>(dst + chunk_off(r, 2 * c + 1)) =
+    *reinterpret_cast<uint4*>(d + chunk_off(r, 2 * (c % 4) + 1)) =
         make_uint4(widen2(v.z, 0), widen2(v.z, 1), widen2(v.w, 0), widen2(v.w, 1));
   }
 }
 
 template <typename T, int KP, bool VEC>
-__global__ void __launch_bounds__(NT, Cfg<T, KP>::MINB)
+__global__ void __launch_bounds__(NT, 1)
 fused_mu_fro_tc_kernel(const T* __restrict__ A, const float* __restrict__ W,
                        const __nv_bfloat16* __restrict__ H,
                        const float* __restrict__ HHT, float eps, int m, int n,
@@ -271,9 +304,10 @@ fused_mu_fro_tc_kernel(const T* __restrict__ A, const float* __restrict__ W,
                        float* __restrict__ WTW) {
   using C = Cfg<T, KP>;
   constexpr int TM = C::TM, S = C::S, NF = C::NF, MT1 = C::MT1, KS2 = C::KS2;
-  constexpr int LW = KP + 1;     // row stride of the f32 W / W' panel in X
+  constexpr int LW = KP + 1;     // row stride of the f32 W' panel in X
   extern __shared__ uint4 smem_tc[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(smem_tc);
+  unsigned char* wide = sm + C::O_WIDE;
   __nv_bfloat16* Wp = reinterpret_cast<__nv_bfloat16*>(sm + C::O_WP);
   float* X = reinterpret_cast<float*>(sm + C::O_X);
   float* HHs = reinterpret_cast<float*>(sm + C::O_HHT);
@@ -291,34 +325,22 @@ fused_mu_fro_tc_kernel(const T* __restrict__ A, const float* __restrict__ W,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;   // a fragment's row and column pair
 
-  // the W panel (for the denominators) and HHT, zero outside [rows) x [k)
-  for (int e = tid; e < TM * KP; e += NT) {
-    const int r = e / KP, c = e % KP;
-    X[r * LW + c] = (r < rows && c < k) ? W[(size_t)r * k + c] : 0.f;
-  }
-  for (int e = tid; e < KP * KP; e += NT) {
+  for (int e = tid; e < KP * KP; e += NT) {   // HHT, zero outside [k) x [k)
     const int c = e / KP, d = e % KP;
     HHs[e] = (c < k && d < k) ? HHT[c * k + d] : 0.f;
   }
 
-  // tiles 0 .. nt - 1 are sweep 1's, nt .. 2 nt - 1 sweep 2's (same columns)
-  const int nt = (n + TN - 1) / TN, ntot = 2 * nt;
-  const auto load = [&](int t) {
-    load_tile<T, KP, VEC>(sm + (t % S) * C::STAGE, A, H, n, k, rows, (t % nt) * TN,
-                          t < nt);
+  // Landed tiles of TNP columns, np of them per sweep: tiles 0 .. np - 1 are
+  // sweep 1's, np .. 2 np - 1 sweep 2's (the same columns again)
+  const int np = (n + C::TNP - 1) / C::TNP, ntot = 2 * np;
+  const auto load = [&](int p) {   // tile p, into stage p % S
+    load_tile<T, KP, VEC>(sm + (p % S) * C::STAGE, A, H, n, k, rows,
+                          (p % np) * C::TNP, p < np);
   };
 #pragma unroll
   for (int s = 0; s < S - 1; ++s) {
     if (s < ntot) load(s);
     cp_async_commit();
-  }
-  // a uint8 tile is widened one iteration ahead, into the other of two bf16
-  // tiles, in the same barrier phase as the products of the tile before it
-  const auto wide = [&](int t) { return sm + C::O_WIDE + (t & 1) * C::WIDE; };
-  if constexpr (C::U8) {
-    cp_async_wait<S - 2>();
-    __syncthreads();
-    widen_tile<TM>(sm, wide(0));
   }
 
   float acc[MT1][NF][4];         // sweep 1: A_i H^T, then W'
@@ -330,49 +352,61 @@ fused_mu_fro_tc_kernel(const T* __restrict__ A, const float* __restrict__ W,
       for (int e = 0; e < 4; ++e) acc[i][f][e] = 0.f;
   uint32_t wf[KS2][NF][2];       // sweep 2: this warp's bf16 W' fragments
   const int wrow = warp * (TM / 8);            // sweep 1: this warp's rows
-  const int mt2 = warp & 3, half = warp >> 2;  // sweep 2: columns, row half
+  // sweep 2: this warp's column group (CBW blocks of 16 columns) and rows
+  const int cw = warp % (8 / C::RG), rg = warp / (8 / C::RG);
 
 #pragma unroll 1
   for (int t = 0; t < ntot; ++t) {
-    // tile t has landed (uint8: tile t + 1, and tile t is widened), and
-    // every warp is done with tile t - 1
-    cp_async_wait<C::U8 ? S - 3 : S - 2>();
-    __syncthreads();
+    cp_async_wait<S - 2>();      // tile t has landed
+    __syncthreads();             // and every warp is done with tile t - 1
     if (t + S - 1 < ntot) load(t + S - 1);
     cp_async_commit();
-    const unsigned char* st = sm + (t % S) * C::STAGE;
-    const unsigned char* at = st;
-    if constexpr (C::U8) {
-      if (t + 1 < ntot) widen_tile<TM>(sm + ((t + 1) % S) * C::STAGE, wide(t + 1));
-      at = wide(t);
+    const unsigned char* st = sm + t % S * C::STAGE;
+    if constexpr (C::U8) {     // each warp widens what it multiplies
+      if (t < np) {
+        widen_part<TM, C::TNP, TM / 8, C::TNP / 16>(st, wide, wrow, 0, lane);
+      } else {
+        widen_part<TM, C::TNP, TM / C::RG, C::CBW>(st, wide, rg * (TM / C::RG),
+                                                   cw * C::CBW, lane);
+      }
+      __syncwarp();
     }
-    const uint32_t a_s = smem_u32(at);
-    if (t < nt) {
+    // the bf16 tile: SUB tiles of 64 columns, TM x 128 bytes each
+    const uint32_t a_s = smem_u32(C::U8 ? wide : st);
+    if (t < np) {
       // -- sweep 1: acc += A tile x H tile^T --------------------------------
-      const uint32_t h_s = smem_u32(st + C::A_BYTES);
-      uint32_t bh[NF][2][4];     // H fragments of k-steps (2p, 2p + 1)
 #pragma unroll
-      for (int f = 0; f < NF; ++f)
+      for (int u = 0; u < C::SUB; ++u) {
+        const uint32_t h_s = smem_u32(st + C::A_BYTES + u * KP * 128);
+        const uint32_t au_s = a_s + u * TM * 128;
+        uint32_t bh[NF][2][4];   // H fragments of k-steps (2p, 2p + 1)
 #pragma unroll
-        for (int p = 0; p < 2; ++p)
-          ldsm_x4(h_s + chunk_off(8 * f + (lane & 7), 4 * p + (lane >> 3)), bh[f][p]);
+        for (int f = 0; f < NF; ++f)
 #pragma unroll
-      for (int kk = 0; kk < TN / 16; ++kk) {
+          for (int p = 0; p < 2; ++p)
+            ldsm_x4(h_s + chunk_off(8 * f + (lane & 7), 4 * p + (lane >> 3)), bh[f][p]);
 #pragma unroll
-        for (int i = 0; i < MT1; ++i) {
-          uint32_t a[4];
-          const int r = wrow + 16 * i + (lane & 7) + ((lane >> 3) & 1) * 8;
-          ldsm_x4(a_s + chunk_off(r, 2 * kk + (lane >> 4)), a);
+        for (int kk = 0; kk < TN / 16; ++kk) {
 #pragma unroll
-          for (int f = 0; f < NF; ++f)
-            mma_bf16(acc[i][f], a, bh[f][kk >> 1][2 * (kk & 1)],
-                     bh[f][kk >> 1][2 * (kk & 1) + 1]);
+          for (int i = 0; i < MT1; ++i) {
+            uint32_t a[4];
+            const int r = wrow + 16 * i + (lane & 7) + ((lane >> 3) & 1) * 8;
+            ldsm_x4(au_s + chunk_off(r, 2 * kk + (lane >> 4)), a);
+#pragma unroll
+            for (int f = 0; f < NF; ++f)
+              mma_bf16(acc[i][f], a, bh[f][kk >> 1][2 * (kk & 1)],
+                       bh[f][kk >> 1][2 * (kk & 1) + 1]);
+          }
         }
       }
-      if (t == nt - 1) {
+      if (t == np - 1) {
         // -- W' = W * AHT / (W HHT + eps) on this warp's rows ---------------
         // element e of fragment (i, f): row wrow + 16 i + g + 8 (e >> 1),
-        // factor column 8 f + 2 t4 + (e & 1)
+        // factor column 8 f + 2 t4 + (e & 1). W comes from global memory
+        // (L2); rows past m and columns past k read as 0, so their W' is 0.
+        const auto w_at = [&](int r, int c) {
+          return r < rows && c < k ? __ldg(W + (size_t)r * k + c) : 0.f;
+        };
         float den[MT1][NF][4];
 #pragma unroll
         for (int i = 0; i < MT1; ++i)
@@ -386,7 +420,7 @@ fused_mu_fro_tc_kernel(const T* __restrict__ A, const float* __restrict__ W,
 #pragma unroll
           for (int i = 0; i < MT1; ++i)
 #pragma unroll
-            for (int h = 0; h < 2; ++h) wr[i][h] = X[(wrow + 16 * i + g + 8 * h) * LW + d];
+            for (int h = 0; h < 2; ++h) wr[i][h] = w_at(wrow + 16 * i + g + 8 * h, d);
 #pragma unroll
           for (int f = 0; f < NF; ++f) {
             const float2 hh = *reinterpret_cast<const float2*>(HHs + d * KP + 8 * f + 2 * t4);
@@ -406,11 +440,10 @@ fused_mu_fro_tc_kernel(const T* __restrict__ A, const float* __restrict__ W,
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const int r = wrow + 16 * i + g + 8 * (e >> 1), c = 8 * f + 2 * t4 + (e & 1);
-              acc[i][f][e] = X[r * LW + c] * acc[i][f][e] / (den[i][f][e] + eps);
+              acc[i][f][e] = w_at(r, c) * acc[i][f][e] / (den[i][f][e] + eps);
             }
-        __syncthreads();         // every warp has read the W panel
-        // W' (rows past m and columns past k are exactly 0) to W_out, to X
-        // in f32 and to Wp in bf16
+        if constexpr (C::XIN) __syncthreads();   // X is the tile just read
+        // W' to W_out, to X in f32 and to Wp in bf16
 #pragma unroll
         for (int i = 0; i < MT1; ++i)
 #pragma unroll
@@ -438,47 +471,59 @@ fused_mu_fro_tc_kernel(const T* __restrict__ A, const float* __restrict__ W,
             atomicAdd(&WTW[c * k + d], s);
           }
         }
-        // sweep 2's B fragments: rows half TM / 2 + 16 s .., factors 8 f ..
+        // sweep 2's B fragments: rows rg TM / RG + 16 s .., factors 8 f ..
         const uint32_t wp_s = smem_u32(Wp);
 #pragma unroll
         for (int s = 0; s < KS2; ++s)
 #pragma unroll
           for (int f = 0; f < NF; ++f) {
-            const int r = half * (TM / 2) + 16 * s + (lane & 7) + ((lane >> 3) & 1) * 8;
+            const int r = rg * (TM / C::RG) + 16 * s + (lane & 7) + ((lane >> 3) & 1) * 8;
             ldsm_x2_t(wp_s + 2 * (r * C::LDWP + 8 * f), wf[s][f]);
           }
       }
     } else {
       // -- sweep 2: WTA[:, j0 ..] += (A tile^T W')^T --------------------------
-      const int j0 = (t - nt) * TN;
-      float c2[NF][4];
+      const int j0 = (t - np) * C::TNP;
+      float c2[C::CBW][NF][4];
 #pragma unroll
-      for (int f = 0; f < NF; ++f)
+      for (int v = 0; v < C::CBW; ++v)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) c2[f][e] = 0.f;
+        for (int f = 0; f < NF; ++f)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) c2[v][f][e] = 0.f;
 #pragma unroll
       for (int s = 0; s < KS2; ++s) {
-        uint32_t a[4];
-        const int r = half * (TM / 2) + 16 * s + (lane & 7) + (lane >> 4) * 8;
-        ldsm_x4_t(a_s + chunk_off(r, 2 * mt2 + ((lane >> 3) & 1)), a);
+        const int r = rg * (TM / C::RG) + 16 * s + (lane & 7) + (lane >> 4) * 8;
 #pragma unroll
-        for (int f = 0; f < NF; ++f) mma_bf16(c2[f], a, wf[s][f][0], wf[s][f][1]);
+        for (int v = 0; v < C::CBW; ++v) {
+          const int cb = cw * C::CBW + v;   // 16-column block in the tile
+          uint32_t a[4];
+          ldsm_x4_t(a_s + cb / 4 * TM * 128 + chunk_off(r, 2 * (cb % 4) + ((lane >> 3) & 1)), a);
+#pragma unroll
+          for (int f = 0; f < NF; ++f) mma_bf16(c2[v][f], a, wf[s][f][0], wf[s][f][1]);
+        }
       }
-      // element e of fragment f: column 16 mt2 + g + 8 (e >> 1), factor
-      // 8 f + 2 t4 + (e & 1); X[half][factor][column]
+      if constexpr (C::XIN) __syncthreads();   // X is the tile just read
+      // element e of fragment (v, f): column 16 cb + g + 8 (e >> 1), factor
+      // 8 f + 2 t4 + (e & 1); X[rg][factor][column]
 #pragma unroll
-      for (int f = 0; f < NF; ++f)
+      for (int v = 0; v < C::CBW; ++v)
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          X[(half * KP + 8 * f + 2 * t4 + (e & 1)) * C::LDX + 16 * mt2 + g + 8 * (e >> 1)] =
-              c2[f][e];
+        for (int f = 0; f < NF; ++f)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            X[(rg * KP + 8 * f + 2 * t4 + (e & 1)) * C::LDX + 16 * (cw * C::CBW + v) + g +
+              8 * (e >> 1)] = c2[v][f][e];
       __syncthreads();
-      for (int q = tid; q < KP * TN / 4; q += NT) {
-        const int c = q / (TN / 4), jq = 4 * (q % (TN / 4)), j = j0 + jq;
+      for (int q = tid; q < KP * C::TNP / 4; q += NT) {
+        const int c = q / (C::TNP / 4), jq = 4 * (q % (C::TNP / 4)), j = j0 + jq;
         if (c >= k || j >= n) continue;
-        const float4 u = *reinterpret_cast<const float4*>(X + c * C::LDX + jq);
-        const float4 v = *reinterpret_cast<const float4*>(X + (KP + c) * C::LDX + jq);
-        const float4 s = make_float4(u.x + v.x, u.y + v.y, u.z + v.z, u.w + v.w);
+        float4 s = *reinterpret_cast<const float4*>(X + c * C::LDX + jq);
+#pragma unroll
+        for (int h = 1; h < C::RG; ++h) {
+          const float4 v = *reinterpret_cast<const float4*>(X + (h * KP + c) * C::LDX + jq);
+          s = make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
+        }
         float* dst = WTA + (size_t)c * n + j;
         if constexpr (VEC) {
           atomicAdd(reinterpret_cast<float4*>(dst), s);   // j + 3 < n: n % 8 == 0

@@ -77,6 +77,22 @@ def test_batched_members_match_per_member_jax(interpret_pallas):
         np.testing.assert_allclose(np_(Ht[i]), np_(Hj), rtol=1e-5)
 
 
+@pytest.mark.parametrize("m,n", [(130, 97), (67, 208)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.uint8])
+def test_plain_w_pass_is_unchanged_by_a_bf16_rounded_h(dtype, m, n):
+    """With a bf16 or uint8 A the plain version rounds H to bf16 inside its
+    products, so H and H rounded to bf16 and widened back give bit-identical
+    (W', W'^T A, W'^T W') with the same HHT: the kernel, which takes the
+    bf16 H, computes the plain version's function."""
+    A, W, H = map(torch.from_numpy, _inputs(4, m, n, 5))
+    A = (A * 255).round().to(dtype) if dtype == torch.uint8 else A.to(dtype)
+    HHT = tl.gram_t(H)
+    out = tfm.fused_w_pass_plain(A, W, H, HHT, EPS)
+    ref = tfm.fused_w_pass_plain(A, W, H.to(torch.bfloat16).float(), HHT, EPS)
+    for a, b in zip(out, ref):
+        assert a.dtype == torch.float32 and torch.equal(a, b)
+
+
 def test_non_cpu_tensor_never_takes_the_plain_path():
     """Off the CPU the dispatch launches K1 or raises; here (meta tensors, no
     nvcc or card) it must raise rather than compute the plain version."""
