@@ -96,7 +96,7 @@ namespace {
 namespace tc {
 
 constexpr int NT = 256;   // threads per block (8 warps)
-constexpr int TN = 64;    // columns of A per tile
+constexpr int TN = 64;    // columns of a bf16 tile (a landed uint8 tile may hold two)
 
 constexpr int cmax(int a, int b) { return a > b ? a : b; }
 

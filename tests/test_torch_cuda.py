@@ -23,8 +23,9 @@ SHAPES = [(1, 64, 48), (1, 300, 200), (3, 130, 97), (2, 1000, 777)]
 # 16-byte loads and vector atomics when n % 4 == 0: ragged panels (m = 129,
 # 257), n % 4 = 2 and 3 (scalar path), n % 4 == 0 across member bases, and
 # n below one tile. Its tensor-core kernel (bf16, uint8 A) takes panels of
-# 256 rows (128 at k > 32), 64-column tiles and 16-byte copies when n % 8
-# (bf16) or n % 16 (uint8) is 0: n % 16 == 0 off the tile width (208, 400,
+# 256 rows (128 at k > 32), tiles of 64 bf16 or 128 uint8 columns (64 at
+# k > 32) and 16-byte copies when n % 8 (bf16) or n % 16 (uint8) is 0:
+# n % 16 == 0 off the tile widths (208, 400,
 # 1040), m ragged at the panel height (129, 257, 513), n of one 16-byte chunk
 # (8 bf16, 16 uint8 values) and a 3-member stack
 K1_SHAPES = SHAPES + [(1, 129, 66), (2, 257, 131), (3, 257, 200),
