@@ -285,7 +285,9 @@ __device__ __forceinline__ void widen_part(const unsigned char* src, unsigned ch
                                            int r0, int c0, int lane) {
 #pragma unroll
   for (int i = 0; i < ROWS * CPW / 32; ++i) {
-    const int e = lane + 32 * i, r = r0 + e / CPW, c = c0 + e % CPW;
+    // rows fastest: 8 lanes take one chunk of 8 rows, which the swizzles
+    // spread over all banks, both here and in the bf16 tile
+    const int e = lane + 32 * i, r = r0 + e % ROWS, c = c0 + e / ROWS;
     const uint4 v = *reinterpret_cast<const uint4*>(src + u8_off<TNP>(r, c));
     unsigned char* d = dst + c / 4 * TM * 128;
     *reinterpret_cast<uint4*>(d + chunk_off(r, 2 * (c % 4))) =
