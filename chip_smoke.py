@@ -14,8 +14,10 @@ Run from the root of a checkout, with no arguments:
      strong-scaling geometry): K1 on an f32, a bf16 and a uint8 A (the
      ``quantize_uint8`` of the f32 one), K2a/K2b on the f32 and the uint8
      A, K3 on all three; and each on a 10-member 14400 x 9600, k = 8
-     ensemble (f32; K1 also on its bf16 copy, the NMFk ensemble under
-     ``--a_precision=bfloat16``); K1's two-read floor beside each K1 row;
+     ensemble (f32, and K1, K2a and K2b on its bf16 copy, the NMFk
+     ensemble under ``--a_precision=bfloat16``); K2b on one member of it
+     (the NMFk refit's shape); K1's two-read floor beside each K1 row; the
+     ptxas registers and spills of K1's and K2's kernels (no spill allowed);
    - K4 in its four modes (rows/columns, plain/ratio) at the shape and nnz
      of the NYTimes bag-of-words corpus (300000 x 102660, 69.7 M nnz,
      k = 32), and on a 10-member stack of the planted topic matrix of 5;
@@ -126,18 +128,18 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def ptxas_k1(log):
-    """{(A dtype, KP, vec): (registers, spill store bytes, spill load
-    bytes)} of K1's two kernels (the f32 one; the tensor-core one for a bf16
-    or uint8 A), from the ptxas report (``-Xptxas -v``) kept beside the
-    library."""
+MANGLED_A = {None: "f32", "f": "f32", "h": "uint8", "13__nv_bfloat16": "bf16"}
+
+
+def ptxas(log, entry, key):
+    """{key(match): (registers, spill store bytes, spill load bytes)} of
+    the kernels whose mangled names the regex ``entry`` matches, from the
+    ptxas report (``-Xptxas -v``) kept beside the library."""
     out, cur, spill = {}, None, (0, 0)
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*fused_mu_fro_(?:f32|tc)"
-                      r"_kernelI(13__nv_bfloat16|h)?Li(\d+)ELb([01])E", line)
+        m = re.search(r"Compiling entry function '\S*" + entry, line)
         if m:
-            dtype = {None: "f32", "h": "uint8"}.get(m.group(1), "bf16")
-            cur, spill = (dtype, int(m.group(2)), m.group(3) == "1"), (0, 0)
+            cur, spill = key(m), (0, 0)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and cur:
@@ -147,6 +149,24 @@ def ptxas_k1(log):
             out[cur] = (int(m.group(1)), *spill)
             cur = None
     return out
+
+
+def ptxas_k1(log):
+    """K1's two kernels (the f32 one; the tensor-core one for a bf16 or
+    uint8 A), keyed (A dtype, KP, vec)."""
+    return ptxas(log, r"fused_mu_fro_(?:f32|tc)_kernelI(13__nv_bfloat16|h)?"
+                      r"Li(\d+)ELb([01])E",
+                 lambda m: (MANGLED_A[m.group(1)], int(m.group(2)),
+                            m.group(3) == "1"))
+
+
+def ptxas_k2(log):
+    """K2's kernels: the register kernels (KP <= 32), the first port's
+    (KP >= 64) and the split reduction, keyed (kernel, A dtype, KP, vec)."""
+    return ptxas(log, r"(kl_\w+?_kernel)(?:I(f|13__nv_bfloat16|h)Li(\d+)E"
+                      r"(?:Lb([01])E)?)?",
+                 lambda m: (m.group(1), MANGLED_A[m.group(2)],
+                            int(m.group(3) or 0), m.group(4) == "1"))
 
 
 def csr(rows, cols, vals, shape):
@@ -294,6 +314,21 @@ def main():
           f"K1 kernels: ptxas report {regs} (expected 24 instantiations, no "
           f"spills)")
 
+    # K2's kernels likewise: the register kernels (KP = 8, 16, 32; vec:
+    # 16-byte loads), the first port's (KP = 64, 128, 256) and K2b's split
+    # reduction
+    regs = ptxas_k2(cuda_lib.library_path("kl_ratio").with_suffix(
+        ".log").read_text())
+    for name in sorted({key[0] for key in regs}):
+        print(f"[ptxas] K2 {name} (registers, spill store / load bytes): "
+              + ", ".join(f"{dt} KP={kp}{' vec' if vec else ''} {r} "
+                          f"registers, {ss}/{sl} B spilled"
+                          for (nm, dt, kp, vec), (r, ss, sl)
+                          in sorted(regs.items()) if nm == name), flush=True)
+    check(len(regs) == 55 and not any(ss or sl for _, ss, sl in regs.values()),
+          f"K2 kernels: ptxas report {regs} (expected 55 instantiations, no "
+          f"spills)")
+
     def two_read_floor(label, a):
         """K1 reads A twice (sweep 2 needs all of A_i H^T first): that
         traffic alone over the memory rate, beside the function's bound."""
@@ -398,8 +433,19 @@ def main():
                 library=lambda: (torch.matmul(Ae16, He16.mT),
                                  torch.matmul(We16.mT, Ae16)))
     two_read_floor(f"bf16-A {eshape}", Ae16)
-    del Ae16, We16, He16
+    del We16, He16
     ech = linalg.error_chunk_rows(EM, EN)
+    # K2 on the bf16 members: the A dtype changes only the load, and K2
+    # computes in f32 like its plain version (1e-4)
+    kernel_case("K2a kl_uht", f"bf16-A {eshape}",
+                lambda: kl.kl_uht(Ae16, We, He, eps),
+                lambda: kl.kl_uht_plain(Ae16, We, He, eps, ech),
+                TOL[torch.float32], (ework, nbytes(Ae16, We, He, We)))
+    kernel_case("K2b kl_wtu", f"bf16-A {eshape}",
+                lambda: kl.kl_wtu(Ae16, We, He, eps),
+                lambda: kl.kl_wtu_plain(Ae16, We, He, eps, ech),
+                TOL[torch.float32], (ework, nbytes(Ae16, We, He, He)))
+    del Ae16
     kernel_case("K2a kl_uht", f"f32 {eshape}",
                 lambda: kl.kl_uht(Ae, We, He, eps),
                 lambda: kl.kl_uht_plain(Ae, We, He, eps, ech),
@@ -408,6 +454,14 @@ def main():
                 lambda: kl.kl_wtu(Ae, We, He, eps),
                 lambda: kl.kl_wtu_plain(Ae, We, He, eps, ech),
                 TOL[torch.float32], (ework, nbytes(Ae, We, He, He)))
+    # the NMFk refit's W-frozen solve: K2b on one member (its rows split)
+    A1, W1, H1 = Ae[0], We[0], He[0]
+    kernel_case("K2b kl_wtu", f"f32 refit {EM}x{EN} k={EK}",
+                lambda: kl.kl_wtu(A1, W1, H1, eps),
+                lambda: kl.kl_wtu_plain(A1, W1, H1, eps, ech),
+                TOL[torch.float32],
+                (4 * EM * EN * EK, nbytes(A1, W1, H1, H1)))
+    del A1, W1, H1
     hrse = linalg.sum_axis(He, axis=-1)
     kernel_case("K3 fused_mu_kl", f"f32 {eshape}",
                 lambda: fused_kl.fused_kl_pass(Ae, We, He, hrse, eps),

@@ -14,6 +14,12 @@ never writes U to device memory, or raise. Inputs are one matrix or a stack
 with the ensemble member as the leading axis. A is f32, bf16 or uint8, and
 the ratio is f32 for each of them, as ``pydnmfk_tpu/ops/kl.py:33-34``
 divides the integer A by an f32 WH.
+
+K2b splits each member's rows over several blocks where the strips of
+columns alone would not fill the card (the single-member refit of NMFk):
+:func:`wtu_split_plan` picks the split, the wrapper allocates the partial
+sums, and the kernel adds them in a fixed order, so two launches give the
+same bits.
 """
 from __future__ import annotations
 
@@ -29,6 +35,43 @@ from .linalg import matmul
 launches = {"kl_uht": 0, "kl_wtu": 0}
 
 MAX_K = 256         # widest factor the kernels' shared-memory tiles hold
+# K2b's row split: aim at this many blocks per SM, keep the partial sums
+# within SCRATCH_CAP bytes (csrc/kl_ratio.cu, WtuGeom)
+SPLIT_BLOCKS_PER_SM = 8
+SCRATCH_CAP = 256 << 20
+H100_SMS = 132
+
+
+def padded_k(k: int) -> int:
+    """The kernels' factor width: k padded to 8, 16, 32, ..., 256."""
+    return next(kp for kp in (8, 16, 32, 64, 128, 256) if k <= kp)
+
+
+def wtu_geometry(k: int) -> tuple:
+    """(columns per block, rows per staged W chunk) of K2b's register
+    kernel at factor width k <= 32, as ``WtuGeom`` in the source has them."""
+    kp = padded_k(k)
+    return (128 if kp <= 16 else 64), 256
+
+
+def wtu_split_plan(B: int, m: int, n: int, k: int, sms: int = H100_SMS):
+    """(splits, rows per split) of K2b for B members of m x n at factor
+    width k: split s takes rows [s R, min(m, (s + 1) R)) of every member, so
+    that B x strips x splits blocks reach SPLIT_BLOCKS_PER_SM x sms, with R a
+    whole number of W chunks and the (splits, B, k, n) f32 partial sums
+    within SCRATCH_CAP. One split (R = m) where the strips fill the card
+    already, and for k > 32 (the kernels of the first port take no split)."""
+    if padded_k(k) > 32:
+        return 1, m
+    strip, chunk = wtu_geometry(k)
+    blocks = B * -(-n // strip)
+    want = -(-SPLIT_BLOCKS_PER_SM * sms // blocks)
+    splits = min(want, -(-m // chunk), SCRATCH_CAP // (4 * B * k * n))
+    if splits <= 1:
+        return 1, m
+    rows = -(-m // splits)
+    rows = -(-rows // chunk) * chunk
+    return -(-m // rows), rows
 
 
 def _ratio(A, W, H, eps):
@@ -64,13 +107,20 @@ def kl_wtu_plain(A, W, H, eps, chunk: int = 0):
 def _lib():
     lib = load("kl_ratio")
     p, i = ctypes.c_void_p, ctypes.c_int
-    for fn in (getattr(lib, f"kl_{which}_{suffix}")
-               for which in ("uht", "wtu") for suffix in A_SUFFIX.values()):
-        fn.argtypes = [p, p, p, ctypes.c_float, i, i, i, i, p, p]
-        fn.restype = i
+    for suffix in A_SUFFIX.values():
+        uht, wtu = getattr(lib, f"kl_uht_{suffix}"), getattr(lib, f"kl_wtu_{suffix}")
+        uht.argtypes = [p, p, p, ctypes.c_float, i, i, i, i, p, p]
+        # ... k, rows per split, scratch, out, stream
+        wtu.argtypes = [p, p, p, ctypes.c_float, i, i, i, i, i, p, p, p]
+        uht.restype = wtu.restype = i
     lib.kl_ratio_error_string.argtypes = [i]
     lib.kl_ratio_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _launch(which: str, A, W, H, eps):
@@ -89,10 +139,15 @@ def _launch(which: str, A, W, H, eps):
     out = torch.empty(shape, dtype=torch.float32, device=A.device)
     lib = _lib()
     fn = getattr(lib, f"{which}_{A_SUFFIX[A.dtype]}")
+    args = [A.data_ptr(), W.data_ptr(), H.data_ptr(), float(eps), B, m, n, k]
+    if which == "kl_wtu":
+        splits, rows = wtu_split_plan(B, m, n, k, _sms(A.device))
+        scratch = (torch.empty((splits, B, k, n), dtype=torch.float32,
+                               device=A.device) if splits > 1 else None)
+        args += [rows, None if scratch is None else scratch.data_ptr()]
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
-        rc = fn(A.data_ptr(), W.data_ptr(), H.data_ptr(), float(eps), B, m,
-                n, k, out.data_ptr(), stream)
+        rc = fn(*args, out.data_ptr(), stream)
     check(rc, lib, "kl_ratio_error_string", f"K2 {which}")
     launches[which] += 1
     return out[0] if single else out

@@ -88,14 +88,40 @@ def test_k3_matches_plain(cuda, b, m, n, k, dtype):
     assert _rel(out, ref) <= (1e-4 if dtype == torch.float32 else 1e-3)
 
 
-@pytest.mark.parametrize("b,m,n", SHAPES)
-@pytest.mark.parametrize("k", [1, 3, 9, 33, 65, 130, 256])
+# K2's register kernels (k <= 32): K2b strips of 128 columns (64 at
+# k > 16) over W chunks of 2048 / KP rows, K2a row tiles of 16, 32, 64 rows
+# (KP = 8, 16, 32) over H tiles of 128 columns, 16-byte loads when n % 4 ==
+# 0: n ragged at the strip widths with n % 4 = 1, 2, 3 (scalar path) and 0,
+# m ragged at the row tiles, a 10-member stack, and single members tall
+# enough for K2b's row split (ops/kl.py::wtu_split_plan)
+K2_SHAPES = SHAPES + [(1, 257, 129), (1, 129, 130), (2, 65, 131),
+                      (1, 33, 260), (10, 70, 200), (1, 3000, 260),
+                      (1, 2100, 67)]
+K2_K = [1, 3, 7, 8, 9, 16, 17, 31, 32, 33, 65, 256]
+
+
+@pytest.mark.parametrize("b,m,n", K2_SHAPES)
+@pytest.mark.parametrize("k", K2_K)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_k2_matches_plain(cuda, b, m, n, k, dtype):
     A, W, H = _inputs(cuda, b, m, n, k, dtype)
+    before = dict(kl.launches)
     out = (kl.kl_uht(A, W, H, EPS), kl.kl_wtu(A, W, H, EPS))
+    assert kl.launches == {key: v + 1 for key, v in before.items()}
     ref = (kl.kl_uht_plain(A, W, H, EPS, 50), kl.kl_wtu_plain(A, W, H, EPS))
     assert _rel(out, ref) <= 1e-4
+
+
+@pytest.mark.parametrize("b,m,n", [(10, 70, 200), (1, 3000, 260),
+                                   (1, 2100, 67)])
+@pytest.mark.parametrize("k", [3, 8, 32, 65])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k2_launches_are_bitwise_equal(cuda, b, m, n, k, dtype):
+    """Partial sums meet in a fixed order (no atomics; K2b's row split adds
+    its slabs in split order): two launches give the same bits."""
+    A, W, H = _inputs(cuda, b, m, n, k, dtype)
+    for fn in (kl.kl_uht, kl.kl_wtu):
+        assert torch.equal(fn(A, W, H, EPS), fn(A, W, H, EPS))
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
