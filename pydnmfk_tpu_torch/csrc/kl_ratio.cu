@@ -38,12 +38,15 @@
 //     interleaved rows of one strip of SW columns (W staged in chunks of
 //     256 rows) and meet once, at the end, in shared memory, summed in warp
 //     order.
-//   * A row split for K2b: the wrapper (ops/kl.py::wtu_split_plan) cuts each
-//     member's rows into S ranges so that B x strips x S blocks fill the card
-//     several times over (the single-member refit has 75 strips at
-//     n = 9600); split s writes its partial sums to slab s of an f32 scratch
-//     the wrapper allocates, and kl_wtu_reduce_kernel adds the slabs in
-//     order s = 0, 1, ... .
+//   * A row split for K2b: where B x strips blocks are fewer than the SMs
+//     (the single-member refit has 75 strips at n = 9600), the wrapper
+//     (ops/kl.py::wtu_split_plan, from the strip and chunk that
+//     kl_wtu_geometry exports) cuts each member's rows into S ranges so
+//     that B x strips x S blocks reach 8 per SM; split s writes its partial
+//     sums to slab s of an f32 scratch the wrapper allocates, and
+//     kl_wtu_reduce_kernel adds the slabs in order s = 0, 1, ... . The
+//     10-member stack (750 strips) takes one split: two or three measured
+//     no faster.
 //   * K2a (kl_uht_reg_kernel): a thread owns RW = 2 rows and keeps their
 //     out[r, :] in registers; W's rows of the block are staged once in shared
 //     memory and read as 16-byte broadcasts, and H[:, j : j + 4] of a staged
@@ -81,6 +84,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -775,21 +779,29 @@ cudaError_t launch(bool uht, const void* A, const void* W, const void* H,
   }
 }
 
+// f(std::integral_constant<int, KP>{}) for k's padded width KP = 8, 16, 32,
+// 64, 128, 256: the one place that maps k to an instantiation
+template <typename F>
+cudaError_t with_kp(int k, F&& f) {
+  if (k < 1) return cudaErrorInvalidValue;
+  if (k <= 8) return f(std::integral_constant<int, 8>{});
+  if (k <= 16) return f(std::integral_constant<int, 16>{});
+  if (k <= 32) return f(std::integral_constant<int, 32>{});
+  if (k <= 64) return f(std::integral_constant<int, 64>{});
+  if (k <= 128) return f(std::integral_constant<int, 128>{});
+  if (k <= 256) return f(std::integral_constant<int, 256>{});
+  return cudaErrorInvalidValue;
+}
+
 template <typename T>
 cudaError_t dispatch(bool uht, const void* A, const void* W, const void* H,
                      float eps, int B, int m, int n, int k, int rows_per_split,
                      void* scratch, void* out, cudaStream_t s) {
-  if (B < 1 || m < 1 || n < 1 || k < 1) return cudaErrorInvalidValue;
-#define KL_LAUNCH(KP) \
-  launch<T, KP>(uht, A, W, H, eps, B, m, n, k, rows_per_split, scratch, out, s)
-  if (k <= 8) return KL_LAUNCH(8);
-  if (k <= 16) return KL_LAUNCH(16);
-  if (k <= 32) return KL_LAUNCH(32);
-  if (k <= 64) return KL_LAUNCH(64);
-  if (k <= 128) return KL_LAUNCH(128);
-  if (k <= 256) return KL_LAUNCH(256);
-#undef KL_LAUNCH
-  return cudaErrorInvalidValue;
+  if (B < 1 || m < 1 || n < 1) return cudaErrorInvalidValue;
+  return with_kp(k, [&](auto kp) {
+    return launch<T, decltype(kp)::value>(uht, A, W, H, eps, B, m, n, k,
+                                          rows_per_split, scratch, out, s);
+  });
 }
 
 }  // namespace
@@ -822,6 +834,24 @@ KL_UHT(u8, uint8_t)
 KL_WTU(f32, float)
 KL_WTU(bf16, __nv_bfloat16)
 KL_WTU(u8, uint8_t)
+
+// K2b's geometry at factor width k, for the wrapper's row split
+// (ops/kl.py::wtu_split_plan): *strip columns per block and *chunk rows of W
+// staged at a time by kl_wtu_reg_kernel; *strip = *chunk = 0 where k > 32
+// (the first port's kernel, which takes no split). Returns 0, or the error
+// code of an invalid value for k outside [1, 256].
+extern "C" int kl_wtu_geometry(int k, int* strip, int* chunk) {
+  return (int)with_kp(k, [&](auto kp) {
+    constexpr int KP = decltype(kp)::value;
+    if constexpr (KP > 32) {
+      *strip = *chunk = 0;
+    } else {
+      *strip = WtuGeom<KP>::SW;
+      *chunk = WtuGeom<KP>::CR;
+    }
+    return cudaSuccess;
+  });
+}
 
 extern "C" const char* kl_ratio_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -15,11 +15,11 @@ with the ensemble member as the leading axis. A is f32, bf16 or uint8, and
 the ratio is f32 for each of them, as ``pydnmfk_tpu/ops/kl.py:33-34``
 divides the integer A by an f32 WH.
 
-K2b splits each member's rows over several blocks where the strips of
-columns alone would not fill the card (the single-member refit of NMFk):
-:func:`wtu_split_plan` picks the split, the wrapper allocates the partial
-sums, and the kernel adds them in a fixed order, so two launches give the
-same bits.
+K2b splits each member's rows over several blocks where its strips of
+columns alone would leave SMs idle (the single-member refit of NMFk):
+:func:`wtu_split_plan` picks the split from the kernel's geometry (which
+the source exports), the wrapper allocates the partial sums, and the kernel
+adds them in a fixed order, so two launches give the same bits.
 """
 from __future__ import annotations
 
@@ -35,38 +35,28 @@ from .linalg import matmul
 launches = {"kl_uht": 0, "kl_wtu": 0}
 
 MAX_K = 256         # widest factor the kernels' shared-memory tiles hold
-# K2b's row split: aim at this many blocks per SM, keep the partial sums
-# within SCRATCH_CAP bytes (csrc/kl_ratio.cu, WtuGeom)
+# K2b's row split, where its strips alone leave SMs idle: aim at this many
+# blocks per SM (the refit's member: 4, 8 and 16 measured equal, PERF.md)
 SPLIT_BLOCKS_PER_SM = 8
-SCRATCH_CAP = 256 << 20
-H100_SMS = 132
 
 
-def padded_k(k: int) -> int:
-    """The kernels' factor width: k padded to 8, 16, 32, ..., 256."""
-    return next(kp for kp in (8, 16, 32, 64, 128, 256) if k <= kp)
-
-
-def wtu_geometry(k: int) -> tuple:
-    """(columns per block, rows per staged W chunk) of K2b's register
-    kernel at factor width k <= 32, as ``WtuGeom`` in the source has them."""
-    kp = padded_k(k)
-    return (128 if kp <= 16 else 64), 256
-
-
-def wtu_split_plan(B: int, m: int, n: int, k: int, sms: int = H100_SMS):
+def wtu_split_plan(B: int, m: int, n: int, k: int, strip: int, chunk: int,
+                   sms: int, splits: int | None = None):
     """(splits, rows per split) of K2b for B members of m x n at factor
-    width k: split s takes rows [s R, min(m, (s + 1) R)) of every member, so
-    that B x strips x splits blocks reach SPLIT_BLOCKS_PER_SM x sms, with R a
-    whole number of W chunks and the (splits, B, k, n) f32 partial sums
-    within SCRATCH_CAP. One split (R = m) where the strips fill the card
-    already, and for k > 32 (the kernels of the first port take no split)."""
-    if padded_k(k) > 32:
+    width k, where the kernel takes ``strip`` columns per block and stages W
+    ``chunk`` rows at a time (``kl_wtu_geometry`` of the source; strip 0: no
+    split) on a card of ``sms`` SMs. Split s takes rows [s R, min(m, (s +
+    1) R)) of every member, R a whole number of chunks. Unless ``splits``
+    is given, the members split only while their B x strips blocks are
+    fewer than the SMs, and then into enough splits that the blocks reach
+    SPLIT_BLOCKS_PER_SM x sms: the (splits, B, k, n) f32 partial sums hold
+    fewer than 2 x SPLIT_BLOCKS_PER_SM x sms x strip x k values."""
+    if strip == 0:
         return 1, m
-    strip, chunk = wtu_geometry(k)
     blocks = B * -(-n // strip)
-    want = -(-SPLIT_BLOCKS_PER_SM * sms // blocks)
-    splits = min(want, -(-m // chunk), SCRATCH_CAP // (4 * B * k * n))
+    if splits is None:
+        splits = -(-SPLIT_BLOCKS_PER_SM * sms // blocks) if blocks < sms else 1
+    splits = min(splits, -(-m // chunk))
     if splits <= 1:
         return 1, m
     rows = -(-m // splits)
@@ -113,9 +103,22 @@ def _lib():
         # ... k, rows per split, scratch, out, stream
         wtu.argtypes = [p, p, p, ctypes.c_float, i, i, i, i, i, p, p, p]
         uht.restype = wtu.restype = i
+    lib.kl_wtu_geometry.argtypes = [i, p, p]
+    lib.kl_wtu_geometry.restype = i
     lib.kl_ratio_error_string.argtypes = [i]
     lib.kl_ratio_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def wtu_geometry(k: int) -> tuple:
+    """(strip, chunk) of K2b's kernel at factor width k, as the source
+    exports them (strip 0: the kernel takes no row split)."""
+    lib = _lib()
+    strip, chunk = ctypes.c_int(), ctypes.c_int()
+    check(lib.kl_wtu_geometry(k, ctypes.byref(strip), ctypes.byref(chunk)),
+          lib, "kl_ratio_error_string", "K2 kl_wtu_geometry")
+    return strip.value, chunk.value
 
 
 @functools.lru_cache(maxsize=None)
@@ -123,7 +126,7 @@ def _sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _launch(which: str, A, W, H, eps):
+def _launch(which: str, A, W, H, eps, splits=None):
     single = A.dim() == 2
     if single:
         A, W, H = A[None], W[None], H[None]
@@ -141,7 +144,8 @@ def _launch(which: str, A, W, H, eps):
     fn = getattr(lib, f"{which}_{A_SUFFIX[A.dtype]}")
     args = [A.data_ptr(), W.data_ptr(), H.data_ptr(), float(eps), B, m, n, k]
     if which == "kl_wtu":
-        splits, rows = wtu_split_plan(B, m, n, k, _sms(A.device))
+        splits, rows = wtu_split_plan(B, m, n, k, *wtu_geometry(k),
+                                      _sms(A.device), splits)
         scratch = (torch.empty((splits, B, k, n), dtype=torch.float32,
                                device=A.device) if splits > 1 else None)
         args += [rows, None if scratch is None else scratch.data_ptr()]
@@ -160,8 +164,9 @@ def kl_uht(A, W, H, eps, chunk: int = 0):
     return _launch("kl_uht", A, W, H, eps)
 
 
-def kl_wtu(A, W, H, eps, chunk: int = 0):
-    """W^T (A / (W H + eps)); CPU: plain (row-chunked), CUDA: K2b."""
+def kl_wtu(A, W, H, eps, chunk: int = 0, splits: int | None = None):
+    """W^T (A / (W H + eps)); CPU: plain (row-chunked), CUDA: K2b with
+    ``splits`` row splits (None: :func:`wtu_split_plan`'s)."""
     if A.device.type == "cpu":
         return kl_wtu_plain(A, W, H, eps, chunk)
-    return _launch("kl_wtu", A, W, H, eps)
+    return _launch("kl_wtu", A, W, H, eps, splits)

@@ -13,6 +13,7 @@ alike (bf16 values are widened exactly)."""
 import pytest
 import torch
 
+from _k2_plan import PLAN_CASES, check_plan
 from pydnmfk_tpu_torch.ops import (ell, ell_gather, fused_kl, fused_mu, kl,
                                    linalg, sparse)
 
@@ -88,16 +89,21 @@ def test_k3_matches_plain(cuda, b, m, n, k, dtype):
     assert _rel(out, ref) <= (1e-4 if dtype == torch.float32 else 1e-3)
 
 
-# K2's register kernels (k <= 32): K2b strips of 128 columns (64 at
-# k > 16) over W chunks of 2048 / KP rows, K2a row tiles of 16, 32, 64 rows
-# (KP = 8, 16, 32) over H tiles of 128 columns, 16-byte loads when n % 4 ==
-# 0: n ragged at the strip widths with n % 4 = 1, 2, 3 (scalar path) and 0,
-# m ragged at the row tiles, a 10-member stack, and single members tall
-# enough for K2b's row split (ops/kl.py::wtu_split_plan)
+# K2's register kernels (k <= 32), as UhtGeom and WtuGeom in
+# csrc/kl_ratio.cu have them: K2b strips of 128 columns (64 at k > 16) over
+# W chunks of 256 rows; K2a row tiles of 16, 32, 64 rows (k <= 8, 16, 32)
+# over double-buffered H tiles of 512 columns (256 at k > 16); 16-byte
+# loads when n % 4 == 0. Shapes: n ragged at the strip widths with n % 4 =
+# 1, 2, 3 (scalar path) and 0, m ragged at the row tiles, n % 4 == 0 over
+# several H tiles with a ragged last one (n = 1040: 2 or 4 whole tiles at
+# k <= 16 or k > 16, then 16 columns; n = 1540: 3 or 6, then 4), a
+# 10-member stack, and single members tall enough for K2b's row split
+# (ops/kl.py::wtu_split_plan). k = 130: a padded k in the first port's
+# KP = 256 kernel.
 K2_SHAPES = SHAPES + [(1, 257, 129), (1, 129, 130), (2, 65, 131),
                       (1, 33, 260), (10, 70, 200), (1, 3000, 260),
-                      (1, 2100, 67)]
-K2_K = [1, 3, 7, 8, 9, 16, 17, 31, 32, 33, 65, 256]
+                      (1, 2100, 67), (1, 300, 1040), (2, 129, 1540)]
+K2_K = [1, 3, 7, 8, 9, 16, 17, 31, 32, 33, 65, 130, 256]
 
 
 @pytest.mark.parametrize("b,m,n", K2_SHAPES)
@@ -114,7 +120,7 @@ def test_k2_matches_plain(cuda, b, m, n, k, dtype):
 
 @pytest.mark.parametrize("b,m,n", [(10, 70, 200), (1, 3000, 260),
                                    (1, 2100, 67)])
-@pytest.mark.parametrize("k", [3, 8, 32, 65])
+@pytest.mark.parametrize("k", [3, 8, 32, 65, 130])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_k2_launches_are_bitwise_equal(cuda, b, m, n, k, dtype):
     """Partial sums meet in a fixed order (no atomics; K2b's row split adds
@@ -122,6 +128,33 @@ def test_k2_launches_are_bitwise_equal(cuda, b, m, n, k, dtype):
     A, W, H = _inputs(cuda, b, m, n, k, dtype)
     for fn in (kl.kl_uht, kl.kl_wtu):
         assert torch.equal(fn(A, W, H, EPS), fn(A, W, H, EPS))
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 12])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k2b_given_splits_matches_plain(cuda, splits, dtype):
+    """K2b with its rows cut into as many splits as asked (at most one per
+    W chunk) on a 2-member stack, and one launch per call."""
+    A, W, H = _inputs(cuda, 2, 3000, 260, 8, dtype)
+    before = kl.launches["kl_wtu"]
+    out = kl.kl_wtu(A, W, H, EPS, splits=splits)
+    assert kl.launches["kl_wtu"] == before + 1
+    assert _rel([out], [kl.kl_wtu_plain(A, W, H, EPS)]) <= 1e-4
+
+
+def test_wtu_split_plan_on_the_exported_geometry(cuda):
+    """K2b's geometry as the source exports it: a strip of whole 4-column
+    groups and a chunk for k <= 32, no split for k > 32, and a plan that
+    keeps the split's invariants (``_k2_plan.check_plan``) on it."""
+    for k in range(1, kl.MAX_K + 1):
+        strip, chunk = kl.wtu_geometry(k)
+        assert (strip > 0) == (k <= 32)
+        assert strip % 4 == 0 and (chunk > 0) == (strip > 0)
+    for B, m, n, k in PLAN_CASES:
+        check_plan(B, m, n, k, *kl.wtu_geometry(k))
+    for k in (0, kl.MAX_K + 1):
+        with pytest.raises(RuntimeError, match="kl_wtu_geometry"):
+            kl.wtu_geometry(k)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):

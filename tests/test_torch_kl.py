@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 import torch
 
+from _k2_plan import PLAN_CASES, check_plan
 from _parity import interpret_pallas, np_  # noqa: F401  (fixture)
 from pydnmfk_tpu.ops import kl as jkl
 from pydnmfk_tpu.ops.pallas_kernels import kl_uht_pallas, kl_wtu_pallas
@@ -86,33 +87,17 @@ def test_non_cpu_tensor_never_takes_the_plain_path(fn):
     assert tkl.launches == {"kl_uht": 0, "kl_wtu": 0}
 
 
-# (members, m, n, k): the refit's single member and the 10-member ensemble
-# of the NMFk sweep, the strong-scaling shape, a member too short for a
-# second chunk, ragged m at every chunk height, a width whose partial sums
-# alone would pass the cap, and the first-port widths (no split)
-PLAN_CASES = [(1, 14400, 9600, 8), (10, 14400, 9600, 4), (1, 57600, 38400, 32),
-              (1, 200, 300, 8), (1, 1000, 130, 3), (1, 1001, 70, 16),
-              (3, 999, 65, 17), (1, 3000, 260, 32), (1, 4096, 2 ** 22, 8),
-              (1, 100000, 50, 1), (2, 5000, 700, 64), (1, 9000, 40, 256)]
+# (strip, chunk) of K2b's kernel: those of csrc/kl_ratio.cu at KP = 8 and
+# 16, at KP = 32, a first-port width (no split), and an odd one
+GEOMETRIES = [(128, 256), (64, 256), (0, 0), (32, 100)]
 
 
 @pytest.mark.parametrize("B,m,n,k", PLAN_CASES)
-def test_wtu_split_plan_covers_every_row_once(B, m, n, k):
-    """K2b's row split: the ranges [s R, min(m, (s + 1) R)) of its splits
-    are non-empty and cover the rows [0, m) of a member exactly once; R is a
-    whole number of W chunks when there is more than one split; the
-    partial sums (splits, B, k, n) stay within the cap; and the split adds
-    blocks only while the card is not yet filled."""
-    splits, rows = tkl.wtu_split_plan(B, m, n, k)
-    ranges = [range(s * rows, min(m, (s + 1) * rows)) for s in range(splits)]
-    assert all(len(r) > 0 for r in ranges)
-    assert [i for r in ranges for i in r] == list(range(m))
-    if splits == 1:
-        assert rows == m
-        return
-    assert tkl.padded_k(k) <= 32
-    strip, chunk = tkl.wtu_geometry(k)
-    assert rows % chunk == 0
-    assert 4 * splits * B * k * n <= tkl.SCRATCH_CAP
-    blocks = B * -(-n // strip)
-    assert (splits - 1) * blocks < tkl.SPLIT_BLOCKS_PER_SM * tkl.H100_SMS
+@pytest.mark.parametrize("strip,chunk", GEOMETRIES)
+def test_wtu_split_plan_covers_every_row_once(B, m, n, k, strip, chunk):
+    """K2b's row split (see ``_k2_plan.check_plan``)."""
+    splits = check_plan(B, m, n, k, strip, chunk)
+    if (B, m, n, k, strip) == (1, 14400, 9600, 8, 128):
+        assert splits > 1          # the refit's 75 strips leave SMs idle
+    if (B, m, n, k, strip) == (10, 14400, 9600, 4, 128):
+        assert splits == 1         # the ensemble's 750 fill them
