@@ -9,11 +9,12 @@ checkout), so that two trees, say a parent commit unpacked with ``git archive``
 and the change, can be timed in one run on one card, in turns (parent,
 change, change, parent). The cases are those of ``chip_smoke.py``'s phase 2:
 an f32 and a uint8 A at 57600 x 38400, k = 32, an f32 and a bf16 10-member
-14400 x 9600, k = 8 stack, and K2b alone on one member of that stack (the
-shape of the NMFk refit, k = 8), all drawn from the same seed. For each case
-and kernel it prints one JSON line: the kernel's ms (CUDA events, median of
-7 after a warm-up), its max relative error against the plain version, and
-its bound (the larger of 4 m n k operations over 67 TFLOP/s and the bytes,
+14400 x 9600, k = 8 stack, K2b alone on one member of that stack (the
+shape of the NMFk refit, k = 8), and both on one 14400 x 9600 member at
+k = 256 (the first port's kernels), all drawn from the same seed. For each
+case and kernel it prints one JSON line: the kernel's ms (CUDA events,
+median of 7 after a warm-up), the plain version's ms, its max relative
+error against the plain version, and its bound (the larger of 4 m n k operations over 67 TFLOP/s and the bytes,
 each input read once and the output written once, over 3.35 TB/s).
 
 With ``--split-sweep`` it times K2b alone instead, on the refit's member,
@@ -76,12 +77,14 @@ def main():
                         / ref.double().abs().max())
             del out, ref
             ms = median_ms(lambda: fn(A, W, H, eps))
+            plain_ms = median_ms(lambda: plain(A, W, H, eps, chunk))
             t_ops = flops / PEAK_FLOPS * 1e3
             t_bytes = nbytes(A, W, H, W if w == "uht" else H) / PEAK_BYTES * 1e3
             print(json.dumps({
                 "label": args.label, "case": name,
                 "kernel": "K2a kl_uht" if w == "uht" else "K2b kl_wtu",
-                "ms": ms, "max_rel_err": err, "bound_ms": max(t_ops, t_bytes),
+                "ms": ms, "plain_ms": plain_ms, "max_rel_err": err,
+                "bound_ms": max(t_ops, t_bytes),
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "card": smi}), flush=True)
 
@@ -135,6 +138,12 @@ def main():
     case(f"f32 {E} x {EM}x{EN} k={EK}", Ae, We, He)
     case(f"bf16-A {E} x {EM}x{EN} k={EK}", Ae.to(torch.bfloat16), We, He)
     case(f"f32 refit {EM}x{EN} k={EK}", Ae[0], We[0], He[0], ("wtu",))
+    A1 = Ae[0].clone()
+    del Ae, We, He
+    torch.cuda.empty_cache()
+    case(f"f32 {EM}x{EN} k=256", A1,
+         torch.rand((EM, 256), generator=gen, device=dev),
+         torch.rand((256, EN), generator=gen, device=dev))
 
 
 if __name__ == "__main__":

@@ -17,10 +17,12 @@ Run from the root of a checkout, with no arguments:
      ensemble (f32, and K1, K2a and K2b on its bf16 copy, the NMFk
      ensemble under ``--a_precision=bfloat16``); K2b on one member of it
      (the NMFk refit's shape); K1's two-read floor beside each K1 row; the
-     ptxas registers and spills of K1's and K2's kernels (no spill allowed);
+     ptxas registers and spills of K1's, K2's and K4's kernels (no spill
+     allowed);
    - K4 in its four modes (rows/columns, plain/ratio) at the shape and nnz
      of the NYTimes bag-of-words corpus (300000 x 102660, 69.7 M nnz,
-     k = 32), and on a 10-member stack of the planted topic matrix of 5;
+     k = 32), and on a 10-member stack of the planted topic matrix of 5 at
+     k = 3 and 7 (library call: ``torch.bmm`` of a sparse COO stack);
    profiles one batched FRO-MU and KL-MU step on that stack (wall and
    device ms, idle share, top kernels); and checks NMF.fit on the card
    against the CPU path on a small input;
@@ -167,6 +169,29 @@ def ptxas_k2(log):
                       r"(?:Lb([01])E)?)?",
                  lambda m: (m.group(1), MANGLED_A[m.group(2)],
                             int(m.group(3) or 0), m.group(4) == "1"))
+
+
+def ptxas_k4(log):
+    """K4's kernels: the grouped kernel (k <= 32) keyed (kernel, values
+    dtype, KP, member group, ratio, False), the first port's (k > 32) keyed
+    (kernel, dtype, KP, 0, ratio, vec), and the table's interleave."""
+    return ptxas(log, r"(grouped_kernel|ell_gather_kernel|interleave_kernel)"
+                      r"(?:I(f|13__nv_bfloat16)Li(\d+)E(?:Li(\d+)E)?Lb([01])E"
+                      r"(?:Lb([01])E)?)?",
+                 lambda m: (m.group(1), MANGLED_A[m.group(2)],
+                            int(m.group(3) or 0), int(m.group(4) or 0),
+                            m.group(5) == "1", m.group(6) == "1"))
+
+
+def coo_stack(rows, cols, data, shape):
+    """A (B, m, n) sparse COO tensor of the B members ``data`` (B, nnz) over
+    one pattern, for the library call that chip_smoke times beside K4 on a
+    member stack; the port never calls it."""
+    B, nnz = data.shape
+    member = torch.arange(B, device=data.device).repeat_interleave(nnz)
+    ind = torch.stack([member, rows.long().repeat(B), cols.long().repeat(B)])
+    return torch.sparse_coo_tensor(ind, data.reshape(-1), (B, *shape),
+                                   check_invariants=False).coalesce()
 
 
 def csr(rows, cols, vals, shape):
@@ -328,6 +353,22 @@ def main():
     check(len(regs) == 55 and not any(ss or sl for _, ss, sl in regs.values()),
           f"K2 kernels: ptxas report {regs} (expected 55 instantiations, no "
           f"spills)")
+
+    # K4's kernels likewise: the grouped kernel (KP = 4, 8, 16, 32 at every
+    # member group it takes) and the first port's (KP = 64, 128, 256; vec:
+    # 16-byte loads), plain and ratio, f32 and bf16 values, and the
+    # interleave of the grouped kernel's table
+    regs = ptxas_k4(cuda_lib.library_path("ell_gather").with_suffix(
+        ".log").read_text())
+    for name in sorted({key[0] for key in regs}):
+        print(f"[ptxas] K4 {name} (registers, spill store / load bytes): "
+              + ", ".join(f"{dt}{f' KP={kp}' if kp else ''}{f' G={g}' if g else ''}"
+                          f"{' ratio' if ratio else ''}{' vec' if vec else ''} "
+                          f"{r} registers, {ss}/{sl} B spilled"
+                          for (nm, dt, kp, g, ratio, vec), (r, ss, sl)
+                          in sorted(regs.items()) if nm == name), flush=True)
+    check(len(regs) == 85 and not any(ss or sl for _, ss, sl in regs.values()),
+          f"K4 kernels: ptxas report {regs} (expected 85 kernels, no spills)")
 
     def two_read_floor(label, a):
         """K1 reads A twice (sweep 2 needs all of A_i H^T first): that
@@ -494,20 +535,16 @@ def main():
           f"{E.rvals.shape[1]} (rows) / {E.cvals.shape[1]} (columns), tails "
           f"{E.rtail_d.numel()} / {E.ctail_d.numel()}", flush=True)
 
-    def k4_cases(tag, E, W, H, library=True):
+    def k4_cases(tag, E, W, H, library):
         """K4's four modes on the ELL E with factors W (.., m, k), H
-        (.., k, n); returns the kernel ms of the two plain modes and the
+        (.., k, n); ``library(Ht, W)`` gives the library calls of the two
+        plain modes. Returns the kernel ms of the two plain modes and the
         nonzeros each orientation's ELL holds."""
         Ht = H.mT.contiguous()
         nz_r = E.nse - E.rtail_d.shape[-1]
         nz_c = E.nse - E.ctail_d.shape[-1]
         k = W.shape[-1]
-        lib_r = lib_c = None
-        if library:
-            A_r = csr(nyt.rows, nyt.cols, nyt.data, nyt.shape)
-            A_c = csr(nyt.cols, nyt.rows, nyt.data, nyt.shape[::-1])
-            lib_r = lambda: torch.sparse.mm(A_r, Ht)
-            lib_c = lambda: torch.sparse.mm(A_c, W)
+        lib_r, lib_c = library(Ht, W)
         cases = (("rows plain", E.rvals, E.rcols, Ht, None, nz_r, lib_r),
                  ("columns plain", E.cvals, E.crows, W, None, nz_c, lib_c),
                  ("rows ratio", E.rvals, E.rcols, Ht, W, nz_r, None),
@@ -533,8 +570,13 @@ def main():
 
     Wn = torch.rand((NYT_M, K), generator=gen, device=dev)
     Hn = torch.rand((K, NYT_N), generator=gen, device=dev)
-    k4_ms, k4_nz = k4_cases(f"{NYT_M}x{NYT_N} k={K} f32", E, Wn, Hn)
-    del Wn, Hn
+    A_r = csr(nyt.rows, nyt.cols, nyt.data, nyt.shape)
+    A_c = csr(nyt.cols, nyt.rows, nyt.data, nyt.shape[::-1])
+    k4_ms, k4_nz = k4_cases(
+        f"{NYT_M}x{NYT_N} k={K} f32", E, Wn, Hn,
+        lambda Ht, W: (lambda: torch.sparse.mm(A_r, Ht),
+                       lambda: torch.sparse.mm(A_c, W)))
+    del Wn, Hn, A_r, A_c
     torch.cuda.empty_cache()
     # the time model's constants (ops/ell.py), from this run's readings
     s_slot = sum(t / nz for t, nz in zip(k4_ms, k4_nz)) / 2e3
@@ -554,11 +596,21 @@ def main():
           f"tails {Et.rtail_d.numel()} / {Et.ctail_d.numel()}", flush=True)
     noise = 1.0 + 0.03 * torch.rand((ENS, topic.nse), generator=gen,
                                     device=dev)
-    stack = ell.ell_with_data(Et, *perms, topic.data * noise)
-    Ws = torch.rand((ENS, tshape[0], TOPIC_K), generator=gen, device=dev)
-    Hs = torch.rand((ENS, TOPIC_K, tshape[1]), generator=gen, device=dev)
-    k4_cases(f"{ENS} x {tshape[0]}x{tshape[1]} ({topic.nse} nnz) "
-             f"k={TOPIC_K} f32", stack, Ws, Hs, library=False)
+    data = topic.data * noise
+    stack = ell.ell_with_data(Et, *perms, data)
+    # the library yardstick on the stack: torch.bmm of a 3-D sparse COO stack
+    # (the members' A with their tails) against the table
+    S_r = coo_stack(topic.rows, topic.cols, data, tshape)
+    S_c = coo_stack(topic.cols, topic.rows, data, tshape[::-1])
+    stack_lib = lambda Ht, W: (lambda: torch.bmm(S_r, Ht),
+                               lambda: torch.bmm(S_c, W))
+    # k = 3 (KP = 4, groups of 8) beside the sweep's top k = 7 (KP = 8)
+    for k in (3, TOPIC_K):
+        Ws = torch.rand((ENS, tshape[0], k), generator=gen, device=dev)
+        Hs = torch.rand((ENS, k, tshape[1]), generator=gen, device=dev)
+        k4_cases(f"{ENS} x {tshape[0]}x{tshape[1]} ({topic.nse} nnz) "
+                 f"k={k} f32", stack, Ws, Hs, stack_lib)
+    del S_r, S_c, data
     # where the time of one batched MU step of the sparse sweep goes
     for norm in ("fro", "kl"):
         profile_step(norm, stack, Ws, Hs, eps)

@@ -11,44 +11,78 @@
 // Replaces pydnmfk_tpu/ops/pallas_ell.py::_kernel (called from
 // _gather_product_pallas). The TPU kernel holds the whole table in VMEM and
 // streams (512, w) tiles of vals/idx past it. A Hopper block has 227 KB of
-// shared memory, and the tables are megabytes, so the port does not carry
-// that over. The table stays in device memory and is read through the
-// 50 MB L2: at NYTimes size (300000 x 102660, k = 32) H^T is 13 MB and W is
-// 38 MB, so a member's table stays resident while its lines stream past.
-//
-// Layout: L lanes own one output line and hold it in registers, 4 columns
-// per lane (L = 8 at k <= 32: 8 lanes x float4 cover one 128-byte row of T).
-// The group walks its line's w slots L at a time: each lane loads one
-// (val, idx) pair (coalesced along the line), and the group then takes the L
-// slots in turn, the pair broadcast by a shuffle, gathering T's row as one
-// contiguous segment. The L gathers of a turn are independent, so several
-// are in flight at once. In ratio mode the dot product with X is a shuffle
-// reduction inside the group over the same gathered row: one gather per KL
-// product, as in ops/ell.py. Members are the slowest grid axis (blockIdx.y),
-// so one member's table stays hot in L2. Each output line is written once,
-// by one group: no atomics, and the result is deterministic.
+// shared memory and the tables are megabytes (1.6-6.4 MB a member on the
+// NMFk sweep's topic matrix, 13-38 MB at the NYTimes shape), so the table
+// stays in device memory and is read through the 50 MB L2.
 //
 // What bounds it: from device memory it streams vals and idx once (8 bytes
-// per slot at f32), reads the table once and writes the output once; the
-// flop count is 2 nnz k (plain) or 4 nnz k (ratio). The product itself needs
-// those 8 bytes for the nonzeros only: the padding slots are the format's
-// cost, and the bound counts nnz on both sides. The gathers move
-// slots x k x 4 bytes more, served from L2, not from device memory; that L2
-// traffic (4k bytes against 8 bytes streamed per slot) is what bounds this
-// simple kernel. A tiled or sorted gather order, and tuning, are later work.
+// per nonzero at f32), reads the table once and writes the output once; the
+// flops are 2 nnz k (plain) or 4 nnz k (ratio). On top of that every slot
+// gathers one k-float row of the table from L2, and that traffic, with the
+// L1 wavefronts and instructions it costs, is what bounds the kernel.
 //
-// k is padded to a power of two in [4, 256] inside the kernel; columns past
-// k load as zeros and are never stored. Rows of T are loaded as float4 when
-// k is a multiple of 4 and the pointers are 16-byte aligned, else as
-// scalars. Padding slots (val = 0, idx = 0) are inert. vals may be bf16; it
-// is widened to f32 as it is loaded, and all arithmetic is f32.
+// k <= 32 (grouped_kernel below): the NMFk ensemble runs the product on
+// member stacks over one index (the B members share idx). The wrapper
+// interleaves the table so that the members of a group of G sit side by
+// side: (dim_t, G, KP) per group, each member's row padded to KP = 4, 8, 16,
+// 32 floats (zeros past k). One slot's index then names one contiguous,
+// 16-byte-aligned run of G x KP x 4 bytes (256 at G = 8, KP = 8), where the
+// first port gathered G rows of k x 4 bytes from G tables, each as masked
+// scalar loads at k % 4 != 0 (28-byte rows straddling sectors at k = 7).
+//   * Lanes: a line takes L = G x KP / 4 lanes, lane (m, q) member m's
+//     columns [4q, 4q + 4); it loads the slot's run with one float4 and
+//     keeps its four sums in registers. A block of 256 threads takes 256 / L
+//     lines of one group; groups are the grid's slow axis, so a group's
+//     table stays in L2 while its lines stream past. The wrapper bounds G so
+//     that a group's table fits a share of the L2 (ops/ell_gather.py's
+//     member_groups, on the geometry exported below); the last group holds
+//     the B % G members left, and its spare lanes load nothing.
+//   * Values and indices: the members' values lie dim x w apart, so the
+//     block stages a chunk of S = 2 KP slots of its lines, (G, lines, S)
+//     values and (lines, S) indices, in shared memory, read from device
+//     memory along s (coalesced) by cp.async one chunk ahead (two buffers;
+//     bf16 values go through registers and are widened, exactly, by a
+//     shift). A slot's index is then read from shared memory as a
+//     broadcast, once for all G members, and the strides of the staged
+//     tiles put the G x lines-per-warp values that a warp reads in distinct
+//     banks.
+//   * Occupancy: a gather waits on L2, and the latency is hidden by warps:
+//     the kernel is bounded to four blocks per SM (64 registers) in plain
+//     mode and three (85) in ratio mode, where the dot product spills at
+//     64. The table's interleave is one more small kernel (interleave_kernel,
+//     a pass over the table), launched by the wrapper before the product.
+//   * Division: __fdividef (within 2 ulp; <X, row> + eps lies in (0,
+//     2^126) for nonnegative factors), as K2 divides; IEEE `/` adds a slow
+//     path and its registers.
+//   * Order: each output element is summed by one lane in ascending slot
+//     order; the ratio's <X, row> is summed over a lane's four columns and
+//     then a butterfly over its member's KP / 4 lanes, neither of which
+//     depends on G. So a member's result is the same bitwise in every group
+//     size, B = 1 (G = 1) included. No atomics.
+//
+// k > 32 (legacy::ell_gather_kernel, the first port's kernel): L lanes own
+// one output line, 4 columns a lane (L = KP / 4 up to 32); the group walks
+// the line's slots L at a time, each lane loading one (val, idx) pair and
+// passing it round by shuffles, and gathers the member's row from its own
+// table (member on the grid's y axis). Rows load as float4 when k % 4 == 0
+// and the pointers are 16-byte aligned, else as scalars. Its launch bounds
+// now ask for four blocks per SM: without them ptxas kept the ratio
+// instantiations with 16-byte loads at KP = 64, 128 to 32 registers and
+// spilled 16-24 bytes.
+//
+// Padding slots (val = 0, idx = 0) are inert. vals may be bf16; all
+// arithmetic is f32.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
+
+// The first port's kernel, kept for k > 32 (KP = 64, 128, 256).
+namespace legacy {
 
 constexpr int NT = 256;                  // threads per block (8 warps)
 constexpr unsigned FULL = 0xffffffffu;
@@ -80,7 +114,7 @@ __device__ __forceinline__ void load4(float (&r)[4], const float* __restrict__ p
 }
 
 template <typename V, int KP, bool RATIO, bool VEC>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 4)
 ell_gather_kernel(const V* __restrict__ vals, const int* __restrict__ idx,
                   const float* __restrict__ T, const float* __restrict__ X,
                   float eps, int dim, int w, int dim_t, int k,
@@ -173,17 +207,233 @@ cudaError_t launch(const void* vals, const void* idx, const void* T,
   return cudaGetLastError();
 }
 
+}  // namespace legacy
+
+namespace grouped {
+
+constexpr int NT = 256;                  // threads per block (8 warps)
+// resident blocks per SM: four (64 registers) for the plain product, three
+// (85) for the ratio, whose dot product and shuffles spill at 64
+template <bool RATIO> constexpr int MIN_BLOCKS = RATIO ? 3 : 4;
+constexpr int MAX_G = 8;                 // most members a group gathers
+constexpr unsigned FULL = 0xffffffffu;
+
+// The staging layout of a (KP, G) instantiation, in 4-byte words.
+template <int KP, int G>
+struct Geom {
+  static constexpr int Q = KP / 4;       // lanes per member, 4 columns each
+  static constexpr int L = G * Q;        // lanes per line
+  static_assert(L <= 32 && 32 % L == 0, "a line's lanes lie in one warp");
+  static constexpr int LPW = 32 / L;     // lines per warp
+  static constexpr int LINES = NT / L;   // lines per block
+  static constexpr int S = 8 * Q;        // slots per staged chunk
+  static constexpr int LS = S + 1;       // line stride (odd)
+  // member stride: at least LINES x LS and congruent to LPW x LS mod 32, so
+  // that word m MS + j LS of member m, warp line j falls in bank
+  // (m LPW + j) LS mod 32: distinct for the G x LPW pairs of a warp
+  static constexpr int MS =
+      LINES * LS + (((LPW * LS - LINES * LS) % 32) + 32) % 32;
+  static constexpr int VN = G * LINES * S / NT;   // values a thread stages (8)
+  static constexpr int IN = LINES * S / NT;       // indices a thread stages
+  static constexpr int BUF = G * MS + LINES * LS; // one buffer: values, indices
+  static constexpr size_t smem() { return 2 * sizeof(float) * (size_t)BUF; }
+};
+
+// dst <- *src (4 bytes) asynchronously, or zeros where !valid
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(unsigned short x) {
+  return __uint_as_float((unsigned)x << 16);   // bf16 -> f32, exact
+}
+
+// Ti: the interleaved table, group after group: members [gG, gG + gg) as
+// (dim_t, gg, KP), gg = min(G, B - gG)
+template <typename V, int KP, int G, bool RATIO>
+__global__ void __launch_bounds__(NT, MIN_BLOCKS<RATIO>)
+grouped_kernel(const V* __restrict__ vals_, const int* __restrict__ idx,
+               const float* __restrict__ Ti, const float* __restrict__ X,
+               float eps, int B, int dim, int w, int dim_t, int k,
+               float* __restrict__ out) {
+  using Gm = Geom<KP, G>;
+  constexpr bool F32 = std::is_same<V, float>::value;
+  using R = typename std::conditional<F32, float, unsigned short>::type;
+  constexpr int Q = Gm::Q, L = Gm::L, LINES = Gm::LINES, S = Gm::S;
+  constexpr int LS = Gm::LS, MS = Gm::MS;
+  extern __shared__ float smem[];        // two buffers: (G, LINES, LS) values, (LINES, LS) indices
+  const R* vals = reinterpret_cast<const R*>(vals_);
+  const int tid = threadIdx.x;
+  const int e0 = blockIdx.y * G;
+  const int gg = min(G, B - e0);         // members in this group
+  const int b0 = blockIdx.x * LINES;
+  const int ll = tid / L, m = tid % L / Q, q = tid % Q;
+  const int line = b0 + ll;
+  const bool live = line < dim && m < gg;
+  const int rs = gg * KP;                // the group's table row, in floats
+  const float* trow = Ti + (size_t)e0 * dim_t * KP + (m < gg ? m : 0) * KP + q * 4;
+
+  float x[4];
+  if (RATIO) {
+    const float* xr = X + ((size_t)(e0 + (m < gg ? m : 0)) * dim +
+                           (line < dim ? line : 0)) * k;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x[j] = live && q * 4 + j < k ? __ldg(xr + q * 4 + j) : 0.f;
+  }
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+
+  // stages the chunk of slots [s0, s0 + S) into buffer buf, read along s
+  // (coalesced): f32 values and the indices by cp.async, bf16 values
+  // through registers, widened
+  const auto stage = [&](int s0, int buf) {
+    float* sv = smem + buf * Gm::BUF;
+    int* si = reinterpret_cast<int*>(sv + G * MS);
+#pragma unroll 4
+    for (int j = 0; j < Gm::VN; ++j) {
+      const int f = j * NT + tid;
+      const int mm = f / (LINES * S), l = f / S % LINES, s = f % S;
+      const bool ok = mm < gg && b0 + l < dim && s0 + s < w;
+      const R* src = vals + (ok ? ((size_t)(e0 + mm) * dim + b0 + l) * w + s0 + s : 0);
+      float* dst = sv + mm * MS + l * LS + s;
+      if constexpr (F32) cp_async4(dst, src, ok);
+      else *dst = ok ? widen(__ldcs(src)) : 0.f;
+    }
+#pragma unroll 4
+    for (int j = 0; j < Gm::IN; ++j) {
+      const int f = j * NT + tid;
+      const int l = f / S, s = f % S;
+      const bool ok = b0 + l < dim && s0 + s < w;
+      cp_async4(si + l * LS + s, idx + (ok ? (size_t)(b0 + l) * w + s0 + s : 0), ok);
+    }
+    cp_async_commit();
+  };
+
+  stage(0, 0);
+  for (int s0 = 0, buf = 0; s0 < w; s0 += S, buf ^= 1) {
+    if (s0 + S < w) stage(s0 + S, buf ^ 1);
+    else cp_async_commit();              // an empty group keeps the count
+    cp_async_wait_one();                 // this thread's copies of s0 landed
+    __syncthreads();                     // and everyone's
+    const float* vr = smem + buf * Gm::BUF + m * MS + ll * LS;
+    const int* ir = reinterpret_cast<const int*>(smem + buf * Gm::BUF + G * MS) + ll * LS;
+    const int ns = min(S, w - s0);       // the same for the whole block
+#pragma unroll 4
+    for (int t = 0; t < ns; ++t) {
+      const float v = vr[t];
+      float4 r4 = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (live) r4 = __ldg(reinterpret_cast<const float4*>(trow + (size_t)ir[t] * rs));
+      const float r[4] = {r4.x, r4.y, r4.z, r4.w};
+      float coef = v;
+      if (RATIO) {
+        float d = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) d += x[j] * r[j];
+#pragma unroll
+        for (int o = Q / 2; o > 0; o >>= 1) d += __shfl_xor_sync(FULL, d, o, Q);
+        coef = __fdividef(v, d + eps);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[j] += coef * r[j];
+    }
+    __syncthreads();                     // buf is refilled two chunks on
+  }
+  if (!live) return;
+  float* o = out + ((size_t)(e0 + m) * dim + line) * k + q * 4;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (q * 4 + j < k) o[j] = acc[j];
+}
+
+// Ti <- T (B, dim_t, k) interleaved in groups of G members, rows padded
+// with zeros to KP = 2^kp_shift: group g = blockIdx.y writes its block
+// (dim_t, gg, KP), gg = min(G, B - gG), from g G dim_t KP on, in order.
+__global__ void __launch_bounds__(NT)
+interleave_kernel(const float* __restrict__ T, float* __restrict__ Ti, int B,
+                  int dim_t, int k, int kp_shift, int G) {
+  const int g = blockIdx.y;
+  const int gg = min(G, B - g * G);
+  const int n = dim_t * gg << kp_shift;  // < 2^31 (checked by the caller)
+  const float* t = T + (size_t)g * G * dim_t * k;
+  float* o = Ti + ((size_t)g * G * dim_t << kp_shift);
+  for (int i = blockIdx.x * NT + threadIdx.x; i < n; i += gridDim.x * NT) {
+    const int c = i & ((1 << kp_shift) - 1), rm = i >> kp_shift;
+    const int m = rm % gg, row = rm / gg;
+    o[i] = c < k ? __ldg(t + ((size_t)m * dim_t + row) * k + c) : 0.f;
+  }
+}
+
+template <typename V, int KP, int G, bool RATIO>
+cudaError_t launch(const void* vals, const void* idx, const void* Ti,
+                   const void* X, float eps, int B, int dim, int w, int dim_t,
+                   int k, void* out, cudaStream_t stream) {
+  using Gm = Geom<KP, G>;
+  constexpr size_t smem = Gm::smem();
+  const auto kernel = &grouped_kernel<V, KP, G, RATIO>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((dim + Gm::LINES - 1) / Gm::LINES, (B + G - 1) / G);
+  kernel<<<grid, NT, smem, stream>>>(
+      static_cast<const V*>(vals), static_cast<const int*>(idx),
+      static_cast<const float*>(Ti), static_cast<const float*>(X), eps, B, dim,
+      w, dim_t, k, static_cast<float*>(out));
+  return cudaGetLastError();
+}
+
+// the largest group a KP takes: a line's lanes fit one warp
+constexpr int max_group(int kp) { return 128 / kp < MAX_G ? 128 / kp : MAX_G; }
+
+template <typename V, int KP, bool RATIO>
+cudaError_t dispatch_g(int G, const void* vals, const void* idx, const void* Ti,
+                       const void* X, float eps, int B, int dim, int w,
+                       int dim_t, int k, void* out, cudaStream_t s) {
+  switch (G) {
+    case 1: return launch<V, KP, 1, RATIO>(vals, idx, Ti, X, eps, B, dim, w, dim_t, k, out, s);
+    case 2: return launch<V, KP, 2, RATIO>(vals, idx, Ti, X, eps, B, dim, w, dim_t, k, out, s);
+    case 4: return launch<V, KP, 4, RATIO>(vals, idx, Ti, X, eps, B, dim, w, dim_t, k, out, s);
+    case 8:
+      if constexpr (max_group(KP) >= 8)
+        return launch<V, KP, 8, RATIO>(vals, idx, Ti, X, eps, B, dim, w, dim_t, k, out, s);
+      [[fallthrough]];
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace grouped
+
+// k's padded width: 4, 8, 16, 32 for the grouped kernel, 64, 128, 256 for
+// the legacy one; 0 outside [1, 256]
+int padded_width(int k) {
+  if (k < 1 || k > 256) return 0;
+  int kp = 4;
+  while (kp < k) kp *= 2;
+  return kp;
+}
+
 template <typename V, bool RATIO>
 cudaError_t dispatch_k(const void* vals, const void* idx, const void* T,
                        const void* X, float eps, int B, int dim, int w,
-                       int dim_t, int k, void* out, bool vec, cudaStream_t s) {
-  if (k <= 4) return launch<V, 4, RATIO>(vals, idx, T, X, eps, B, dim, w, dim_t, k, out, vec, s);
-  if (k <= 8) return launch<V, 8, RATIO>(vals, idx, T, X, eps, B, dim, w, dim_t, k, out, vec, s);
-  if (k <= 16) return launch<V, 16, RATIO>(vals, idx, T, X, eps, B, dim, w, dim_t, k, out, vec, s);
-  if (k <= 32) return launch<V, 32, RATIO>(vals, idx, T, X, eps, B, dim, w, dim_t, k, out, vec, s);
-  if (k <= 64) return launch<V, 64, RATIO>(vals, idx, T, X, eps, B, dim, w, dim_t, k, out, vec, s);
-  if (k <= 128) return launch<V, 128, RATIO>(vals, idx, T, X, eps, B, dim, w, dim_t, k, out, vec, s);
-  return launch<V, 256, RATIO>(vals, idx, T, X, eps, B, dim, w, dim_t, k, out, vec, s);
+                       int dim_t, int k, int group, void* out, bool vec,
+                       cudaStream_t s) {
+  if (k > 32) {
+    if (group != 0) return cudaErrorInvalidValue;
+    if (k <= 64) return legacy::launch<V, 64, RATIO>(vals, idx, T, X, eps, B, dim, w, dim_t, k, out, vec, s);
+    if (k <= 128) return legacy::launch<V, 128, RATIO>(vals, idx, T, X, eps, B, dim, w, dim_t, k, out, vec, s);
+    return legacy::launch<V, 256, RATIO>(vals, idx, T, X, eps, B, dim, w, dim_t, k, out, vec, s);
+  }
+  if (k <= 4) return grouped::dispatch_g<V, 4, RATIO>(group, vals, idx, T, X, eps, B, dim, w, dim_t, k, out, s);
+  if (k <= 8) return grouped::dispatch_g<V, 8, RATIO>(group, vals, idx, T, X, eps, B, dim, w, dim_t, k, out, s);
+  if (k <= 16) return grouped::dispatch_g<V, 16, RATIO>(group, vals, idx, T, X, eps, B, dim, w, dim_t, k, out, s);
+  return grouped::dispatch_g<V, 32, RATIO>(group, vals, idx, T, X, eps, B, dim, w, dim_t, k, out, s);
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
@@ -191,40 +441,72 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 template <typename V>
 int dispatch(const void* vals, const void* idx, const void* T, const void* X,
              float eps, int ratio, int B, int dim, int w, int dim_t, int k,
-             void* out, void* stream) {
-  if (B < 1 || B > 65535 || dim < 1 || w < 1 || dim_t < 1 || k < 1 || k > 256 ||
-      (ratio && X == nullptr))
+             int group, void* out, void* stream) {
+  if (B < 1 || B > 65535 || dim < 1 || w < 1 || dim_t < 1 || padded_width(k) == 0 ||
+      (ratio && X == nullptr) || (k <= 32 && !aligned16(T)))
     return (int)cudaErrorInvalidValue;
   const bool vec = k % 4 == 0 && aligned16(T) && aligned16(out) &&
                    (!ratio || aligned16(X));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      ratio ? dispatch_k<V, true>(vals, idx, T, X, eps, B, dim, w, dim_t, k, out, vec, s)
-            : dispatch_k<V, false>(vals, idx, T, X, eps, B, dim, w, dim_t, k, out, vec, s);
+      ratio ? dispatch_k<V, true>(vals, idx, T, X, eps, B, dim, w, dim_t, k, group, out, vec, s)
+            : dispatch_k<V, false>(vals, idx, T, X, eps, B, dim, w, dim_t, k, group, out, vec, s);
   return (int)err;
 }
 
 }  // namespace
 
 // Plain C interface, bound with ctypes. vals is (B, dim, w) in f32 or bf16,
-// idx (dim, w) int32 with entries in [0, dim_t), T (B, dim_t, k) f32, X
-// (B, dim, k) f32 or null (plain mode), out (B, dim, k) f32; all contiguous.
-// Every element of out is written. Returns the CUDA error code of the launch
-// (0 on success).
+// idx (dim, w) int32 with entries in [0, dim_t), X (B, dim, k) f32 or null
+// (plain mode), out (B, dim, k) f32; all contiguous. At k <= 32 T is the
+// interleaved table of groups of `group` members (1, 2, 4 or 8, at most
+// ell_gather_geometry's max_group): for each group, its members' rows padded
+// to KP floats side by side, (dim_t, gg, KP), gg = min(group, B - first
+// member), 16-byte aligned. At k > 32 group is 0 and T is (B, dim_t, k).
+// Every element of out is written. Returns the CUDA error code of the
+// launch (0 on success).
 extern "C" int ell_gather_f32(const void* vals, const void* idx, const void* T,
                               const void* X, float eps, int ratio, int B,
-                              int dim, int w, int dim_t, int k, void* out,
-                              void* stream) {
-  return dispatch<float>(vals, idx, T, X, eps, ratio, B, dim, w, dim_t, k, out,
-                         stream);
+                              int dim, int w, int dim_t, int k, int group,
+                              void* out, void* stream) {
+  return dispatch<float>(vals, idx, T, X, eps, ratio, B, dim, w, dim_t, k,
+                         group, out, stream);
 }
 
 extern "C" int ell_gather_bf16(const void* vals, const void* idx, const void* T,
                                const void* X, float eps, int ratio, int B,
-                               int dim, int w, int dim_t, int k, void* out,
-                               void* stream) {
-  return dispatch<__nv_bfloat16>(vals, idx, T, X, eps, ratio, B, dim, w,
-                                 dim_t, k, out, stream);
+                               int dim, int w, int dim_t, int k, int group,
+                               void* out, void* stream) {
+  return dispatch<__nv_bfloat16>(vals, idx, T, X, eps, ratio, B, dim, w, dim_t,
+                                 k, group, out, stream);
+}
+
+// The geometry the wrapper plans its member groups on: k's padded width KP
+// and the largest group the kernel takes at that width (0: k > 32, the
+// legacy kernel, no groups, T as given).
+extern "C" int ell_gather_geometry(int k, int* kp, int* max_group) {
+  *kp = padded_width(k);
+  if (*kp == 0) return (int)cudaErrorInvalidValue;
+  *max_group = *kp > 32 ? 0 : grouped::max_group(*kp);
+  return (int)cudaSuccess;
+}
+
+// The grouped kernel's table: T (B, dim_t, k) f32 as Ti (B dim_t KP
+// floats), the members of each group of G side by side, rows padded with
+// zeros to KP (ell_gather_f32's T at k <= 32). Returns the CUDA error code.
+extern "C" int ell_gather_interleave(const void* T, void* Ti, int B, int dim_t,
+                                     int k, int KP, int G, void* stream) {
+  int shift = 0;
+  while ((1 << shift) < KP) ++shift;
+  if (B < 1 || B > 65535 * G || dim_t < 1 || k < 1 || k > KP || KP > 32 ||
+      KP != 1 << shift || G < 1 || (size_t)dim_t * G * KP >= (1u << 31))
+    return (int)cudaErrorInvalidValue;
+  const size_t per_group = ((size_t)dim_t * G * KP + grouped::NT - 1) / grouped::NT;
+  const dim3 grid((unsigned)(per_group < 1024 ? per_group : 1024), (B + G - 1) / G);
+  grouped::interleave_kernel<<<grid, grouped::NT, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(T), static_cast<float*>(Ti), B, dim_t, k, shift, G);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* ell_gather_error_string(int code) {

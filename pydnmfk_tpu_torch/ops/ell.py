@@ -35,12 +35,12 @@ from . import sparse
 from .ell_gather import ell_gather_product
 from .linalg import acc_dtype
 
-# Time model constants, as chip_smoke.py reads them on one H100 80GB HBM3 at
-# a 700 W power limit: K4's mean over its two plain orientations at the
-# NYTimes bag-of-words shape (300000 x 102660, 69.6 M nnz), and the mean of
-# K1, K2a and K2b at 57600 x 38400, both at k = 32
-ELL_S_PER_SLOT = 1.95e-11   # K4 seconds per gathered slot (one nonzero)
-DENSE_S_PER_ELEM = 8.06e-12  # K1/K2 seconds per element of A
+# Time model constants, as chip_smoke.py's [model] line reads them on one
+# H100 80GB HBM3 at a 700 W power limit: K4's mean over its two plain
+# orientations at the NYTimes bag-of-words shape (300000 x 102660, 69.6 M
+# nnz), and the mean of K1, K2a and K2b at 57600 x 38400, both at k = 32
+ELL_S_PER_SLOT = 1.75e-11   # K4 seconds per gathered slot (one nonzero)
+DENSE_S_PER_ELEM = 4.96e-12  # K1/K2 seconds per element of A
 
 FIELDS = ("rvals", "rcols", "rtail_d", "rtail_r", "rtail_c",
           "cvals", "crows", "ctail_d", "ctail_r", "ctail_c")
@@ -228,7 +228,7 @@ def ell_time_model(m: int, n: int, nse: int, k: int) -> tuple:
     CUDA cores, so their time grows with m * n. The constants are the
     card's own (module top). Coarse on purpose: it only has to find the
     side of a crossover near a density of DENSE_S_PER_ELEM /
-    ELL_S_PER_SLOT (about 0.41 at k = 32)."""
+    ELL_S_PER_SLOT (about 0.28 at k = 32)."""
     t_ell = nse * ELL_S_PER_SLOT * max(1.0, k / 32)
     t_dense = m * n * DENSE_S_PER_ELEM
     return t_ell, t_dense

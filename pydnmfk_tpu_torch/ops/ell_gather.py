@@ -17,6 +17,12 @@ the KL product WTU).
 tensor it runs :func:`ell_gather_product_plain`; for a CUDA tensor it
 launches K4 or raises. The one exception is f64, which takes the plain path
 on any device: the kernel accumulates in f32 (``ops/ell.py:284-285``).
+
+At k <= 32 K4 gathers the members of a stack in groups of G, over a table
+that :func:`interleave` lays out per group as (dim_t, G, KP): one index then
+names one contiguous run of G padded rows. :func:`member_groups` picks G from
+the width and the largest group that the kernel exports
+(``ell_gather_geometry`` in ``csrc/ell_gather.cu``) and the card's L2 size.
 """
 from __future__ import annotations
 
@@ -34,6 +40,9 @@ from .linalg import acc_dtype
 launches = {"ell_gather": 0, "ell_gather_ratio": 0}
 
 MAX_K = 256         # widest factor row one group of lanes holds
+L2_SHARE = 0.5      # of the card's L2 that one group's table may fill
+LINE_BYTES = 128    # the L1's line: one gathered run fills it
+MAX_IDLE = 0.25     # of the lanes that a ragged last group may leave idle
 
 
 def block_rows(dim: int, w: int, k: int, budget_elems: int = 1 << 26) -> int:
@@ -70,19 +79,118 @@ def ell_gather_product_plain(vals, idx, T, X=None, eps=0.0):
     return out
 
 
+def member_groups(B: int, dim_t: int, kp: int, max_group: int,
+                  l2_bytes: int) -> int:
+    """Members K4 gathers together: the smallest power of two G whose run of
+    G rows of ``kp`` floats fills a 128-byte line, or that holds all B
+    members, whichever is less; at most ``max_group``
+    (``ell_gather_geometry``), and halved until the group's interleaved
+    table (``dim_t`` runs) fills at most L2_SHARE of the L2 (one member may
+    fill more) and at most MAX_IDLE of the lanes idle in a ragged last
+    group; 0 when the kernel takes no groups (``max_group`` 0: k > 32).
+    Wider runs gain nothing on a line's wavefront, and idle lanes cost
+    issue slots (``bench_torch/gather_probe.cu``, ``k4_bench.py
+    --group-sweep``)."""
+    if max_group == 0:
+        return 0
+    g = 1
+    while (g < B and 2 * g <= max_group and g * kp * 4 < LINE_BYTES
+           and 2 * g * dim_t * kp * 4 <= L2_SHARE * l2_bytes):
+        g *= 2
+    while g > 1 and idle_lanes(B, g) > MAX_IDLE:
+        g //= 2
+    return g
+
+
+def idle_lanes(B: int, group: int) -> float:
+    """The share of the lanes that groups of ``group`` leave without a
+    member: the last group holds B % group."""
+    slots = -(-B // group) * group
+    return 1 - B / slots
+
+
+def interleave(T, group: int, kp: int):
+    """K4's table at k <= 32: T (B, dim_t, k) as a flat f32 tensor that
+    holds, group after group of ``group`` members (the last takes the B %
+    group left), the members' rows side by side, each padded with zeros to
+    ``kp`` floats: (dim_t, gg, kp) for a group of gg. At group 1 and k ==
+    kp that is a contiguous T itself, and T is returned uncopied. In plain
+    torch; on the card the wrapper makes the same table with one kernel
+    (``ell_gather_interleave``)."""
+    B, dim_t, k = T.shape
+    if group == 1 and k == kp and T.is_contiguous():
+        return T
+    out = T.new_empty(B * dim_t * kp)
+    full = B // group * group
+    for e0, e1, g in ((0, full, group), (full, B, B - full)):
+        if e1 == e0:
+            continue
+        dst = out[e0 * dim_t * kp:e1 * dim_t * kp].view(
+            (e1 - e0) // g, dim_t, g, kp)
+        dst[..., :k].copy_(T[e0:e1].view((e1 - e0) // g, g, dim_t, k)
+                           .transpose(1, 2))
+        dst[..., k:].zero_()
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = load("ell_gather")
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.ell_gather_f32, lib.ell_gather_bf16):
-        fn.argtypes = [p, p, p, p, ctypes.c_float, i, i, i, i, i, i, p, p]
+        fn.argtypes = [p, p, p, p, ctypes.c_float, i, i, i, i, i, i, i, p, p]
         fn.restype = i
+    lib.ell_gather_interleave.argtypes = [p, p, i, i, i, i, i, p]
+    lib.ell_gather_interleave.restype = i
+    lib.ell_gather_geometry.argtypes = [i, p, p]
+    lib.ell_gather_geometry.restype = i
     lib.ell_gather_error_string.argtypes = [i]
     lib.ell_gather_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(vals, idx, T, X, eps):
+@functools.lru_cache(maxsize=None)
+def geometry(k: int) -> tuple:
+    """(KP, largest member group) of K4 at width k, as the kernel exports
+    them (``ell_gather_geometry``); the group is 0 at k > 32."""
+    lib = _lib()
+    kp, gmax = ctypes.c_int(), ctypes.c_int()
+    check(lib.ell_gather_geometry(k, ctypes.byref(kp), ctypes.byref(gmax)),
+          lib, "ell_gather_error_string", "K4 ell_gather_geometry")
+    return kp.value, gmax.value
+
+
+def group_for(B: int, dim_t: int, k: int, device, group=None) -> tuple:
+    """(KP, G) of a launch: :func:`member_groups` on the card's L2, or the
+    ``group`` asked for (checked against the kernel's largest)."""
+    kp, gmax = geometry(k)
+    if group is None:
+        l2 = torch.cuda.get_device_properties(device).L2_cache_size
+        return kp, member_groups(B, dim_t, kp, gmax, l2)
+    if gmax == 0 or group not in (1, 2, 4, 8) or group > gmax:
+        raise ValueError(f"K4 at k={k} takes member groups of 1 to {gmax} "
+                         f"(powers of two), not {group}")
+    return kp, group
+
+
+def grouped_table(T, group: int, kp: int):
+    """:func:`interleave` of a contiguous f32 T on the card, by one kernel
+    (``ell_gather_interleave``); T itself at group 1 and k == kp."""
+    B, dim_t, k = T.shape
+    if group == 1 and k == kp:
+        return T
+    table = torch.empty(B * dim_t * kp, dtype=torch.float32, device=T.device)
+    lib = _lib()
+    with torch.cuda.device(T.device):
+        stream = torch.cuda.current_stream(T.device).cuda_stream
+        rc = lib.ell_gather_interleave(T.data_ptr(), table.data_ptr(), B,
+                                       dim_t, k, kp, group, stream)
+    check(rc, lib, "ell_gather_error_string", "K4 ell_gather_interleave")
+    return table
+
+
+def _launch(vals, idx, T, X, eps, group=None):
+    """One K4 launch; ``group`` overrides the member groups of the plan."""
     ratio = X is not None
     if vals.dim() != T.dim() or vals.dim() not in (2, 3):
         raise ValueError(f"K4 takes vals and T with the same member axis, "
@@ -114,14 +222,16 @@ def _launch(vals, idx, T, X, eps):
                              f"{vals.device}")
         if not t.is_contiguous():
             raise ValueError(f"K4 takes a contiguous {name}")
+    kp, G = group_for(B, dim_t, k, vals.device, group)
     out = torch.empty((B, dim, k), dtype=torch.float32, device=vals.device)
     lib = _lib()
     fn = lib.ell_gather_f32 if vals.dtype == torch.float32 else lib.ell_gather_bf16
+    table = grouped_table(T, G, kp) if G else T
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream(vals.device).cuda_stream
-        rc = fn(vals.data_ptr(), idx.data_ptr(), T.data_ptr(),
+        rc = fn(vals.data_ptr(), idx.data_ptr(), table.data_ptr(),
                 X.data_ptr() if ratio else None, float(eps), int(ratio), B,
-                dim, w, dim_t, k, out.data_ptr(), stream)
+                dim, w, dim_t, k, G, out.data_ptr(), stream)
     check(rc, lib, "ell_gather_error_string", "K4 ell_gather")
     launches["ell_gather_ratio" if ratio else "ell_gather"] += 1
     return out[0] if single else out

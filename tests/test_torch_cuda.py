@@ -189,18 +189,30 @@ def _ell_inputs(dev, b, m, n, k, nnz_per_row, w_cap):
             torch.rand((b, k, n), generator=g, device=dev))
 
 
-@pytest.mark.parametrize("b,m,n", [(1, 300, 97), (3, 1000, 777), (2, 77, 4000)])
-@pytest.mark.parametrize("k", [7, 8, 32, 256])
+# (members, m, n, nnz per row, width cap): the first three capped at 6
+# slots (one partial staging chunk), the last two at 150: several chunks and
+# a ragged last one at every width (the kernel stages 16 KP / 4 slots a
+# chunk), 10 members in ragged groups, m and n off the lines a block takes
+K4_SHAPES = [(1, 300, 97, 9, 6), (3, 1000, 777, 9, 6), (2, 77, 4000, 9, 6),
+             (10, 513, 301, 40, 150), (3, 2000, 50, 9, 150)]
+# every padded width of the grouped kernel, at and off it; the legacy
+# kernel's (k > 32)
+K4_WIDTHS = [1, 2, 3, 4, 5, 7, 8, 16, 31, 32, 33, 256]
+
+
+@pytest.mark.parametrize("b,m,n,nnz_per_row,w_cap", K4_SHAPES)
+@pytest.mark.parametrize("k", K4_WIDTHS)
 @pytest.mark.parametrize("vals_dtype", [torch.float32, torch.bfloat16])
-def test_k4_matches_plain(cuda, b, m, n, k, vals_dtype):
+def test_k4_matches_plain(cuda, b, m, n, nnz_per_row, w_cap, k, vals_dtype):
     """K4's four modes (rows/columns, plain/ratio) on a member stack,
-    directly and through the ELL products with their COO tails."""
-    E, W, H = _ell_inputs(cuda, b, m, n, k, nnz_per_row=9, w_cap=6)
+    directly and through the ELL products with their COO tails; member 0
+    of the stack equals, bitwise, a launch on member 0 alone."""
+    E, W, H = _ell_inputs(cuda, b, m, n, k, nnz_per_row=nnz_per_row,
+                          w_cap=w_cap)
     E = E.astype(vals_dtype)
     Ht = H.mT.contiguous()
     before = dict(ell_gather.launches)
-    for v, i, T, X in ((E.rvals, E.rcols, Ht, None), (E.cvals, E.crows, W, None),
-                       (E.rvals, E.rcols, Ht, W), (E.cvals, E.crows, W, Ht)):
+    for v, i, T, X in _k4_modes(E, W, Ht):
         out = ell_gather.ell_gather_product(v, i, T, X, EPS)
         ref = ell_gather.ell_gather_product_plain(v, i, T, X, EPS)
         assert _rel([out], [ref]) <= 1e-4
@@ -216,6 +228,71 @@ def test_k4_matches_plain(cuda, b, m, n, k, vals_dtype):
                      (ell.ell_kl_uht(E, W, H, EPS), ell.ell_kl_uht(Ec, Wc, Hc, EPS)),
                      (ell.ell_kl_wtu(E, W, H, EPS), ell.ell_kl_wtu(Ec, Wc, Hc, EPS))):
         assert _rel([out.cpu()], [ref]) <= 1e-4
+
+
+def _k4_modes(E, W, Ht):
+    """(vals, idx, table, X) of K4's four modes on E with W and H^T."""
+    return ((E.rvals, E.rcols, Ht, None), (E.cvals, E.crows, W, None),
+            (E.rvals, E.rcols, Ht, W), (E.cvals, E.crows, W, Ht))
+
+
+@pytest.mark.parametrize("k", [1, 3, 7, 16, 31])
+@pytest.mark.parametrize("vals_dtype", [torch.float32, torch.bfloat16])
+def test_k4_member_groups_are_bitwise_equal(cuda, k, vals_dtype):
+    """The grouped kernel gives the same bits at every member group it
+    takes (1, 2, the 4 members in one group, and 8 where a line's lanes fit
+    a warp), in one launch per call."""
+    E, W, H = _ell_inputs(cuda, 4, 700, 333, k, nnz_per_row=30, w_cap=70)
+    E = E.astype(vals_dtype)
+    kp, gmax = ell_gather.geometry(k)
+    groups = [g for g in (1, 2, 4, 8) if g <= gmax]
+    assert groups[:3] == [1, 2, 4]
+    for v, i, T, X in _k4_modes(E, W, H.mT.contiguous()):
+        key = "ell_gather" if X is None else "ell_gather_ratio"
+        outs = []
+        for g in groups:
+            before = ell_gather.launches[key]
+            outs.append(ell_gather._launch(v, i, T, X, EPS, group=g))
+            assert ell_gather.launches[key] == before + 1
+        assert all(torch.equal(o, outs[0]) for o in outs[1:])
+        assert _rel([outs[0]], [ell_gather.ell_gather_product_plain(
+            v, i, T, X, EPS)]) <= 1e-4
+
+
+@pytest.mark.parametrize("B,dim_t,k,G", [(10, 1000, 7, 4), (10, 333, 3, 8),
+                                         (3, 50, 16, 2), (1, 77, 5, 1),
+                                         (5, 9, 31, 4), (2, 1, 1, 8)])
+def test_k4_table_kernel_matches_interleave(cuda, B, dim_t, k, G):
+    """The card's table for the grouped kernel (one interleave kernel)
+    equals the plain torch interleave, padding zeros included."""
+    g = torch.Generator(cuda)
+    g.manual_seed(B * dim_t + k)
+    T = torch.rand((B, dim_t, k), generator=g, device=cuda)
+    kp = ell_gather.geometry(k)[0]
+    assert torch.equal(ell_gather.grouped_table(T, G, kp),
+                       ell_gather.interleave(T, G, kp).reshape(-1))
+
+
+def test_k4_geometry_and_groups_as_exported(cuda):
+    """K4's geometry as the source exports it: KP the power of two from 4
+    that holds k, groups only at k <= 32 and no wider than a warp's lanes
+    (G KP / 4 <= 32); the plan on it keeps its invariants at the card's L2,
+    and a group the kernel does not take raises."""
+    l2 = torch.cuda.get_device_properties(cuda).L2_cache_size
+    for k in range(1, ell_gather.MAX_K + 1):
+        kp, gmax = ell_gather.geometry(k)
+        assert kp >= max(k, 4) and (kp == 4 or kp < 2 * k)
+        assert (gmax > 0) == (k <= 32) and gmax * kp <= 128
+        G = ell_gather.member_groups(10, 50_000, kp, gmax, l2)
+        assert (G > 0) == (k <= 32) and G <= gmax
+    for k in (0, ell_gather.MAX_K + 1):
+        with pytest.raises(RuntimeError, match="ell_gather_geometry"):
+            ell_gather.geometry(k)
+    E, W, H = _ell_inputs(cuda, 2, 64, 48, 32, nnz_per_row=3, w_cap=4)
+    for bad in (3, 8):
+        with pytest.raises(ValueError, match="member groups"):
+            ell_gather._launch(E.rvals, E.rcols, H.mT.contiguous(), None, EPS,
+                               group=bad)
 
 
 def test_k4_wrapper_raises_on_what_the_kernel_does_not_take(cuda):

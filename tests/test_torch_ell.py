@@ -174,3 +174,70 @@ def test_non_cpu_tensor_never_takes_the_plain_path():
         with pytest.raises(Exception):
             teg.ell_gather_product(vals, idx, T, X, EPS)
     assert teg.launches == {"ell_gather": 0, "ell_gather_ratio": 0}
+
+
+# (members, dim_t, KP, the kernel's largest group): the sweep's topic stack
+# in both orientations at k = 7 and 3, the NYTimes tables at k = 32 (W alone
+# above the L2 share), a single member, stacks that leave a ragged last
+# group, and the legacy widths (no groups)
+GROUP_CASES = [(10, 50_000, 8, 8), (10, 200_000, 8, 8), (10, 200_000, 4, 8),
+               (1, 300_000, 32, 4), (1, 102_660, 32, 4), (1, 50, 8, 8),
+               (3, 1000, 16, 8), (5, 70_000, 32, 4), (100, 10_000, 4, 8),
+               (7, 1, 4, 8), (3, 1000, 4, 8), (2, 10 ** 7, 4, 8),
+               (6, 1000, 4, 8), (5, 1000, 8, 8), (16, 50_000, 4, 8),
+               (10, 50_000, 64, 0), (1, 300, 256, 0)]
+H100_L2 = 50 * 2 ** 20
+
+
+@pytest.mark.parametrize("B,dim_t,kp,gmax", GROUP_CASES)
+def test_member_groups_cover_every_member_once(B, dim_t, kp, gmax):
+    """K4's member groups: a power of two up to the kernel's largest, below
+    2 B, with a run of at most one 128-byte line; every member in exactly
+    one group (the kernel's groups [gG, gG + G) clipped to B); a group's
+    table within the L2 share and a ragged last group's idle lanes within
+    their share, unless G is 1; the largest group that keeps all that; and
+    G = 1 at B = 1."""
+    G = teg.member_groups(B, dim_t, kp, gmax, H100_L2)
+    if gmax == 0:
+        assert G == 0
+        return
+    assert G & (G - 1) == 0 and 1 <= G <= gmax and G < 2 * B
+    assert G == 1 or G * kp * 4 <= teg.LINE_BYTES
+    groups = [range(g * G, min(B, (g + 1) * G)) for g in range(-(-B // G))]
+    assert [e for r in groups for e in r] == list(range(B))
+    assert all(len(r) > 0 for r in groups)
+    share = teg.L2_SHARE * H100_L2
+    idle = 1 - B / (len(groups) * G)
+    assert idle == teg.idle_lanes(B, G)
+    assert G == 1 or (G * dim_t * kp * 4 <= share and idle <= teg.MAX_IDLE)
+    H = 2 * G
+    assert (H > gmax or G >= B or G * kp * 4 >= teg.LINE_BYTES
+            or H * dim_t * kp * 4 > share or teg.idle_lanes(B, H) > teg.MAX_IDLE)
+    if B == 1:
+        assert G == 1
+    if B == 10 and kp in (4, 8):
+        assert G == 4       # the sweep's stack at k = 3 and 7: 4 + 4 + 2
+
+
+@pytest.mark.parametrize("B,dim_t,k,kp,G", [
+    (10, 13, 7, 8, 8), (10, 13, 7, 8, 4), (3, 5, 3, 4, 2), (1, 9, 32, 32, 1),
+    (1, 9, 5, 8, 1), (3, 6, 16, 16, 8), (4, 3, 1, 4, 2), (2, 7, 31, 32, 4)])
+@pytest.mark.parametrize("strided", [False, True])
+def test_interleave_matches_numpy(B, dim_t, k, kp, G, strided):
+    """The interleaved table of K4 against a numpy reference: group after
+    group, (dim_t, gg, kp) with each member's row padded with zeros; T
+    itself at one member and k == kp."""
+    rng = np.random.default_rng(B * dim_t + k)
+    T = rng.random((B, dim_t, k)).astype(np.float32)
+    ref = []
+    for e0 in range(0, B, G):
+        grp = np.zeros((dim_t, min(G, B - e0), kp), np.float32)
+        grp[..., :k] = T[e0:e0 + G].transpose(1, 0, 2)
+        ref.append(grp.reshape(-1))
+    tT = torch.from_numpy(T)
+    if strided:           # the wrapper's T is contiguous; the copy takes any
+        tT = torch.from_numpy(np.ascontiguousarray(T.transpose(0, 2, 1))).mT
+    out = teg.interleave(tT, G, kp)
+    np.testing.assert_array_equal(out.reshape(-1).numpy(), np.concatenate(ref))
+    if G == 1 and k == kp and not strided:
+        assert out.data_ptr() == tT.data_ptr()
