@@ -16,9 +16,10 @@ Run from the root of a checkout, with no arguments:
      A, K3 on all three; and each on a 10-member 14400 x 9600, k = 8
      ensemble (f32, and K1, K2a and K2b on its bf16 copy, the NMFk
      ensemble under ``--a_precision=bfloat16``); K2b on one member of it
-     (the NMFk refit's shape); K1's two-read floor beside each K1 row; the
-     ptxas registers and spills of K1's, K2's and K4's kernels (no spill
-     allowed);
+     (the NMFk refit's shape); K1's two-read floor beside each K1 row, and
+     beside each K3 row the time of K2a + K2b on the same inputs (the
+     unfused pair that does K3's four products); the ptxas registers and
+     spills of K1's, K2's, K3's and K4's kernels (no spill allowed);
    - K4 in its four modes (rows/columns, plain/ratio) at the shape and nnz
      of the NYTimes bag-of-words corpus (300000 x 102660, 69.7 M nnz,
      k = 32), and on a 10-member stack of the planted topic matrix of 5 at
@@ -32,9 +33,10 @@ Run from the root of a checkout, with no arguments:
    A, and of KL-MU with ``use_fused=True`` (K3); then the NMFk sweep
    through the CLI on a planted rank-4 14400 x 9600 matrix (k = 2..7, 10
    perturbations, 400 iterations), FRO-MU and KL-MU, and FRO-MU with
-   ``--a_precision=bfloat16``, which must choose k = 4, and one FRO-MU
-   factorization of that matrix through the CLI with and without
-   ``--a_precision=uint8``;
+   ``--a_precision=bfloat16``, which must choose k = 4; the same KL-MU sweep
+   through the library with ``use_fused=True``, whose ensemble must launch
+   only K3 and whose refit only K2b; and one FRO-MU factorization of that
+   matrix through the CLI with and without ``--a_precision=uint8``;
 4. the sparse main path, the same way: NMF.fit on the NYTimes-shaped matrix,
    10 FRO-MU and 10 KL-MU iterations, k = 32, on the ELL format the policy
    must choose;
@@ -183,6 +185,16 @@ def ptxas_k4(log):
                             m.group(5) == "1", m.group(6) == "1"))
 
 
+def ptxas_k3(log):
+    """K3's kernels: the f32 kernel (k <= 32) keyed (kernel, "f32", KP,
+    vec), the first port's (a bf16 or uint8 A, and f32 at k > 32) keyed
+    (kernel, A dtype, KP, False)."""
+    return ptxas(log, r"(fused_mu_kl_f32_kernel|fused_mu_kl_kernel)"
+                      r"I(f|13__nv_bfloat16|h)?Li(\d+)E(?:Lb([01])E)?",
+                 lambda m: (m.group(1), MANGLED_A[m.group(2)],
+                            int(m.group(3)), m.group(4) == "1"))
+
+
 def coo_stack(rows, cols, data, shape):
     """A (B, m, n) sparse COO tensor of the B members ``data`` (B, nnz) over
     one pattern, for the library call that chip_smoke times beside K4 on a
@@ -248,7 +260,7 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
     sys.path.insert(0, ROOT)
-    from pydnmfk_tpu_torch import NMF, NMFConfig, cli
+    from pydnmfk_tpu_torch import NMF, NMFConfig, NMFk, NMFkConfig, cli
     from pydnmfk_tpu_torch.models.nmf import init_factors_rand
     from pydnmfk_tpu_torch.ops import (cuda_lib, ell, ell_gather, fused_kl,
                                        fused_mu, kl, linalg, sparse)
@@ -296,6 +308,7 @@ def main():
     gen.manual_seed(2024)
     eps = float(torch.finfo(torch.float32).eps)
     rows = {}
+    case_ms = {}     # kernel ms of every case, by (kernel, label)
 
     def kernel_case(name, label, kernel, plain, tol, work, library=None):
         """Checks kernel() against plain() and times both (and library(),
@@ -321,6 +334,7 @@ def main():
                                      "bound_by": bound_by,
                                      "library_ms": lib_ms})
         row["max_abs_err"] = max(row["max_abs_err"], abs_err)
+        case_ms[name, label] = ms
         return ms
 
     # K1's kernels as ptxas built them: registers and spills of each
@@ -369,6 +383,36 @@ def main():
                           in sorted(regs.items()) if nm == name), flush=True)
     check(len(regs) == 85 and not any(ss or sl for _, ss, sl in regs.values()),
           f"K4 kernels: ptxas report {regs} (expected 85 kernels, no spills)")
+
+    # K3's kernels likewise: the f32 kernel (KP = 8, 16, 32; vec: 16-byte
+    # loads) and the first port's (bf16 and uint8 A at KP = 8 .. 64, f32 A
+    # at KP = 64)
+    regs = ptxas_k3(cuda_lib.library_path("fused_mu_kl").with_suffix(
+        ".log").read_text())
+    for name in sorted({key[0] for key in regs}):
+        print(f"[ptxas] K3 {name} (registers, spill store / load bytes): "
+              + ", ".join(f"{dt} KP={kp}{' vec' if vec else ''} {r} "
+                          f"registers, {ss}/{sl} B spilled"
+                          for (nm, dt, kp, vec), (r, ss, sl)
+                          in sorted(regs.items()) if nm == name), flush=True)
+    check(len(regs) == 15 and not any(ss or sl for _, ss, sl in regs.values()),
+          f"K3 kernels: ptxas report {regs} (expected 15 kernels, no spills)")
+
+    def beside_pair(label):
+        """K3 does the four products of K2a + K2b (its yardstick: no one
+        PyTorch call computes K3's function): their times on the same
+        inputs beside K3's, where this run timed them."""
+        pair = [case_ms.get((kname, label)) for kname in ("K2a kl_uht",
+                                                          "K2b kl_wtu")]
+        k3 = case_ms["K3 fused_mu_kl", label]
+        if None in pair:
+            print(f"[kernel] K3 fused_mu_kl {label}: K2a + K2b not timed on "
+                  f"this A", flush=True)
+            return
+        print(f"[kernel] K3 fused_mu_kl {label}: {k3:.3f} ms beside K2a + K2b "
+              f"{pair[0]:.3f} + {pair[1]:.3f} = {sum(pair):.3f} ms (K3 / pair "
+              f"{k3 / sum(pair):.3f})", flush=True)
+        rows["K3 fused_mu_kl"].setdefault("k2a_plus_k2b_ms", sum(pair))
 
     def two_read_floor(label, a):
         """K1 reads A twice (sweep 2 needs all of A_i H^T first): that
@@ -447,6 +491,7 @@ def main():
                                                          chunk),
                     TOL[a.dtype],
                     (8 * M * N * K, nbytes(a, W, H, hrs, W, H), peak))
+        beside_pair(f"{label} {shape}")
     del A16, W16, H16, Q, W, H, HHT, hrs
     torch.cuda.empty_cache()
     Ae = torch.rand((ENS, EM, EN), generator=gen, device=dev)
@@ -510,6 +555,7 @@ def main():
                                                      ech),
                 TOL[torch.float32],
                 (2 * ework, nbytes(Ae, We, He, hrse, We, He)))
+    beside_pair(f"f32 {eshape}")
     del Ae, We, He, HHTe, hrse
     torch.cuda.empty_cache()
 
@@ -723,6 +769,56 @@ def main():
               and not any(ran[key] for key in ran if key not in expect),
               f"NMFk {norm} {ftype} launched {ran}, expected {expect} only")
 
+    def fused_sweep(tmp):
+        """The dense KL NMFk sweep through the library with use_fused=True
+        (the same settings as the CLI sweeps): nopt = 4, every k's results,
+        and exact launches by stage: the ensemble only K3 (one launch per
+        iteration and k, the members in one stack), the W-frozen refit only
+        K2b."""
+        ks = range(2, 8)
+        cfg = NMFkConfig(nmf=NMFConfig(norm="kl", itr=400, use_fused=True),
+                         start_k=ks[0], end_k=ks[-1], perturbations=10,
+                         results_path=os.path.join(tmp, "res_fused") + "/",
+                         fname="X", checkpoint=False)
+        ens = dict(none)
+
+        class Staged(NMFk):
+            def _solve_ensemble(self, *args, **kw):
+                before = counts()
+                out = super()._solve_ensemble(*args, **kw)
+                for key, n in counts().items():
+                    ens[key] += n - before[key]
+                return out
+
+        A_np = np.load(os.path.join(tmp, "X.npy"))
+        timing.reset()
+        zero_counts()
+        t0 = time.perf_counter()
+        nopt = Staged(cfg, dev).fit(A_np)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        ran = read_counts()
+        refit = {key: ran[key] - ens[key] for key in ran}
+        stages = {st: round(timing.TIMINGS.get(st, 0.0), 3) for st in
+                  ("ensemble_solve", "clustering", "regression")}
+        print(f"[nmfk] KL-MU use_fused (library) npy {A_np.shape[0]}x"
+              f"{A_np.shape[1]} k=2..7, 10 perturbations, 400 iterations: nopt "
+              f"{nopt}, {secs:.2f} s, stage seconds {stages}, launches: "
+              f"ensemble {ens}, refit {refit}", flush=True)
+        check(nopt == 4, f"NMFk KL use_fused chose k={nopt}, not 4")
+        for k in ks:
+            res = read_cluster_results(os.path.join(tmp, "res_fused", "X",
+                                                    str(k)))
+            check(set(res) == set(RESULT_DATASETS)
+                  and res["clusterSilhouetteCoefficients"].shape == (k,)
+                  and all(np.isfinite(v).all() for v in res.values()),
+                  f"NMFk KL use_fused k={k} results")
+        itr = len(ks) * cfg.nmf.itr
+        check(ens == {**none, "fused_mu_kl": itr}
+              and refit == {**none, "kl_wtu": itr},
+              f"NMFk KL use_fused launched {ens} (ensemble) and {refit} "
+              f"(refit); expected fused_mu_kl {itr} and kl_wtu {itr} only")
+
     _, _, X = generate_data(**PLANTED)
     with tempfile.TemporaryDirectory() as tmp:
         np.save(os.path.join(tmp, "X.npy"), X.astype(np.float32))
@@ -734,6 +830,7 @@ def main():
         # the ensemble on bf16 members: K1's tensor-core kernel
         sweep(tmp, "npy", "X", "fro", ("fused_mu_fro_bf16",),
               (PLANTED["m"], PLANTED["n"]), a_precision="bfloat16")
+        fused_sweep(tmp)
         # one FRO factorization through the CLI, on the uint8-quantized A
         # (K1's uint8 instantiation) and on the f32 A (K1)
         cli_err = {}

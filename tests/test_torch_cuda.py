@@ -76,8 +76,23 @@ def test_k1_matches_plain(cuda, b, m, n, k, dtype):
     assert _rel(out, ref) <= (1e-4 if dtype == torch.float32 else 1e-3)
 
 
-@pytest.mark.parametrize("b,m,n", SHAPES)
-@pytest.mark.parametrize("k", [1, 3, 8, 9, 17, 32, 33, 64])
+# K3's f32 kernel (k <= 32) takes panels of 128 rows, sweep-1 tiles of 32
+# columns, sweep-2 strips of 1024, 512, 256 columns (k <= 8, 16, 32) in
+# chunks of 4, 8, 16 rows, 16-byte loads and vector atomics when n % 4 ==
+# 0; the first port's kernel (bf16, uint8 A; f32 at k > 32) panels of 64
+# rows and 64-column tiles. Shapes: m ragged at the panel heights (129, 257,
+# 513: one row past whole panels), n % 4 = 1, 2, 3 (scalar path), n % 4 ==
+# 0 over several tiles and strips with a ragged last one (1040: 32 tiles
+# and 16 columns, strips of 1024 + 16, 2 x 512 + 16, 4 x 256 + 16; 1540: 48
+# tiles and 4, strips of 1024 + 516, 3 x 512 + 4, 6 x 256 + 4), n below one
+# tile (8, 20), and a 10-member stack.
+K3_SHAPES = SHAPES + [(1, 129, 66), (2, 257, 131), (1, 257, 129),
+                      (2, 65, 130), (1, 129, 1040), (2, 129, 1540),
+                      (1, 33, 8), (3, 300, 20), (10, 70, 200), (1, 513, 600)]
+
+
+@pytest.mark.parametrize("b,m,n", K3_SHAPES)
+@pytest.mark.parametrize("k", [1, 3, 7, 8, 9, 16, 17, 31, 32, 33, 64])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_k3_matches_plain(cuda, b, m, n, k, dtype):
     A, W, H = _inputs(cuda, b, m, n, k, dtype)
