@@ -10,8 +10,9 @@ checkout), so that two trees, say a parent commit unpacked with ``git
 archive`` and the change, can be timed in one run on one card, in turns
 (parent, change, change, parent). The cases are those of ``chip_smoke.py``'s
 phase 2: an f32, a bf16 and a uint8 A at 57600 x 38400, k = 32 (the planted
-rank-32 A and its ``quantize_uint8``), and an f32 10-member 14400 x 9600,
-k = 8 stack, all drawn from the same seed. For each case it prints one JSON
+rank-32 A and its ``quantize_uint8``), and a 10-member 14400 x 9600, k = 8
+stack in f32 and its bf16 copy (the NMFk ensemble's members under
+``--a_precision=bfloat16``), all drawn from the same seed. For each case it prints one JSON
 line: K3's ms and K2a + K2b's ms on the same inputs (CUDA events, median of
 7 after a warm-up), the plain version's ms, K3's max relative error against
 the plain version, and its bound: the larger of 8 m n k operations over
@@ -99,6 +100,8 @@ def main():
     We = torch.rand((E, EM, EK), generator=gen, device=dev)
     He = torch.rand((E, EK, EN), generator=gen, device=dev)
     case(f"f32 {E} x {EM}x{EN} k={EK}", Ae, We, He)
+    # the members of the NMFk ensemble under --a_precision=bfloat16
+    case(f"bf16-A {E} x {EM}x{EN} k={EK}", Ae.to(torch.bfloat16), We, He)
 
 
 if __name__ == "__main__":

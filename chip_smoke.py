@@ -12,14 +12,15 @@ Run from the root of a checkout, with no arguments:
    PyTorch call computes the same function, that call, with CUDA events:
    - K1, K2a, K2b and K3 at 57600 x 38400, k = 32 (the reference's
      strong-scaling geometry): K1 on an f32, a bf16 and a uint8 A (the
-     ``quantize_uint8`` of the f32 one), K2a/K2b on the f32 and the uint8
-     A, K3 on all three; and each on a 10-member 14400 x 9600, k = 8
-     ensemble (f32, and K1, K2a and K2b on its bf16 copy, the NMFk
-     ensemble under ``--a_precision=bfloat16``); K2b on one member of it
-     (the NMFk refit's shape); K1's two-read floor beside each K1 row, and
-     beside each K3 row the time of K2a + K2b on the same inputs (the
-     unfused pair that does K3's four products); the ptxas registers and
-     spills of K1's, K2's, K3's and K4's kernels (no spill allowed);
+     ``quantize_uint8`` of the f32 one), K2a/K2b and K3 on all three; and
+     each on a 10-member 14400 x 9600, k = 8 ensemble (f32, and K1, K2a,
+     K2b and K3 on its bf16 copy, the NMFk ensemble under
+     ``--a_precision=bfloat16``);
+     K2b on one member of it (the NMFk refit's shape); the two-read floor
+     beside each K1 row and each K3 row on a bf16 or uint8 A, and beside
+     each K3 row the time of K2a + K2b on the same inputs (the unfused pair
+     that does K3's four products); the ptxas registers and spills of K1's,
+     K2's, K3's and K4's kernels (no spill allowed);
    - K4 in its four modes (rows/columns, plain/ratio) at the shape and nnz
      of the NYTimes bag-of-words corpus (300000 x 102660, 69.7 M nnz,
      k = 32), and on a 10-member stack of the planted topic matrix of 5 at
@@ -30,13 +31,14 @@ Run from the root of a checkout, with no arguments:
 3. the dense main path, launch counters at zero before each run and read
    after it: NMF.fit for 10 iterations at 57600 x 38400, k = 32, of FRO-MU
    and KL-MU (f32), of both on the uint8-quantized A, of FRO-MU on a bf16
-   A, and of KL-MU with ``use_fused=True`` (K3); then the NMFk sweep
-   through the CLI on a planted rank-4 14400 x 9600 matrix (k = 2..7, 10
-   perturbations, 400 iterations), FRO-MU and KL-MU, and FRO-MU with
-   ``--a_precision=bfloat16``, which must choose k = 4; the same KL-MU sweep
-   through the library with ``use_fused=True``, whose ensemble must launch
-   only K3 and whose refit only K2b; and one FRO-MU factorization of that
-   matrix through the CLI with and without ``--a_precision=uint8``;
+   A, and of KL-MU with ``use_fused=True`` (K3) on an f32, a uint8 and a
+   bf16 A; then the NMFk sweep through the CLI on a planted rank-4 14400 x
+   9600 matrix (k = 2..7, 10 perturbations, 400 iterations), FRO-MU and
+   KL-MU, and FRO-MU with ``--a_precision=bfloat16``, which must choose
+   k = 4; the same KL-MU sweep through the library with ``use_fused=True``,
+   on f32 and on bf16 members, whose ensemble must launch only K3 (for the
+   members' dtype) and whose refit only K2b; and one FRO-MU factorization
+   of that matrix through the CLI with and without ``--a_precision=uint8``;
 4. the sparse main path, the same way: NMF.fit on the NYTimes-shaped matrix,
    10 FRO-MU and 10 KL-MU iterations, k = 32, on the ELL format the policy
    must choose;
@@ -186,10 +188,11 @@ def ptxas_k4(log):
 
 
 def ptxas_k3(log):
-    """K3's kernels: the f32 kernel (k <= 32) keyed (kernel, "f32", KP,
-    vec), the first port's (a bf16 or uint8 A, and f32 at k > 32) keyed
-    (kernel, A dtype, KP, False)."""
-    return ptxas(log, r"(fused_mu_kl_f32_kernel|fused_mu_kl_kernel)"
+    """K3's kernels: the f32 kernel and the tensor-core one for a bf16 or
+    uint8 A (k <= 32) keyed (kernel, A dtype, KP, vec), the first port's
+    (k > 32) keyed (kernel, A dtype, KP, False)."""
+    return ptxas(log, r"(fused_mu_kl_f32_kernel|fused_mu_kl_tc_kernel|"
+                      r"fused_mu_kl_kernel)"
                       r"I(f|13__nv_bfloat16|h)?Li(\d+)E(?:Lb([01])E)?",
                  lambda m: (m.group(1), MANGLED_A[m.group(2)],
                             int(m.group(3)), m.group(4) == "1"))
@@ -384,9 +387,9 @@ def main():
     check(len(regs) == 85 and not any(ss or sl for _, ss, sl in regs.values()),
           f"K4 kernels: ptxas report {regs} (expected 85 kernels, no spills)")
 
-    # K3's kernels likewise: the f32 kernel (KP = 8, 16, 32; vec: 16-byte
-    # loads) and the first port's (bf16 and uint8 A at KP = 8 .. 64, f32 A
-    # at KP = 64)
+    # K3's kernels likewise: the f32 kernel and the tensor-core one for a
+    # bf16 or uint8 A (KP = 8, 16, 32; vec: 16-byte loads or copies) and the
+    # first port's (every A dtype at KP = 64)
     regs = ptxas_k3(cuda_lib.library_path("fused_mu_kl").with_suffix(
         ".log").read_text())
     for name in sorted({key[0] for key in regs}):
@@ -395,8 +398,8 @@ def main():
                           f"registers, {ss}/{sl} B spilled"
                           for (nm, dt, kp, vec), (r, ss, sl)
                           in sorted(regs.items()) if nm == name), flush=True)
-    check(len(regs) == 15 and not any(ss or sl for _, ss, sl in regs.values()),
-          f"K3 kernels: ptxas report {regs} (expected 15 kernels, no spills)")
+    check(len(regs) == 21 and not any(ss or sl for _, ss, sl in regs.values()),
+          f"K3 kernels: ptxas report {regs} (expected 21 kernels, no spills)")
 
     def beside_pair(label):
         """K3 does the four products of K2a + K2b (its yardstick: no one
@@ -414,12 +417,13 @@ def main():
               f"{k3 / sum(pair):.3f})", flush=True)
         rows["K3 fused_mu_kl"].setdefault("k2a_plus_k2b_ms", sum(pair))
 
-    def two_read_floor(label, a):
-        """K1 reads A twice (sweep 2 needs all of A_i H^T first): that
-        traffic alone over the memory rate, beside the function's bound."""
+    def two_read_floor(label, a, name="K1 fused_mu_fro"):
+        """K1 and K3 read A twice (sweep 2 needs all of A_i H^T, or of
+        U_i H^T, first): that traffic alone over the memory rate, beside the
+        function's bound."""
         ms = 2 * nbytes(a) / PEAK_BYTES * 1e3
-        print(f"[kernel] K1 fused_mu_fro {label}: two-read floor {ms:.3f} ms "
-              f"(A read twice at {PEAK_BYTES / 1e12:g} TB/s)", flush=True)
+        print(f"[kernel] {name} {label}: two-read floor {ms:.3f} ms (A read "
+              f"twice at {PEAK_BYTES / 1e12:g} TB/s)", flush=True)
 
     A = torch.rand((M, K), generator=gen, device=dev) @ torch.rand(
         (K, N), generator=gen, device=dev)                     # planted rank K
@@ -457,6 +461,16 @@ def main():
         "K2b kl_wtu", f"f32 {shape}", lambda: kl.kl_wtu(A, W, H, eps),
         lambda: kl.kl_wtu_plain(A, W, H, eps, chunk), TOL[torch.float32],
         (4 * M * N * K, nbytes(A, W, H, H))))
+    # K2 on the bf16 A, K3's yardstick there: the A dtype changes only the
+    # load, and K2 computes in f32 like its plain version (1e-4)
+    kernel_case("K2a kl_uht", f"bf16-A {shape}",
+                lambda: kl.kl_uht(A16, W, H, eps),
+                lambda: kl.kl_uht_plain(A16, W, H, eps, chunk),
+                TOL[torch.float32], (4 * M * N * K, nbytes(A16, W, H, W)))
+    kernel_case("K2b kl_wtu", f"bf16-A {shape}",
+                lambda: kl.kl_wtu(A16, W, H, eps),
+                lambda: kl.kl_wtu_plain(A16, W, H, eps, chunk),
+                TOL[torch.float32], (4 * M * N * K, nbytes(A16, W, H, H)))
     # the uint8 A that NMF.fit solves on: K1 rounds its factor operands to
     # bf16 (bf16 peak); K2 computes in f32 (f32 peak)
     Q, _ = linalg.quantize_uint8(A)
@@ -492,6 +506,8 @@ def main():
                     TOL[a.dtype],
                     (8 * M * N * K, nbytes(a, W, H, hrs, W, H), peak))
         beside_pair(f"{label} {shape}")
+        if a.dtype != torch.float32:
+            two_read_floor(f"{label} {shape}", a, "K3 fused_mu_kl")
     del A16, W16, H16, Q, W, H, HHT, hrs
     torch.cuda.empty_cache()
     Ae = torch.rand((ENS, EM, EN), generator=gen, device=dev)
@@ -531,6 +547,17 @@ def main():
                 lambda: kl.kl_wtu(Ae16, We, He, eps),
                 lambda: kl.kl_wtu_plain(Ae16, We, He, eps, ech),
                 TOL[torch.float32], (ework, nbytes(Ae16, We, He, He)))
+    # K3 on the bf16 members (NMFk with use_fused=True under
+    # --a_precision=bfloat16): bf16 operands, so the bf16 peak
+    hrse = linalg.sum_axis(He, axis=-1)
+    kernel_case("K3 fused_mu_kl", f"bf16-A {eshape}",
+                lambda: fused_kl.fused_kl_pass(Ae16, We, He, hrse, eps),
+                lambda: fused_kl.fused_kl_pass_plain(Ae16, We, He, hrse, eps,
+                                                     ech),
+                TOL[torch.bfloat16],
+                (2 * ework, nbytes(Ae16, We, He, hrse, We, He), PEAK_BF16))
+    beside_pair(f"bf16-A {eshape}")
+    two_read_floor(f"bf16-A {eshape}", Ae16, "K3 fused_mu_kl")
     del Ae16
     kernel_case("K2a kl_uht", f"f32 {eshape}",
                 lambda: kl.kl_uht(Ae, We, He, eps),
@@ -548,7 +575,6 @@ def main():
                 TOL[torch.float32],
                 (4 * EM * EN * EK, nbytes(A1, W1, H1, H1)))
     del A1, W1, H1
-    hrse = linalg.sum_axis(He, axis=-1)
     kernel_case("K3 fused_mu_kl", f"f32 {eshape}",
                 lambda: fused_kl.fused_kl_pass(Ae, We, He, hrse, eps),
                 lambda: fused_kl.fused_kl_pass_plain(Ae, We, He, hrse, eps,
@@ -698,7 +724,13 @@ def main():
             ("KL-MU uint8-A", "kl", {"a_precision": "uint8"},
              {"kl_uht": ITR, "kl_wtu": ITR}),
             ("KL-MU f32 use_fused", "kl", {"use_fused": True},
-             {"fused_mu_kl": ITR})):
+             {"fused_mu_kl": ITR}),
+            ("KL-MU uint8-A use_fused", "kl",
+             {"a_precision": "uint8", "use_fused": True},
+             {"fused_mu_kl_u8": ITR}),
+            ("KL-MU bf16-A use_fused", "kl",
+             {"a_precision": "bfloat16", "use_fused": True},
+             {"fused_mu_kl_bf16": ITR})):
         cfg = NMFConfig(k=K, norm=norm, itr=ITR, **kw)
         timing.reset()
         zero_counts()
@@ -720,10 +752,15 @@ def main():
         errs[label] = err
         del W, H
     # the quantized and the bf16 solves track the f32 one; K3 and K2 differ
-    # in summation order only at f32
+    # in summation order only at f32; on a uint8 or bf16 A, K3 rounds U and
+    # U' to bf16 where K2 does not, and is held to the K2 solve on the same
+    # A dtype (the uint8 one; K2 widens a bf16 A, so the f32 one) as the
+    # FRO narrow-A solves are
     for label, ref, tol in (("FRO-MU uint8-A", "FRO-MU f32", 0.02),
                             ("FRO-MU bf16-A", "FRO-MU f32", 0.02),
-                            ("KL-MU f32 use_fused", "KL-MU f32", 1e-3)):
+                            ("KL-MU f32 use_fused", "KL-MU f32", 1e-3),
+                            ("KL-MU uint8-A use_fused", "KL-MU uint8-A", 0.02),
+                            ("KL-MU bf16-A use_fused", "KL-MU f32", 0.02)):
         rel = abs(errs[label] / errs[ref] - 1)
         print(f"[check] {label} error {errs[label]:.6f} vs {ref} "
               f"{errs[ref]:.6f}: relative difference {rel:.2e} (limit "
@@ -769,17 +806,18 @@ def main():
               and not any(ran[key] for key in ran if key not in expect),
               f"NMFk {norm} {ftype} launched {ran}, expected {expect} only")
 
-    def fused_sweep(tmp):
+    def fused_sweep(tmp, a_precision="float32", key="fused_mu_kl"):
         """The dense KL NMFk sweep through the library with use_fused=True
-        (the same settings as the CLI sweeps): nopt = 4, every k's results,
-        and exact launches by stage: the ensemble only K3 (one launch per
-        iteration and k, the members in one stack), the W-frozen refit only
-        K2b."""
+        (the same settings as the CLI sweeps), its members stored at
+        ``a_precision``: nopt = 4, every k's results, and exact launches by
+        stage: the ensemble only K3 under ``key`` (one launch per iteration
+        and k, the members in one stack), the W-frozen refit only K2b."""
         ks = range(2, 8)
-        cfg = NMFkConfig(nmf=NMFConfig(norm="kl", itr=400, use_fused=True),
+        res = os.path.join(tmp, f"res_fused_{a_precision}")
+        cfg = NMFkConfig(nmf=NMFConfig(norm="kl", itr=400, use_fused=True,
+                                       a_precision=a_precision),
                          start_k=ks[0], end_k=ks[-1], perturbations=10,
-                         results_path=os.path.join(tmp, "res_fused") + "/",
-                         fname="X", checkpoint=False)
+                         results_path=res + "/", fname="X", checkpoint=False)
         ens = dict(none)
 
         class Staged(NMFk):
@@ -802,22 +840,22 @@ def main():
         stages = {st: round(timing.TIMINGS.get(st, 0.0), 3) for st in
                   ("ensemble_solve", "clustering", "regression")}
         print(f"[nmfk] KL-MU use_fused (library) npy {A_np.shape[0]}x"
-              f"{A_np.shape[1]} k=2..7, 10 perturbations, 400 iterations: nopt "
-              f"{nopt}, {secs:.2f} s, stage seconds {stages}, launches: "
-              f"ensemble {ens}, refit {refit}", flush=True)
-        check(nopt == 4, f"NMFk KL use_fused chose k={nopt}, not 4")
+              f"{A_np.shape[1]} a_precision={a_precision} k=2..7, 10 "
+              f"perturbations, 400 iterations: nopt {nopt}, {secs:.2f} s, "
+              f"stage seconds {stages}, launches: ensemble {ens}, refit "
+              f"{refit}", flush=True)
+        check(nopt == 4, f"NMFk KL use_fused {a_precision} chose k={nopt}, "
+                         f"not 4")
         for k in ks:
-            res = read_cluster_results(os.path.join(tmp, "res_fused", "X",
-                                                    str(k)))
-            check(set(res) == set(RESULT_DATASETS)
-                  and res["clusterSilhouetteCoefficients"].shape == (k,)
-                  and all(np.isfinite(v).all() for v in res.values()),
-                  f"NMFk KL use_fused k={k} results")
+            out = read_cluster_results(os.path.join(res, "X", str(k)))
+            check(set(out) == set(RESULT_DATASETS)
+                  and out["clusterSilhouetteCoefficients"].shape == (k,)
+                  and all(np.isfinite(v).all() for v in out.values()),
+                  f"NMFk KL use_fused {a_precision} k={k} results")
         itr = len(ks) * cfg.nmf.itr
-        check(ens == {**none, "fused_mu_kl": itr}
-              and refit == {**none, "kl_wtu": itr},
-              f"NMFk KL use_fused launched {ens} (ensemble) and {refit} "
-              f"(refit); expected fused_mu_kl {itr} and kl_wtu {itr} only")
+        check(ens == {**none, key: itr} and refit == {**none, "kl_wtu": itr},
+              f"NMFk KL use_fused {a_precision} launched {ens} (ensemble) and "
+              f"{refit} (refit); expected {key} {itr} and kl_wtu {itr} only")
 
     _, _, X = generate_data(**PLANTED)
     with tempfile.TemporaryDirectory() as tmp:
@@ -831,6 +869,8 @@ def main():
         sweep(tmp, "npy", "X", "fro", ("fused_mu_fro_bf16",),
               (PLANTED["m"], PLANTED["n"]), a_precision="bfloat16")
         fused_sweep(tmp)
+        # the ensemble on bf16 members: K3's tensor-core kernel
+        fused_sweep(tmp, "bfloat16", "fused_mu_kl_bf16")
         # one FRO factorization through the CLI, on the uint8-quantized A
         # (K1's uint8 instantiation) and on the f32 A (K1)
         cli_err = {}
@@ -928,7 +968,8 @@ def main():
                "K2b kl_wtu": ("kl_ratio.cu", "ops/pallas_kernels.py:96",
                               ("kl_wtu",)),
                "K3 fused_mu_kl": ("fused_mu_kl.cu", "ops/fused_kl.py:44",
-                                  ("fused_mu_kl",)),
+                                  ("fused_mu_kl", "fused_mu_kl_bf16",
+                                   "fused_mu_kl_u8")),
                "K4 ell_gather": ("ell_gather.cu", "ops/pallas_ell.py:52",
                                  ("ell_gather", "ell_gather_ratio"))}
     kernels = [{"name": name, "route": "cuda",

@@ -4,11 +4,12 @@ loads them with ctypes.
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
 ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/pydnmfk_tpu_torch/`` at the root of the checkout, named by a hash of
-the source and the flags, so an edited source builds anew and an unchanged
-one loads at once. The build runs at first use, never at import: the CPU
-tests import every module on machines without ``nvcc``. The compiler's
-report (``-Xptxas -v``: registers, shared memory, spills) is kept beside the
-library as ``<name>-<hash>.log``.
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header builds anew and an unchanged one loads at once. The build
+runs at first use, never at import: the CPU tests import every module on
+machines without ``nvcc``. The compiler's report (``-Xptxas -v``:
+registers, shared memory, spills) is kept beside the library as
+``<name>-<hash>.log``.
 """
 from __future__ import annotations
 
@@ -43,7 +44,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the source, every shared header (csrc/*.cuh) and the flags
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
+                                            *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

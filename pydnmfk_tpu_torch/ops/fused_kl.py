@@ -13,14 +13,17 @@ U' = A / (W' H + eps), which the H update needs:
 :func:`fused_kl_pass` is the dispatch: for a CPU tensor it runs
 :func:`fused_kl_pass_plain`; for a CUDA tensor it launches K3 or raises.
 Inputs are one matrix or a stack with the ensemble member as the leading
-axis.
+axis. Each A dtype counts its launches under its own key, as K1's do.
 
 Types (``fused_kl.py:52-81``): with an f32 A every product is f32. With a
 bf16 or uint8 A the products take bf16 operands with f32 sums: W is rounded
 for W H, U for U H^T, W' for W' H, W' and U' for W'^T U', and H for all of
 them. rowsum(H) and the W' update stay f32. The bf16 rounding of U and U'
 has no counterpart in K2's step, so at bf16 and uint8 this step differs
-from ``updates.mu_kl_step`` by more than f32 rounding.
+from ``updates.mu_kl_step`` by more than f32 rounding. For a bf16 or uint8
+A the kernel takes H already rounded to bf16 (cast here, the JAX package's
+rule, ``pydnmfk_tpu/ops/fused_kl.py:154-155``); the plain version rounds the
+same H inside its products, so both compute the same function.
 """
 from __future__ import annotations
 
@@ -32,8 +35,11 @@ import torch
 from . import linalg
 from .cuda_lib import A_SUFFIX, check, check_operands, load
 
-# K3 launches since the last reset (counted where the kernel is launched)
-launches = {"fused_mu_kl": 0}
+# K3 launches since the last reset (counted where the kernel is launched):
+# f32 A, bf16 A and uint8 A
+launches = {"fused_mu_kl": 0, "fused_mu_kl_bf16": 0, "fused_mu_kl_u8": 0}
+_KEY = {torch.float32: "fused_mu_kl", torch.bfloat16: "fused_mu_kl_bf16",
+        torch.uint8: "fused_mu_kl_u8"}
 
 MAX_K = 64          # the kernel keeps k <= 64 factor columns per thread block
 
@@ -97,6 +103,8 @@ def _fused_kl_pass_cuda(A, W, H, hrs, eps):
     if not 1 <= k <= MAX_K:
         raise ValueError(f"K3 takes 1 <= k <= {MAX_K}, got k={k}")
     check_operands("K3", A, W=W, H=H, hrs=hrs)
+    if A.dtype != torch.float32:       # the bf16 kernels' operand
+        H = H.to(torch.bfloat16)
     W_out = torch.empty_like(W)
     WTU = torch.zeros((B, k, n), dtype=torch.float32, device=A.device)
     lib = _lib()
@@ -107,7 +115,7 @@ def _fused_kl_pass_cuda(A, W, H, hrs, eps):
                 float(eps), B, m, n, k, W_out.data_ptr(), WTU.data_ptr(),
                 stream)
     check(rc, lib, "fused_mu_kl_error_string", "K3 fused_mu_kl")
-    launches["fused_mu_kl"] += 1
+    launches[_KEY[A.dtype]] += 1
     if single:
         return W_out[0], WTU[0]
     return W_out, WTU

@@ -79,29 +79,57 @@ def test_k1_matches_plain(cuda, b, m, n, k, dtype):
 # K3's f32 kernel (k <= 32) takes panels of 128 rows, sweep-1 tiles of 32
 # columns, sweep-2 strips of 1024, 512, 256 columns (k <= 8, 16, 32) in
 # chunks of 4, 8, 16 rows, 16-byte loads and vector atomics when n % 4 ==
-# 0; the first port's kernel (bf16, uint8 A; f32 at k > 32) panels of 64
-# rows and 64-column tiles. Shapes: m ragged at the panel heights (129, 257,
-# 513: one row past whole panels), n % 4 = 1, 2, 3 (scalar path), n % 4 ==
-# 0 over several tiles and strips with a ragged last one (1040: 32 tiles
-# and 16 columns, strips of 1024 + 16, 2 x 512 + 16, 4 x 256 + 16; 1540: 48
-# tiles and 4, strips of 1024 + 516, 3 x 512 + 4, 6 x 256 + 4), n below one
-# tile (8, 20), and a 10-member stack.
+# 0. Its tensor-core kernel (bf16, uint8 A, k <= 32) takes panels of 256
+# rows, tiles of 64 bf16 or 128 uint8 columns and 16-byte copies when n % 8
+# (bf16) or n % 16 (uint8) is 0. The first port's kernel (k > 32) takes
+# panels of 64 rows and 64-column tiles. Shapes: m ragged at the panel
+# heights (129, 257, 513: one row past whole panels), n % 4 = 1, 2, 3
+# (scalar paths), n % 4 == 0 over several tiles and strips with a ragged
+# last one (1040: 32 tiles and 16 columns, strips of 1024 + 16, 2 x 512 +
+# 16, 4 x 256 + 16; 1540: 48 tiles and 4, strips of 1024 + 516, 3 x 512 +
+# 4, 6 x 256 + 4), n below one tile (8, 20), a 10-member stack; n % 8 = 4
+# (100: bf16 and uint8 on the scalar path, f32 on the 16-byte one), n % 16
+# = 8 (264: uint8 scalar, bf16 16-byte) with m ragged at 256, and whole
+# panels and tiles (512 x 1024).
 K3_SHAPES = SHAPES + [(1, 129, 66), (2, 257, 131), (1, 257, 129),
                       (2, 65, 130), (1, 129, 1040), (2, 129, 1540),
-                      (1, 33, 8), (3, 300, 20), (10, 70, 200), (1, 513, 600)]
+                      (1, 33, 8), (3, 300, 20), (10, 70, 200), (1, 513, 600),
+                      (2, 257, 100), (1, 513, 264), (2, 512, 1024)]
+K3_KEY = {torch.float32: "fused_mu_kl", torch.bfloat16: "fused_mu_kl_bf16",
+          torch.uint8: "fused_mu_kl_u8"}
+K3_K = [1, 3, 7, 8, 9, 16, 17, 31, 32, 33, 64]
+
+
+def _k3_check(A, W, H):
+    """One K3 launch, under A's dtype key only, against the plain version."""
+    hrs = linalg.sum_axis(H, axis=-1)
+    key = K3_KEY[A.dtype]
+    before = dict(fused_kl.launches)
+    out = fused_kl.fused_kl_pass(A, W, H, hrs, EPS)
+    assert fused_kl.launches == {**before, key: before[key] + 1}
+    ref = fused_kl.fused_kl_pass_plain(A, W, H, hrs, EPS, 50)
+    assert _rel(out, ref) <= (1e-4 if A.dtype == torch.float32 else 1e-3)
 
 
 @pytest.mark.parametrize("b,m,n", K3_SHAPES)
-@pytest.mark.parametrize("k", [1, 3, 7, 8, 9, 16, 17, 31, 32, 33, 64])
+@pytest.mark.parametrize("k", K3_K)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_k3_matches_plain(cuda, b, m, n, k, dtype):
+    _k3_check(*_inputs(cuda, b, m, n, k, dtype))
+
+
+@pytest.mark.parametrize("k", K3_K)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k3_misaligned_a_matches_plain(cuda, k, dtype):
+    """A contiguous A that starts one element past a 16-byte boundary (a
+    view into a larger buffer) takes the element-by-element path."""
+    b, m, n = 2, 257, 528
     A, W, H = _inputs(cuda, b, m, n, k, dtype)
-    hrs = linalg.sum_axis(H, axis=-1)
-    before = fused_kl.launches["fused_mu_kl"]
-    out = fused_kl.fused_kl_pass(A, W, H, hrs, EPS)
-    assert fused_kl.launches["fused_mu_kl"] == before + 1
-    ref = fused_kl.fused_kl_pass_plain(A, W, H, hrs, EPS, 50)
-    assert _rel(out, ref) <= (1e-4 if dtype == torch.float32 else 1e-3)
+    buf = torch.empty(A.numel() + 1, dtype=dtype, device=cuda)
+    Av = buf[1:].view(b, m, n)
+    Av.copy_(A)
+    assert Av.is_contiguous() and Av.data_ptr() % 16 != 0
+    _k3_check(Av, W, H)
 
 
 # K2's register kernels (k <= 32), as UhtGeom and WtuGeom in

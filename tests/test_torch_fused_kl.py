@@ -122,11 +122,18 @@ def _step_name(step):
     (True, "kl", 8, torch.float64, True, "mu_kl_step"),        # f64: plain
     (True, "kl", 8, torch.float32, False, "mu_kl_step"),       # refit
     (True, "fro", 8, torch.float32, True, "mu_fro_step"),      # the CPU
+    # a bf16 or uint8 A (f32 factors): K3 up to MAX_K = 64, not past it
+    (True, "kl", 64, torch.bfloat16, True, "fused_mu_kl_step"),
+    (True, "kl", 65, torch.bfloat16, True, "mu_kl_step"),
+    (True, "kl", 64, torch.uint8, True, "fused_mu_kl_step"),
+    (True, "kl", 65, torch.uint8, True, "mu_kl_step"),
 ])
 def test_step_for_follows_use_fused(use_fused, norm, k, precision, W_update,
                                     want):
+    """``precision`` is A's dtype; the factors are f32 beside a narrow A."""
     A = torch.ones((16, 12), dtype=precision)
-    W = torch.ones((16, k), dtype=precision)
+    narrow = precision in (torch.bfloat16, torch.uint8)
+    W = torch.ones((16, k), dtype=torch.float32 if narrow else precision)
     step = tnmf.step_for(A, W, norm, W_update, 0, use_fused)
     assert _step_name(step) == want
 
@@ -150,6 +157,80 @@ def test_nmfk_ensemble_takes_the_fused_step(tmp_path, monkeypatch):
                           results_path=str(tmp_path) + "/", checkpoint=False)
     port.NMFk(cfg, "cpu").fit(X)
     assert len(calls) == 2 * 20 and set(calls) == {(4, 40, 30)}
+
+
+# Per-k statistics of the fused KL sweep against JAX's. f32 members: rtol
+# 1e-4 / atol 1e-6 (tests/test_torch_nmfk.py's sweep test; the two
+# packages differ in summation order only, measured <= 2e-5). bf16 members:
+# absolute 1e-3 on the statistics that live in [0, 1] (silhouettes, column
+# and member relative errors) and rtol 1e-3 on AIC. The f32 ensemble test's
+# rtol 1e-3 (tests/test_torch_nmf.py::test_batched_solve_matches_jax)
+# cannot hold there: each step rounds U and U' to bf16 (steps of 2^-8), a
+# one-ulp difference in summation order flips some of those roundings, and
+# over the iterations the two ensembles drift apart by up to 6.5e-4 in
+# these statistics (measured at 200 iterations; relative gaps reach a few
+# per cent on the smallest column errors).
+SWEEP_TOL = {None: dict(rtol=1e-4, atol=1e-6),
+             "bfloat16": dict(rtol=0, atol=1e-3)}
+UNIT_STATS = ("clusterSilhouetteCoefficients", "L_err", "recon_err",
+              "avgSilhouetteCoefficients", "L_errDist")
+
+
+@pytest.mark.parametrize("a_precision", [None, "bfloat16"])
+def test_nmfk_fused_sweep_matches_jax(tmp_path, interpret_pallas,
+                                      a_precision):
+    """The KL NMFk sweep with use_fused=True on f32 and on bf16 members: the
+    port (K3's plain version on the CPU) against pydnmfk_tpu (its Pallas
+    kernel in interpret mode), the JAX package's perturbed copies and init
+    factors fed to the port (members stored at a_precision by both); per-k
+    statistics at SWEEP_TOL and the same k."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(__file__))
+    from test_torch_nmfk import _jax_members
+    from pydnmfk_tpu.utils.data_generator import generate_data
+    _, _, X = generate_data(m=64, n=48, k=3, seed=100)
+    itr = 200
+    jcfg = pydnmfk_tpu.NMFkConfig(
+        nmf=pydnmfk_tpu.NMFConfig(itr=itr, norm="kl", method="mu",
+                                  a_precision=a_precision, use_fused=True),
+        start_k=2, end_k=4, perturbations=8, sill_thr=0.6,
+        results_path=str(tmp_path / "jax") + "/", fname="syn",
+        checkpoint=False, k_sweep_batch=False)
+    jm = pydnmfk_tpu.NMFk(jcfg)
+    nopt_jax = jm.fit(X)
+    model = port.NMFk(config_from_jax(dataclasses.asdict(jcfg.replace(
+        results_path=str(tmp_path / "torch") + "/"))), "cpu")
+    a_dtype = torch.bfloat16 if a_precision else torch.float32
+    assert model.cfg.nmf.a_dtype == a_dtype and model.cfg.nmf.use_fused
+    os.makedirs(model.results_path)
+    At = torch.from_numpy(np.asarray(X, np.float32))
+    calls = []
+    real = tfk.fused_kl_pass
+
+    def spy(A, *args, **kw):
+        calls.append(A.dtype)
+        return real(A, *args, **kw)
+
+    tfk.fused_kl_pass = spy
+    try:
+        for k in jcfg.k_range:
+            ens = model._solve_ensemble(At, k,
+                                        members=_jax_members(jcfg, X, k))
+            stats = model.pynmfk_per_k(At, k, ensemble=ens)
+            ref = jm.per_k_stats[k]
+            for key in (*UNIT_STATS, "AIC"):
+                tol = (SWEEP_TOL[a_precision] if key in UNIT_STATS or
+                       a_precision is None else dict(rtol=1e-3))
+                np.testing.assert_allclose(
+                    np.asarray(stats[key], np.float64),
+                    np.asarray(ref[key], np.float64), **tol,
+                    err_msg=f"k={k} {key}")
+    finally:
+        tfk.fused_kl_pass = real
+    # every ensemble step went through the one-pass step, on a_dtype members
+    assert len(calls) == 3 * itr and set(calls) == {a_dtype}
+    assert model.pvalue_analysis() == nopt_jax
 
 
 def test_config_from_jax_carries_use_fused_and_uint8():

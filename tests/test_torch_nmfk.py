@@ -154,7 +154,8 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "assert not bad, bad\n"
         "assert fused_mu.launches == {'fused_mu_fro': 0, "
         "'fused_mu_fro_bf16': 0, 'fused_mu_fro_u8': 0}\n"
-        "assert fused_kl.launches == {'fused_mu_kl': 0}\n"
+        "assert fused_kl.launches == {'fused_mu_kl': 0, "
+        "'fused_mu_kl_bf16': 0, 'fused_mu_kl_u8': 0}\n"
         "assert ell_gather.launches == {'ell_gather': 0, "
         "'ell_gather_ratio': 0}\n"
         "assert not cuda_lib.load.cache_info().currsize\n")
