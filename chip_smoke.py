@@ -25,14 +25,21 @@ Run from the root of a checkout, with no arguments:
      of the NYTimes bag-of-words corpus (300000 x 102660, 69.7 M nnz,
      k = 32), and on a 10-member stack of the planted topic matrix of 5 at
      k = 3 and 7 (library call: ``torch.bmm`` of a sparse COO stack);
+   - K3 at k = 64 on the f32 A and K4 at k = 64 on the NYTimes shape,
+     where the first port's kernels run;
    profiles one batched FRO-MU and KL-MU step on that stack (wall and
-   device ms, idle share, top kernels); and checks NMF.fit on the card
-   against the CPU path on a small input;
+   device ms, idle share, top kernels); checks NMF.fit on the card
+   against the CPU path on a small input; and times one ``eigh`` of a
+   9600^2 Gram, the nnsvd init of one member of the NMFk ensemble;
 3. the dense main path, launch counters at zero before each run and read
    after it: NMF.fit for 10 iterations at 57600 x 38400, k = 32, of FRO-MU
    and KL-MU (f32), of both on the uint8-quantized A, of FRO-MU on a bf16
    A, and of KL-MU with ``use_fused=True`` (K3) on an f32, a uint8 and a
-   bf16 A; then the NMFk sweep through the CLI on a planted rank-4 14400 x
+   bf16 A; 10 iterations of HALS (column sweep and ``hals_block=8``, with
+   the column chain timed apart from the two A-sized products), of BCD
+   (both objectives) and of FRO-MU from the nnsvd init, none of them but
+   the last launching a kernel; then the NMFk sweep through the CLI on a
+   planted rank-4 14400 x
    9600 matrix (k = 2..7, 10 perturbations, 400 iterations), FRO-MU and
    KL-MU, and FRO-MU with ``--a_precision=bfloat16``, which must choose
    k = 4; the same KL-MU sweep through the library with ``use_fused=True``,
@@ -40,11 +47,16 @@ Run from the root of a checkout, with no arguments:
    members' dtype) and whose refit only K2b; and one FRO-MU factorization
    of that matrix through the CLI with and without ``--a_precision=uint8``;
 4. the sparse main path, the same way: NMF.fit on the NYTimes-shaped matrix,
-   10 FRO-MU and 10 KL-MU iterations, k = 32, on the ELL format the policy
-   must choose;
+   10 FRO-MU, 10 KL-MU and 10 HALS iterations, k = 32, on the ELL format
+   the policy must choose;
 5. the sparse NMFk sweep through the CLI on a planted rank-4 block-sparse
    200000 x 50000 ``.npz`` (about 50 nnz per row, 10 M nnz; the same sweep
    settings), FRO-MU and KL-MU, which must choose k = 4 on the ELL format;
+   the NMFk sweep through the CLI with ``--method=hals --init=nnsvd
+   --prune=true`` (20 perturbations) on a planted rank-4 4800 x 3200 matrix
+   with all-zero rows and columns, and through the library with ``method="bcd"`` on the
+   planted 14400 x 9600 one, each of which must choose k = 4 with no kernel
+   launched;
 6. prints the card's name and power limit, one JSON line of kernels, and as
    its last line ``{"ok": true, "device": {...}}``.
 
@@ -69,6 +81,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 M, N, K = 57600, 38400, 32               # reference strong-scaling geometry
 ENS, EM, EN, EK = 10, 14400, 9600, 8     # ensemble kernel check
 PLANTED = dict(m=14400, n=9600, k=4)     # NMFk sweep input
+PRUNED = dict(m=4800, n=3200, k=4)       # the prune sweep's input, whose
+ZERO_EVERY = (97, 89)                    # every 97th row, 89th column is 0
 SWEEP = ["--start_k=2", "--end_k=7", "--perturbations=10", "--itr=400"]
 # NYTimes bag of words (UCI Machine Learning Repository, "Bag of Words"):
 # documents x vocabulary and nnz; drawn with replacement, ~79 k repeats drop
@@ -264,7 +278,9 @@ def main():
         sys.exit("chip_smoke: no CUDA device")
     sys.path.insert(0, ROOT)
     from pydnmfk_tpu_torch import NMF, NMFConfig, NMFk, NMFkConfig, cli
+    from pydnmfk_tpu_torch.models import updates
     from pydnmfk_tpu_torch.models.nmf import init_factors_rand
+    from pydnmfk_tpu_torch.models.svd import DistSVD
     from pydnmfk_tpu_torch.ops import (cuda_lib, ell, ell_gather, fused_kl,
                                        fused_mu, kl, linalg, sparse)
     from pydnmfk_tpu_torch.utils import timing
@@ -509,6 +525,17 @@ def main():
         if a.dtype != torch.float32:
             two_read_floor(f"{label} {shape}", a, "K3 fused_mu_kl")
     del A16, W16, H16, Q, W, H, HHT, hrs
+    # K3 at 32 < k <= 64, where the first port's kernel runs: k = 64, f32
+    W64 = torch.rand((M, 64), generator=gen, device=dev)
+    H64 = torch.rand((64, N), generator=gen, device=dev)
+    hrs64 = linalg.sum_axis(H64, axis=-1)
+    kernel_case("K3 fused_mu_kl", f"f32 {M}x{N} k=64",
+                lambda: fused_kl.fused_kl_pass(A, W64, H64, hrs64, eps),
+                lambda: fused_kl.fused_kl_pass_plain(A, W64, H64, hrs64, eps,
+                                                     chunk),
+                TOL[torch.float32],
+                (8 * M * N * 64, nbytes(A, W64, H64, hrs64, W64, H64)))
+    del W64, H64, hrs64
     torch.cuda.empty_cache()
     Ae = torch.rand((ENS, EM, EN), generator=gen, device=dev)
     We = torch.rand((ENS, EM, EK), generator=gen, device=dev)
@@ -644,10 +671,13 @@ def main():
     Hn = torch.rand((K, NYT_N), generator=gen, device=dev)
     A_r = csr(nyt.rows, nyt.cols, nyt.data, nyt.shape)
     A_c = csr(nyt.cols, nyt.rows, nyt.data, nyt.shape[::-1])
-    k4_ms, k4_nz = k4_cases(
-        f"{NYT_M}x{NYT_N} k={K} f32", E, Wn, Hn,
-        lambda Ht, W: (lambda: torch.sparse.mm(A_r, Ht),
-                       lambda: torch.sparse.mm(A_c, W)))
+    nyt_lib = lambda Ht, W: (lambda: torch.sparse.mm(A_r, Ht),
+                             lambda: torch.sparse.mm(A_c, W))
+    k4_ms, k4_nz = k4_cases(f"{NYT_M}x{NYT_N} k={K} f32", E, Wn, Hn, nyt_lib)
+    # K4 at k > 32, where the first port's kernel runs: k = 64
+    Wn = torch.rand((NYT_M, 64), generator=gen, device=dev)
+    Hn = torch.rand((64, NYT_N), generator=gen, device=dev)
+    k4_cases(f"{NYT_M}x{NYT_N} k=64 f32", E, Wn, Hn, nyt_lib)
     del Wn, Hn, A_r, A_c
     torch.cuda.empty_cache()
     # the time model's constants (ops/ell.py), from this run's readings
@@ -704,6 +734,37 @@ def main():
         check(rel_err < 1e-3 and abs(eg - ec) < 1e-4 * ec,
               f"NMF.fit {norm} {kw} on the card disagrees with the CPU path")
 
+    # the NMFk ensemble's nnsvd init takes one eigh of each member's Gram
+    # (models/svd.py::_svd_gram): one at the planted sweep's shape
+    _, _, X = generate_data(**PLANTED)
+    G = linalg.gram(torch.from_numpy(X.astype(np.float32)).to(dev))
+    del X
+    eigh_ms = median_ms(lambda: torch.linalg.eigh(G), reps=3)
+    print(f"[svd] eigh of the {G.shape[0]}x{G.shape[1]} f32 Gram of a "
+          f"{PLANTED['m']}x{PLANTED['n']} member: {eigh_ms:.1f} ms "
+          f"(median of 3)", flush=True)
+    del G
+
+    def hals_parts(A):
+        """One HALS iteration at A's shape in parts: the two A-sized
+        products, and the W and H chains by columns and by blocks of 8."""
+        g = torch.Generator(dev)
+        g.manual_seed(1)
+        W, H = init_factors_rand(g, *A.shape, K, torch.float32, dev)
+        HHT, AHT = linalg.gram_t(H), linalg.matmul_AHT(A, H)
+        WTW, WTA = linalg.gram(W), linalg.matmul_WTA(W, A)
+        prod = median_ms(lambda: (linalg.matmul_AHT(A, H),
+                                  linalg.matmul_WTA(W, A)))
+        chains = [median_ms(fn) for fn in (
+            lambda: updates._hals_w_cols(W, HHT, AHT, eps, 0, K),
+            lambda: updates._hals_h_rows(H, WTW, WTA, eps, 0, K),
+            lambda: updates._hals_w_blocked(W, HHT, AHT, eps, 8),
+            lambda: updates._hals_h_blocked(H, WTW, WTA, eps, 8))]
+        print(f"[nmf] HALS iteration parts {A.shape[0]}x{A.shape[1]} k={K}: "
+              f"A H^T + W^T A {prod:.3f} ms; column chain W {chains[0]:.3f} "
+              f"+ H {chains[1]:.3f} ms; blocks of 8 W {chains[2]:.3f} + H "
+              f"{chains[3]:.3f} ms (CUDA events, median of 7)", flush=True)
+
     # -- 3. the dense main path, counters from zero ----------------------
     timing.enable(True)
     none = {key: 0 for key in counts()}
@@ -713,6 +774,30 @@ def main():
     init_err = float(linalg.relative_error(A, W0, H0, chunk))
     del W0, H0
     errs = {}
+
+    def dense_fit(label, cfg, want, ref_err=init_err, ref="rand init"):
+        """NMF.fit of A under ``cfg``, counters from zero: its seconds, its
+        error (finite and below ``ref_err``, the init's) and its launches
+        (exactly ``want``, nothing else)."""
+        timing.reset()
+        zero_counts()
+        t0 = time.perf_counter()
+        W, H, err = NMF(cfg, dev).fit(A)          # same seed: same init
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        ran = read_counts()
+        solve_s = timing.TIMINGS["solve"]
+        print(f"[nmf] {label} {M}x{N} k={K}, {cfg.itr} iterations: fit "
+              f"{secs:.3f} s, solve {solve_s:.3f} s ({cfg.itr / solve_s:.2f} "
+              f"it/s incl. final error), relative error {ref_err:.6f} "
+              f"({ref}) -> {err:.6f}, launches {ran}", flush=True)
+        check(np.isfinite(err) and err < ref_err,
+              f"NMF.fit {label}: error {err} not below the init's {ref_err}")
+        check(W.shape == (M, K) and H.shape == (K, N), "factor shapes")
+        check(ran == {**none, **want},
+              f"NMF.fit {label} launches {ran}, expected {want}")
+        return err
+
     # (label, norm, config options, the launches it must make)
     for label, norm, kw, want in (
             ("FRO-MU f32", "fro", {}, {"fused_mu_fro": ITR}),
@@ -731,26 +816,8 @@ def main():
             ("KL-MU bf16-A use_fused", "kl",
              {"a_precision": "bfloat16", "use_fused": True},
              {"fused_mu_kl_bf16": ITR})):
-        cfg = NMFConfig(k=K, norm=norm, itr=ITR, **kw)
-        timing.reset()
-        zero_counts()
-        t0 = time.perf_counter()
-        W, H, err = NMF(cfg, dev).fit(A)          # same seed: same init
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        ran = read_counts()
-        solve_s = timing.TIMINGS["solve"]
-        print(f"[nmf] {label} {M}x{N} k={K}, {ITR} iterations: fit "
-              f"{secs:.3f} s, solve {solve_s:.3f} s ({ITR / solve_s:.2f} "
-              f"it/s incl. final error), relative error {init_err:.6f} "
-              f"(rand init) -> {err:.6f}, launches {ran}", flush=True)
-        check(np.isfinite(err) and err < init_err,
-              f"NMF.fit {label}: error {err} not below the init's {init_err}")
-        check(W.shape == (M, K) and H.shape == (K, N), "factor shapes")
-        check(ran == {**none, **want},
-              f"NMF.fit {label} launches {ran}, expected {want}")
-        errs[label] = err
-        del W, H
+        errs[label] = dense_fit(label, NMFConfig(k=K, norm=norm, itr=ITR,
+                                                 **kw), want)
     # the quantized and the bf16 solves track the f32 one; K3 and K2 differ
     # in summation order only at f32; on a uint8 or bf16 A, K3 rounds U and
     # U' to bf16 where K2 does not, and is held to the K2 solve on the same
@@ -767,30 +834,76 @@ def main():
               f"{tol:g})", flush=True)
         check(rel <= tol, f"{label} error {errs[label]} is not within "
                           f"{tol:g} of {ref}'s {errs[ref]}")
+
+    # HALS and BCD from the same rand init: their A-sized products are plain
+    # (cuBLAS), their chains small products, and no kernel of K1-K4 runs
+    for label, kw in (("HALS", {"method": "hals"}),
+                      ("HALS hals_block=8", {"method": "hals",
+                                             "hals_block": 8}),
+                      ("BCD gram", {"method": "bcd"}),
+                      ("BCD residual", {"method": "bcd",
+                                        "bcd_obj": "residual"})):
+        errs[label] = dense_fit(label, NMFConfig(k=K, norm="fro", itr=ITR,
+                                                 **kw), {})
+    # the blocks change the summation order only; the two objectives decide
+    # alike unless one sits within the Gram identity's f32 resolution
+    for label, ref in (("HALS hals_block=8", "HALS"),
+                       ("BCD residual", "BCD gram")):
+        rel = abs(errs[label] / errs[ref] - 1)
+        print(f"[check] {label} error {errs[label]:.6f} vs {ref} "
+              f"{errs[ref]:.6f}: relative difference {rel:.2e} (limit 1e-3)",
+              flush=True)
+        check(rel <= 1e-3, f"{label} error {errs[label]} is not within 1e-3 "
+                           f"of {ref}'s {errs[ref]}")
+    hals_parts(A)
+
+    # FRO-MU from the nnsvd init (randomized SVD: min(M, N) > 8192)
+    t0 = time.perf_counter()
+    _, svd_errs = DistSVD(k=K, eps=eps).nnsvd(A, verbose=1)
+    torch.cuda.synchronize()
+    print(f"[svd] DistSVD.nnsvd(verbose=1) {M}x{N} k={K} (randomized): "
+          f"{time.perf_counter() - t0:.3f} s, recon_err_svd "
+          f"{svd_errs['recon_err_svd']:.6f}, recon_err_nnsvd "
+          f"{svd_errs['recon_err_nnsvd']:.6f}", flush=True)
+    dense_fit("FRO-MU f32 nnsvd", NMFConfig(k=K, norm="fro", itr=ITR,
+                                            init="nnsvd"),
+              {"fused_mu_fro": ITR}, svd_errs["recon_err_nnsvd"],
+              "nnsvd init")
+    print(f"[svd] the nnsvd init of that fit took "
+          f"{timing.TIMINGS['init_factors']:.3f} s", flush=True)
     del A
     torch.cuda.empty_cache()
 
-    def sweep(tmp, ftype, fname, norm, expect, shape, a_precision=None):
+    def sweep(tmp, ftype, fname, norm, expect, shape, a_precision=None,
+              flags=(), label=None, perturbations=10):
         """The NMFk sweep through the CLI entry point, counters from zero;
         checks nopt = 4, every k's results, and that the kernels of
-        ``expect`` (and no other) launched."""
+        ``expect`` (and no other) launched. ``flags`` adds CLI flags, and
+        ``perturbations`` replaces SWEEP's 10. Returns the results path."""
         timing.reset()
         res_path = os.path.join(tmp, f"res_{fname}_{norm}_{a_precision}") + "/"
         extra = [f"--a_precision={a_precision}"] if a_precision else []
+        extra += list(flags)
+        args = [f"--perturbations={perturbations}"
+                if a.startswith("--perturbations=") else a for a in SWEEP]
+        label = label or f"{norm.upper()}-MU"
         zero_counts()
         t0 = time.perf_counter()
         out = cli.main(["--process=pyDNMFk", "--p_r=1", "--p_c=1",
                         f"--ftype={ftype}", f"--fpath={tmp}/",
                         f"--fname={fname}", f"--norm={norm}",
                         f"--results_path={res_path}", "--timing_stats=true",
-                        *SWEEP, *extra])
+                        *args, *extra])
         secs = time.perf_counter() - t0
         ran = read_counts()
         stages = {s: round(timing.TIMINGS.get(s, 0.0), 3) for s in
                   ("read", "sparse_format", "ensemble_solve", "clustering",
                    "regression")}
-        print(f"[nmfk] {norm.upper()}-MU {ftype} {shape[0]}x{shape[1]} "
-              f"{' '.join(SWEEP + extra)}: nopt {out['nopt']}, {secs:.2f} s, stage "
+        if flags:
+            stages["ensemble_init"] = round(timing.TIMINGS["ensemble_init"],
+                                            3)
+        print(f"[nmfk] {label} {ftype} {shape[0]}x{shape[1]} "
+              f"{' '.join(args + extra)}: nopt {out['nopt']}, {secs:.2f} s, stage "
               f"seconds {stages}, launches {ran}", flush=True)
         check(out["nopt"] == 4, f"NMFk {norm} {ftype} chose k={out['nopt']}, "
                                 f"not 4")
@@ -799,12 +912,13 @@ def main():
             check(set(res) == set(RESULT_DATASETS), f"k={k} datasets")
             check(res["clusterSilhouetteCoefficients"].shape == (k,)
                   and res["L_err"].shape == (shape[1],)
-                  and res["ErrTol"].shape == (10,)
+                  and res["ErrTol"].shape == (perturbations,)
                   and all(np.isfinite(v).all() for v in res.values()),
                   f"NMFk {norm} {ftype} k={k} results")
         check(all(ran[key] > 0 for key in expect)
               and not any(ran[key] for key in ran if key not in expect),
               f"NMFk {norm} {ftype} launched {ran}, expected {expect} only")
+        return res_path
 
     def fused_sweep(tmp, a_precision="float32", key="fused_mu_kl"):
         """The dense KL NMFk sweep through the library with use_fused=True
@@ -899,8 +1013,9 @@ def main():
                            f"within 2 % of {cli_err[None]}")
 
     # -- 4. the sparse main path: NMF.fit at the NYTimes shape ------------
-    for norm in ("fro", "kl"):
-        cfg = NMFConfig(k=K, norm=norm, itr=10)
+    for norm, method in (("fro", "mu"), ("kl", "mu"), ("fro", "hals")):
+        cfg = NMFConfig(k=K, norm=norm, itr=10, method=method)
+        label = "HALS" if method == "hals" else f"{norm.upper()}-MU"
         g = torch.Generator(dev)
         g.manual_seed(cfg.seed)
         W0, H0 = init_factors_rand(g, NYT_M, NYT_N, K, torch.float32, dev)
@@ -915,7 +1030,7 @@ def main():
         secs = time.perf_counter() - t0
         ran = read_counts()
         solve_s = timing.TIMINGS["solve"]
-        print(f"[nmf] {norm.upper()}-MU sparse {NYT_M}x{NYT_N} ({nyt.nse} "
+        print(f"[nmf] {label} sparse {NYT_M}x{NYT_N} ({nyt.nse} "
               f"nnz) k={K} f32, 10 iterations: fit {secs:.3f} s (format "
               f"{timing.TIMINGS['sparse_format']:.3f} s), solve "
               f"{solve_s:.3f} s ({10 / solve_s:.2f} it/s incl. final "
@@ -924,17 +1039,18 @@ def main():
         check(isinstance(model._A, ell.EllSparse),
               f"the format policy chose {type(model._A).__name__}, not ELL")
         check(np.isfinite(err) and err < init_err,
-              f"sparse NMF.fit {norm}: error {err} not below the init's "
+              f"sparse NMF.fit {label}: error {err} not below the init's "
               f"{init_err}")
         check(W.shape == (NYT_M, K) and H.shape == (K, NYT_N), "factor shapes")
-        # each MU iteration makes two ELL products, one K4 launch each (FRO:
-        # A H^T and W^T A, plain; KL: UHT and WTU, ratio), and the final
-        # Gram-identity error one more, W^T A (plain): FRO 2 x 10 + 1 = 21
-        # plain; KL 2 x 10 = 20 ratio + 1 plain
+        # each MU or HALS iteration makes two ELL products, one K4 launch
+        # each (FRO and HALS: A H^T and W^T A, plain; KL: UHT and WTU,
+        # ratio), and the final Gram-identity error one more, W^T A
+        # (plain): FRO and HALS 2 x 10 + 1 = 21 plain; KL 2 x 10 = 20 ratio
+        # + 1 plain
         want = {**none, **({"ell_gather": 21} if norm == "fro"
                            else {"ell_gather": 1, "ell_gather_ratio": 20})}
-        check(ran == want, f"sparse NMF.fit {norm} launches {ran}, expected "
-                           f"{want}")
+        check(ran == want, f"sparse NMF.fit {label} launches {ran}, "
+                           f"expected {want}")
         del model, W, H
     del nyt, E
     torch.cuda.empty_cache()
@@ -955,6 +1071,76 @@ def main():
         sweep(tmp, "npz", "T", "fro", ("ell_gather",), tshape)
         sweep(tmp, "npz", "T", "kl", ("ell_gather", "ell_gather_ratio"),
               tshape)
+
+    # the HALS + nnsvd + prune sweep through the CLI: a planted matrix with
+    # all-zero rows and columns, which the sweep prunes once and puts back
+    # into the saved factors; HALS launches no kernel of K1-K4. NNSVD
+    # starts every member from the same point up to its noise, so the
+    # clusters of k > 4 hold together more often than under rand init: at
+    # 10 members the walk chose 5 for 4 of 6 seeds on the card, at 20
+    # members (the CLI's default) 4 for all 6 (PERF.md §6;
+    # bench_torch/nnsvd_sweep_probe.py)
+    _, _, X = generate_data(**PRUNED)
+    X = X.astype(np.float32)
+    zero_rows = np.arange(0, PRUNED["m"], ZERO_EVERY[0])
+    zero_cols = np.arange(0, PRUNED["n"], ZERO_EVERY[1])
+    X[zero_rows] = 0.0
+    X[:, zero_cols] = 0.0
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(os.path.join(tmp, "P.npy"), X)
+        res_path = sweep(tmp, "npy", "P", "fro", (), X.shape,
+                         flags=("--method=hals", "--init=nnsvd",
+                                "--prune=true"),
+                         label="HALS nnsvd prune", perturbations=20)
+        sils = {}
+        for k in range(2, 8):
+            k_path = os.path.join(res_path, "P", str(k))
+            Wr = np.load(os.path.join(k_path, "W_reg_factors", "W.npy"))
+            Hr = np.load(os.path.join(k_path, "H_reg_factors", "H.npy"))
+            res = read_cluster_results(k_path)
+            sils[k] = round(float(np.min(
+                res["clusterSilhouetteCoefficients"])), 3)
+            check(Wr.shape == (X.shape[0], k) and Hr.shape == (k, X.shape[1])
+                  and not Wr[zero_rows].any() and not Hr[:, zero_cols].any()
+                  and Wr.any(axis=1).sum() == X.shape[0] - len(zero_rows)
+                  and not res["L_err"][zero_cols].any(),
+                  f"prune sweep k={k}: factors {Wr.shape} {Hr.shape} not at "
+                  f"the full shape with the planted zero rows and columns")
+        print(f"[nmfk] HALS nnsvd prune: minimum silhouette by k {sils}; "
+              f"{len(zero_rows)} zero rows and {len(zero_cols)} zero columns "
+              f"pruned and restored", flush=True)
+    del X
+
+    # the BCD sweep through the library on the planted 14400 x 9600 matrix
+    # (rand init): its products are plain, no kernel of K1-K4 runs
+    _, _, X = generate_data(**PLANTED)
+    ks = range(2, 8)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = NMFkConfig(nmf=NMFConfig(norm="fro", method="bcd", itr=400),
+                         start_k=ks[0], end_k=ks[-1], perturbations=10,
+                         results_path=tmp + "/", fname="X", checkpoint=False)
+        timing.reset()
+        zero_counts()
+        t0 = time.perf_counter()
+        nopt = NMFk(cfg, dev).fit(X.astype(np.float32))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        ran = read_counts()
+        stages = {st: round(timing.TIMINGS.get(st, 0.0), 3) for st in
+                  ("ensemble_solve", "ensemble_init", "clustering",
+                   "regression")}
+        print(f"[nmfk] BCD (library) npy {X.shape[0]}x{X.shape[1]} k=2..7, "
+              f"10 perturbations, 400 iterations: nopt {nopt}, {secs:.2f} s, "
+              f"stage seconds {stages}, launches {ran}", flush=True)
+        check(nopt == 4, f"NMFk BCD chose k={nopt}, not 4")
+        check(ran == none, f"NMFk BCD launched {ran}, expected nothing")
+        for k in ks:
+            out = read_cluster_results(os.path.join(tmp, "X", str(k)))
+            check(set(out) == set(RESULT_DATASETS)
+                  and out["clusterSilhouetteCoefficients"].shape == (k,)
+                  and all(np.isfinite(v).all() for v in out.values()),
+                  f"NMFk BCD k={k} results")
+    del X
 
     for name, n in main_path.items():
         check(n > 0, f"kernel {name} was not launched on the main path")

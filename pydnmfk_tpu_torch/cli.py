@@ -40,10 +40,10 @@ def build_parser():
     p.add_argument("--fpath", type=str, default="data/")
     p.add_argument("--ftype", type=str, default="mat", help="mat/npy/csv/txt/npz")
     p.add_argument("--fname", type=str, default="A_")
-    p.add_argument("--init", type=str, default="rand", help="rand")
+    p.add_argument("--init", type=str, default="rand", help="rand/nnsvd")
     p.add_argument("--itr", type=int, default=5000)
     p.add_argument("--norm", type=str, default="kl", help="KL/FRO")
-    p.add_argument("--method", type=str, default="mu", help="MU")
+    p.add_argument("--method", type=str, default="mu", help="MU/HALS/BCD")
     p.add_argument("--verbose", type=str2bool, default=False)
     p.add_argument("--results_path", type=str, default="results/")
     p.add_argument("--checkpoint", type=str2bool, default=False)
@@ -81,7 +81,8 @@ def build_parser():
                    help="NMFk members per batched solve (0 = fit half the "
                         "free device memory)")
     p.add_argument("--matmul_precision", type=str, default=None)
-    p.add_argument("--bcd_obj", type=str, default=None)
+    p.add_argument("--bcd_obj", type=str, default=None,
+                   help="BCD objective: gram (default) or residual")
     p.add_argument("--sparse_grid_format", type=str, default=None)
     p.add_argument("--k_sweep_batch", type=str2bool, default=None)
     p.add_argument("--k_sweep_merge", type=str2bool, default=None)
@@ -90,9 +91,6 @@ def build_parser():
 
 def _reject_not_ported(args):
     checks = [
-        (args.init != "rand", f"--init={args.init}", "queue 1 item 13"),
-        (args.method.lower() != "mu", f"--method={args.method}",
-         "queue 1 item 12"),
         (args.ftype == "folder", "--ftype=folder", "queue 1 item 9"),
         ((args.p_r, args.p_c) != (1, 1), f"--p_r={args.p_r} --p_c={args.p_c}",
          "queue 1 item 15"),
@@ -106,9 +104,9 @@ def _reject_not_ported(args):
 
 def _jax_only_knobs(args):
     """The JAX Runner's knobs among the flags, as Runner takes them."""
-    return dict(prune=args.prune, seed_grid=args.seed_grid,
+    return dict(seed_grid=args.seed_grid,
                 solve_checkpoint_every=args.solve_checkpoint_every,
-                matmul_precision=args.matmul_precision, bcd_obj=args.bcd_obj,
+                matmul_precision=args.matmul_precision,
                 sparse_grid_format=args.sparse_grid_format,
                 k_sweep_batch=args.k_sweep_batch,
                 k_sweep_merge=args.k_sweep_merge)
@@ -137,7 +135,8 @@ def main(argv=None):
         sill_thr=args.sill_thr, sampling=args.sampling, process=args.process,
         a_precision=args.a_precision, seed=args.seed, tol=args.tol,
         ensemble_batch=args.ensemble_batch, save_factors=args.save_factors,
-        device=device, **_jax_only_knobs(args))
+        device=device, prune=args.prune, bcd_obj=args.bcd_obj,
+        **_jax_only_knobs(args))
     results = runner.run(
         grid=[args.p_r, args.p_c], fpath=args.fpath, ftype=args.ftype,
         fname=args.fname, results_path=args.results_path,

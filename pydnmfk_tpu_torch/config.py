@@ -32,13 +32,10 @@ class NotPortedError(NotImplementedError):
 # rest. The CLI, Runner and utils/convert.py refuse any other value.
 JAX_ONLY = {
     "grid": (((1, 1),), "queue 1 item 15"),
-    "prune": ((False,), "queue 1 item 8"),
     "kl_chunk": ((0,), "queue 1 item 11"),
     "use_pallas": ((None, False), '"Not to port"'),
     "matmul_precision": ((None, "highest", "float32"), "queue 1 item 1"),
-    "hals_block": ((None,), "queue 1 item 12"),
     "sparse_grid_format": ((None, "auto"), "queue 1 item 15"),
-    "bcd_obj": ((None,), "queue 1 item 12"),
     "solve_checkpoint_every": ((0,), "queue 1 item 13"),
     "hbm_budget": ((0,), "queue 1 item 11"),
     # the K-padded sweep gives the per-k path's results (tests/test_k_sweep.py)
@@ -76,10 +73,13 @@ class NMFConfig:
     """One NMF factorization (one k); mirror of ``pydnmfk_tpu.NMFConfig``."""
 
     k: int = 4
-    init: str = "rand"                       # rand (nnsvd: not yet ported)
+    init: str = "rand"                       # rand | nnsvd
     itr: int = 5000
     norm: str = "kl"                         # fro | kl
-    method: str = "mu"                       # mu (hals, bcd: not yet ported)
+    method: str = "mu"                       # mu | hals | bcd (hals, bcd: fro)
+    # zero-row/column pruning: the fit solves on A without its all-zero
+    # rows and columns and returns factors at the full shape
+    prune: bool = False
     precision: str = "float32"               # float32 | float64
     seed: int = 100
     verbose: bool = False
@@ -96,14 +96,32 @@ class NMFConfig:
     use_fused: bool | None = None
     tol: float = 0.0         # early stop when relative error improves < tol
     tol_check_every: int = 50   # iterations between convergence checks
+    # HALS: None or 0 = the reference's column-by-column sweep; B > 0 = the
+    # same Gauss-Seidel sweep by delayed updates in blocks of B columns
+    hals_block: int | None = None
+    # BCD's objective for its restore-or-extrapolate choice: None or "gram"
+    # = the Gram identity (no third pass over A); "residual" = the
+    # reference's explicit residual, summed over row slabs
+    bcd_obj: str | None = None
 
     def __post_init__(self):
-        if self.init != "rand":
-            raise NotPortedError(f"init={self.init!r}", "queue 1 item 13")
-        if self.method.lower() != "mu":
-            raise NotPortedError(f"method={self.method!r}", "queue 1 item 12")
+        if self.init not in ("rand", "nnsvd"):
+            raise ValueError(f"unknown init {self.init!r}")
         if self.norm.lower() not in ("fro", "kl"):
             raise ValueError(f"norm must be 'fro' or 'kl', got {self.norm!r}")
+        method = self.method.lower()
+        if method not in ("mu", "hals", "bcd"):
+            raise ValueError(f"invalid (norm, method) = ({self.norm!r}, "
+                             f"{self.method!r})")
+        if method != "mu" and self.norm.lower() != "fro":
+            # pydnmfk_tpu/models/nmf.py:81-82
+            raise ValueError(f"method {method!r} supports only norm='fro'")
+        if self.hals_block is not None and self.hals_block < 0:
+            raise ValueError(f"hals_block must be None or >= 0, got "
+                             f"{self.hals_block!r}")
+        if self.bcd_obj not in (None, "gram", "residual"):
+            raise ValueError(f"bcd_obj must be None, 'gram' or 'residual', "
+                             f"got {self.bcd_obj!r}")
         if self.precision not in _PRECISIONS:
             raise NotPortedError(f"precision={self.precision!r}",
                                  "queue 1 item 1")

@@ -12,6 +12,8 @@ Reference semantics kept (pyDNMF.py):
   * relative error = ||A - WH||_F / ||A||_F         (:204-210)
   * per-column error vector                         (:220-239)
   * rand init: U[0, 1) factors                      (:110-129)
+  * nnsvd init, then prune A, W, H; unprune after   (:90-101)
+  * BCD collapses the outer loop into its own       (:152)
 """
 from __future__ import annotations
 
@@ -24,13 +26,18 @@ import torch
 from ..config import NMFConfig, check_device
 from ..ops import cuda_lib, fused_kl, fused_mu, linalg, sparse
 from ..utils import timing
+from ..utils.pruning import prune_all, unprune_columns, unprune_factors
 from . import updates
 
 
 def step_for(A, W, norm: str, W_update: bool, chunk: int,
-             use_fused: bool | None = None):
-    """The update step for these operands (``nmf.py:62-75`` and the fusion
-    rule of :209-233, restated for the card). ``use_fused`` is the config's:
+             use_fused: bool | None = None, method: str = "mu",
+             hals_block: int | None = None):
+    """The update step for these operands (``nmf.py:62-78`` and the fusion
+    rule of :209-233, restated for the card). HALS takes its own step
+    (``updates.hals_step``, FRO only), whose two A-sized products are those
+    of the two-pass MU step: plain products of a dense A, K4 for the dual
+    ELL. For MU, ``use_fused`` is the config's:
 
     * FRO with a W update on CUDA takes kernel K1 for k <= 64 and an f32,
       bf16 or uint8 A with f32 factors, unless ``use_fused`` is False;
@@ -46,6 +53,8 @@ def step_for(A, W, norm: str, W_update: bool, chunk: int,
     * A sparse A takes the two-pass steps over its format's products: K4 on
       CUDA for the dual ELL (``ops/ell.py``); K1, K2 and K3 never see it.
     """
+    if method == "hals":
+        return partial(updates.hals_step, W_update=W_update, block=hals_block)
     if linalg.is_sparse(A):
         step = updates.mu_fro_step if norm == "fro" else updates.mu_kl_step
         return partial(step, W_update=W_update)
@@ -63,9 +72,22 @@ def step_for(A, W, norm: str, W_update: bool, chunk: int,
 
 def _solve(A, W, H, eps, *, norm: str, itr: int, W_update: bool, chunk: int,
            use_fused: bool | None = None, tol: float = 0.0,
-           tol_check_every: int = 50, err_chunk: int = 0):
-    """The iteration loop of ``pydnmfk_tpu/models/nmf.py::_solve`` (MU)."""
-    step = step_for(A, W, norm, W_update, chunk, use_fused)
+           tol_check_every: int = 50, err_chunk: int = 0,
+           method: str = "mu", bcd_obj: str = "gram",
+           hals_block: int | None = None):
+    """The iteration loop of ``pydnmfk_tpu/models/nmf.py::_solve``. BCD is
+    a whole inner solver (``updates.bcd_solve``): it ignores ``W_update``
+    and ``tol``, as JAX's does (nmf.py:86-92), and clips once at the end,
+    where the reference's loop would clip at i = itr - 1."""
+    if method == "bcd":
+        W, H = updates.bcd_solve(A, W, H, eps, itr=itr, obj_mode=bcd_obj,
+                                 chunk=err_chunk)
+        if (itr - 1) % 10 == 0:
+            W, H = W.clamp_min(eps), H.clamp_min(eps)
+        W, H = linalg.normalize_features(W, H, eps)
+        return W, H, linalg.relative_error(A, W, H, err_chunk)
+    step = step_for(A, W, norm, W_update, chunk, use_fused, method,
+                    hals_block)
 
     def body(i, W, H):
         W, H = step(A, W, H, eps)
@@ -117,15 +139,21 @@ def solve(A, W, H, eps, cfg: NMFConfig):
     """Run the full iteration loop on one matrix, or on a stack of ensemble
     members along a leading axis of A, W and H (``nmf.py::solve``). A
     sparse A comes in the format that its caller's ``_prepare`` chose
-    (``ops/sparse.py::densify_for_backend``), and needs no row chunks."""
+    (``ops/sparse.py::densify_for_backend``), and needs no row chunks; it
+    takes MU and HALS, and BCD raises JAX's ValueError (nmf.py:186-189)."""
     m, n = A.shape[-2:]
-    norm = cfg.norm.lower()
+    norm, method = cfg.norm.lower(), cfg.method.lower()
+    if linalg.is_sparse(A) and method == "bcd":
+        raise ValueError(
+            "sparse A supports MU (fro/kl) and HALS; the BCD objective "
+            "needs the dense residual every inner step")
     dense_chunk = 0 if linalg.is_sparse(A) else linalg.error_chunk_rows(m, n)
     return _solve(A, W, H, eps, norm=norm, itr=cfg.itr, W_update=cfg.W_update,
                   chunk=dense_chunk if norm == "kl" else 0,
                   use_fused=cfg.use_fused, tol=float(cfg.tol),
                   tol_check_every=int(cfg.tol_check_every),
-                  err_chunk=dense_chunk)
+                  err_chunk=dense_chunk, method=method,
+                  bcd_obj=cfg.bcd_obj or "gram", hals_block=cfg.hals_block)
 
 
 def init_factors_rand(generator: torch.Generator, m: int, n: int, k: int,
@@ -145,6 +173,7 @@ class NMF:
         self.cfg = cfg
         self.device = torch.device(device)
         self.recon_err = None
+        self.prune_state = None
 
     def _prepare(self, A):
         """A on the device at its storage dtype; a uint8 ``a_precision``
@@ -154,8 +183,9 @@ class NMF:
         triplet stays on the CPU; on the card it becomes the dual ELL or a
         dense A. ``a_precision`` applies to the nnz values of a sparse A,
         uint8 excepted (nmf.py:364-368); a dense A that the policy narrowed
-        to bf16 keeps bf16. The JAX package's other rejections for a sparse
-        A (BCD, nnsvd, prune) are the config's: none of them is ported."""
+        to bf16 keeps bf16. A sparse A that stays sparse refuses prune and
+        nnsvd here, and BCD in :func:`solve`, with the JAX package's
+        ValueErrors (nmf.py:358-363, :186-189)."""
         cfg = self.cfg
         quantized = not cfg.a_dtype.is_floating_point
         if not linalg.is_sparse(A):
@@ -168,29 +198,51 @@ class NMF:
         with timing.timed("sparse_format"):
             A = sparse.densify_for_backend(A.to(self.device), k_hint=cfg.k)
         if linalg.is_sparse(A):
+            if cfg.prune:
+                raise ValueError("prune is not supported with sparse A "
+                                 "(pruning IS implicit in sparsity)")
+            if cfg.init == "nnsvd":
+                raise ValueError("nnsvd init requires dense A; use "
+                                 "init='rand' with sparse matrices")
             return A.astype(cfg.a_dtype)
         return A if A.dtype == torch.bfloat16 else A.to(cfg.a_dtype)
 
+    def init_factors(self, A):
+        """Init factors of A (``nmf.py:319-338``): U[0, 1) draws from a
+        generator seeded with ``cfg.seed``, or NNDSVD (``models/svd.py``;
+        randomized SVD where min(m, n) > 8192)."""
+        cfg = self.cfg
+        if cfg.init == "rand":
+            generator = torch.Generator(self.device)
+            generator.manual_seed(cfg.seed)
+            return init_factors_rand(generator, *A.shape, cfg.k, cfg.dtype,
+                                     self.device)
+        from .svd import DistSVD
+        W, H = DistSVD(k=cfg.k, eps=cfg.eps).nnsvd(A)
+        return W.to(cfg.dtype), H.to(cfg.dtype)
+
     def fit(self, A, factors: Optional[Tuple] = None):
         """Returns (W, H, recon_err) as the reference PyNMF.fit does
-        (pyDNMF.py:137-182). ``factors`` gives (W0, H0); otherwise they are
-        drawn from a generator seeded with ``cfg.seed``. With a uint8
-        ``a_precision`` the solve factorizes Q = round(A / s): the error and
-        ``column_err`` are Q's, and the returned H carries s
-        (nmf.py:477-480, :501-504)."""
+        (pyDNMF.py:137-182). ``factors`` gives (W0, H0); otherwise
+        :meth:`init_factors` makes them from the whole A. With ``prune``
+        the solve then runs on A without its all-zero rows and columns
+        (and W, H without the matching rows and columns), and the returned
+        factors are put back at the full shape (nmf.py:426-427,
+        :505-512). With a uint8 ``a_precision`` the solve factorizes Q =
+        round(A / s): the error and ``column_err`` are Q's, and the
+        returned H carries s (nmf.py:477-480, :501-504)."""
         cfg = self.cfg
         check_device(self.device)
         A = self._prepare(A)
-        m, n = A.shape
         with timing.timed("init_factors"):
             if factors is not None:
                 W = torch.as_tensor(factors[0]).to(self.device, cfg.dtype)
                 H = torch.as_tensor(factors[1]).to(self.device, cfg.dtype)
             else:
-                generator = torch.Generator(self.device)
-                generator.manual_seed(cfg.seed)
-                W, H = init_factors_rand(generator, m, n, cfg.k, cfg.dtype,
-                                         self.device)
+                W, H = self.init_factors(A)
+        self.prune_state = None
+        if cfg.prune:          # _prepare refused a sparse A
+            A, W, H, self.prune_state = prune_all(A, W, H)
         a_scale = None
         if not cfg.a_dtype.is_floating_point:     # _prepare refused sparse
             A, a_scale = linalg.quantize_uint8(A)
@@ -200,6 +252,8 @@ class NMF:
         self._A, self._W, self._H = A, W, H       # Q-scale, for column_err
         if a_scale is not None:
             H = H * a_scale.to(H.dtype)
+        if self.prune_state is not None:
+            W, H = unprune_factors(W, H, self.prune_state)
         if cfg.save_factors:
             from ..utils.io import DataWriter
             with timing.timed("save_factors"):
@@ -207,8 +261,13 @@ class NMF:
         return W, H, self.recon_err
 
     def column_err(self) -> np.ndarray:
-        """Per-column relative error of the last fit (pyDNMF.py:220-239)."""
+        """Per-column relative error of the last fit (pyDNMF.py:220-239),
+        taken on the pruned matrices and zero at pruned columns
+        (nmf.py:563-577)."""
         m, n = self._A.shape
         col = linalg.column_error(self._A, self._W, self._H,
                                   linalg.error_chunk_rows(m, n))
-        return col.cpu().numpy()
+        col = col.cpu().numpy()
+        if self.prune_state is not None:
+            return unprune_columns(col, self.prune_state)
+        return col

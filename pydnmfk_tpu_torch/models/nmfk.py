@@ -13,6 +13,12 @@ data vectors over shared indices (nmfk.py:232-328): each member perturbs the
 flat values, and on the card, where the format policy picks the dual ELL,
 the values are gathered into both ELL orientations through the slot -> nnz
 perms, so that kernel K4 runs the whole member stack in one launch.
+
+With ``prune`` a dense A loses its all-zero rows and columns once, before
+sampling (nmfk.py:705-716); the AIC keeps the unpruned dims, pruned columns
+carry zero error and the saved factors come back at the full shape. With
+``init="nnsvd"`` every member starts from the NNDSVD of its own perturbed
+copy, one batched ``eigh`` per batch of members (nmfk.py:81-83).
 """
 from __future__ import annotations
 
@@ -28,10 +34,12 @@ from ..utils import timing
 from ..utils.checkpoint import (Checkpoint, FLAG_CLUSTERED, FLAG_PERTS_DONE,
                                 FLAG_RUNNING, FLAG_SAVED)
 from ..utils.io import DataWriter, read_cluster_results
+from ..utils.pruning import prune_A, unprune_columns, unprune_factors
 from . import nmf as nmf_mod
 from . import sampler
 from .clustering import cluster_ensemble, median0
 from .nmf import NMF
+from .svd import nnsvd_factors
 
 
 # working-set multiple of the factors per ensemble member: W and H, the MU
@@ -50,6 +58,8 @@ class NMFk:
                                      enabled=cfg.checkpoint)
         self.per_k_stats = {}
         self._ell = None      # the dual ELL of a sparse A and its perms
+        self.prune_state = None
+        self._orig_shape = None   # A's shape before pruning
 
     def fit(self, A) -> int:
         """Run the sweep; returns the estimated k (reference PyNMFk.fit,
@@ -70,12 +80,35 @@ class NMFk:
         return self.pvalue_analysis()
 
     def _prepare(self, A):
-        """A on the device at the factor dtype (nmfk.py:653-703). A sparse A
+        """A on the device at the factor dtype (nmfk.py:653-716). A sparse A
         must be a SparseTriplet: the CPU keeps it; on the card the format
         policy picks the dual ELL, kept with its slot -> nnz perms in
         ``self._ell`` while A stays the triplet whose values the members
-        perturb, or a dense A (kept at bf16 where the policy narrowed it)."""
+        perturb, or a dense A (kept at bf16 where the policy narrowed it).
+        A sparse A that stays sparse refuses prune, nnsvd and BCD with the
+        JAX package's ValueErrors (nmfk.py:677-689). A dense A is pruned
+        here, once, under ``prune``."""
         self._ell = None
+        A = self._format(A)
+        ncfg = self.cfg.nmf
+        if linalg.is_sparse(A):
+            if ncfg.prune:
+                raise ValueError("prune is not supported with sparse A "
+                                 "(pruning IS implicit in sparsity)")
+            if ncfg.init != "rand":
+                raise ValueError("sparse NMFk requires init='rand' (nnsvd "
+                                 "needs dense A)")
+            if ncfg.method.lower() == "bcd":
+                raise ValueError(
+                    "sparse A supports MU (fro/kl) and HALS; the BCD "
+                    "objective needs the dense residual every inner step")
+        self._orig_shape = tuple(A.shape)
+        self.prune_state = None
+        if ncfg.prune:
+            A, self.prune_state = prune_A(A)
+        return A
+
+    def _format(self, A):
         if not linalg.is_sparse(A):
             return torch.as_tensor(A).to(self.device,
                                          self.cfg.nmf.dtype).contiguous()
@@ -106,9 +139,11 @@ class NMFk:
         as fit in half of the free device memory; on the CPU all of them.
         A dense member costs its copy of A at the storage dtype and an f32
         slab of the same size for working products (the plain path widens a
-        bf16 A). A sparse member (utils/memory.py:67-87) costs its f32 noise
-        draw and data copy, the ELL value arrays of both orientations, and
-        its factors' working set."""
+        bf16 A), and under nnsvd its Gram, eigenvectors and ``eigh``'s
+        workspace (three min(m, n)^2 f32 arrays). A sparse member
+        (utils/memory.py:67-87) costs its f32 noise draw and data copy, the
+        ELL value arrays of both orientations, and its factors' working
+        set."""
         cfg = self.cfg
         a_item = torch.empty((), dtype=cfg.nmf.a_dtype).element_size()
         if cfg.ensemble_batch:
@@ -123,6 +158,8 @@ class NMFk:
                               + (m + n) * k * 4 * F_WORK)
             else:
                 per_member = m * n * (a_item + 4)
+                if cfg.nmf.init == "nnsvd":
+                    per_member += 3 * min(m, n) ** 2 * 4
             free, _ = torch.cuda.mem_get_info(A.device)
             batch = (free // 2) // per_member
         else:
@@ -134,18 +171,24 @@ class NMFk:
         H_all (p,k,n), errs (p,)).
 
         ``members=(A_ens, W0, H0)`` supplies the perturbed copies and init
-        factors instead of drawing them (parity tests feed the JAX draws)."""
+        factors instead of drawing them (parity tests feed the JAX draws);
+        under nnsvd, ``members=(A_ens, None, None)`` takes the init from
+        the supplied copies."""
         cfg = self.cfg
         ncfg = cfg.nmf.replace(k=k)
         sparse_A = linalg.is_sparse(A)
         if members is not None:
-            A_ens, W0, H0 = (torch.as_tensor(x).to(self.device, dt).contiguous()
-                             for x, dt in zip(members, (ncfg.a_dtype,
-                                                        ncfg.dtype, ncfg.dtype)))
+            A_ens = torch.as_tensor(members[0]).to(self.device, ncfg.a_dtype)
+            A_ens = A_ens.contiguous()
+            if members[1] is None:
+                W0, H0 = self._init_members(ncfg, A_ens, None, A.shape,
+                                            None)
+            else:
+                W0, H0 = (torch.as_tensor(x).to(self.device, ncfg.dtype)
+                          .contiguous() for x in members[1:])
             if sparse_A:
                 A_ens = self._members(A, A_ens)
             return nmf_mod.solve(A_ens, W0, H0, ncfg.eps, ncfg)
-        m, n = A.shape
         batch = self._ensemble_batch_size(A, k)
         self.last_batch_size = batch
         W_parts, H_parts, err_parts = [], [], []
@@ -154,10 +197,11 @@ class NMFk:
             A_ens = sampler.sample_ensemble(A.data if sparse_A else A,
                                             ncfg.seed, cfg.noise_var, idx,
                                             cfg.sampling, ncfg.a_dtype)
+            with timing.timed("ensemble_init"):
+                W0, H0 = self._init_members(ncfg, A_ens, idx, A.shape,
+                                            A.device)
             if sparse_A:
                 A_ens = self._members(A, A_ens)
-            W0, H0 = sampler.init_ensemble_rand(ncfg.seed, idx, m, n, k,
-                                                ncfg.dtype, A.device)
             W, H, errs = nmf_mod.solve(A_ens, W0, H0, ncfg.eps, ncfg)
             del A_ens
             W_parts.append(W)
@@ -165,6 +209,19 @@ class NMFk:
             err_parts.append(errs)
             self.checkpoint.save(FLAG_RUNNING, idx.stop, k, ncfg.seed)
         return torch.cat(W_parts), torch.cat(H_parts), torch.cat(err_parts)
+
+    @staticmethod
+    def _init_members(ncfg, A_ens, idx, shape, device):
+        """Init factors of the members ``idx`` of shape (m, n)
+        (``nmfk.py::_draw_init_factors``): per-member U[0, 1) draws, or
+        the NNDSVD of each member's own dense perturbed copy in A_ens, all
+        in one batched solve (``models/svd.py::nnsvd_factors``)."""
+        if ncfg.init == "nnsvd":
+            W0, H0 = nnsvd_factors(A_ens, ncfg.k, ncfg.eps)
+            return (W0.to(ncfg.dtype).contiguous(),
+                    H0.to(ncfg.dtype).contiguous())
+        return sampler.init_ensemble_rand(ncfg.seed, idx, *shape, ncfg.k,
+                                          ncfg.dtype, device)
 
     def pynmfk_per_k(self, A, k, ensemble=None):
         """One k: ensemble -> clustering -> regression -> stats (reference
@@ -188,15 +245,24 @@ class NMFk:
              _sils) = cluster_ensemble(W_all, H_all, cfg.nmf.eps)
         self.checkpoint.save(FLAG_CLUSTERED, cfg.perturbations, k, seed)
 
-        # regression re-fit of H with W frozen (pyDNMFk.py:245-248)
+        # regression re-fit of H with W frozen (pyDNMFk.py:245-248); A is
+        # pruned already, so the refit does not prune again. Under BCD the
+        # refit moves W too, as JAX's does (ROADMAP queue 3)
         with timing.timed("regression"):
             AvgH = median0(H_all_c)
-            reg = NMF(cfg.nmf.replace(k=k, W_update=False), self.device)
+            reg = NMF(cfg.nmf.replace(k=k, W_update=False, prune=False),
+                      self.device)
             # a sparse A refits on the ELL format the sweep packed, if any
             A_reg = A if self._ell is None else self._ell[0]
             AvgW, AvgH, L_errDist = reg.fit(A_reg, factors=(centroids, AvgH))
             col_err = reg.column_err()
-        m0, n0 = A.shape
+        if self.prune_state is not None:
+            # pruned (all-zero) columns carry zero error; the factors go
+            # back to the full shape (nmfk.py:1277-1287)
+            col_err = unprune_columns(col_err, self.prune_state)
+            AvgW, AvgH = unprune_factors(AvgW, AvgH, self.prune_state)
+        # the reference's AIC takes the unpruned dims (pyDNMF.py:88)
+        m0, n0 = self._orig_shape or A.shape
         avg_err = float(np.mean(recon_errs))
         aic = 2 * k + m0 * n0 * float(np.log(avg_err / (m0 * n0)))
         stats = {

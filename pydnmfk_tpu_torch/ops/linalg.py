@@ -113,10 +113,11 @@ def sum_axis(X: torch.Tensor, axis: int) -> torch.Tensor:
     return X.to(acc_dtype(X.dtype)).sum(dim=axis).to(X.dtype)
 
 
-def _residual_sums(A, W, H, chunk, per_column):
-    """Sums of (A - WH)^2 and A^2 over rows, for all columns or per column,
-    over row slabs of ``chunk`` rows so that the m x n residual (and W H)
-    never exists whole; slicing A makes views, never a copy."""
+def _residual_sums(A, W, H, chunk, per_column, with_den=True):
+    """Sums of (A - WH)^2 and A^2 (unless not ``with_den``) over rows, for
+    all columns or per column, over row slabs of ``chunk`` rows so that the
+    m x n residual (and W H) never exists whole; slicing A makes views,
+    never a copy."""
     acc = acc_dtype(A.dtype)
     m = A.shape[0]
     step = chunk if chunk and chunk < m else m
@@ -128,8 +129,20 @@ def _residual_sums(A, W, H, chunk, per_column):
         a = A[r0:r0 + step].to(acc)
         r = a - matmul(W[r0:r0 + step], H).to(acc)
         num += (r * r).sum(dim=dims)
-        den += (a * a).sum(dim=dims)
+        if with_den:
+            den += (a * a).sum(dim=dims)
     return num, den
+
+
+def residual_sqnorm(A: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
+                    chunk: int = 0) -> torch.Tensor:
+    """||A - W H||_F^2 of a dense A, one value per member for a stack;
+    ``chunk`` as in :func:`relative_error`."""
+    if A.dim() == 3:
+        return torch.stack([residual_sqnorm(a, w, h, chunk)
+                            for a, w, h in zip(A, W, H)])
+    return _residual_sums(A, W, H, chunk, per_column=False,
+                          with_den=False)[0]
 
 
 def relative_error(A: torch.Tensor, W: torch.Tensor, H: torch.Tensor,

@@ -37,9 +37,9 @@ class Runner:
         # the JAX Runner's knobs (pydnmfk_tpu/runner.py:22-31), taken at the
         # values the port runs the same as
         check_jax_only(
-            prune=prune, seed_grid=seed_grid,
+            seed_grid=seed_grid,
             solve_checkpoint_every=solve_checkpoint_every,
-            matmul_precision=matmul_precision, bcd_obj=bcd_obj,
+            matmul_precision=matmul_precision,
             sparse_grid_format=sparse_grid_format,
             k_sweep_batch=k_sweep_batch, k_sweep_merge=k_sweep_merge)
         self.init = init
@@ -60,6 +60,8 @@ class Runner:
         self.tol = tol
         self.ensemble_batch = ensemble_batch
         self.save_factors = save_factors
+        self.prune = prune
+        self.bcd_obj = bcd_obj
         self.device = torch.device(device)
         timing.enable(timing_stats)
 
@@ -77,7 +79,8 @@ class Runner:
             method=self.method, precision=self.precision,
             verbose=self.verbose, results_path=results_path,
             a_precision=self.a_precision, seed=self.seed, tol=self.tol,
-            save_factors=self.save_factors)
+            save_factors=self.save_factors, prune=self.prune,
+            bcd_obj=self.bcd_obj)
         with timing.timed("read"):
             A = DataReader(fpath, fname, ftype, precision=self.precision).read()
 

@@ -6,8 +6,9 @@ name while timing is enabled, the flag is read at call time, and each timed
 region waits for the device (``torch.cuda.synchronize``) on entry and exit,
 so it measures the work and not its enqueueing.
 
-NMFk stages: ``ensemble_solve`` (sampling and the batched MU solve),
-``clustering`` and ``regression`` (the W-frozen refit and per-column errors).
+NMFk stages: ``ensemble_solve`` (sampling and the batched solve; its share
+``ensemble_init`` is the members' init draws or nnsvd), ``clustering`` and
+``regression`` (the W-frozen refit and per-column errors).
 """
 from __future__ import annotations
 

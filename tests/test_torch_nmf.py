@@ -117,17 +117,23 @@ def test_rand_init_fit_converges():
 
 
 def test_config_from_jax_rejects_unported():
+    """The knobs still to port raise NotPortedError; the methods, inits and
+    pruning of the JAX package carry across."""
     with pytest.raises(port.NotPortedError, match="ROADMAP"):
         config_from_jax(dataclasses.asdict(
             pydnmfk_tpu.NMFConfig(use_pallas=True)))
     with pytest.raises(port.NotPortedError, match="ROADMAP"):
         config_from_jax(dataclasses.asdict(pydnmfk_tpu.NMFkConfig(
             seed_grid=(2, 2))))
-    with pytest.raises(port.NotPortedError, match="nnsvd"):
-        port.NMFConfig(init="nnsvd")
+    with pytest.raises(port.NotPortedError, match="bfloat16"):
+        port.NMFConfig(precision="bfloat16")
     cfg = config_from_jax(dataclasses.asdict(pydnmfk_tpu.NMFkConfig(
-        nmf=pydnmfk_tpu.NMFConfig(k=5, norm="fro"), end_k=7)))
+        nmf=pydnmfk_tpu.NMFConfig(k=5, norm="fro", init="nnsvd",
+                                  method="hals", prune=True, hals_block=3,
+                                  bcd_obj="residual"), end_k=7)))
     assert cfg.nmf.k == 5 and cfg.nmf.norm == "fro" and cfg.end_k == 7
+    assert (cfg.nmf.init, cfg.nmf.method, cfg.nmf.prune, cfg.nmf.hals_block,
+            cfg.nmf.bcd_obj) == ("nnsvd", "hals", True, 3, "residual")
 
 
 # ---------------------------------------------------------------------------
@@ -198,23 +204,24 @@ def test_sparse_fit_bf16_values_match_jax(fmt):
     np.testing.assert_allclose(e, float(ej), rtol=1e-3)
 
 
-@pytest.mark.parametrize("kw", [dict(method="bcd"), dict(init="nnsvd"),
-                                dict(a_precision="uint8")])
-def test_sparse_rejections_are_the_configs(kw):
+@pytest.mark.parametrize("kw, match", [
+    (dict(method="bcd"), "BCD"), (dict(init="nnsvd"), "nnsvd"),
+    (dict(a_precision="uint8"), "uint8"), (dict(prune=True), "prune")],
+    ids=["kw0", "kw1", "kw2", "kw3"])
+def test_sparse_rejections_are_the_configs(kw, match):
     """The JAX package rejects BCD, nnsvd, prune and uint8 storage for a
-    sparse A. BCD, nnsvd and prune are not ported, so the port's config
-    refuses them before any A is seen; uint8 storage is ported for a dense
-    A, and NMF.fit refuses it on a sparse A with the JAX package's
-    ValueError (nmf.py:364-368)."""
-    assert not hasattr(port.NMFConfig(), "prune")
-    if "a_precision" not in kw:
-        with pytest.raises(port.NotPortedError):
-            port.NMFConfig(**kw)
-        return
+    sparse A with a ValueError (nmf.py:186-189, :358-368); the port's
+    NMF.fit raises the same on a sparse A (the config accepts each, since
+    a dense A runs it), and so does JAX's."""
     A, W0, H0 = _sparse_problem(6)
-    with pytest.raises(ValueError, match="uint8"):
-        port.NMF(port.NMFConfig(k=3, itr=2, **kw), "cpu").fit(
-            _port_format(A, "triplet", np.float32), factors=(W0, H0))
+    cfg = port.NMFConfig(k=3, itr=2, norm="fro", **kw)
+    with pytest.raises(ValueError, match=match):
+        port.NMF(cfg, "cpu").fit(_port_format(A, "triplet", np.float32),
+                                 factors=(W0, H0))
+    jcfg = pydnmfk_tpu.NMFConfig(k=3, itr=2, norm="fro", **kw)
+    with pytest.raises(ValueError, match=match):
+        pydnmfk_tpu.NMF(jcfg).fit(_jax_format(A, "triplet", np.float32),
+                                  factors=(W0, H0))
 
 
 def test_entry_points_default_to_the_card():

@@ -132,8 +132,9 @@ def test_cli_single_factorization(tmp_path, capsys):
 def test_cli_rejects_unported_flags(tmp_path):
     base = ["--cpu", "--p_r=1", "--p_c=1", f"--fpath={tmp_path}/"]
     from pydnmfk_tpu_torch import cli
-    for flag in ("--init=nnsvd", "--method=hals", "--ftype=folder",
-                 "--prune=true", "--seed_grid=2,2", "--multihost=true"):
+    for flag in ("--solve_checkpoint_every=10", "--matmul_precision=bfloat16",
+                 "--ftype=folder", "--k_sweep_batch=true", "--seed_grid=2,2",
+                 "--multihost=true"):
         with pytest.raises(port.NotPortedError, match="ROADMAP"):
             cli.main(base + [flag])
     with pytest.raises(port.NotPortedError, match="item 15"):

@@ -2,7 +2,7 @@
 package's Runner and configs: at the values the port runs the same as they
 pass, and at any other value they raise NotPortedError naming the ROADMAP
 item that ports it (the check list of ``pydnmfk_tpu_torch/config.py``, which
-the CLI shares)."""
+the CLI shares). ``prune`` and ``bcd_obj`` are ported and run."""
 import dataclasses
 import inspect
 
@@ -32,11 +32,15 @@ def _jax_cfg(**kw):
 
 
 @pytest.mark.parametrize("call, item", [
-    (lambda p: _run(p, prune=True), "queue 1 item 8"),
+    # prune and bcd_obj are ported: they run (the ids are those of their
+    # former refusal cases)
+    pytest.param(lambda p: _run(p, prune=True), None,
+                 id="<lambda>-queue 1 item 8"),
     (lambda p: _run(p, seed_grid=(2, 2)), "queue 1 item 6"),
     (lambda p: _run(p, solve_checkpoint_every=10), "queue 1 item 13"),
     (lambda p: _run(p, matmul_precision="bfloat16"), "queue 1 item 1"),
-    (lambda p: _run(p, bcd_obj="residual"), "queue 1 item 12"),
+    pytest.param(lambda p: _run(p, method="bcd", bcd_obj="residual"), None,
+                 id="<lambda>-queue 1 item 12"),
     (lambda p: _run(p, sparse_grid_format="ell"), "queue 1 item 15"),
     (lambda p: _run(p, k_sweep_batch=True), "queue 1 item 10"),
     (lambda p: _run(p, k_sweep_merge=True), "queue 1 item 10"),
