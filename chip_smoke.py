@@ -12,10 +12,11 @@ Run from the root of a checkout, with no arguments:
    PyTorch call computes the same function, that call, with CUDA events:
    - K1, K2a, K2b and K3 at 57600 x 38400, k = 32 (the reference's
      strong-scaling geometry): K1 on an f32, a bf16 and a uint8 A (the
-     ``quantize_uint8`` of the f32 one), K2a/K2b and K3 on all three; and
+     ``quantize_uint8`` of the f32 one), K2a/K2b and K3 on all three, and
+     the f16 instantiations of K1, K2a, K2b and K3 on its f16 copy; and
      each on a 10-member 14400 x 9600, k = 8 ensemble (f32, and K1, K2a,
-     K2b and K3 on its bf16 copy, the NMFk ensemble under
-     ``--a_precision=bfloat16``);
+     K2b and K3 on its bf16 and its f16 copy, the NMFk ensemble under
+     ``--a_precision=bfloat16`` or ``float16``);
      K2b on one member of it (the NMFk refit's shape); the two-read floor
      beside each K1 row and each K3 row on a bf16 or uint8 A, and beside
      each K3 row the time of K2a + K2b on the same inputs (the unfused pair
@@ -23,7 +24,7 @@ Run from the root of a checkout, with no arguments:
      K2's, K3's and K4's kernels (no spill allowed);
    - K4 in its four modes (rows/columns, plain/ratio) at the shape and nnz
      of the NYTimes bag-of-words corpus (300000 x 102660, 69.7 M nnz,
-     k = 32), and on a 10-member stack of the planted topic matrix of 5 at
+     k = 32), with f32 and with f16 values, and on a 10-member stack of the planted topic matrix of 5 at
      k = 3 and 7 (library call: ``torch.bmm`` of a sparse COO stack);
    - K3 at k = 64 on the f32 A and K4 at k = 64 on the NYTimes shape,
      where the first port's kernels run;
@@ -38,17 +39,26 @@ Run from the root of a checkout, with no arguments:
    bf16 A; 10 iterations of HALS (column sweep and ``hals_block=8``, with
    the column chain timed apart from the two A-sized products), of BCD
    (both objectives) and of FRO-MU from the nnsvd init, none of them but
-   the last launching a kernel; then the NMFk sweep through the CLI on a
+   the last launching a kernel; at bf16 factors FRO-MU (K1), KL-MU (K2),
+   KL-MU with ``use_fused`` (K3), HALS and BCD, at f16 factors (on A /
+   max(A)) FRO-MU, KL-MU and KL-MU with ``use_fused``, and on an f16 A under
+   f32 factors FRO-MU and KL-MU, each within 2 % of the f32 solve's error
+   with exact launches under the dtype's keys; then the NMFk sweep through
+   the CLI on a
    planted rank-4 14400 x
    9600 matrix (k = 2..7, 10 perturbations, 400 iterations), FRO-MU and
-   KL-MU, and FRO-MU with ``--a_precision=bfloat16``, which must choose
-   k = 4; the same KL-MU sweep through the library with ``use_fused=True``,
+   KL-MU, FRO-MU with ``--a_precision=bfloat16``, and FRO-MU with
+   ``--precision=bfloat16`` and with ``--precision=float16``, which must
+   choose k = 4; the FRO-MU sweep through the library with ``hbm_budget``
+   set to hold 5 of the 10 members, which must run each k in two batches;
+   the same KL-MU sweep through the library with ``use_fused=True``,
    on f32 and on bf16 members, whose ensemble must launch only K3 (for the
    members' dtype) and whose refit only K2b; and one FRO-MU factorization
    of that matrix through the CLI with and without ``--a_precision=uint8``;
 4. the sparse main path, the same way: NMF.fit on the NYTimes-shaped matrix,
-   10 FRO-MU, 10 KL-MU and 10 HALS iterations, k = 32, on the ELL format
-   the policy must choose;
+   10 FRO-MU, 10 KL-MU and 10 HALS iterations, k = 32, and 10 FRO-MU and
+   KL-MU iterations on its f16 values (``a_precision="float16"``, K4's f16
+   instantiation), on the ELL format the policy must choose;
 5. the sparse NMFk sweep through the CLI on a planted rank-4 block-sparse
    200000 x 50000 ``.npz`` (about 50 nnz per row, 10 M nnz; the same sweep
    settings), FRO-MU and KL-MU, which must choose k = 4 on the ELL format;
@@ -95,7 +105,8 @@ PROFILE_STEPS = 20                       # MU steps profiled on that stack
 # atomics in an order that changes from run to run); a bf16 or uint8 A also
 # rounds factor operands (and K3's ratios) to bf16 where kernel and plain
 # values may differ in the last f32 bit
-TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3, torch.uint8: 1e-3}
+TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3, torch.float16: 1e-3,
+       torch.uint8: 1e-3}
 ITR = 10                                 # MU iterations of the NMF.fit runs
 CLI_ITR = 100    # the CLI factorization: the uint8 error floor stays below
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM: f32 non-tensor, HBM3
@@ -148,7 +159,8 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-MANGLED_A = {None: "f32", "f": "f32", "h": "uint8", "13__nv_bfloat16": "bf16"}
+MANGLED_A = {None: "f32", "f": "f32", "h": "uint8", "13__nv_bfloat16": "bf16",
+             "6__half": "f16"}
 
 
 def ptxas(log, entry, key):
@@ -172,9 +184,9 @@ def ptxas(log, entry, key):
 
 
 def ptxas_k1(log):
-    """K1's two kernels (the f32 one; the tensor-core one for a bf16 or
+    """K1's two kernels (the f32 one; the tensor-core one for a bf16, f16 or
     uint8 A), keyed (A dtype, KP, vec)."""
-    return ptxas(log, r"fused_mu_fro_(?:f32|tc)_kernelI(13__nv_bfloat16|h)?"
+    return ptxas(log, r"fused_mu_fro_(?:f32|tc)_kernelI(13__nv_bfloat16|6__half|h)?"
                       r"Li(\d+)ELb([01])E",
                  lambda m: (MANGLED_A[m.group(1)], int(m.group(2)),
                             m.group(3) == "1"))
@@ -183,7 +195,7 @@ def ptxas_k1(log):
 def ptxas_k2(log):
     """K2's kernels: the register kernels (KP <= 32), the first port's
     (KP >= 64) and the split reduction, keyed (kernel, A dtype, KP, vec)."""
-    return ptxas(log, r"(kl_\w+?_kernel)(?:I(f|13__nv_bfloat16|h)Li(\d+)E"
+    return ptxas(log, r"(kl_\w+?_kernel)(?:I(f|13__nv_bfloat16|6__half|h)Li(\d+)E"
                       r"(?:Lb([01])E)?)?",
                  lambda m: (m.group(1), MANGLED_A[m.group(2)],
                             int(m.group(3) or 0), m.group(4) == "1"))
@@ -194,7 +206,7 @@ def ptxas_k4(log):
     dtype, KP, member group, ratio, False), the first port's (k > 32) keyed
     (kernel, dtype, KP, 0, ratio, vec), and the table's interleave."""
     return ptxas(log, r"(grouped_kernel|ell_gather_kernel|interleave_kernel)"
-                      r"(?:I(f|13__nv_bfloat16)Li(\d+)E(?:Li(\d+)E)?Lb([01])E"
+                      r"(?:I(f|13__nv_bfloat16|6__half)Li(\d+)E(?:Li(\d+)E)?Lb([01])E"
                       r"(?:Lb([01])E)?)?",
                  lambda m: (m.group(1), MANGLED_A[m.group(2)],
                             int(m.group(3) or 0), int(m.group(4) or 0),
@@ -202,12 +214,12 @@ def ptxas_k4(log):
 
 
 def ptxas_k3(log):
-    """K3's kernels: the f32 kernel and the tensor-core one for a bf16 or
-    uint8 A (k <= 32) keyed (kernel, A dtype, KP, vec), the first port's
+    """K3's kernels: the f32 kernel and the tensor-core one for a bf16, f16
+    or uint8 A (k <= 32) keyed (kernel, A dtype, KP, vec), the first port's
     (k > 32) keyed (kernel, A dtype, KP, False)."""
     return ptxas(log, r"(fused_mu_kl_f32_kernel|fused_mu_kl_tc_kernel|"
                       r"fused_mu_kl_kernel)"
-                      r"I(f|13__nv_bfloat16|h)?Li(\d+)E(?:Lb([01])E)?",
+                      r"I(f|13__nv_bfloat16|6__half|h)?Li(\d+)E(?:Lb([01])E)?",
                  lambda m: (m.group(1), MANGLED_A[m.group(2)],
                             int(m.group(3)), m.group(4) == "1"))
 
@@ -290,6 +302,10 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False     # true-f32 products
     torch.backends.cudnn.allow_tf32 = False
+    # half products summed in f32, as the kernels and the port's products
+    # sum them: every library row is timed under these settings
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -357,19 +373,19 @@ def main():
         return ms
 
     # K1's kernels as ptxas built them: registers and spills of each
-    # instantiation (f32; tensor cores for bf16 and uint8; KP = k padded to
-    # 8, 16, 32, 64; vec: 16-byte loads or copies)
+    # instantiation (f32; tensor cores for bf16, f16 and uint8; KP = k
+    # padded to 8, 16, 32, 64; vec: 16-byte loads or copies)
     regs = ptxas_k1(cuda_lib.library_path("fused_mu_fro").with_suffix(
         ".log").read_text())
-    for dtype in ("f32", "bf16", "uint8"):
+    for dtype in ("f32", "bf16", "f16", "uint8"):
         print(f"[ptxas] K1 {dtype}-A kernel (registers, spill store / load "
               f"bytes): " + ", ".join(
                   f"KP={kp}{' vec' if vec else ''} {r} registers, "
                   f"{ss}/{sl} B spilled"
                   for (dt, kp, vec), (r, ss, sl) in sorted(regs.items())
                   if dt == dtype), flush=True)
-    check(len(regs) == 24 and not any(ss or sl for _, ss, sl in regs.values()),
-          f"K1 kernels: ptxas report {regs} (expected 24 instantiations, no "
+    check(len(regs) == 32 and not any(ss or sl for _, ss, sl in regs.values()),
+          f"K1 kernels: ptxas report {regs} (expected 32 instantiations, no "
           f"spills)")
 
     # K2's kernels likewise: the register kernels (KP = 8, 16, 32; vec:
@@ -383,13 +399,13 @@ def main():
                           f"registers, {ss}/{sl} B spilled"
                           for (nm, dt, kp, vec), (r, ss, sl)
                           in sorted(regs.items()) if nm == name), flush=True)
-    check(len(regs) == 55 and not any(ss or sl for _, ss, sl in regs.values()),
-          f"K2 kernels: ptxas report {regs} (expected 55 instantiations, no "
+    check(len(regs) == 73 and not any(ss or sl for _, ss, sl in regs.values()),
+          f"K2 kernels: ptxas report {regs} (expected 73 instantiations, no "
           f"spills)")
 
     # K4's kernels likewise: the grouped kernel (KP = 4, 8, 16, 32 at every
     # member group it takes) and the first port's (KP = 64, 128, 256; vec:
-    # 16-byte loads), plain and ratio, f32 and bf16 values, and the
+    # 16-byte loads), plain and ratio, f32, bf16 and f16 values, and the
     # interleave of the grouped kernel's table
     regs = ptxas_k4(cuda_lib.library_path("ell_gather").with_suffix(
         ".log").read_text())
@@ -400,12 +416,12 @@ def main():
                           f"{r} registers, {ss}/{sl} B spilled"
                           for (nm, dt, kp, g, ratio, vec), (r, ss, sl)
                           in sorted(regs.items()) if nm == name), flush=True)
-    check(len(regs) == 85 and not any(ss or sl for _, ss, sl in regs.values()),
-          f"K4 kernels: ptxas report {regs} (expected 85 kernels, no spills)")
+    check(len(regs) == 127 and not any(ss or sl for _, ss, sl in regs.values()),
+          f"K4 kernels: ptxas report {regs} (expected 127 kernels, no spills)")
 
     # K3's kernels likewise: the f32 kernel and the tensor-core one for a
-    # bf16 or uint8 A (KP = 8, 16, 32; vec: 16-byte loads or copies) and the
-    # first port's (every A dtype at KP = 64)
+    # bf16, f16 or uint8 A (KP = 8, 16, 32; vec: 16-byte loads or copies)
+    # and the first port's (every A dtype at KP = 64)
     regs = ptxas_k3(cuda_lib.library_path("fused_mu_kl").with_suffix(
         ".log").read_text())
     for name in sorted({key[0] for key in regs}):
@@ -414,24 +430,25 @@ def main():
                           f"registers, {ss}/{sl} B spilled"
                           for (nm, dt, kp, vec), (r, ss, sl)
                           in sorted(regs.items()) if nm == name), flush=True)
-    check(len(regs) == 21 and not any(ss or sl for _, ss, sl in regs.values()),
-          f"K3 kernels: ptxas report {regs} (expected 21 kernels, no spills)")
+    check(len(regs) == 28 and not any(ss or sl for _, ss, sl in regs.values()),
+          f"K3 kernels: ptxas report {regs} (expected 28 kernels, no spills)")
 
-    def beside_pair(label):
+    def beside_pair(label, tag=""):
         """K3 does the four products of K2a + K2b (its yardstick: no one
         PyTorch call computes K3's function): their times on the same
-        inputs beside K3's, where this run timed them."""
-        pair = [case_ms.get((kname, label)) for kname in ("K2a kl_uht",
-                                                          "K2b kl_wtu")]
-        k3 = case_ms["K3 fused_mu_kl", label]
+        inputs beside K3's, where this run timed them. ``tag`` names the
+        instantiation (" f16" for an f16 A)."""
+        pair = [case_ms.get((kname + tag, label))
+                for kname in ("K2a kl_uht", "K2b kl_wtu")]
+        k3 = case_ms["K3 fused_mu_kl" + tag, label]
         if None in pair:
-            print(f"[kernel] K3 fused_mu_kl {label}: K2a + K2b not timed on "
-                  f"this A", flush=True)
+            print(f"[kernel] K3 fused_mu_kl{tag} {label}: K2a + K2b not timed "
+                  f"on this A", flush=True)
             return
-        print(f"[kernel] K3 fused_mu_kl {label}: {k3:.3f} ms beside K2a + K2b "
-              f"{pair[0]:.3f} + {pair[1]:.3f} = {sum(pair):.3f} ms (K3 / pair "
-              f"{k3 / sum(pair):.3f})", flush=True)
-        rows["K3 fused_mu_kl"].setdefault("k2a_plus_k2b_ms", sum(pair))
+        print(f"[kernel] K3 fused_mu_kl{tag} {label}: {k3:.3f} ms beside K2a + "
+              f"K2b {pair[0]:.3f} + {pair[1]:.3f} = {sum(pair):.3f} ms (K3 / "
+              f"pair {k3 / sum(pair):.3f})", flush=True)
+        rows["K3 fused_mu_kl" + tag].setdefault("k2a_plus_k2b_ms", sum(pair))
 
     def two_read_floor(label, a, name="K1 fused_mu_fro"):
         """K1 and K3 read A twice (sweep 2 needs all of A_i H^T, or of
@@ -524,7 +541,37 @@ def main():
         beside_pair(f"{label} {shape}")
         if a.dtype != torch.float32:
             two_read_floor(f"{label} {shape}", a, "K3 fused_mu_kl")
-    del A16, W16, H16, Q, W, H, HHT, hrs
+    del A16, Q
+    # the f16 instantiations, on the f16 copy of that A under f32 factors
+    # (a_precision="float16"): K1 on f16 operands (the f16 tensor-core
+    # peak; the library call takes the factors cast to f16), K2 in f32, K3
+    # on bf16 operands with A widened exactly
+    Ah = A.to(torch.float16)
+    Wh, Hh = W.to(torch.float16), H.to(torch.float16)
+    hshape = f"f16-A {shape}"
+    kernel_case("K1 fused_mu_fro f16", hshape,
+                lambda: fused_mu.fused_w_pass(Ah, W, H, HHT, eps),
+                lambda: fused_mu.fused_w_pass_plain(Ah, W, H, HHT, eps),
+                TOL[torch.float16],
+                (4 * M * N * K, nbytes(Ah, W, H, HHT, W, H, HHT), PEAK_BF16),
+                library=lambda: (torch.matmul(Ah, Hh.mT),
+                                 torch.matmul(Wh.mT, Ah)))
+    two_read_floor(hshape, Ah, "K1 fused_mu_fro f16")
+    kernel_case("K2a kl_uht f16", hshape, lambda: kl.kl_uht(Ah, W, H, eps),
+                lambda: kl.kl_uht_plain(Ah, W, H, eps, chunk),
+                TOL[torch.float16], (4 * M * N * K, nbytes(Ah, W, H, W)))
+    kernel_case("K2b kl_wtu f16", hshape, lambda: kl.kl_wtu(Ah, W, H, eps),
+                lambda: kl.kl_wtu_plain(Ah, W, H, eps, chunk),
+                TOL[torch.float16], (4 * M * N * K, nbytes(Ah, W, H, H)))
+    kernel_case("K3 fused_mu_kl f16", hshape,
+                lambda: fused_kl.fused_kl_pass(Ah, W, H, hrs, eps),
+                lambda: fused_kl.fused_kl_pass_plain(Ah, W, H, hrs, eps,
+                                                     chunk),
+                TOL[torch.float16],
+                (8 * M * N * K, nbytes(Ah, W, H, hrs, W, H), PEAK_BF16))
+    beside_pair(hshape, " f16")
+    two_read_floor(hshape, Ah, "K3 fused_mu_kl f16")
+    del Ah, Wh, Hh, W16, H16, W, H, HHT, hrs
     # K3 at 32 < k <= 64, where the first port's kernel runs: k = 64, f32
     W64 = torch.rand((M, 64), generator=gen, device=dev)
     H64 = torch.rand((64, N), generator=gen, device=dev)
@@ -586,6 +633,37 @@ def main():
     beside_pair(f"bf16-A {eshape}")
     two_read_floor(f"bf16-A {eshape}", Ae16, "K3 fused_mu_kl")
     del Ae16
+    # the f16 instantiations on the f16 members (NMFk under
+    # --a_precision=float16)
+    Aeh = Ae.to(torch.float16)
+    Weh, Heh = We.to(torch.float16), He.to(torch.float16)
+    heshape = f"f16-A {eshape}"
+    kernel_case("K1 fused_mu_fro f16", heshape,
+                lambda: fused_mu.fused_w_pass(Aeh, We, He, HHTe, eps),
+                lambda: fused_mu.fused_w_pass_plain(Aeh, We, He, HHTe, eps),
+                TOL[torch.float16],
+                (ework, nbytes(Aeh, We, He, HHTe, We, He, HHTe), PEAK_BF16),
+                library=lambda: (torch.matmul(Aeh, Heh.mT),
+                                 torch.matmul(Weh.mT, Aeh)))
+    two_read_floor(heshape, Aeh, "K1 fused_mu_fro f16")
+    del Weh, Heh
+    kernel_case("K2a kl_uht f16", heshape,
+                lambda: kl.kl_uht(Aeh, We, He, eps),
+                lambda: kl.kl_uht_plain(Aeh, We, He, eps, ech),
+                TOL[torch.float16], (ework, nbytes(Aeh, We, He, We)))
+    kernel_case("K2b kl_wtu f16", heshape,
+                lambda: kl.kl_wtu(Aeh, We, He, eps),
+                lambda: kl.kl_wtu_plain(Aeh, We, He, eps, ech),
+                TOL[torch.float16], (ework, nbytes(Aeh, We, He, He)))
+    kernel_case("K3 fused_mu_kl f16", heshape,
+                lambda: fused_kl.fused_kl_pass(Aeh, We, He, hrse, eps),
+                lambda: fused_kl.fused_kl_pass_plain(Aeh, We, He, hrse, eps,
+                                                     ech),
+                TOL[torch.float16],
+                (2 * ework, nbytes(Aeh, We, He, hrse, We, He), PEAK_BF16))
+    beside_pair(heshape, " f16")
+    two_read_floor(heshape, Aeh, "K3 fused_mu_kl f16")
+    del Aeh
     kernel_case("K2a kl_uht", f"f32 {eshape}",
                 lambda: kl.kl_uht(Ae, We, He, eps),
                 lambda: kl.kl_uht_plain(Ae, We, He, eps, ech),
@@ -634,11 +712,11 @@ def main():
           f"{E.rvals.shape[1]} (rows) / {E.cvals.shape[1]} (columns), tails "
           f"{E.rtail_d.numel()} / {E.ctail_d.numel()}", flush=True)
 
-    def k4_cases(tag, E, W, H, library):
+    def k4_cases(tag, E, W, H, library, name="K4 ell_gather"):
         """K4's four modes on the ELL E with factors W (.., m, k), H
         (.., k, n); ``library(Ht, W)`` gives the library calls of the two
-        plain modes. Returns the kernel ms of the two plain modes and the
-        nonzeros each orientation's ELL holds."""
+        plain modes (None where there is none). Returns the kernel ms of the
+        two plain modes and the nonzeros each orientation's ELL holds."""
         Ht = H.mT.contiguous()
         nz_r = E.nse - E.rtail_d.shape[-1]
         nz_c = E.nse - E.ctail_d.shape[-1]
@@ -661,7 +739,7 @@ def main():
             work = (nz * (members * v.element_size() + i.element_size())
                     + tables + out_bytes)
             out.append(kernel_case(
-                "K4 ell_gather", f"{label} {tag}",
+                name, f"{label} {tag}",
                 lambda: ell_gather.ell_gather_product(v, i, T, X, eps),
                 lambda: ell_gather.ell_gather_product_plain(v, i, T, X, eps),
                 TOL[torch.float32], (flops, work), lib))
@@ -674,6 +752,28 @@ def main():
     nyt_lib = lambda Ht, W: (lambda: torch.sparse.mm(A_r, Ht),
                              lambda: torch.sparse.mm(A_c, W))
     k4_ms, k4_nz = k4_cases(f"{NYT_M}x{NYT_N} k={K} f32", E, Wn, Hn, nyt_lib)
+    # the f16 instantiation: f16 values (a_precision="float16") under f32
+    # factors; the library call, where CUDA has an f16 CSR product, takes
+    # the factors cast to f16 beforehand
+    A_r16 = csr(nyt.rows, nyt.cols, nyt.data.half(), nyt.shape)
+    A_c16 = csr(nyt.cols, nyt.rows, nyt.data.half(), nyt.shape[::-1])
+
+    def nyt_lib16(Ht, W):
+        Ht16, W16 = Ht.half(), W.half()
+        try:
+            torch.sparse.mm(A_r16, Ht16)
+            torch.cuda.synchronize()
+        except RuntimeError as exc:
+            print(f"[kernel] K4 ell_gather f16: torch.sparse.mm takes no "
+                  f"f16 CSR on CUDA ({str(exc)[:100]}): library none",
+                  flush=True)
+            return None, None
+        return (lambda: torch.sparse.mm(A_r16, Ht16),
+                lambda: torch.sparse.mm(A_c16, W16))
+
+    k4_cases(f"{NYT_M}x{NYT_N} k={K} f16 values", E.astype(torch.float16),
+             Wn, Hn, nyt_lib16, "K4 ell_gather f16")
+    del A_r16, A_c16
     # K4 at k > 32, where the first port's kernel runs: k = 64
     Wn = torch.rand((NYT_M, 64), generator=gen, device=dev)
     Hn = torch.rand((64, NYT_N), generator=gen, device=dev)
@@ -775,14 +875,17 @@ def main():
     del W0, H0
     errs = {}
 
-    def dense_fit(label, cfg, want, ref_err=init_err, ref="rand init"):
-        """NMF.fit of A under ``cfg``, counters from zero: its seconds, its
-        error (finite and below ``ref_err``, the init's) and its launches
-        (exactly ``want``, nothing else)."""
+    def dense_fit(label, cfg, want, ref_err=init_err, ref="rand init",
+                  A_in=None):
+        """NMF.fit of A (or ``A_in``) under ``cfg``, counters from zero: its
+        seconds, its error (finite and below ``ref_err``, the init's), its
+        launches (exactly ``want``, nothing else) and factors at the
+        precision's dtype."""
+        A_fit = A if A_in is None else A_in
         timing.reset()
         zero_counts()
         t0 = time.perf_counter()
-        W, H, err = NMF(cfg, dev).fit(A)          # same seed: same init
+        W, H, err = NMF(cfg, dev).fit(A_fit)      # same seed: same init
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         ran = read_counts()
@@ -794,6 +897,8 @@ def main():
         check(np.isfinite(err) and err < ref_err,
               f"NMF.fit {label}: error {err} not below the init's {ref_err}")
         check(W.shape == (M, K) and H.shape == (K, N), "factor shapes")
+        check(W.dtype == H.dtype == cfg.dtype,
+              f"NMF.fit {label}: factors {W.dtype}, {H.dtype}")
         check(ran == {**none, **want},
               f"NMF.fit {label} launches {ran}, expected {want}")
         return err
@@ -871,17 +976,83 @@ def main():
               "nnsvd init")
     print(f"[svd] the nnsvd init of that fit took "
           f"{timing.TIMINGS['init_factors']:.3f} s", flush=True)
+
+    # the half precisions, from the same rand init (drawn in f32, then
+    # cast): bf16 factors (A at bf16: K1 and K3 on their bf16 kernels, K2
+    # on a bf16 A, HALS and BCD on bf16 cuBLAS products) and f32 factors on
+    # an f16 A (a_precision="float16": K1's and K2's f16 kernels) on A
+    # itself; f16 factors on A / max(A), since at f16 the products of A
+    # (up to about 20 here) pass f16's 65504 (the JAX package's f16
+    # semantics, kept). Relative errors do not change with A's scale, and
+    # MU's iterates scale with it up to eps: each error is held to 2 % of
+    # the f32 solve's. HALS at bf16 ends further from it in the JAX package
+    # too: 3.6-4.1 % above its f32 HALS after 10 iterations on a planted
+    # rank-32 1200x800, with the port as far to 0.01
+    # (tests/test_torch_precision.py::
+    # test_hals_bf16_ends_as_far_from_f32_as_jax); here 3.0 % was measured.
+    # HALS at bf16 is held to 5 %
+    half = []
+    limit = {"HALS bf16": 0.05}
+    for label, norm, kw, want, ref in (
+            ("FRO-MU bf16", "fro", {"precision": "bfloat16"},
+             {"fused_mu_fro_bf16": ITR}, "FRO-MU f32"),
+            ("KL-MU bf16", "kl", {"precision": "bfloat16"},
+             {"kl_uht": ITR, "kl_wtu": ITR}, "KL-MU f32"),
+            ("KL-MU bf16 use_fused", "kl",
+             {"precision": "bfloat16", "use_fused": True},
+             {"fused_mu_kl_bf16": ITR}, "KL-MU f32 use_fused"),
+            ("HALS bf16", "fro", {"precision": "bfloat16", "method": "hals"},
+             {}, "HALS"),
+            ("BCD bf16", "fro", {"precision": "bfloat16", "method": "bcd"},
+             {}, "BCD gram"),
+            ("FRO-MU f16-A", "fro", {"a_precision": "float16"},
+             {"fused_mu_fro_f16": ITR}, "FRO-MU f32"),
+            ("KL-MU f16-A", "kl", {"a_precision": "float16"},
+             {"kl_uht_f16": ITR, "kl_wtu_f16": ITR}, "KL-MU f32")):
+        errs[label] = dense_fit(label, NMFConfig(k=K, norm=norm, itr=ITR,
+                                                 **kw), want)
+        half.append((label, ref))
+    A.div_(A.max())               # in place: A in [0, 1]
+    g = torch.Generator(dev)
+    g.manual_seed(NMFConfig().seed)
+    W0, H0 = init_factors_rand(g, M, N, K, torch.float16, dev)
+    init_err16 = float(linalg.relative_error(A, W0.float(), H0.float(),
+                                             chunk))
+    del W0, H0
+    for label, norm, kw, want, ref in (
+            ("FRO-MU f16", "fro", {}, {"fused_mu_fro_f16": ITR},
+             "FRO-MU f32"),
+            ("KL-MU f16", "kl", {}, {"kl_uht_f16": ITR, "kl_wtu_f16": ITR},
+             "KL-MU f32"),
+            ("KL-MU f16 use_fused", "kl", {"use_fused": True},
+             {"fused_mu_kl_f16": ITR}, "KL-MU f32 use_fused")):
+        errs[label] = dense_fit(label, NMFConfig(k=K, norm=norm, itr=ITR,
+                                                 precision="float16", **kw),
+                                want, init_err16, "rand init, A / max(A)")
+        half.append((label, ref))
+    for label, ref in half:
+        rel = abs(errs[label] / errs[ref] - 1)
+        tol = limit.get(label, 0.02)
+        print(f"[check] {label} error {errs[label]:.6f} vs {ref} "
+              f"{errs[ref]:.6f}: relative difference {rel:.2e} (limit "
+              f"{tol:g})", flush=True)
+        check(rel <= tol, f"{label} error {errs[label]} is not within "
+                          f"{tol:g} of {ref}'s {errs[ref]}")
     del A
     torch.cuda.empty_cache()
 
     def sweep(tmp, ftype, fname, norm, expect, shape, a_precision=None,
-              flags=(), label=None, perturbations=10):
+              flags=(), label=None, perturbations=10, nopt=4):
         """The NMFk sweep through the CLI entry point, counters from zero;
-        checks nopt = 4, every k's results, and that the kernels of
-        ``expect`` (and no other) launched. ``flags`` adds CLI flags, and
-        ``perturbations`` replaces SWEEP's 10. Returns the results path."""
+        checks that it chose ``nopt`` (None: only prints its choice and the
+        minimum silhouette of each k), every k's results, and that the
+        kernels of ``expect`` (and no other) launched. ``flags`` adds CLI
+        flags, and ``perturbations`` replaces SWEEP's 10. Returns the
+        results path."""
         timing.reset()
-        res_path = os.path.join(tmp, f"res_{fname}_{norm}_{a_precision}") + "/"
+        tag = "".join(f.replace("-", "_").replace("=", "_") for f in flags)
+        res_path = os.path.join(
+            tmp, f"res_{fname}_{norm}_{a_precision}{tag}") + "/"
         extra = [f"--a_precision={a_precision}"] if a_precision else []
         extra += list(flags)
         args = [f"--perturbations={perturbations}"
@@ -905,10 +1076,13 @@ def main():
         print(f"[nmfk] {label} {ftype} {shape[0]}x{shape[1]} "
               f"{' '.join(args + extra)}: nopt {out['nopt']}, {secs:.2f} s, stage "
               f"seconds {stages}, launches {ran}", flush=True)
-        check(out["nopt"] == 4, f"NMFk {norm} {ftype} chose k={out['nopt']}, "
-                                f"not 4")
+        check(nopt is None or out["nopt"] == nopt,
+              f"NMFk {norm} {ftype} chose k={out['nopt']}, not {nopt}")
+        sils = {}
         for k in range(2, 8):
             res = read_cluster_results(os.path.join(res_path, fname, str(k)))
+            sils[k] = round(float(np.min(res["clusterSilhouetteCoefficients"])),
+                            3)
             check(set(res) == set(RESULT_DATASETS), f"k={k} datasets")
             check(res["clusterSilhouetteCoefficients"].shape == (k,)
                   and res["L_err"].shape == (shape[1],)
@@ -918,6 +1092,8 @@ def main():
         check(all(ran[key] > 0 for key in expect)
               and not any(ran[key] for key in ran if key not in expect),
               f"NMFk {norm} {ftype} launched {ran}, expected {expect} only")
+        if nopt is None:
+            print(f"[nmfk] {label}: minimum silhouette by k {sils}", flush=True)
         return res_path
 
     def fused_sweep(tmp, a_precision="float32", key="fused_mu_kl"):
@@ -971,6 +1147,44 @@ def main():
               f"NMFk KL use_fused {a_precision} launched {ens} (ensemble) and "
               f"{refit} (refit); expected {key} {itr} and kl_wtu {itr} only")
 
+    def budget_sweep(tmp, batch=5):
+        """The dense FRO NMFk sweep through the library with ``hbm_budget``
+        set so that the 10 members run in batches of ``batch``: nopt = 4,
+        and K1 launched once per iteration, k and batch, nothing else."""
+        ks = range(2, 8)
+        m, n = PLANTED["m"], PLANTED["n"]
+        # the port's member model (models/nmfk.py::_ensemble_batch_size):
+        # the member's f32 copy, its factors' working set at k = 4, and the
+        # shared f32 A outside the 85 % headroom
+        per_member = m * n * 4 + (m + n) * 4 * 4 * 8
+        budget = int(((batch + 0.5) * per_member + m * n * 4) / 0.85)
+        cfg = NMFkConfig(nmf=NMFConfig(norm="fro", itr=400), start_k=ks[0],
+                         end_k=ks[-1], perturbations=10, hbm_budget=budget,
+                         results_path=os.path.join(tmp, "res_budget") + "/",
+                         fname="X", checkpoint=False)
+        A_np = np.load(os.path.join(tmp, "X.npy"))
+        timing.reset()
+        zero_counts()
+        t0 = time.perf_counter()
+        model = NMFk(cfg, dev)
+        nopt = model.fit(A_np)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        ran = read_counts()
+        stages = {st: round(timing.TIMINGS.get(st, 0.0), 3) for st in
+                  ("ensemble_solve", "clustering", "regression")}
+        batches = -(-cfg.perturbations // model.last_batch_size)
+        print(f"[nmfk] FRO-MU (library) npy {m}x{n} hbm_budget={budget} "
+              f"k=2..7, 10 perturbations, 400 iterations: batches of "
+              f"{model.last_batch_size} ({batches} a k), nopt {nopt}, "
+              f"{secs:.2f} s, stage seconds {stages}, launches {ran}",
+              flush=True)
+        check(nopt == 4, f"NMFk hbm_budget chose k={nopt}, not 4")
+        check(model.last_batch_size == batch and batches >= 2,
+              f"NMFk hbm_budget ran batches of {model.last_batch_size}")
+        want = {**none, "fused_mu_fro": batches * len(ks) * cfg.nmf.itr}
+        check(ran == want, f"NMFk hbm_budget launched {ran}, expected {want}")
+
     _, _, X = generate_data(**PLANTED)
     with tempfile.TemporaryDirectory() as tmp:
         np.save(os.path.join(tmp, "X.npy"), X.astype(np.float32))
@@ -982,6 +1196,23 @@ def main():
         # the ensemble on bf16 members: K1's tensor-core kernel
         sweep(tmp, "npy", "X", "fro", ("fused_mu_fro_bf16",),
               (PLANTED["m"], PLANTED["n"]), a_precision="bfloat16")
+        # the ensemble at bf16 and at f16 factors (A at the same dtype):
+        # K1's bf16 and f16 kernels
+        sweep(tmp, "npy", "X", "fro", ("fused_mu_fro_bf16",),
+              (PLANTED["m"], PLANTED["n"]), flags=("--precision=bfloat16",),
+              label="FRO-MU bf16")
+        # At f16 the sweep's choice is not checked: the clustering
+        # normalizes W's columns by sqrt(sum of squares + eps) with the
+        # factor dtype's eps (JAX clustering.py:37-44 with cfg.nmf.eps,
+        # nmfk.py:1246; reference dist_clustering.py:30-39), and f16's eps,
+        # 9.8e-4, passes the sum of squares of a column whose unit L1 mass
+        # spreads over more than about a thousand rows: the columns are no
+        # longer unit vectors, the silhouettes collapse, and the walk stops
+        # early, in the JAX package as in the port (ROADMAP queue 3)
+        sweep(tmp, "npy", "X", "fro", ("fused_mu_fro_f16",),
+              (PLANTED["m"], PLANTED["n"]), flags=("--precision=float16",),
+              label="FRO-MU f16", nopt=None)
+        budget_sweep(tmp)
         fused_sweep(tmp)
         # the ensemble on bf16 members: K3's tensor-core kernel
         fused_sweep(tmp, "bfloat16", "fused_mu_kl_bf16")
@@ -1013,9 +1244,16 @@ def main():
                            f"within 2 % of {cli_err[None]}")
 
     # -- 4. the sparse main path: NMF.fit at the NYTimes shape ------------
-    for norm, method in (("fro", "mu"), ("kl", "mu"), ("fro", "hals")):
-        cfg = NMFConfig(k=K, norm=norm, itr=10, method=method)
+    # (f16 values under f32 factors, a_precision="float16": K4's f16
+    # instantiation)
+    for norm, method, a_prec in (("fro", "mu", None), ("kl", "mu", None),
+                                 ("fro", "hals", None),
+                                 ("fro", "mu", "float16"),
+                                 ("kl", "mu", "float16")):
+        cfg = NMFConfig(k=K, norm=norm, itr=10, method=method,
+                        a_precision=a_prec)
         label = "HALS" if method == "hals" else f"{norm.upper()}-MU"
+        label += " f16 values" if a_prec else ""
         g = torch.Generator(dev)
         g.manual_seed(cfg.seed)
         W0, H0 = init_factors_rand(g, NYT_M, NYT_N, K, torch.float32, dev)
@@ -1047,8 +1285,10 @@ def main():
         # ratio), and the final Gram-identity error one more, W^T A
         # (plain): FRO and HALS 2 x 10 + 1 = 21 plain; KL 2 x 10 = 20 ratio
         # + 1 plain
-        want = {**none, **({"ell_gather": 21} if norm == "fro"
-                           else {"ell_gather": 1, "ell_gather_ratio": 20})}
+        tag = "_f16" if a_prec else ""
+        want = {**none, **({f"ell_gather{tag}": 21} if norm == "fro"
+                           else {f"ell_gather{tag}": 1,
+                                 f"ell_gather_ratio{tag}": 20})}
         check(ran == want, f"sparse NMF.fit {label} launches {ran}, "
                            f"expected {want}")
         del model, W, H
@@ -1157,7 +1397,19 @@ def main():
                                   ("fused_mu_kl", "fused_mu_kl_bf16",
                                    "fused_mu_kl_u8")),
                "K4 ell_gather": ("ell_gather.cu", "ops/pallas_ell.py:52",
-                                 ("ell_gather", "ell_gather_ratio"))}
+                                 ("ell_gather", "ell_gather_ratio")),
+               # the f16 instantiations (an f16 A; K4: f16 values)
+               "K1 fused_mu_fro f16": ("fused_mu_fro.cu", "ops/fused_mu.py:50",
+                                       ("fused_mu_fro_f16",)),
+               "K2a kl_uht f16": ("kl_ratio.cu", "ops/pallas_kernels.py:78",
+                                  ("kl_uht_f16",)),
+               "K2b kl_wtu f16": ("kl_ratio.cu", "ops/pallas_kernels.py:96",
+                                  ("kl_wtu_f16",)),
+               "K3 fused_mu_kl f16": ("fused_mu_kl.cu", "ops/fused_kl.py:44",
+                                      ("fused_mu_kl_f16",)),
+               "K4 ell_gather f16": ("ell_gather.cu", "ops/pallas_ell.py:52",
+                                     ("ell_gather_f16",
+                                      "ell_gather_ratio_f16"))}
     kernels = [{"name": name, "route": "cuda",
                 "source": f"pydnmfk_tpu_torch/csrc/{src}",
                 "replaces": f"pydnmfk_tpu/{tpu}",

@@ -51,7 +51,7 @@ def build_parser():
     p.add_argument("--prune", type=str2bool, default=False)
     p.add_argument("--save_factors", type=str2bool, default=False)
     p.add_argument("--precision", type=str, default="float32",
-                   help="float32/float64")
+                   help="factor precision: bfloat16/float16/float32/float64")
     # pyNMFk block (reference main.py:34-42)
     p.add_argument("--perturbations", type=int, default=20)
     p.add_argument("--noise_var", type=float, default=0.015)
@@ -64,9 +64,9 @@ def build_parser():
     # flags of the JAX package
     p.add_argument("--multihost", type=str2bool, default=False)
     p.add_argument("--a_precision", type=str, default=None,
-                   help="storage dtype for A only (bfloat16, or uint8: "
-                        "A quantized to round(A/s), s = max(A)/255, the "
-                        "returned H carries s); factors and accumulation "
+                   help="storage dtype for A only (bfloat16, float16, or "
+                        "uint8: A quantized to round(A/s), s = max(A)/255, "
+                        "the returned H carries s); factors and accumulation "
                         "stay at --precision")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU instead of the CUDA card")
@@ -78,8 +78,15 @@ def build_parser():
                         "less than this between checks (0 = fixed --itr)")
     p.add_argument("--solve_checkpoint_every", type=int, default=0)
     p.add_argument("--ensemble_batch", type=int, default=0,
-                   help="NMFk members per batched solve (0 = fit half the "
+                   help="NMFk members per batched solve (0 = as many as "
+                        "fit the memory budget)")
+    p.add_argument("--hbm_budget", type=int, default=0,
+                   help="device memory budget in bytes that sizes the NMFk "
+                        "batches (0 = PYDNMFK_HBM_BUDGET, else half the "
                         "free device memory)")
+    p.add_argument("--kl_chunk", type=int, default=0,
+                   help="rows per slab of the plain KL products' ratio "
+                        "(0 = automatic)")
     p.add_argument("--matmul_precision", type=str, default=None)
     p.add_argument("--bcd_obj", type=str, default=None,
                    help="BCD objective: gram (default) or residual")
@@ -135,6 +142,7 @@ def main(argv=None):
         sill_thr=args.sill_thr, sampling=args.sampling, process=args.process,
         a_precision=args.a_precision, seed=args.seed, tol=args.tol,
         ensemble_batch=args.ensemble_batch, save_factors=args.save_factors,
+        hbm_budget=args.hbm_budget, kl_chunk=args.kl_chunk,
         device=device, prune=args.prune, bcd_obj=args.bcd_obj,
         **_jax_only_knobs(args))
     results = runner.run(

@@ -1,9 +1,9 @@
 """Typed configuration for the PyTorch/CUDA port.
 
 The dataclasses of ``pydnmfk_tpu/config.py`` without the TPU knobs (the
-Pallas switch, matmul precision, the XLA compilation cache, the K-padded
-sweep and HBM sizing) and without the features not yet ported, which the
-entry points reject with :class:`NotPortedError`.
+Pallas switch, matmul precision, the XLA compilation cache and the K-padded
+sweep) and without the features not yet ported, which the entry points
+reject with :class:`NotPortedError`.
 """
 from __future__ import annotations
 
@@ -11,11 +11,12 @@ import dataclasses
 
 import torch
 
-# Factor precisions the port runs. A may be stored narrower (a_precision):
-# in bf16, or quantized to uint8 (ops/linalg.py::quantize_uint8).
-_PRECISIONS = {"float32": torch.float32, "float64": torch.float64}
-_A_PRECISIONS = {"bfloat16": torch.bfloat16, "uint8": torch.uint8,
-                 **_PRECISIONS}
+# Factor precisions (pydnmfk_tpu/config.py:16-27). A may be stored narrower
+# (a_precision): in bf16 or f16, or quantized to uint8
+# (ops/linalg.py::quantize_uint8).
+_PRECISIONS = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+               "float32": torch.float32, "float64": torch.float64}
+_A_PRECISIONS = {"uint8": torch.uint8, **_PRECISIONS}
 
 
 class NotPortedError(NotImplementedError):
@@ -32,12 +33,11 @@ class NotPortedError(NotImplementedError):
 # rest. The CLI, Runner and utils/convert.py refuse any other value.
 JAX_ONLY = {
     "grid": (((1, 1),), "queue 1 item 15"),
-    "kl_chunk": ((0,), "queue 1 item 11"),
     "use_pallas": ((None, False), '"Not to port"'),
-    "matmul_precision": ((None, "highest", "float32"), "queue 1 item 1"),
+    # the port's products run in true f32, which "highest" asks for
+    "matmul_precision": ((None, "highest", "float32"), '"Not to port"'),
     "sparse_grid_format": ((None, "auto"), "queue 1 item 15"),
     "solve_checkpoint_every": ((0,), "queue 1 item 13"),
-    "hbm_budget": ((0,), "queue 1 item 11"),
     # the K-padded sweep gives the per-k path's results (tests/test_k_sweep.py)
     "k_sweep_batch": ((None, False), "queue 1 item 10"),
     "k_sweep_merge": ((None, False), "queue 1 item 10"),
@@ -56,6 +56,10 @@ def check_jax_only(**knobs) -> None:
             raise NotPortedError(f"{key}={val!r}", item, "is no knob of "
                                  "pydnmfk_tpu_torch: its dispatch picks the "
                                  "kernel")
+        if key == "matmul_precision":
+            raise NotPortedError(f"{key}={val!r}", item, "is no knob of "
+                                 "pydnmfk_tpu_torch: its f32 products run in "
+                                 "true f32")
         raise NotPortedError(f"{key}={val!r}", item)
 
 
@@ -80,15 +84,15 @@ class NMFConfig:
     # zero-row/column pruning: the fit solves on A without its all-zero
     # rows and columns and returns factors at the full shape
     prune: bool = False
-    precision: str = "float32"               # float32 | float64
+    precision: str = "float32"   # bfloat16 | float16 | float32 | float64
     seed: int = 100
     verbose: bool = False
     save_factors: bool = False
     W_update: bool = True
     results_path: str = "results/"
-    # storage dtype of A only ("bfloat16", or "uint8": the solve factorizes
-    # Q = round(A / s) and the returned H carries the scale s); W/H and
-    # accumulation stay at `precision`. None stores A at `precision`.
+    # storage dtype of A only ("bfloat16", "float16", or "uint8": the solve
+    # factorizes Q = round(A / s) and the returned H carries the scale s);
+    # W/H and accumulation stay at `precision`. None stores A at `precision`.
     a_precision: str | None = None
     # one-pass kernels (pydnmfk_tpu/config.py:80-84): None = the card's
     # dispatch (K1 for FRO, K2 for KL); True = K1 for FRO and K3 for KL;
@@ -103,6 +107,9 @@ class NMFConfig:
     # = the Gram identity (no third pass over A); "residual" = the
     # reference's explicit residual, summed over row slabs
     bcd_obj: str | None = None
+    # rows per slab of the plain KL products' m x n ratio; 0 = automatic
+    # (ops/linalg.py::error_chunk_rows)
+    kl_chunk: int = 0
 
     def __post_init__(self):
         if self.init not in ("rand", "nnsvd"):
@@ -123,11 +130,24 @@ class NMFConfig:
             raise ValueError(f"bcd_obj must be None, 'gram' or 'residual', "
                              f"got {self.bcd_obj!r}")
         if self.precision not in _PRECISIONS:
-            raise NotPortedError(f"precision={self.precision!r}",
-                                 "queue 1 item 1")
+            raise ValueError(f"unknown precision {self.precision!r}")
         if self.a_precision not in (None, *_A_PRECISIONS):
-            raise NotPortedError(f"a_precision={self.a_precision!r}",
-                                 "queue 1 item 1")
+            raise ValueError(f"unknown a_precision {self.a_precision!r}")
+        if self.kl_chunk < 0:
+            raise ValueError(f"kl_chunk must be >= 0, got {self.kl_chunk!r}")
+        half = (torch.bfloat16, torch.float16)
+        if self.dtype in half and self.a_dtype in half and (
+                self.a_dtype != self.dtype):
+            # a bf16 operand against an f16 one takes the first operand's
+            # dtype and returns the other's (pydnmfk_tpu/ops/linalg.py:81-
+            # 88), so the JAX package's elementwise updates promote the
+            # factors to f32 and its solve loop raises a TypeError
+            raise ValueError(f"a_precision={self.a_precision!r} under "
+                             f"precision={self.precision!r}: one half "
+                             f"dtype for A and the other for the factors "
+                             f"is not supported; store A at "
+                             f"{self.precision!r}, as uint8, or take "
+                             f"float32 factors")
 
     @property
     def dtype(self) -> torch.dtype:
@@ -142,7 +162,11 @@ class NMFConfig:
 
     @property
     def eps(self) -> float:
-        # reference: np.finfo(A.dtype).eps (pyDNMF.py:68-69)
+        # reference: np.finfo(A.dtype).eps (pyDNMF.py:68-69); bf16 takes
+        # f32's, since its own (0.0078) is too coarse for the MU
+        # denominators (pydnmfk_tpu/config.py:139-146)
+        if self.dtype == torch.bfloat16:
+            return float(torch.finfo(torch.float32).eps)
         return float(torch.finfo(self.dtype).eps)
 
     def replace(self, **kw) -> "NMFConfig":
@@ -164,9 +188,12 @@ class NMFkConfig:
     checkpoint: bool = True
     results_path: str = "results/"
     fname: str = "A"
-    # members per batched solve; 0 = as many as fit in half of the
-    # device's free memory (all of them on the CPU)
+    # members per batched solve; 0 = as many as fit the memory budget (all
+    # of them on the CPU)
     ensemble_batch: int = 0
+    # the device memory budget in bytes that sizes the batch; 0 = the
+    # PYDNMFK_HBM_BUDGET environment variable, else half of the free memory
+    hbm_budget: int = 0
 
     @property
     def k_range(self):

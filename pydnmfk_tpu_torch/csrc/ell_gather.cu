@@ -41,8 +41,8 @@
 //     block stages a chunk of S = 2 KP slots of its lines, (G, lines, S)
 //     values and (lines, S) indices, in shared memory, read from device
 //     memory along s (coalesced) by cp.async one chunk ahead (two buffers;
-//     bf16 values go through registers and are widened, exactly, by a
-//     shift). A slot's index is then read from shared memory as a
+//     bf16 and f16 values go through registers and are widened, exactly: a
+//     bf16 by a shift, an f16 by its conversion). A slot's index is then read from shared memory as a
 //     broadcast, once for all G members, and the strides of the staged
 //     tiles put the G x lines-per-warp values that a warp reads in distinct
 //     banks.
@@ -70,9 +70,10 @@
 // instantiations with 16-byte loads at KP = 64, 128 to 32 registers and
 // spilled 16-24 bytes.
 //
-// Padding slots (val = 0, idx = 0) are inert. vals may be bf16; all
+// Padding slots (val = 0, idx = 0) are inert. vals may be bf16 or f16; all
 // arithmetic is f32.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -89,6 +90,7 @@ constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 // L lanes per line, NQ chunks of 4 columns per lane: lane g of a group holds
 // columns (q * L + g) * 4 + j for q < NQ, j < 4.
@@ -252,9 +254,14 @@ __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(unsigned short x) {
-  return __uint_as_float((unsigned)x << 16);   // bf16 -> f32, exact
+// a 16-bit value's bits as the f32 of the same value, exactly
+template <typename V>
+__device__ __forceinline__ float widen16(unsigned short x) {
+  if constexpr (std::is_same<V, __half>::value) {
+    return __half2float(__ushort_as_half(x));
+  } else {
+    return __uint_as_float((unsigned)x << 16);   // bf16: the upper half
+  }
 }
 
 // Ti: the interleaved table, group after group: members [gG, gG + gg) as
@@ -305,7 +312,7 @@ grouped_kernel(const V* __restrict__ vals_, const int* __restrict__ idx,
       const R* src = vals + (ok ? ((size_t)(e0 + mm) * dim + b0 + l) * w + s0 + s : 0);
       float* dst = sv + mm * MS + l * LS + s;
       if constexpr (F32) cp_async4(dst, src, ok);
-      else *dst = ok ? widen(__ldcs(src)) : 0.f;
+      else *dst = ok ? widen16<V>(__ldcs(src)) : 0.f;
     }
 #pragma unroll 4
     for (int j = 0; j < Gm::IN; ++j) {
@@ -456,7 +463,8 @@ int dispatch(const void* vals, const void* idx, const void* T, const void* X,
 
 }  // namespace
 
-// Plain C interface, bound with ctypes. vals is (B, dim, w) in f32 or bf16,
+// Plain C interface, bound with ctypes. vals is (B, dim, w) in f32, bf16 or
+// f16,
 // idx (dim, w) int32 with entries in [0, dim_t), X (B, dim, k) f32 or null
 // (plain mode), out (B, dim, k) f32; all contiguous. At k <= 32 T is the
 // interleaved table of groups of `group` members (1, 2, 4 or 8, at most
@@ -479,6 +487,14 @@ extern "C" int ell_gather_bf16(const void* vals, const void* idx, const void* T,
                                void* out, void* stream) {
   return dispatch<__nv_bfloat16>(vals, idx, T, X, eps, ratio, B, dim, w, dim_t,
                                  k, group, out, stream);
+}
+
+extern "C" int ell_gather_f16(const void* vals, const void* idx, const void* T,
+                              const void* X, float eps, int ratio, int B,
+                              int dim, int w, int dim_t, int k, int group,
+                              void* out, void* stream) {
+  return dispatch<__half>(vals, idx, T, X, eps, ratio, B, dim, w, dim_t, k,
+                          group, out, stream);
 }
 
 // The geometry the wrapper plans its member groups on: k's padded width KP

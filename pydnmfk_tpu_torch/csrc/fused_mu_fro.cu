@@ -22,11 +22,14 @@
 // - f32 A: f32::fused_mu_fro_f32_kernel (C entry fused_mu_fro_f32), on the
 //   CUDA cores, since true f32 has no tensor-core path. Replaces
 //   pydnmfk_tpu/ops/fused_mu.py::_fused_kernel for an f32 A.
-// - bf16 or uint8 A: tc::fused_mu_fro_tc_kernel (C entries fused_mu_fro_bf16
-//   and fused_mu_fro_u8), on the bf16 tensor cores. Replaces _fused_kernel
-//   for a bf16 A and tools/fused_u8_probe.py::make_kernel for a uint8 A.
+// - bf16, f16 or uint8 A: tc::fused_mu_fro_tc_kernel (C entries
+//   fused_mu_fro_bf16, fused_mu_fro_f16 and fused_mu_fro_u8), on the tensor
+//   cores (f16 operands for an f16 A, bf16 otherwise). Replaces
+//   _fused_kernel for a bf16 or f16 A and tools/fused_u8_probe.py::
+//   make_kernel for a uint8 A.
 // Each kernel's design note stands above it.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -36,14 +39,17 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// The tensor-core kernel: a bf16 or uint8 A.
+// The tensor-core kernel: a bf16, f16 or uint8 A.
 //
-// Numbers: the products take bf16 operands with f32 sums, the JAX package's
-// rule (pydnmfk_tpu/ops/fused_mu.py:55-76, :166-173) and the plain version's
-// (ops/linalg.py::matmul). H arrives rounded to bf16 (the wrapper casts it,
-// a k x n pass outside the kernel), W' is rounded to bf16 for W'^T A_i, and
-// W'^T W' takes the unrounded f32 W'. Every uint8 value is exact in bf16.
-// That is what mma.sync.m16n8k16 with bf16 operands and f32 sums computes.
+// Numbers: the products take operands at the compute dtype with f32 sums,
+// the JAX package's rule (pydnmfk_tpu/ops/fused_mu.py:55-76, :166-173,
+// pallas_kernels.py::matmul_compute_dtype) and the plain version's
+// (ops/fused_mu.py::fused_w_pass_plain): f16 for an f16 A, bf16 for a bf16
+// or uint8 A. H arrives rounded to that dtype (the wrapper casts it, a k x n
+// pass outside the kernel), W' is rounded to it for W'^T A_i, and W'^T W'
+// takes the unrounded f32 W'. Every uint8 value is exact in bf16. That is
+// what mma.sync.m16n8k16 with f16 or bf16 operands and f32 sums computes; an
+// f16 A runs every line of the bf16 one, with f16 mma and f16 packing.
 //
 // What bounds it: each sweep does 2 k flops per element of A, 32 per byte of
 // a bf16 A at k = 32 (64 for uint8), far below the card's ~295 bf16 tensor
@@ -61,7 +67,7 @@ namespace {
 //   first tiles are in flight while W' is formed. A tile spans 128 bytes of
 //   each row: 64 bf16 columns, or 128 uint8 columns (64 at KP = 64); rows
 //   read 64 bytes at a time stream far slower (PERF.md, section 6). The
-//   16-byte path (VEC) needs n % 8 == 0 (bf16) or
+//   16-byte path (VEC) needs n % 8 == 0 (bf16, f16) or
 //   n % 16 == 0 (uint8) and A, H and WTA 16-byte aligned; otherwise tiles
 //   are copied element by element into the same layout.
 // - bf16 tiles are 64 columns wide, 128-byte rows whose 16-byte chunks are
@@ -81,7 +87,8 @@ namespace {
 //   n: no split over n, nothing to reduce.
 // - W' in f32 on the CUDA cores from the sums, W (read from L2) and HHT;
 //   W_out and WTW (a sum over the panel's rows of the f32 W') as in the f32
-//   kernel; then W' rounded to bf16 into shared memory and from there, once
+//   kernel; then W' rounded to the operand type (bf16, or f16 for an f16
+//   A) into shared memory and from there, once
 //   per panel, into each warp's registers as sweep 2's operand.
 // - Sweep 2 (C = A_i^T W', a sum over the panel's rows): the factor
 //   dimension is mma's N = 8, so k <= 8 pads nothing. Warp w owns 16 (32
@@ -134,14 +141,40 @@ struct Cfg {
 
 #include "tc_tiles.cuh"
 
+// the products' operand type: f16 for an f16 A, bf16 for a bf16 or uint8 A
+template <typename T>
+using OpT = typename std::conditional<std::is_same<T, __half>::value, __half,
+                                      __nv_bfloat16>::type;
+
+// c += a b on the tensor cores at OpT<T>
+template <typename T>
+__device__ __forceinline__ void mma_op(float (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same<T, __half>::value) {
+    mma_f16(c, a, b0, b1);
+  } else {
+    mma_bf16(c, a, b0, b1);
+  }
+}
+
+// two f32 packed at OpT<T>, lo in the low half
+template <typename T>
+__device__ __forceinline__ uint32_t pack_op(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value) {
+    return f16x2(lo, hi);
+  } else {
+    return bf16x2(lo, hi);
+  }
+}
+
 // Starts the copy of the landed tile of columns j0 .. j0 + TNP - 1 of the
 // panel (rows [0, rows)) into `stage`, and of H's rows [0, k) of those
-// columns if with_h. A bf16 A and H land as TNP / 64 swizzled tiles of 64
+// columns if with_h. A bf16 or f16 A and H land as TNP / 64 swizzled tiles of 64
 // columns, one after another; a uint8 A as rows of TNP bytes, swizzled. VEC:
 // cp.async, to be waited for; otherwise plain copies.
 template <typename T, int KP, bool VEC>
 __device__ __forceinline__ void load_tile(unsigned char* stage, const T* __restrict__ A,
-                                          const __nv_bfloat16* __restrict__ H,
+                                          const OpT<T>* __restrict__ H,
                                           int n, int k, int rows, int j0, bool with_h) {
   using C = Cfg<T, KP>;
   const int tid = threadIdx.x;
@@ -185,7 +218,7 @@ __device__ __forceinline__ void load_tile(unsigned char* stage, const T* __restr
       } else {
         *reinterpret_cast<unsigned short*>(stage + j / TN * C::TM * 128 +
                                            chunk_off(r, j % TN >> 3) + 2 * (j & 7)) =
-            ok ? __bfloat16_as_ushort(A[(size_t)r * n + j0 + j]) : 0;
+            ok ? bits16(A[(size_t)r * n + j0 + j]) : 0;
       }
     }
     if (with_h) {
@@ -195,7 +228,7 @@ __device__ __forceinline__ void load_tile(unsigned char* stage, const T* __restr
         const bool ok = c < k && jg < n;
         *reinterpret_cast<unsigned short*>(hs + u * KP * 128 + chunk_off(c, j >> 3) +
                                            2 * (j & 7)) =
-            ok ? __bfloat16_as_ushort(H[(size_t)c * n + jg]) : 0;
+            ok ? bits16(H[(size_t)c * n + jg]) : 0;
       }
     }
   }
@@ -224,7 +257,7 @@ __device__ __forceinline__ void widen_part(const unsigned char* src, unsigned ch
 template <typename T, int KP, bool VEC>
 __global__ void __launch_bounds__(NT, 1)
 fused_mu_fro_tc_kernel(const T* __restrict__ A, const float* __restrict__ W,
-                       const __nv_bfloat16* __restrict__ H,
+                       const OpT<T>* __restrict__ H,
                        const float* __restrict__ HHT, float eps, int m, int n,
                        int k, float* __restrict__ W_out, float* __restrict__ WTA,
                        float* __restrict__ WTW) {
@@ -234,7 +267,7 @@ fused_mu_fro_tc_kernel(const T* __restrict__ A, const float* __restrict__ W,
   extern __shared__ uint4 smem_tc[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(smem_tc);
   unsigned char* wide = sm + C::O_WIDE;
-  __nv_bfloat16* Wp = reinterpret_cast<__nv_bfloat16*>(sm + C::O_WP);
+  OpT<T>* Wp = reinterpret_cast<OpT<T>*>(sm + C::O_WP);
   float* X = reinterpret_cast<float*>(sm + C::O_X);
   float* HHs = reinterpret_cast<float*>(sm + C::O_HHT);
 
@@ -320,7 +353,7 @@ fused_mu_fro_tc_kernel(const T* __restrict__ A, const float* __restrict__ W,
             ldsm_x4(au_s + chunk_off(r, 2 * kk + (lane >> 4)), a);
 #pragma unroll
             for (int f = 0; f < NF; ++f)
-              mma_bf16(acc[i][f], a, bh[f][kk >> 1][2 * (kk & 1)],
+              mma_op<T>(acc[i][f], a, bh[f][kk >> 1][2 * (kk & 1)],
                        bh[f][kk >> 1][2 * (kk & 1) + 1]);
           }
         }
@@ -369,7 +402,7 @@ fused_mu_fro_tc_kernel(const T* __restrict__ A, const float* __restrict__ W,
               acc[i][f][e] = w_at(r, c) * acc[i][f][e] / (den[i][f][e] + eps);
             }
         if constexpr (C::XIN) __syncthreads();   // X is the tile just read
-        // W' to W_out, to X in f32 and to Wp in bf16
+        // W' to W_out, to X in f32 and to Wp at the operand type
 #pragma unroll
         for (int i = 0; i < MT1; ++i)
 #pragma unroll
@@ -380,7 +413,7 @@ fused_mu_fro_tc_kernel(const T* __restrict__ A, const float* __restrict__ W,
               const float w0 = acc[i][f][2 * h], w1 = acc[i][f][2 * h + 1];
               X[r * LW + c] = w0;
               X[r * LW + c + 1] = w1;
-              *reinterpret_cast<uint32_t*>(Wp + r * C::LDWP + c) = bf16x2(w0, w1);
+              *reinterpret_cast<uint32_t*>(Wp + r * C::LDWP + c) = pack_op<T>(w0, w1);
               if (r < rows) {
                 if (c < k) W_out[(size_t)r * k + c] = w0;
                 if (c + 1 < k) W_out[(size_t)r * k + c + 1] = w1;
@@ -426,7 +459,7 @@ fused_mu_fro_tc_kernel(const T* __restrict__ A, const float* __restrict__ W,
           uint32_t a[4];
           ldsm_x4_t(a_s + cb / 4 * TM * 128 + chunk_off(r, 2 * (cb % 4) + ((lane >> 3) & 1)), a);
 #pragma unroll
-          for (int f = 0; f < NF; ++f) mma_bf16(c2[v][f], a, wf[s][f][0], wf[s][f][1]);
+          for (int f = 0; f < NF; ++f) mma_op<T>(c2[v][f], a, wf[s][f][0], wf[s][f][1]);
         }
       }
       if constexpr (C::XIN) __syncthreads();   // X is the tile just read
@@ -465,7 +498,7 @@ fused_mu_fro_tc_kernel(const T* __restrict__ A, const float* __restrict__ W,
 }
 
 template <typename T, int KP, bool VEC>
-cudaError_t launch(const T* A, const float* W, const __nv_bfloat16* H,
+cudaError_t launch(const T* A, const float* W, const OpT<T>* H,
                    const float* HHT, float eps, int B, int m, int n, int k,
                    float* W_out, float* WTA, float* WTW, cudaStream_t stream) {
   using C = Cfg<T, KP>;
@@ -479,7 +512,7 @@ cudaError_t launch(const T* A, const float* W, const __nv_bfloat16* H,
 }
 
 template <typename T, int KP>
-cudaError_t launch_kp(const T* A, const float* W, const __nv_bfloat16* H,
+cudaError_t launch_kp(const T* A, const float* W, const OpT<T>* H,
                       const float* HHT, float eps, int B, int m, int n, int k,
                       float* W_out, float* WTA, float* WTW, cudaStream_t s) {
   // 16-byte copies and vector atomics need every row of A, H and WTA aligned
@@ -496,7 +529,7 @@ cudaError_t dispatch(const void* A_, const void* W_, const void* H_,
                      void* W_out_, void* WTA_, void* WTW_, cudaStream_t s) {
   if (B < 1 || m < 1 || n < 1 || k < 1) return cudaErrorInvalidValue;
   const auto A = static_cast<const T*>(A_);
-  const auto H = static_cast<const __nv_bfloat16*>(H_);
+  const auto H = static_cast<const OpT<T>*>(H_);
   const auto W = static_cast<const float*>(W_), HHT = static_cast<const float*>(HHT_);
   const auto W_out = static_cast<float*>(W_out_), WTA = static_cast<float*>(WTA_),
              WTW = static_cast<float*>(WTW_);
@@ -1039,8 +1072,9 @@ cudaError_t dispatch(const void* A_, const void* W_, const void* H_,
 }  // namespace
 
 // Plain C interface, bound with ctypes. A is (B, m, n) in f32 (fused_mu_fro_f32),
-// bf16 (fused_mu_fro_bf16) or uint8 (fused_mu_fro_u8); H is (B, k, n), f32 for
-// an f32 A and bf16 (rounded by the caller) for a bf16 or uint8 A; W and W_out
+// bf16 (fused_mu_fro_bf16), f16 (fused_mu_fro_f16) or uint8 (fused_mu_fro_u8);
+// H is (B, k, n), f32 for an f32 A, f16 for an f16 A and bf16 for a bf16 or
+// uint8 A (rounded by the caller); W and W_out
 // are (B, m, k), HHT is (B, k, k), WTA is (B, k, n) and WTW is (B, k, k), all
 // f32; everything contiguous, and WTA/WTW zeroed by the caller. Returns the
 // CUDA error code of the launch (0 on success).
@@ -1058,6 +1092,14 @@ extern "C" int fused_mu_fro_bf16(const void* A, const void* W, const void* H,
                                  void* WTW, void* stream) {
   return (int)tc::dispatch<__nv_bfloat16>(A, W, H, HHT, eps, B, m, n, k, W_out,
                                           WTA, WTW, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int fused_mu_fro_f16(const void* A, const void* W, const void* H,
+                                const void* HHT, float eps, int B, int m, int n,
+                                int k, void* W_out, void* WTA, void* WTW,
+                                void* stream) {
+  return (int)tc::dispatch<__half>(A, W, H, HHT, eps, B, m, n, k, W_out, WTA, WTW,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int fused_mu_fro_u8(const void* A, const void* W, const void* H,

@@ -31,18 +31,22 @@
 // Which A takes which kernel:
 // - f32 A, k <= 32: f32::fused_mu_kl_f32_kernel (C entry fused_mu_kl_f32),
 //   register micro-tiles on the CUDA cores.
-// - bf16 or uint8 A, k <= 32: tc::fused_mu_kl_tc_kernel (C entries
-//   fused_mu_kl_bf16 and fused_mu_kl_u8), on the bf16 tensor cores.
+// - bf16, f16 or uint8 A, k <= 32: tc::fused_mu_kl_tc_kernel (C entries
+//   fused_mu_kl_bf16, fused_mu_kl_f16 and fused_mu_kl_u8), on the bf16
+//   tensor cores.
 // - 32 < k <= 64, every A dtype: fused_mu_kl_kernel, the first port's simple
 //   kernel, below.
 // Each kernel's design note stands above it.
 //
 // Types (pydnmfk_tpu/ops/fused_kl.py:52-81, matmul_compute_dtype off the
-// TPU): with an f32 A every product is true f32. With a bf16 or uint8 A the
-// products take bf16 operands with f32 sums: W is rounded for W H, U for
-// U H^T, W' for W' H, and W' and U' for W'^T U'; H arrives rounded to bf16
-// (the wrapper casts it). A is widened exactly (every uint8 value is a bf16
-// value); the ratios and the W' update are f32.
+// TPU): with an f32 A every product is true f32. With a bf16, f16 or uint8
+// A the products take bf16 operands with f32 sums: W is rounded for W H, U
+// for U H^T, W' for W' H, and W' and U' for W'^T U'; H arrives rounded to
+// bf16 (the wrapper casts it). A is widened exactly to f32 (every uint8 and
+// f16 value is an f32 value); the ratios and the W' update are f32. The JAX
+// package rounds the operands of an f16 A to f16; bf16 keeps U's range:
+// with f32 factors eps is 1.2e-7, and U = A / (W H + eps) can pass f16's
+// 65504.
 //
 // What bounds it: 8 m n k operations (four products of 2 m n k) against one
 // read of A's bytes. At f32 that is the operations on CUDA cores (8.45 ms at
@@ -58,6 +62,7 @@
 // atomics. Its loops read factors from shared memory at about 2 bytes per
 // FMA, and its loads are scalar and synchronous.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -73,10 +78,11 @@ constexpr int LDA = TN + 1;   // padded row stride of the A / U tile
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_f32(uint8_t x) { return static_cast<float>(x); }
 
 // A value as an operand of a product: unchanged for an f32 A, rounded to
-// bf16 for a bf16 or uint8 A.
+// bf16 for a bf16, f16 or uint8 A.
 template <typename T>
 __device__ __forceinline__ float operand(float x) {
   if constexpr (!std::is_same<T, float>::value) {
@@ -97,7 +103,7 @@ __device__ __forceinline__ void load_a_tile(float* As, const T* __restrict__ A,
 }
 
 // H as the kernels take it: f32 with an f32 A, rounded to bf16 by the
-// wrapper with a bf16 or uint8 A
+// wrapper with a bf16, f16 or uint8 A
 template <typename T>
 using HType = typename std::conditional<std::is_same<T, float>::value, float,
                                         __nv_bfloat16>::type;
@@ -783,7 +789,7 @@ cudaError_t launch_kp(const float* A, const float* W, const float* H,
 }  // namespace f32
 
 // ---------------------------------------------------------------------------
-// The tensor-core kernel: a bf16 or uint8 A at k <= 32.
+// The tensor-core kernel: a bf16, f16 or uint8 A at k <= 32.
 //
 // Numbers: mma.sync with bf16 operands and f32 sums computes the JAX rule
 // (see "Types" above) up to the order of the sums: W, U, W' and U' are
@@ -816,8 +822,10 @@ cudaError_t launch_kp(const float* A, const float* W, const float* H,
 //   (a 16-bit load per pair in sweep 1; byte loads in sweep 2, where a pair
 //   spans two rows) and widens them exactly to f32 in registers, a byte
 //   permute and a subtraction each; a bf16 tile widened first measured
-//   14-19 % slower. A bf16 A comes by ldmatrix, whose fragment layout is
-//   that of two n8 accumulator tiles.
+//   14-19 % slower. A bf16 or f16 A comes by ldmatrix, whose fragment layout
+//   is that of two n8 accumulator tiles, and is widened exactly in
+//   registers (a shift for bf16, a conversion for f16); an f16 A lands as a
+//   bf16 one does.
 // - Panels: TM = 256 rows at KP = 32, one block an SM (its W' fragments
 //   and sums take up to 251 registers); TM = 128 at KP <= 16, two blocks an
 //   SM at most 128 registers each. 128-row panels at KP = 32 measured 4-30 %
@@ -849,8 +857,8 @@ cudaError_t launch_kp(const float* A, const float* W, const float* H,
 //   barrier, from the second of two sets of slots, so that sweep 2 needs no
 //   barrier of its own (one set, and a barrier, where shared memory holds
 //   only one: a uint8 A at KP = 32).
-// - VEC: 16-byte copies and vector atomics when n % 8 == 0 (bf16) or n % 16
-//   == 0 (uint8) and A, H and WTU are 16-byte aligned; otherwise the same
+// - VEC: 16-byte copies and vector atomics when n % 8 == 0 (bf16, f16) or
+//   n % 16 == 0 (uint8) and A, H and WTU are 16-byte aligned; otherwise the same
 //   tiles are filled element by element.
 // k > 32 keeps the first port's kernel.
 
@@ -899,10 +907,19 @@ struct Cfg {
 
 #include "tc_tiles.cuh"
 
-// the two bf16 of w (lo, hi) as f32
+// the two 16-bit values of A in w (lo, hi) as f32, exactly: a bf16 is the
+// upper half of the f32 with the same value, and every f16 value is an f32
+// value
+template <typename T>
 __device__ __forceinline__ void unpack2(uint32_t w, float& lo, float& hi) {
-  lo = __uint_as_float(w << 16);
-  hi = __uint_as_float(w & 0xffff0000u);
+  if constexpr (std::is_same<T, __half>::value) {
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&w));
+    lo = f.x;
+    hi = f.y;
+  } else {
+    lo = __uint_as_float(w << 16);
+    hi = __uint_as_float(w & 0xffff0000u);
+  }
 }
 
 // byte i of w as f32, exactly: a byte permute makes byte x the f32 2^23 + x,
@@ -968,7 +985,7 @@ __device__ __forceinline__ void load_tile(unsigned char* stage, const T* __restr
         stage[u8_off<C::TNP>(r, j >> 4) + (j & 15)] = ok ? A[(size_t)r * n + j0 + j] : 0;
       } else {
         *reinterpret_cast<unsigned short*>(stage + chunk_off(r, j >> 3) + 2 * (j & 7)) =
-            ok ? __bfloat16_as_ushort(A[(size_t)r * n + j0 + j]) : 0;
+            ok ? bits16(A[(size_t)r * n + j0 + j]) : 0;
       }
     }
 #pragma unroll 1
@@ -1114,10 +1131,10 @@ fused_mu_kl_tc_kernel(const T* __restrict__ A, const float* __restrict__ W,
             } else {   // one ldmatrix: its fragment is that of the two n8 tiles
               uint32_t x[4];
               ldsm_x4(a_s + chunk_off(wrow + 16 * i + q1 * 8 + l7, 2 * kk + q2), x);
-              unpack2(x[0], a[0][0], a[0][1]);
-              unpack2(x[1], a[0][2], a[0][3]);
-              unpack2(x[2], a[1][0], a[1][1]);
-              unpack2(x[3], a[1][2], a[1][3]);
+              unpack2<T>(x[0], a[0][0], a[0][1]);
+              unpack2<T>(x[1], a[0][2], a[0][3]);
+              unpack2<T>(x[2], a[1][0], a[1][1]);
+              unpack2<T>(x[3], a[1][2], a[1][3]);
             }
             uint32_t ua[4];
             float p[2][4];
@@ -1299,10 +1316,10 @@ fused_mu_kl_tc_kernel(const T* __restrict__ A, const float* __restrict__ W,
           } else {   // one ldmatrix.trans: its fragment is that of the two n8 tiles
             uint32_t x[4];
             ldsm_x4_t(a_s + chunk_off(rbase + 16 * s + q2 * 8 + l7, 2 * cb + q1), x);
-            unpack2(x[0], a[0][0], a[0][1]);
-            unpack2(x[1], a[0][2], a[0][3]);
-            unpack2(x[2], a[1][0], a[1][1]);
-            unpack2(x[3], a[1][2], a[1][3]);
+            unpack2<T>(x[0], a[0][0], a[0][1]);
+            unpack2<T>(x[1], a[0][2], a[0][3]);
+            unpack2<T>(x[2], a[1][0], a[1][1]);
+            unpack2<T>(x[3], a[1][2], a[1][3]);
           }
           uint32_t ua[4];
           float p[2][4];
@@ -1371,7 +1388,7 @@ cudaError_t launch_kp(const T* A, const float* W, const __nv_bfloat16* H,
 
 }  // namespace tc
 
-// bf16 or uint8 A: the tensor-core kernel at k <= 32, the first port's
+// bf16, f16 or uint8 A: the tensor-core kernel at k <= 32, the first port's
 // kernel at 32 < k <= 64
 template <typename T>
 cudaError_t dispatch(const void* A_, const void* W_, const void* H_,
@@ -1407,9 +1424,9 @@ cudaError_t dispatch_f32(const void* A_, const void* W_, const void* H_,
 }  // namespace
 
 // Plain C interface, bound with ctypes. A is (B, m, n) in f32
-// (fused_mu_kl_f32), bf16 (fused_mu_kl_bf16) or uint8 (fused_mu_kl_u8); H is
-// (B, k, n), f32 with an f32 A and bf16 (the operand, rounded by the caller)
-// with a bf16 or uint8 A; W and W_out are (B, m, k), hrs is (B, k) and WTU
+// (fused_mu_kl_f32), bf16 (fused_mu_kl_bf16), f16 (fused_mu_kl_f16) or uint8
+// (fused_mu_kl_u8); H is (B, k, n), f32 with an f32 A and bf16 (the operand,
+// rounded by the caller) with a bf16, f16 or uint8 A; W and W_out are (B, m, k), hrs is (B, k) and WTU
 // is (B, k, n), all f32; all contiguous, and WTU zeroed by the caller.
 // Returns the CUDA error code of the launch (0 on success).
 extern "C" int fused_mu_kl_f32(const void* A, const void* W, const void* H,
@@ -1424,6 +1441,13 @@ extern "C" int fused_mu_kl_bf16(const void* A, const void* W, const void* H,
                                 int k, void* W_out, void* WTU, void* stream) {
   return (int)dispatch<__nv_bfloat16>(A, W, H, hrs, eps, B, m, n, k, W_out, WTU,
                                       static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int fused_mu_kl_f16(const void* A, const void* W, const void* H,
+                               const void* hrs, float eps, int B, int m, int n,
+                               int k, void* W_out, void* WTU, void* stream) {
+  return (int)dispatch<__half>(A, W, H, hrs, eps, B, m, n, k, W_out, WTU,
+                               static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int fused_mu_kl_u8(const void* A, const void* W, const void* H,

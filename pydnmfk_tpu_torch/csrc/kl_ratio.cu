@@ -22,8 +22,8 @@
 // and 32:
 //
 //   * U lives only in registers. Each thread loads four consecutive columns
-//     of a row of A at once (16 bytes at f32, 8 at bf16, 4 at uint8) straight
-//     into registers, issued D rows (K2b: 4, or 8 for uint8) or two column
+//     of a row of A at once (16 bytes at f32, 8 at bf16 or f16, 4 at uint8)
+//     straight into registers, issued D rows (K2b: 4, or 8 for uint8) or two column
 //     steps (K2a) before they are used, widens them exactly to f32, forms WH for them,
 //     divides and adds the product into registers it owns for the whole
 //     loop. No tile of A or U goes through shared memory, and the only block
@@ -76,10 +76,11 @@
 // unrolled twice instead of four times, which removed a spill at KP = 128.
 // No main path runs them.
 //
-// A bf16 or uint8 A is widened exactly to f32 as it is loaded; all
+// A bf16, f16 or uint8 A is widened exactly to f32 as it is loaded; all
 // arithmetic is f32, as in the plain path and in pydnmfk_tpu/ops/kl.py:33-34,
 // which divides the integer A by an f32 WH.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -98,6 +99,7 @@ constexpr int LDA = TN + 1;   // padded row stride of the A / U tile
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_f32(uint8_t x) { return static_cast<float>(x); }
 
 template <typename T>
@@ -317,6 +319,27 @@ template <> struct Vec4<__nv_bfloat16> {
   static __device__ __forceinline__ void widen(raw v, float a[4]) {
     a[0] = __uint_as_float(v.x << 16); a[1] = __uint_as_float(v.x & 0xffff0000u);
     a[2] = __uint_as_float(v.y << 16); a[3] = __uint_as_float(v.y & 0xffff0000u);
+  }
+};
+
+template <> struct Vec4<__half> {
+  using raw = uint2;
+  static __device__ __forceinline__ raw zero() { return make_uint2(0u, 0u); }
+  static __device__ __forceinline__ raw load(const __half* p) {
+    return __ldcs(reinterpret_cast<const uint2*>(p));
+  }
+  static __device__ __forceinline__ raw load_scalar(const __half* p, int valid) {
+    const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
+    unsigned e[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) e[i] = i < valid ? (unsigned)__ldcs(q + i) : 0u;
+    return make_uint2(e[0] | (e[1] << 16), e[2] | (e[3] << 16));
+  }
+  // every f16 value is an f32 value: the conversion is exact
+  static __device__ __forceinline__ void widen(raw v, float a[4]) {
+    const float2 lo = __half22float2(*reinterpret_cast<const __half2*>(&v.x));
+    const float2 hi = __half22float2(*reinterpret_cast<const __half2*>(&v.y));
+    a[0] = lo.x; a[1] = lo.y; a[2] = hi.x; a[3] = hi.y;
   }
 };
 
@@ -806,7 +829,8 @@ cudaError_t dispatch(bool uht, const void* A, const void* W, const void* H,
 
 }  // namespace
 
-// Plain C interface, bound with ctypes. A is (B, m, n) in f32, bf16 or uint8;
+// Plain C interface, bound with ctypes. A is (B, m, n) in f32, bf16, f16 or
+// uint8;
 // W is (B, m, k) and H is (B, k, n) in f32, all contiguous. out is (B, m, k)
 // for UHT and (B, k, n) for WTU, f32; every element is written. WTU takes
 // its row split: rows_per_split rows of each member per block (S = ceil(m /
@@ -830,9 +854,11 @@ cudaError_t dispatch(bool uht, const void* A, const void* W, const void* H,
   }
 KL_UHT(f32, float)
 KL_UHT(bf16, __nv_bfloat16)
+KL_UHT(f16, __half)
 KL_UHT(u8, uint8_t)
 KL_WTU(f32, float)
 KL_WTU(bf16, __nv_bfloat16)
+KL_WTU(f16, __half)
 KL_WTU(u8, uint8_t)
 
 // K2b's geometry at factor width k, for the wrapper's row split

@@ -1,7 +1,7 @@
 // Tile helpers of the tensor-core kernels (K1's and K3's, csrc/fused_mu_fro.cu
 // and csrc/fused_mu_kl.cu): swizzled shared-memory tiles of 128-byte rows,
-// cp.async copies, ldmatrix, bf16 mma.sync and the exact widening of uint8
-// values. Included inside each file's anonymous namespace tc, so each
+// cp.async copies, ldmatrix, bf16 and f16 mma.sync and the exact widening of
+// uint8 values. Included inside each file's anonymous namespace tc, so each
 // library keeps its own internal copy; the library hash
 // (ops/cuda_lib.py::library_path) covers this header.
 #pragma once
@@ -83,6 +83,28 @@ __device__ __forceinline__ void mma_bf16_k8(float (&c)[4], uint32_t a0, uint32_t
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a0), "r"(a1), "r"(b0));
 }
+
+// c += a b with f16 operands: the fragments of mma_bf16, f16 values
+__device__ __forceinline__ void mma_f16(float (&c)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 as packed f16 (cvt.rn.f16x2.f32), lo in the low half
+__device__ __forceinline__ uint32_t f16x2(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// the bits of a 16-bit float, for copies element by element
+__device__ __forceinline__ unsigned short bits16(__nv_bfloat16 x) {
+  return __bfloat16_as_ushort(x);
+}
+__device__ __forceinline__ unsigned short bits16(__half x) { return __half_as_ushort(x); }
 
 // two f32 as packed bf16 (cvt.rn.bf16x2.f32), lo in the low half
 __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {

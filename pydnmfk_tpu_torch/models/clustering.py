@@ -14,6 +14,10 @@ leading axis: W_all (p, m, k), H_all (p, k, n). Semantics kept:
   * the reference clusters twice (fit, then dist_silhouettes re-clusters
     from the permuted first slice, :140).
 
+Half factors keep their dtype, with f32 sums in the norms and products
+(clustering.py:40-41, :66, :98, :109-111); the silhouettes are summed in
+f32 and returned at the factors' dtype.
+
 Within one alignment iteration the centroids are fixed, so the p
 perturbations align independently: their similarity matrices come from one
 batched product and the greedy assignments run on the host, one transfer of
@@ -23,6 +27,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..ops import linalg
 
 
 def normalize_by_w(W_all, H_all, eps):
@@ -71,7 +77,7 @@ def _cluster_loop(W_all, H_all, eps):
     ident = np.arange(k)
     it, moved = 0, True
     while it < N_ITER and (moved or it <= 1):
-        dist = torch.matmul(centroids.mT, W_all)                 # (p, k, k)
+        dist = linalg.matmul(centroids.mT, W_all)                # (p, k, k)
         perms = np.stack([greedy_assignment(d)
                           for d in dist.to(torch.float32).cpu().numpy()])
         moved = bool((perms != ident).any())

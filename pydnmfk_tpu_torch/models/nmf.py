@@ -26,6 +26,7 @@ import torch
 from ..config import NMFConfig, check_device
 from ..ops import cuda_lib, fused_kl, fused_mu, linalg, sparse
 from ..utils import timing
+from ..utils.convert import as_tensor
 from ..utils.pruning import prune_all, unprune_columns, unprune_factors
 from . import updates
 
@@ -39,17 +40,22 @@ def step_for(A, W, norm: str, W_update: bool, chunk: int,
     of the two-pass MU step: plain products of a dense A, K4 for the dual
     ELL. For MU, ``use_fused`` is the config's:
 
-    * FRO with a W update on CUDA takes kernel K1 for k <= 64 and an f32,
-      bf16 or uint8 A with f32 factors, unless ``use_fused`` is False;
-      otherwise the two-pass step of plain products, which is what JAX runs
-      outside any kernel. The W-frozen refit is always the two-pass step,
-      as in JAX.
+    The kernels take A's and the factors' dtypes where
+    ``cuda_lib.kernel_types`` says so: f32 factors with an f32, bf16, f16 or
+    uint8 A; bf16 or f16 factors with a bf16, f16 or uint8 A. An A wider
+    than its factors (f32 under half factors) and f64 take the plain
+    products.
+
+    * FRO with a W update on CUDA takes kernel K1 for k <= 64 and kernel
+      dtypes, unless ``use_fused`` is False; otherwise the two-pass step of
+      plain products, which is what JAX runs outside any kernel. The
+      W-frozen refit is always the two-pass step, as in JAX.
     * KL with ``use_fused=True`` and a W update takes the one-pass step,
-      kernel K3 on CUDA, for k <= 64, a non-f64 A and f32 factors (on the
-      CPU its plain version); f64 keeps the plain products, as
+      kernel K3 on CUDA, for k <= 64 and kernel dtypes (on the CPU its
+      plain version); other dtypes keep the plain products, as
       ``updates.mu_kl_step`` does for K2.
-    * Otherwise KL takes the ratio products, kernels K2a/K2b on CUDA for an
-      f32, bf16 or uint8 A (``updates.mu_kl_step``).
+    * Otherwise KL takes the ratio products, kernels K2a/K2b on CUDA for
+      kernel dtypes (``updates.mu_kl_step``).
     * A sparse A takes the two-pass steps over its format's products: K4 on
       CUDA for the dual ELL (``ops/ell.py``); K1, K2 and K3 never see it.
     """
@@ -59,7 +65,7 @@ def step_for(A, W, norm: str, W_update: bool, chunk: int,
         step = updates.mu_fro_step if norm == "fro" else updates.mu_kl_step
         return partial(step, W_update=W_update)
     k = W.shape[-1]
-    kernel_types = A.dtype in cuda_lib.A_SUFFIX and W.dtype == torch.float32
+    kernel_types = cuda_lib.kernel_types(A.dtype, W.dtype)
     if norm == "fro":
         if (W_update and use_fused is not False and A.is_cuda and kernel_types
                 and k <= fused_mu.MAX_K):
@@ -148,8 +154,11 @@ def solve(A, W, H, eps, cfg: NMFConfig):
             "sparse A supports MU (fro/kl) and HALS; the BCD objective "
             "needs the dense residual every inner step")
     dense_chunk = 0 if linalg.is_sparse(A) else linalg.error_chunk_rows(m, n)
+    # the plain KL products' ratio slab: kl_chunk rows, else automatic
+    # (nmf.py:238-242)
+    kl_rows = 0 if linalg.is_sparse(A) else (cfg.kl_chunk or dense_chunk)
     return _solve(A, W, H, eps, norm=norm, itr=cfg.itr, W_update=cfg.W_update,
-                  chunk=dense_chunk if norm == "kl" else 0,
+                  chunk=kl_rows if norm == "kl" else 0,
                   use_fused=cfg.use_fused, tol=float(cfg.tol),
                   tol_check_every=int(cfg.tol_check_every),
                   err_chunk=dense_chunk, method=method,
@@ -190,7 +199,7 @@ class NMF:
         quantized = not cfg.a_dtype.is_floating_point
         if not linalg.is_sparse(A):
             dtype = cfg.dtype if quantized else cfg.a_dtype
-            return torch.as_tensor(A).to(self.device, dtype).contiguous()
+            return as_tensor(A).to(self.device, dtype).contiguous()
         if quantized:
             raise ValueError("quantized (uint8) A storage applies to dense A "
                              "(the sparse formats store only the nnz values); "
@@ -236,8 +245,8 @@ class NMF:
         A = self._prepare(A)
         with timing.timed("init_factors"):
             if factors is not None:
-                W = torch.as_tensor(factors[0]).to(self.device, cfg.dtype)
-                H = torch.as_tensor(factors[1]).to(self.device, cfg.dtype)
+                W = as_tensor(factors[0]).to(self.device, cfg.dtype)
+                H = as_tensor(factors[1]).to(self.device, cfg.dtype)
             else:
                 W, H = self.init_factors(A)
         self.prune_state = None

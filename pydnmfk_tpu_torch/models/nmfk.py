@@ -33,7 +33,8 @@ from ..ops import ell, linalg, sparse
 from ..utils import timing
 from ..utils.checkpoint import (Checkpoint, FLAG_CLUSTERED, FLAG_PERTS_DONE,
                                 FLAG_RUNNING, FLAG_SAVED)
-from ..utils.io import DataWriter, read_cluster_results
+from ..utils.convert import as_tensor
+from ..utils.io import DataWriter, read_cluster_results, to_numpy
 from ..utils.pruning import prune_A, unprune_columns, unprune_factors
 from . import nmf as nmf_mod
 from . import sampler
@@ -45,6 +46,9 @@ from .svd import nnsvd_factors
 # working-set multiple of the factors per ensemble member: W and H, the MU
 # numerators and denominators, the init draws (utils/memory.py's F_WORK)
 F_WORK = 8
+# the share of an explicit memory budget the batch may fill
+# (utils/memory.py's HEADROOM)
+HEADROOM = 0.85
 
 
 class NMFk:
@@ -110,7 +114,7 @@ class NMFk:
 
     def _format(self, A):
         if not linalg.is_sparse(A):
-            return torch.as_tensor(A).to(self.device,
+            return as_tensor(A).to(self.device,
                                          self.cfg.nmf.dtype).contiguous()
         if not isinstance(A, sparse.SparseTriplet):
             raise TypeError("NMFk takes a sparse A as a SparseTriplet (its "
@@ -135,31 +139,52 @@ class NMFk:
         return A.with_data(data)
 
     def _ensemble_batch_size(self, A, k) -> int:
-        """Members per batched solve: ``ensemble_batch``, or on CUDA as many
-        as fit in half of the free device memory; on the CPU all of them.
-        A dense member costs its copy of A at the storage dtype and an f32
-        slab of the same size for working products (the plain path widens a
-        bf16 A), and under nnsvd its Gram, eigenvectors and ``eigh``'s
-        workspace (three min(m, n)^2 f32 arrays). A sparse member
+        """Members per batched solve: ``ensemble_batch``, or as many as fit
+        the memory budget (``utils/memory.py``): ``hbm_budget``, else the
+        ``PYDNMFK_HBM_BUDGET`` environment variable, less the shared A (at
+        the work precision) and a 15 % headroom; else, on CUDA, half of the
+        free device memory. Without a budget the CPU takes all of them.
+
+        A dense member costs its copy of A at ``a_dtype``; under KL the
+        plain products' f32 ratio slab (``kl_chunk`` rows, else the
+        automatic ones, else all m); under nnsvd its Gram, eigenvectors and
+        ``eigh``'s workspace (three min(m, n)^2 f32 arrays) and the f32
+        copy of a narrower member that the SVD takes; and its factors'
+        working set at their byte width. A sparse member
         (utils/memory.py:67-87) costs its f32 noise draw and data copy, the
-        ELL value arrays of both orientations, and its factors' working
-        set."""
+        ELL value arrays of both orientations (on the card), and its
+        factors' working set."""
         cfg = self.cfg
-        a_item = torch.empty((), dtype=cfg.nmf.a_dtype).element_size()
+        ncfg = cfg.nmf
         if cfg.ensemble_batch:
-            batch = cfg.ensemble_batch
-        elif A.device.type == "cuda":
-            m, n = A.shape
+            return max(1, min(int(cfg.ensemble_batch), cfg.perturbations))
+        a_item = torch.empty((), dtype=ncfg.a_dtype).element_size()
+        w_item = torch.empty((), dtype=ncfg.dtype).element_size()
+        m, n = A.shape
+        factors = (m + n) * k * w_item * F_WORK
+        if linalg.is_sparse(A):
+            slots = 0
             if self._ell is not None:
                 E = self._ell[0]
                 slots = sum(x.numel() for x in (E.rvals, E.rtail_d, E.cvals,
                                                 E.ctail_d))
-                per_member = (A.nse * (a_item + 4) + slots * a_item
-                              + (m + n) * k * 4 * F_WORK)
-            else:
-                per_member = m * n * (a_item + 4)
-                if cfg.nmf.init == "nnsvd":
-                    per_member += 3 * min(m, n) ** 2 * 4
+            per_member = A.nse * (a_item + 4) + slots * a_item + factors
+            shared = A.nse * (w_item + 8)
+        else:
+            per_member = m * n * a_item + factors
+            if ncfg.norm.lower() == "kl":
+                rows = ncfg.kl_chunk or linalg.error_chunk_rows(m, n) or m
+                per_member += min(rows, m) * n * 4
+            if ncfg.init == "nnsvd":
+                per_member += 3 * min(m, n) ** 2 * 4
+                if a_item < 4:
+                    per_member += m * n * 4
+            shared = m * n * w_item
+        budget = cfg.hbm_budget or int(float(
+            os.environ.get("PYDNMFK_HBM_BUDGET") or 0))
+        if budget:
+            batch = (budget * HEADROOM - shared) // per_member
+        elif A.device.type == "cuda":
             free, _ = torch.cuda.mem_get_info(A.device)
             batch = (free // 2) // per_member
         else:
@@ -178,13 +203,13 @@ class NMFk:
         ncfg = cfg.nmf.replace(k=k)
         sparse_A = linalg.is_sparse(A)
         if members is not None:
-            A_ens = torch.as_tensor(members[0]).to(self.device, ncfg.a_dtype)
+            A_ens = as_tensor(members[0]).to(self.device, ncfg.a_dtype)
             A_ens = A_ens.contiguous()
             if members[1] is None:
                 W0, H0 = self._init_members(ncfg, A_ens, None, A.shape,
                                             None)
             else:
-                W0, H0 = (torch.as_tensor(x).to(self.device, ncfg.dtype)
+                W0, H0 = (as_tensor(x).to(self.device, ncfg.dtype)
                           .contiguous() for x in members[1:])
             if sparse_A:
                 A_ens = self._members(A, A_ens)
@@ -266,7 +291,7 @@ class NMFk:
         avg_err = float(np.mean(recon_errs))
         aic = 2 * k + m0 * n0 * float(np.log(avg_err / (m0 * n0)))
         stats = {
-            "clusterSilhouetteCoefficients": cluster_sils.cpu().numpy(),
+            "clusterSilhouetteCoefficients": to_numpy(cluster_sils),
             "avgSilhouetteCoefficients": float(avg_sil),
             "L_errDist": L_errDist,
             "L_err": col_err,

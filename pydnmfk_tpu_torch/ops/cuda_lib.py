@@ -24,11 +24,14 @@ from pathlib import Path
 
 import torch
 
+from .linalg import HALF
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pydnmfk_tpu_torch"
 KERNEL_SOURCES = ("fused_mu_fro", "kl_ratio", "ell_gather", "fused_mu_kl")
 # the A dtypes of the dense kernels (K1, K2, K3) and their C-name suffixes
-A_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16", torch.uint8: "u8"}
+A_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16",
+            torch.float16: "f16", torch.uint8: "u8"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -79,16 +82,35 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(build(name)))
 
 
-def check_operands(kernel: str, A, **factors) -> None:
-    """Raises unless A is f32, bf16 or uint8 and the factors are f32, all on
-    A's device and contiguous: what the dense kernels take."""
+def kernel_types(a_dtype: torch.dtype, w_dtype: torch.dtype) -> bool:
+    """True where the dense kernels take an A of ``a_dtype`` with factors of
+    ``w_dtype``: f32 factors with an f32, bf16, f16 or uint8 A; bf16 or f16
+    factors with a bf16, f16 or uint8 A (the factors are widened to f32,
+    exactly, for the launch, and the products' operands follow A's dtype, as
+    the JAX package's fused kernels' ``matmul_compute_dtype`` does). An A
+    wider than its factors, and f64 anywhere, take the plain products."""
+    if w_dtype == torch.float32:
+        return a_dtype in A_SUFFIX
+    return w_dtype in HALF and a_dtype in (*HALF, torch.uint8)
+
+
+def check_operands(kernel: str, A, factors: dict, f32: dict = None) -> None:
+    """Raises unless A and the ``factors`` (all of one dtype) pair as
+    :func:`kernel_types` says the dense kernels take them, the ``f32``
+    tensors are f32, and all lie on A's device, contiguous."""
+    f32 = f32 or {}
     if A.dtype not in A_SUFFIX:
-        raise TypeError(f"{kernel} takes an f32, bf16 or uint8 A, got "
+        raise TypeError(f"{kernel} takes an f32, bf16, f16 or uint8 A, got "
                         f"{A.dtype}")
     for name, t in factors.items():
+        if not kernel_types(A.dtype, t.dtype):
+            raise TypeError(f"{kernel} takes f32 factors, or bf16 / f16 ones "
+                            f"with a bf16, f16 or uint8 A; got {name} "
+                            f"{t.dtype} with A {A.dtype}")
+    for name, t in f32.items():
         if t.dtype != torch.float32:
             raise TypeError(f"{kernel} takes an f32 {name}, got {t.dtype}")
-    for name, t in (("A", A), *factors.items()):
+    for name, t in (("A", A), *factors.items(), *f32.items()):
         if t.device != A.device:
             raise ValueError(f"{kernel}: {name} is on {t.device}, A on "
                              f"{A.device}")

@@ -7,8 +7,11 @@ Port of ``pydnmfk_tpu/ops/pallas_ell.py`` and of the plain product of
     coef = vals[e, b, s]                                       (plain)
     coef = vals[e, b, s] / (<X[e, b, :], T[e, idx[b, s], :]> + eps)   (ratio)
 
-vals (..., dim, w) f32 or bf16; idx (dim, w) int32, shared by the members;
-the table T (..., dim_t, k) and X (..., dim, k) f32; out (..., dim, k) f32.
+vals (..., dim, w) f32, bf16 or f16; idx (dim, w) int32, shared by the
+members; the table T (..., dim_t, k) and X (..., dim, k) f32, or bf16 / f16
+factors, which the wrapper widens to f32 (exact; the table is k-sized, not
+nnz-sized); out (..., dim, k) f32. f16 values count their launches under
+their own keys.
 The row orientation of an ELL A takes T = H^T (A H^T, and with X = W the KL
 product UHT); the column orientation takes T = W (W^T A, and with X = H^T
 the KL product WTU).
@@ -33,11 +36,13 @@ import math
 import torch
 
 from .cuda_lib import check, load
-from .linalg import acc_dtype
+from .linalg import HALF, acc_dtype
 
 # K4 launches since the last reset, by mode (counted where the kernel
 # launches)
-launches = {"ell_gather": 0, "ell_gather_ratio": 0}
+launches = {"ell_gather": 0, "ell_gather_ratio": 0, "ell_gather_f16": 0,
+            "ell_gather_ratio_f16": 0}
+_VALS = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
 
 MAX_K = 256         # widest factor row one group of lanes holds
 L2_SHARE = 0.5      # of the card's L2 that one group's table may fill
@@ -137,7 +142,8 @@ def interleave(T, group: int, kp: int):
 def _lib():
     lib = load("ell_gather")
     p, i = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.ell_gather_f32, lib.ell_gather_bf16):
+    for suffix in _VALS.values():
+        fn = getattr(lib, f"ell_gather_{suffix}")
         fn.argtypes = [p, p, p, p, ctypes.c_float, i, i, i, i, i, i, i, p, p]
         fn.restype = i
     lib.ell_gather_interleave.argtypes = [p, p, i, i, i, i, i, p]
@@ -208,8 +214,11 @@ def _launch(vals, idx, T, X, eps, group=None):
             f"T {tuple(T.shape)}, X {None if X is None else tuple(X.shape)}")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"K4 takes 1 <= k <= {MAX_K}, got k={k}")
-    if vals.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"K4 takes f32 or bf16 values, got {vals.dtype}")
+    if vals.dtype not in _VALS:
+        raise TypeError(f"K4 takes f32, bf16 or f16 values, got {vals.dtype}")
+    if T.dtype in HALF:
+        T = T.float()
+        X = X.float() if ratio else None
     if idx.dtype != torch.int32:
         raise TypeError(f"K4 takes int32 indices, got {idx.dtype}")
     named = (("vals", vals), ("idx", idx), ("T", T)) + (
@@ -225,7 +234,7 @@ def _launch(vals, idx, T, X, eps, group=None):
     kp, G = group_for(B, dim_t, k, vals.device, group)
     out = torch.empty((B, dim, k), dtype=torch.float32, device=vals.device)
     lib = _lib()
-    fn = lib.ell_gather_f32 if vals.dtype == torch.float32 else lib.ell_gather_bf16
+    fn = getattr(lib, f"ell_gather_{_VALS[vals.dtype]}")
     table = grouped_table(T, G, kp) if G else T
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream(vals.device).cuda_stream
@@ -233,7 +242,8 @@ def _launch(vals, idx, T, X, eps, group=None):
                 X.data_ptr() if ratio else None, float(eps), int(ratio), B,
                 dim, w, dim_t, k, G, out.data_ptr(), stream)
     check(rc, lib, "ell_gather_error_string", "K4 ell_gather")
-    launches["ell_gather_ratio" if ratio else "ell_gather"] += 1
+    launches[("ell_gather_ratio" if ratio else "ell_gather")
+             + ("_f16" if vals.dtype == torch.float16 else "")] += 1
     return out[0] if single else out
 
 

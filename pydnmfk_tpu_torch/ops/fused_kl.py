@@ -16,14 +16,21 @@ Inputs are one matrix or a stack with the ensemble member as the leading
 axis. Each A dtype counts its launches under its own key, as K1's do.
 
 Types (``fused_kl.py:52-81``): with an f32 A every product is f32. With a
-bf16 or uint8 A the products take bf16 operands with f32 sums: W is rounded
-for W H, U for U H^T, W' for W' H, W' and U' for W'^T U', and H for all of
-them. rowsum(H) and the W' update stay f32. The bf16 rounding of U and U'
-has no counterpart in K2's step, so at bf16 and uint8 this step differs
-from ``updates.mu_kl_step`` by more than f32 rounding. For a bf16 or uint8
-A the kernel takes H already rounded to bf16 (cast here, the JAX package's
-rule, ``pydnmfk_tpu/ops/fused_kl.py:154-155``); the plain version rounds the
-same H inside its products, so both compute the same function.
+bf16, f16 or uint8 A the products take bf16 operands with f32 sums: W is
+rounded for W H, U for U H^T, W' for W' H, W' and U' for W'^T U', and H for
+all of them. A itself is widened exactly to f32 for the ratios. rowsum(H)
+and the W' update stay f32. The bf16 rounding of U and U' has no
+counterpart in K2's step, so at a narrow A this step differs from
+``updates.mu_kl_step`` by more than f32 rounding. For an f16 A the JAX
+package rounds the operands to f16 (``matmul_compute_dtype``); the port
+keeps bf16 for range: with f32 factors eps is 1.2e-7, and U = A / (W H +
+eps) can pass f16's largest value, 65504. The kernel takes H already
+rounded to bf16 (cast here, the JAX package's rule,
+``pydnmfk_tpu/ops/fused_kl.py:154-155``); the plain version rounds the same
+H inside its products, so both compute the same function. The factors are
+f32, or bf16 / f16 with a bf16, f16 or uint8 A
+(``cuda_lib.kernel_types``): half factors are widened to f32 for the launch,
+and W' is rounded once to their dtype.
 """
 from __future__ import annotations
 
@@ -34,21 +41,24 @@ import torch
 
 from . import linalg
 from .cuda_lib import A_SUFFIX, check, check_operands, load
+from .linalg import HALF
 
 # K3 launches since the last reset (counted where the kernel is launched):
-# f32 A, bf16 A and uint8 A
-launches = {"fused_mu_kl": 0, "fused_mu_kl_bf16": 0, "fused_mu_kl_u8": 0}
+# f32 A, bf16 A, f16 A and uint8 A
+launches = {"fused_mu_kl": 0, "fused_mu_kl_bf16": 0, "fused_mu_kl_f16": 0,
+            "fused_mu_kl_u8": 0}
 _KEY = {torch.float32: "fused_mu_kl", torch.bfloat16: "fused_mu_kl_bf16",
-        torch.uint8: "fused_mu_kl_u8"}
+        torch.float16: "fused_mu_kl_f16", torch.uint8: "fused_mu_kl_u8"}
 
 MAX_K = 64          # the kernel keeps k <= 64 factor columns per thread block
 
 
 def _bf16_operands(A) -> bool:
-    """True where the products take bf16 operands: a bf16 or 8-bit A
-    (``pallas_kernels.py::matmul_compute_dtype`` off the TPU)."""
-    return A.dtype == torch.bfloat16 or (not A.dtype.is_floating_point
-                                         and A.dtype.itemsize == 1)
+    """True where the products take bf16 operands: a bf16, f16 or 8-bit A
+    (``pallas_kernels.py::matmul_compute_dtype`` off the TPU, with f16 kept
+    at bf16 for range, module docstring)."""
+    return A.dtype in HALF or (not A.dtype.is_floating_point
+                               and A.dtype.itemsize == 1)
 
 
 def fused_kl_pass_plain(A, W, H, hrs, eps, chunk: int = 0):
@@ -102,7 +112,10 @@ def _fused_kl_pass_cuda(A, W, H, hrs, eps):
                          f"H {tuple(H.shape)}, hrs {tuple(hrs.shape)}")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"K3 takes 1 <= k <= {MAX_K}, got k={k}")
-    check_operands("K3", A, W=W, H=H, hrs=hrs)
+    check_operands("K3", A, {"W": W, "H": H}, {"hrs": hrs})
+    w_dtype = W.dtype
+    if w_dtype in HALF:
+        W, H = W.float(), H.float()
     if A.dtype != torch.float32:       # the bf16 kernels' operand
         H = H.to(torch.bfloat16)
     W_out = torch.empty_like(W)
@@ -116,6 +129,7 @@ def _fused_kl_pass_cuda(A, W, H, hrs, eps):
                 stream)
     check(rc, lib, "fused_mu_kl_error_string", "K3 fused_mu_kl")
     launches[_KEY[A.dtype]] += 1
+    W_out = W_out.to(w_dtype)
     if single:
         return W_out[0], WTU[0]
     return W_out, WTU

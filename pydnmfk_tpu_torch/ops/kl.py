@@ -11,9 +11,16 @@ ratio U = A / (W H + eps),
 tensor they run the plain versions, which bound U to ``chunk`` rows at a
 time (``kl.py::_chunked``); for a CUDA tensor they launch the kernel, which
 never writes U to device memory, or raise. Inputs are one matrix or a stack
-with the ensemble member as the leading axis. A is f32, bf16 or uint8, and
-the ratio is f32 for each of them, as ``pydnmfk_tpu/ops/kl.py:33-34``
-divides the integer A by an f32 WH.
+with the ensemble member as the leading axis. A is f32, bf16, f16 or uint8, and
+the kernels' ratio is f32 for each of them, as ``pydnmfk_tpu/ops/kl.py:33-34``
+divides the integer A by an f32 WH. The factors are f32, or bf16 / f16 with
+a bf16, f16 or uint8 A (``cuda_lib.kernel_types``): half factors are
+widened to f32 for the launch (exact, k / n of A's bytes), and the f32 sums
+are rounded once to the factor dtype, as the JAX package's ``.astype``
+after its kernels does (``pallas_kernels.py:150``, ``:189``). Its plain
+path rounds W H, U and each product to the half dtype instead, so at half
+factors kernel and plain version differ by that rounding. An f16 A counts
+its launches under its own keys.
 
 K2b splits each member's rows over several blocks where its strips of
 columns alone would leave SMs idle (the single-member refit of NMFk):
@@ -29,10 +36,11 @@ import functools
 import torch
 
 from .cuda_lib import A_SUFFIX, check, check_operands, load
-from .linalg import matmul
+from .linalg import HALF, matmul
 
-# K2a / K2b launches since the last reset (counted where a kernel launches)
-launches = {"kl_uht": 0, "kl_wtu": 0}
+# K2a / K2b launches since the last reset (counted where a kernel launches):
+# an f32, bf16 or uint8 A, and an f16 A
+launches = {"kl_uht": 0, "kl_wtu": 0, "kl_uht_f16": 0, "kl_wtu_f16": 0}
 
 MAX_K = 256         # widest factor the kernels' shared-memory tiles hold
 # K2b's row split, where its strips alone leave SMs idle: aim at this many
@@ -137,7 +145,10 @@ def _launch(which: str, A, W, H, eps, splits=None):
                          f"H {tuple(H.shape)}")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"K2 takes 1 <= k <= {MAX_K}, got k={k}")
-    check_operands("K2", A, W=W, H=H)
+    check_operands("K2", A, {"W": W, "H": H})
+    out_dtype = torch.result_type(A, W)
+    if W.dtype in HALF:
+        W, H = W.float(), H.float()
     shape = (B, m, k) if which == "kl_uht" else (B, k, n)
     out = torch.empty(shape, dtype=torch.float32, device=A.device)
     lib = _lib()
@@ -153,7 +164,8 @@ def _launch(which: str, A, W, H, eps, splits=None):
         stream = torch.cuda.current_stream(A.device).cuda_stream
         rc = fn(*args, out.data_ptr(), stream)
     check(rc, lib, "kl_ratio_error_string", f"K2 {which}")
-    launches[which] += 1
+    launches[which + ("_f16" if A.dtype == torch.float16 else "")] += 1
+    out = out.to(out_dtype)
     return out[0] if single else out
 
 

@@ -7,16 +7,24 @@ axis. A sparse A (``ops/sparse.py`` triplet, ``ops/ell.py`` dual ELL) takes
 the sparse products, and its errors come from the Gram identity, so the
 dense m x n residual never exists.
 
-Precision policy: f32 products run in true f32 (TF32 off, PyTorch's default
-for matrix products); f64 runs in f64. A bf16-stored A meets an f32 factor as
-the JAX package's mixed-precision rule has it: both operands rounded to bf16,
-products summed in f32, result in f32. A uint8-quantized A
-(:func:`quantize_uint8`) takes the JAX package's integer rule: bf16 operands
-(exact for 8-bit values), f32 sums.
+Precision policy (``pydnmfk_tpu/ops/linalg.py:60-88``): f32 products run
+in true f32 (TF32 off, PyTorch's default for matrix products); f64 runs in
+f64. A bf16 or f16 product sums in f32 and returns its half dtype. Mixed
+floats (a bf16- or f16-stored A against an f32 factor) round both operands
+to the narrower dtype, sum in f32 and return the wider dtype. A
+uint8-quantized A (:func:`quantize_uint8`) takes the integer rule: bf16
+operands (exact for 8-bit values), f32 sums, the factor's dtype out. On the
+CPU a half operand is widened exactly to f32 for the product; on the card
+the half operands go to cuBLAS as they are, summed in f32, so an A-sized
+half operand is never copied to f32.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+HALF = (torch.bfloat16, torch.float16)
 
 
 def is_sparse(x) -> bool:
@@ -30,13 +38,9 @@ def acc_dtype(dtype: torch.dtype) -> torch.dtype:
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Matrix product with f32 (or f64) accumulation.
-
-    Same-dtype f32/f64 operands multiply as they are. Mixed dtypes round both
-    operands to the narrower one, accumulate in the wider one's accumulation
-    dtype and return the wider dtype (``pydnmfk_tpu/ops/linalg.py:81-88``):
-    bf16 operands are widened exactly to f32 before the f32 product. An
-    integer operand takes the integer rule (:func:`_matmul_int`)."""
+    """Matrix product with f32 (or f64) sums, by the module's precision
+    policy. Same-dtype f32/f64 operands multiply as they are; an integer
+    operand takes the integer rule (:func:`_matmul_int`)."""
     if a.dtype == b.dtype and a.dtype in (torch.float32, torch.float64):
         return torch.matmul(a, b)
     if not (a.dtype.is_floating_point and b.dtype.is_floating_point):
@@ -44,9 +48,45 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     narrow, wide = ((a.dtype, b.dtype)
                     if torch.finfo(a.dtype).bits <= torch.finfo(b.dtype).bits
                     else (b.dtype, a.dtype))
-    acc = acc_dtype(wide)
-    out = torch.matmul(a.to(narrow).to(acc), b.to(narrow).to(acc))
-    return out.to(wide)
+    return _product(a.to(narrow), b.to(narrow), wide)
+
+
+def _product(a: torch.Tensor, b: torch.Tensor, out: torch.dtype):
+    """a @ b of two operands of one dtype, summed at the accumulation dtype
+    of ``out`` and returned at ``out``."""
+    acc = acc_dtype(out)
+    if a.dtype not in HALF:
+        return torch.matmul(a.to(acc), b.to(acc)).to(out)
+    if a.device.type != "cuda" or acc != torch.float32:
+        # exact: a product of two half values is an f32 value
+        return torch.matmul(a.to(acc), b.to(acc)).to(out)
+    with f32_sums():
+        if out == a.dtype:
+            return torch.matmul(a, b)
+        # f32 out of half operands (cuBLAS's only mixed output); a small
+        # operand of any other rank is widened
+        if a.dim() == b.dim() == 2:
+            return torch.mm(a, b, out_dtype=torch.float32).to(out)
+        if a.dim() == b.dim() == 3:
+            return torch.bmm(a, b, out_dtype=torch.float32).to(out)
+        return torch.matmul(a.float(), b.float()).to(out)
+
+
+@contextlib.contextmanager
+def f32_sums():
+    """Inside the block cuBLAS sums half products in f32, as the JAX
+    package's ``preferred_element_type`` asks (reduced-precision reductions
+    off); the caller's settings come back when it ends."""
+    m = torch.backends.cuda.matmul
+    saved = (m.allow_bf16_reduced_precision_reduction,
+             m.allow_fp16_reduced_precision_reduction)
+    m.allow_bf16_reduced_precision_reduction = False
+    m.allow_fp16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        (m.allow_bf16_reduced_precision_reduction,
+         m.allow_fp16_reduced_precision_reduction) = saved
 
 
 def _matmul_int(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -60,8 +100,7 @@ def _matmul_int(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         wide = torch.float32
     if int_dt.itemsize == 1 and wide != torch.float64:
         bf = torch.bfloat16
-        out = torch.matmul(a.to(bf).float(), b.to(bf).float())
-        return out.to(wide)
+        return _product(a.to(bf), b.to(bf), wide)
     acc = acc_dtype(wide)
     return torch.matmul(a.to(acc), b.to(acc)).to(wide)
 
@@ -109,6 +148,11 @@ def sqnorm(X) -> torch.Tensor:
     return (Xa * Xa).sum((-2, -1))
 
 
+def fro_norm(X) -> torch.Tensor:
+    """Frobenius norm with f32/f64 accumulation (``linalg.py:147-148``)."""
+    return torch.sqrt(sqnorm(X))
+
+
 def sum_axis(X: torch.Tensor, axis: int) -> torch.Tensor:
     return X.to(acc_dtype(X.dtype)).sum(dim=axis).to(X.dtype)
 
@@ -117,17 +161,25 @@ def _residual_sums(A, W, H, chunk, per_column, with_den=True):
     """Sums of (A - WH)^2 and A^2 (unless not ``with_den``) over rows, for
     all columns or per column, over row slabs of ``chunk`` rows so that the
     m x n residual (and W H) never exists whole; slicing A makes views,
-    never a copy."""
+    never a copy. As in ``linalg.py:164-212``, the direct residual (no
+    chunk) is taken at the operands' dtype and a slab's at the
+    accumulation dtype, which differ only for half operands."""
     acc = acc_dtype(A.dtype)
     m = A.shape[0]
-    step = chunk if chunk and chunk < m else m
+    direct = not chunk or chunk >= m
+    step = m if direct else chunk
     shape = (A.shape[1],) if per_column else ()
     num = torch.zeros(shape, dtype=acc, device=A.device)
     den = torch.zeros(shape, dtype=acc, device=A.device)
     dims = (0,) if per_column else (0, 1)
     for r0 in range(0, m, step):
-        a = A[r0:r0 + step].to(acc)
-        r = a - matmul(W[r0:r0 + step], H).to(acc)
+        wh = matmul(W[r0:r0 + step], H)
+        a = A[r0:r0 + step]
+        if direct:
+            r = (a - wh).to(acc)
+        else:
+            r = a.to(acc) - wh.to(acc)
+        a = a.to(acc)
         num += (r * r).sum(dim=dims)
         if with_den:
             den += (a * a).sum(dim=dims)

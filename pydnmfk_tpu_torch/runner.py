@@ -28,6 +28,7 @@ class Runner:
                  sill_thr=0.6, sampling="uniform", process="pyDNMF",
                  a_precision=None, seed=100, tol=0.0, ensemble_batch=0,
                  save_factors=False, device="cuda", prune=False,
+                 hbm_budget=0, kl_chunk=0,
                  seed_grid=None, solve_checkpoint_every=0,
                  matmul_precision=None, bcd_obj=None,
                  sparse_grid_format=None, k_sweep_batch=None,
@@ -62,6 +63,8 @@ class Runner:
         self.save_factors = save_factors
         self.prune = prune
         self.bcd_obj = bcd_obj
+        self.hbm_budget = hbm_budget
+        self.kl_chunk = kl_chunk
         self.device = torch.device(device)
         timing.enable(timing_stats)
 
@@ -80,7 +83,7 @@ class Runner:
             verbose=self.verbose, results_path=results_path,
             a_precision=self.a_precision, seed=self.seed, tol=self.tol,
             save_factors=self.save_factors, prune=self.prune,
-            bcd_obj=self.bcd_obj)
+            bcd_obj=self.bcd_obj, kl_chunk=self.kl_chunk)
         with timing.timed("read"):
             A = DataReader(fpath, fname, ftype, precision=self.precision).read()
 
@@ -92,7 +95,8 @@ class Runner:
                 noise_var=self.noise_var, sampling=self.sampling,
                 sill_thr=self.sill_thr, checkpoint=self.checkpoint,
                 results_path=results_path, fname=fname,
-                ensemble_batch=self.ensemble_batch)
+                ensemble_batch=self.ensemble_batch,
+                hbm_budget=self.hbm_budget)
             results["nopt"] = NMFk(cfg, self.device).fit(A)
         else:
             W, H, err = NMF(nmf_cfg, self.device).fit(A)

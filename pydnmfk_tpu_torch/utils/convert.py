@@ -2,7 +2,7 @@
 
 :func:`config_from_jax` takes ``dataclasses.asdict`` of a
 ``pydnmfk_tpu`` NMFConfig or NMFkConfig; :func:`factors_from_numpy` takes
-its factors as numpy arrays; :func:`sparse_from_numpy` and
+its factors as numpy arrays (bf16 ones too, :func:`as_tensor`); :func:`sparse_from_numpy` and
 :func:`ell_from_numpy` take the arrays of a BCOO or an ``EllSparse``, so
 that both packages compute on the same operands. None of them imports JAX:
 the caller converts its arrays with ``numpy.asarray``.
@@ -40,6 +40,20 @@ def config_from_jax(d: dict):
     return NMFConfig(**_split(d, NMFConfig))
 
 
+def as_tensor(x) -> torch.Tensor:
+    """``torch.as_tensor(x)``, which also takes the numpy arrays of
+    ``ml_dtypes.bfloat16`` that ``numpy.asarray`` gives for a JAX bf16
+    array (torch rejects their dtype): through their uint16 bits, exactly.
+    A read-only array (``numpy.asarray`` of a JAX array) is copied."""
+    if isinstance(x, np.ndarray):
+        if not x.flags.writeable:
+            x = x.copy()
+        if x.dtype.name == "bfloat16":
+            bits = np.ascontiguousarray(x).view(np.uint16)
+            return torch.from_numpy(bits).view(torch.bfloat16)
+    return torch.as_tensor(x)
+
+
 def factors_from_numpy(W, H, device, dtype=torch.float32):
     """JAX factors (W (m,k), H (k,n), or ensembles (p,m,k), (p,k,n)) as
     contiguous tensors on ``device``."""
@@ -47,8 +61,8 @@ def factors_from_numpy(W, H, device, dtype=torch.float32):
     if W.ndim != H.ndim or W.ndim not in (2, 3) or W.shape[-1] != H.shape[-2]:
         raise ValueError(f"factor shapes {W.shape} and {H.shape} do not "
                          f"pair as W (..., m, k) and H (..., k, n)")
-    return (torch.as_tensor(W).to(device, dtype).contiguous(),
-            torch.as_tensor(H).to(device, dtype).contiguous())
+    return (as_tensor(W).to(device, dtype).contiguous(),
+            as_tensor(H).to(device, dtype).contiguous())
 
 
 def sparse_from_numpy(rows, cols, vals, shape, device="cpu") -> SparseTriplet:

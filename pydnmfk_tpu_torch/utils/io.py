@@ -7,6 +7,11 @@ matrix, or a scipy.sparse ``save_npz`` file (.npz) as a canonical
 of factors (``W_[reg_]factors/W.npy``, ``H_[reg_]factors/H.npy``) and
 per-k statistics.
 
+A reader at ``precision="bfloat16"`` returns a bf16 torch tensor (read at
+f32 and rounded by torch: numpy has no bf16 without ``ml_dtypes``); every
+other precision a numpy array. The writers save bf16 factors widened to f32
+(exact), since ``.npy`` has no bf16; f16 factors stay f16.
+
 The statistics go to ``results.h5`` with the reference's dataset names
 (data_io.py:198-209) where ``h5py`` is installed, and otherwise to
 ``results.npz`` with the same names; :func:`read_cluster_results` reads
@@ -50,7 +55,8 @@ class DataReader:
         self.precision = precision
 
     def read(self):
-        """The matrix: a numpy array, or a SparseTriplet for npz."""
+        """The matrix: a numpy array (a bf16 tensor at bfloat16), or a
+        SparseTriplet for npz."""
         path = os.path.join(self.fpath, self.fname + "." + self.ftype)
         if self.ftype == "npz":
             return self._read_sparse(path)
@@ -61,7 +67,12 @@ class DataReader:
             data = loadmat(path)["X"]
         else:
             data = np.loadtxt(path, delimiter=",", ndmin=2)
-        return np.asarray(data).astype(self.precision)
+        return self._cast(np.asarray(data))
+
+    def _cast(self, data: np.ndarray):
+        if self.precision == "bfloat16":
+            return torch.from_numpy(data.astype(np.float32)).to(torch.bfloat16)
+        return data.astype(self.precision)
 
     def _read_sparse(self, path):
         """A save_npz matrix as a canonical triplet: duplicates summed,
@@ -72,12 +83,14 @@ class DataReader:
         M.sum_duplicates()
         return from_coo(torch.from_numpy(M.row.astype(np.int32)),
                         torch.from_numpy(M.col.astype(np.int32)),
-                        torch.from_numpy(M.data.astype(self.precision)),
-                        M.shape)
+                        torch.as_tensor(self._cast(M.data)), M.shape)
 
 
-def _host(x) -> np.ndarray:
+def to_numpy(x) -> np.ndarray:
+    """x as a numpy array; a bf16 tensor widened to f32 (exact)."""
     if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:
+            x = x.float()
         return x.detach().cpu().numpy()
     return np.asarray(x)
 
@@ -95,12 +108,12 @@ class DataWriter:
         for name, X in (("W", W), ("H", H)):
             d = os.path.join(self.fpath, f"{name}_{tag}factors")
             os.makedirs(d, exist_ok=True)
-            np.save(os.path.join(d, f"{name}.npy"), _host(X))
+            np.save(os.path.join(d, f"{name}.npy"), to_numpy(X))
 
     def save_cluster_results(self, stats: dict, config: dict = None):
         """Per-k statistics under the reference's dataset names, with the
         run configuration as attributes (h5) or a ``config`` entry (npz)."""
-        data = {name: _host(stats[key])
+        data = {name: to_numpy(stats[key])
                 for name, key in RESULT_DATASETS.items()}
         try:
             import h5py

@@ -90,3 +90,25 @@ def test_single_column_ensemble():
     out = tc.cluster_ensemble(torch.from_numpy(W_all), torch.from_numpy(H_all),
                               EPS)
     assert float(out[4]) == 1.0 and out[5].shape == (1, 7)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("seed", [2, 3])
+def test_cluster_ensemble_at_half_matches_jax(dtype, seed):
+    """A planted ensemble at bf16 or f16 (clustering.py:40-41, :66, :98,
+    :109-111: f32 sums, half factors): the same cluster assignment of the
+    first pass's H, the silhouettes (compared in f32) to 1e-2 and the
+    centroids to a few ulps. Ties in the half-precision similarities could
+    order columns apart; the planted ensemble has none."""
+    W_all, H_all = _planted(seed)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    Wj, Hj = jnp.asarray(W_all, jdt), jnp.asarray(H_all, jdt)
+    ref = jc.cluster_ensemble(Wj, Hj, EPS)
+    out = tc.cluster_ensemble(torch.from_numpy(np.asarray(Wj, np.float32)).to(tdt),
+                              torch.from_numpy(np.asarray(Hj, np.float32)).to(tdt),
+                              EPS)
+    assert out[0].dtype == tdt and out[2].dtype == tdt
+    for name, i, tol in (("centroids", 0, 2e-2), ("cluster_sils", 3, 1e-2),
+                         ("avg_sil", 4, 1e-2), ("sils", 5, 1e-2)):
+        np.testing.assert_allclose(np_(out[i]), np_(ref[i]), rtol=0,
+                                   atol=tol, err_msg=name)

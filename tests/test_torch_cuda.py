@@ -1,15 +1,21 @@
 """Kernels K1, K2a, K2b, K3 and K4 on the card against their plain versions,
 at ragged shapes (odd n, so uint8 rows are not 4-byte aligned), every padded
-width of k, every A dtype (f32, bf16, uint8) and member stacks. These need a
-CUDA device and nvcc and skip without them; on a machine with a card run
-``python -m pytest -m gpu tests/test_torch_cuda.py``.
+width of k, every A dtype (f32, bf16, f16, uint8), half factors and member
+stacks. These need a CUDA device and nvcc and skip without them; on a
+machine with a card run ``python -m pytest -m gpu tests/test_torch_cuda.py``.
 
 Tolerance: max |kernel - plain| / max |plain| <= 1e-4 with an f32 A (sums in
 another order; K1's W'^T A and K3's W'^T U' also in atomic order), 1e-3 with
-a bf16 or uint8 A in K1 and K3 (operands rounded to bf16 where kernel and
-plain values may differ in the last f32 bit). K2 computes in f32 for every
-A dtype: 1e-4. K4 sums in another order only: 1e-4 for f32 and bf16 values
-alike (bf16 values are widened exactly)."""
+a bf16, f16 or uint8 A in K1 and K3 (operands rounded to bf16 or f16 where
+kernel and plain values may differ in the last f32 bit). K2 computes in f32
+for every A dtype: 1e-4. K4 sums in another order only: 1e-4 for f32, bf16
+and f16 values alike (they are widened exactly). Half factors add the
+rounding of W' (K1, K3) or of the products (K2) to the factor dtype, once in
+the kernel and, in K2's plain version, at every product as in the JAX
+package: 1e-2 for bf16 and 2e-3 for f16 factors (a few ulps). Half factors
+meet an A of their dtype, of the other half dtype, or uint8. Past f16's
+range an output is inf in kernel and plain version alike, and the finite
+entries are held to the same tolerances."""
 import pytest
 import torch
 
@@ -33,7 +39,7 @@ K1_SHAPES = SHAPES + [(1, 129, 66), (2, 257, 131), (3, 257, 200),
                       (2, 129, 20), (1, 5, 7), (1, 129, 208), (2, 513, 400),
                       (1, 257, 1040), (1, 33, 8), (2, 70, 16), (3, 300, 416)]
 K1_KEY = {torch.float32: "fused_mu_fro", torch.bfloat16: "fused_mu_fro_bf16",
-          torch.uint8: "fused_mu_fro_u8"}
+          torch.float16: "fused_mu_fro_f16", torch.uint8: "fused_mu_fro_u8"}
 
 
 @pytest.fixture
@@ -44,14 +50,19 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(dev, b, m, n, k, dtype):
-    """A (b, m, n) in dtype (a uint8 A holds 0..255), W and H in f32."""
+def _inputs(dev, b, m, n, k, dtype, w_dtype=torch.float32):
+    """A (b, m, n) in dtype (a uint8 A holds 0..255), W and H in w_dtype;
+    under f16 factors a uint8 A meets factors 16 times larger, which keeps
+    the ratio products inside f16's range (65504)."""
     g = torch.Generator(dev)
     g.manual_seed(b * m * n + k)
     A = torch.rand((b, m, n), generator=g, device=dev)
     A = (A * 255).round().to(dtype) if dtype == torch.uint8 else A.to(dtype)
-    return (A, torch.rand((b, m, k), generator=g, device=dev),
-            torch.rand((b, k, n), generator=g, device=dev))
+    scale = 16.0 if (dtype, w_dtype) == (torch.uint8, torch.float16) else 1.0
+    return (A, (scale * torch.rand((b, m, k), generator=g, device=dev)).to(
+                w_dtype),
+            (scale * torch.rand((b, k, n), generator=g, device=dev)).to(
+                w_dtype))
 
 
 def _rel(out, ref):
@@ -59,7 +70,15 @@ def _rel(out, ref):
                      / b.double().abs().max()) for a, b in zip(out, ref))
 
 
-DTYPES = [torch.float32, torch.bfloat16, torch.uint8]
+DTYPES = [torch.float32, torch.bfloat16, torch.float16, torch.uint8]
+# half factors and the A dtypes the kernels take with them: their own, the
+# other half dtype and uint8
+HALF_PAIRS = [(torch.bfloat16, torch.bfloat16), (torch.uint8, torch.bfloat16),
+              (torch.float16, torch.float16), (torch.uint8, torch.float16),
+              (torch.float16, torch.bfloat16), (torch.bfloat16, torch.float16)]
+HALF_TOL = {torch.bfloat16: 1e-2, torch.float16: 2e-3}
+HALF_SHAPES = [(1, 64, 48), (3, 130, 97), (2, 257, 131), (1, 129, 208),
+               (2, 513, 400)]
 
 
 @pytest.mark.parametrize("b,m,n", K1_SHAPES)
@@ -74,6 +93,22 @@ def test_k1_matches_plain(cuda, b, m, n, k, dtype):
     assert fused_mu.launches == {**before, key: before[key] + 1}
     ref = fused_mu.fused_w_pass_plain(A, W, H, HHT, EPS)
     assert _rel(out, ref) <= (1e-4 if dtype == torch.float32 else 1e-3)
+
+
+@pytest.mark.parametrize("b,m,n", HALF_SHAPES)
+@pytest.mark.parametrize("k", [3, 8, 17, 32, 64])
+@pytest.mark.parametrize("dtype,w_dtype", HALF_PAIRS)
+def test_k1_half_factors_match_plain(cuda, b, m, n, k, dtype, w_dtype):
+    """Half factors: widened for the launch, W' returned at their dtype."""
+    A, W, H = _inputs(cuda, b, m, n, k, dtype, w_dtype)
+    HHT = linalg.gram_t(H).float()
+    key = K1_KEY[dtype]
+    before = dict(fused_mu.launches)
+    out = fused_mu.fused_w_pass(A, W, H, HHT, EPS)
+    assert fused_mu.launches == {**before, key: before[key] + 1}
+    assert out[0].dtype == w_dtype and out[1].dtype == torch.float32
+    ref = fused_mu.fused_w_pass_plain(A, W, H, HHT, EPS)
+    assert _rel(out, ref) <= HALF_TOL[w_dtype]
 
 
 # K3's f32 kernel (k <= 32) takes panels of 128 rows, sweep-1 tiles of 32
@@ -96,19 +131,21 @@ K3_SHAPES = SHAPES + [(1, 129, 66), (2, 257, 131), (1, 257, 129),
                       (1, 33, 8), (3, 300, 20), (10, 70, 200), (1, 513, 600),
                       (2, 257, 100), (1, 513, 264), (2, 512, 1024)]
 K3_KEY = {torch.float32: "fused_mu_kl", torch.bfloat16: "fused_mu_kl_bf16",
-          torch.uint8: "fused_mu_kl_u8"}
+          torch.float16: "fused_mu_kl_f16", torch.uint8: "fused_mu_kl_u8"}
 K3_K = [1, 3, 7, 8, 9, 16, 17, 31, 32, 33, 64]
 
 
 def _k3_check(A, W, H):
     """One K3 launch, under A's dtype key only, against the plain version."""
-    hrs = linalg.sum_axis(H, axis=-1)
+    hrs = linalg.sum_axis(H, axis=-1).float()
     key = K3_KEY[A.dtype]
     before = dict(fused_kl.launches)
     out = fused_kl.fused_kl_pass(A, W, H, hrs, EPS)
     assert fused_kl.launches == {**before, key: before[key] + 1}
+    assert out[0].dtype == W.dtype and out[1].dtype == torch.float32
     ref = fused_kl.fused_kl_pass_plain(A, W, H, hrs, EPS, 50)
-    assert _rel(out, ref) <= (1e-4 if A.dtype == torch.float32 else 1e-3)
+    tol = HALF_TOL.get(W.dtype, 1e-4 if A.dtype == torch.float32 else 1e-3)
+    assert _rel(out, ref) <= tol
 
 
 @pytest.mark.parametrize("b,m,n", K3_SHAPES)
@@ -116,6 +153,13 @@ def _k3_check(A, W, H):
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_k3_matches_plain(cuda, b, m, n, k, dtype):
     _k3_check(*_inputs(cuda, b, m, n, k, dtype))
+
+
+@pytest.mark.parametrize("b,m,n", HALF_SHAPES)
+@pytest.mark.parametrize("k", [3, 8, 17, 32, 64])
+@pytest.mark.parametrize("dtype,w_dtype", HALF_PAIRS)
+def test_k3_half_factors_match_plain(cuda, b, m, n, k, dtype, w_dtype):
+    _k3_check(*_inputs(cuda, b, m, n, k, dtype, w_dtype))
 
 
 @pytest.mark.parametrize("k", K3_K)
@@ -149,6 +193,12 @@ K2_SHAPES = SHAPES + [(1, 257, 129), (1, 129, 130), (2, 65, 131),
 K2_K = [1, 3, 7, 8, 9, 16, 17, 31, 32, 33, 65, 130, 256]
 
 
+def _k2_keys(dtype):
+    """K2's launch keys for an A of dtype: an f16 A counts apart."""
+    tag = "_f16" if dtype == torch.float16 else ""
+    return f"kl_uht{tag}", f"kl_wtu{tag}"
+
+
 @pytest.mark.parametrize("b,m,n", K2_SHAPES)
 @pytest.mark.parametrize("k", K2_K)
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -156,9 +206,83 @@ def test_k2_matches_plain(cuda, b, m, n, k, dtype):
     A, W, H = _inputs(cuda, b, m, n, k, dtype)
     before = dict(kl.launches)
     out = (kl.kl_uht(A, W, H, EPS), kl.kl_wtu(A, W, H, EPS))
-    assert kl.launches == {key: v + 1 for key, v in before.items()}
+    assert kl.launches == {**before, **{key: before[key] + 1
+                                        for key in _k2_keys(dtype)}}
     ref = (kl.kl_uht_plain(A, W, H, EPS, 50), kl.kl_wtu_plain(A, W, H, EPS))
     assert _rel(out, ref) <= 1e-4
+
+
+@pytest.mark.parametrize("b,m,n", HALF_SHAPES)
+@pytest.mark.parametrize("k", [3, 8, 17, 32, 65])
+@pytest.mark.parametrize("dtype,w_dtype", HALF_PAIRS)
+def test_k2_half_factors_match_plain(cuda, b, m, n, k, dtype, w_dtype):
+    """Half factors: widened for the launch, the f32 sums rounded once to
+    their dtype; the plain version rounds W H, U and each product."""
+    A, W, H = _inputs(cuda, b, m, n, k, dtype, w_dtype)
+    before = dict(kl.launches)
+    out = (kl.kl_uht(A, W, H, EPS), kl.kl_wtu(A, W, H, EPS))
+    assert kl.launches == {**before, **{key: before[key] + 1
+                                        for key in _k2_keys(dtype)}}
+    # A's and the factors' common dtype, as the plain version's: the factor
+    # dtype, but f32 for one half dtype against the other
+    assert out[0].dtype == out[1].dtype == torch.promote_types(dtype, w_dtype)
+    ref = (kl.kl_uht_plain(A, W, H, EPS, 50), kl.kl_wtu_plain(A, W, H, EPS))
+    assert ref[0].dtype == ref[1].dtype == out[0].dtype
+    assert _rel(out, ref) <= 2 * HALF_TOL[w_dtype]
+
+
+def _overflow_inputs(dev, b, m, n, k, kernel):
+    """A uint8 A under f16 factors that passes f16's range on purpose: its
+    first m // 4 rows ("hot") hold 128..255, the others 0 or 1, and the
+    factors lie in [0.5, 1) times a scale. K1's and K3's W' is about
+    2 A / (k H) row by row, so with W at 1000 and H at 3e-4 / k the hot rows
+    of W' come to 5e5 or more and the others to 4e3 or less; K2's U H^T is
+    about 2 n A / (k W), so with W at 3.8e-4 n / k and H at 4 its hot rows
+    come to about 1e6 while U, W^T U and the other rows stay below 1.3e4
+    (measured on the CPU with the plain versions)."""
+    g = torch.Generator(dev)
+    g.manual_seed(b * m * n + k)
+    hot = m // 4
+    A = torch.randint(0, 2, (b, m, n), generator=g, device=dev)
+    A[:, :hot] = torch.randint(128, 256, (b, hot, n), generator=g, device=dev)
+    u = lambda *s: 0.5 + 0.5 * torch.rand(s, generator=g, device=dev)
+    w, h = (3.8e-4 * n / k, 4.0) if kernel == "K2" else (1000.0, 3e-4 / k)
+    return (A.to(torch.uint8), (w * u(b, m, k)).half(),
+            (h * u(b, k, n)).half(), hot)
+
+
+@pytest.mark.parametrize("b,m,n", HALF_SHAPES)
+@pytest.mark.parametrize("k", [3, 8, 17, 32, 64])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
+def test_f16_overflow_is_inf_where_plain_is(cuda, b, m, n, k, kernel):
+    """At f16 factors an output past 65504 is inf, as in the JAX package:
+    the kernel gives inf exactly where its plain version does (the hot rows
+    of W', or of U H^T, and nowhere else), and the finite entries agree to
+    the half-factor tolerances above."""
+    A, W, H, hot = _overflow_inputs(cuda, b, m, n, k, kernel)
+    if kernel == "K1":
+        HHT = linalg.gram_t(H.float())
+        out = fused_mu.fused_w_pass(A, W, H, HHT, EPS)
+        ref = fused_mu.fused_w_pass_plain(A, W, H, HHT, EPS)
+        tol = HALF_TOL[torch.float16]
+    elif kernel == "K2":
+        out = (kl.kl_uht(A, W, H, EPS), kl.kl_wtu(A, W, H, EPS))
+        ref = (kl.kl_uht_plain(A, W, H, EPS, 50),
+               kl.kl_wtu_plain(A, W, H, EPS))
+        tol = 2 * HALF_TOL[torch.float16]
+    else:
+        hrs = linalg.sum_axis(H, axis=-1).float()
+        out = fused_kl.fused_kl_pass(A, W, H, hrs, EPS)
+        ref = fused_kl.fused_kl_pass_plain(A, W, H, hrs, EPS, 50)
+        tol = HALF_TOL[torch.float16]
+    assert out[0].dtype == torch.float16
+    assert out[0][:, :hot].isinf().all() and out[0][:, hot:].isfinite().all()
+    for o, r in zip(out, ref):
+        assert torch.equal(o.isinf(), r.isinf())
+        assert not o.isnan().any() and not r.isnan().any()
+        fin = r.isfinite()
+        o, r = o.double()[fin], r.double()[fin]
+        assert float((o - r).abs().max() / r.abs().max()) <= tol
 
 
 @pytest.mark.parametrize("b,m,n", [(10, 70, 200), (1, 3000, 260),
@@ -179,9 +303,10 @@ def test_k2b_given_splits_matches_plain(cuda, splits, dtype):
     """K2b with its rows cut into as many splits as asked (at most one per
     W chunk) on a 2-member stack, and one launch per call."""
     A, W, H = _inputs(cuda, 2, 3000, 260, 8, dtype)
-    before = kl.launches["kl_wtu"]
+    key = _k2_keys(dtype)[1]
+    before = kl.launches[key]
     out = kl.kl_wtu(A, W, H, EPS, splits=splits)
-    assert kl.launches["kl_wtu"] == before + 1
+    assert kl.launches[key] == before + 1
     assert _rel([out], [kl.kl_wtu_plain(A, W, H, EPS)]) <= 1e-4
 
 
@@ -241,11 +366,18 @@ K4_SHAPES = [(1, 300, 97, 9, 6), (3, 1000, 777, 9, 6), (2, 77, 4000, 9, 6),
 # every padded width of the grouped kernel, at and off it; the legacy
 # kernel's (k > 32)
 K4_WIDTHS = [1, 2, 3, 4, 5, 7, 8, 16, 31, 32, 33, 256]
+VALS_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+def _k4_keys(vals_dtype):
+    """K4's plain and ratio launch keys: f16 values count apart."""
+    tag = "_f16" if vals_dtype == torch.float16 else ""
+    return f"ell_gather{tag}", f"ell_gather_ratio{tag}"
 
 
 @pytest.mark.parametrize("b,m,n,nnz_per_row,w_cap", K4_SHAPES)
 @pytest.mark.parametrize("k", K4_WIDTHS)
-@pytest.mark.parametrize("vals_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("vals_dtype", VALS_DTYPES)
 def test_k4_matches_plain(cuda, b, m, n, nnz_per_row, w_cap, k, vals_dtype):
     """K4's four modes (rows/columns, plain/ratio) on a member stack,
     directly and through the ELL products with their COO tails; member 0
@@ -261,9 +393,9 @@ def test_k4_matches_plain(cuda, b, m, n, nnz_per_row, w_cap, k, vals_dtype):
         assert _rel([out], [ref]) <= 1e-4
         assert _rel([out[0]], [ell_gather.ell_gather_product(
             v[0], i, T[0], None if X is None else X[0].contiguous(), EPS)]) == 0
-    assert ell_gather.launches == {
-        "ell_gather": before["ell_gather"] + 4,
-        "ell_gather_ratio": before["ell_gather_ratio"] + 4}
+    plain, ratio = _k4_keys(vals_dtype)
+    assert ell_gather.launches == {**before, plain: before[plain] + 4,
+                                   ratio: before[ratio] + 4}
     Ec = E.to("cpu")
     Wc, Hc = W.cpu(), H.cpu()
     for out, ref in ((ell.ell_a_ht(E, H), ell.ell_a_ht(Ec, Hc)),
@@ -280,7 +412,7 @@ def _k4_modes(E, W, Ht):
 
 
 @pytest.mark.parametrize("k", [1, 3, 7, 16, 31])
-@pytest.mark.parametrize("vals_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("vals_dtype", VALS_DTYPES)
 def test_k4_member_groups_are_bitwise_equal(cuda, k, vals_dtype):
     """The grouped kernel gives the same bits at every member group it
     takes (1, 2, the 4 members in one group, and 8 where a line's lanes fit
@@ -291,7 +423,7 @@ def test_k4_member_groups_are_bitwise_equal(cuda, k, vals_dtype):
     groups = [g for g in (1, 2, 4, 8) if g <= gmax]
     assert groups[:3] == [1, 2, 4]
     for v, i, T, X in _k4_modes(E, W, H.mT.contiguous()):
-        key = "ell_gather" if X is None else "ell_gather_ratio"
+        key = _k4_keys(vals_dtype)[X is not None]
         outs = []
         for g in groups:
             before = ell_gather.launches[key]
@@ -300,6 +432,28 @@ def test_k4_member_groups_are_bitwise_equal(cuda, k, vals_dtype):
         assert all(torch.equal(o, outs[0]) for o in outs[1:])
         assert _rel([outs[0]], [ell_gather.ell_gather_product_plain(
             v, i, T, X, EPS)]) <= 1e-4
+
+
+@pytest.mark.parametrize("b,m,n,nnz_per_row,w_cap", K4_SHAPES[:3])
+@pytest.mark.parametrize("k", [3, 8, 32, 33])
+@pytest.mark.parametrize("w_dtype", [torch.bfloat16, torch.float16])
+def test_k4_half_tables_match_plain(cuda, b, m, n, nnz_per_row, w_cap, k,
+                                    w_dtype):
+    """Half factors (the NMF at bf16 or f16): the table and X are widened
+    to f32 for the launch, exactly, so kernel and plain version sum the same
+    products; f16 values under f16 factors, bf16 under bf16."""
+    E, W, H = _ell_inputs(cuda, b, m, n, k, nnz_per_row=nnz_per_row,
+                          w_cap=w_cap)
+    E, W, H = E.astype(w_dtype), W.to(w_dtype), H.to(w_dtype)
+    before = dict(ell_gather.launches)
+    for v, i, T, X in _k4_modes(E, W, H.mT.contiguous()):
+        out = ell_gather.ell_gather_product(v, i, T, X, EPS)
+        assert out.dtype == torch.float32
+        ref = ell_gather.ell_gather_product_plain(v, i, T, X, EPS)
+        assert _rel([out], [ref]) <= 1e-4
+    plain, ratio = _k4_keys(w_dtype)
+    assert ell_gather.launches == {**before, plain: before[plain] + 2,
+                                   ratio: before[ratio] + 2}
 
 
 @pytest.mark.parametrize("B,dim_t,k,G", [(10, 1000, 7, 4), (10, 333, 3, 8),

@@ -173,7 +173,8 @@ def test_non_cpu_tensor_never_takes_the_plain_path():
     for X in (None, torch.empty((64, 8), device="meta")):
         with pytest.raises(Exception):
             teg.ell_gather_product(vals, idx, T, X, EPS)
-    assert teg.launches == {"ell_gather": 0, "ell_gather_ratio": 0}
+    assert teg.launches == {"ell_gather": 0, "ell_gather_ratio": 0,
+                            "ell_gather_f16": 0, "ell_gather_ratio_f16": 0}
 
 
 # (members, dim_t, KP, the kernel's largest group): the sweep's topic stack
@@ -241,3 +242,30 @@ def test_interleave_matches_numpy(B, dim_t, k, kp, G, strided):
     np.testing.assert_array_equal(out.reshape(-1).numpy(), np.concatenate(ref))
     if G == 1 and k == kp and not strided:
         assert out.data_ptr() == tT.data_ptr()
+
+
+@pytest.mark.parametrize("ratio", [False, True])
+@pytest.mark.parametrize("table", ["float32", "float16", "bfloat16"])
+def test_gather_plain_f16_values_matches_pallas(ratio, table,
+                                                interpret_pallas):
+    """K4's plain version with f16 values (a_precision="float16") against
+    the Pallas ELL kernel in interpret mode: the values widened exactly,
+    the sums f32; a half table (the NMF at bf16 or f16) is widened exactly
+    too, so the tolerance stays f32's."""
+    rng = np.random.default_rng(5)
+    m, n, k, w = 130, 97, 7, 3
+    vals = (rng.random((m, w)) * 4).astype(np.float16)
+    idx = rng.integers(0, n, (m, w)).astype(np.int32)
+    T = np.array(jnp.asarray(rng.random((n, k)) + 0.1, table), np.float32)
+    X = (np.array(jnp.asarray(rng.random((m, k)) + 0.1, table), np.float32)
+         if ratio else None)
+    ref = pallas_gather(jnp.asarray(vals), jnp.asarray(idx), jnp.asarray(T),
+                        None if X is None else jnp.asarray(X), eps=EPS,
+                        interpret=True)
+    tt = getattr(torch, table)
+    out = teg.ell_gather_product(
+        torch.from_numpy(vals), torch.from_numpy(idx),
+        torch.from_numpy(T).to(tt),
+        None if X is None else torch.from_numpy(X).to(tt), EPS)
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(np_(out), np_(ref), **TOL)

@@ -241,8 +241,9 @@ def test_config_from_jax_carries_use_fused_and_uint8():
     cfg = config_from_jax(dataclasses.asdict(pydnmfk_tpu.NMFkConfig(
         nmf=pydnmfk_tpu.NMFConfig(norm="kl", use_fused=True))))
     assert cfg.nmf.use_fused is True
-    with pytest.raises(port.NotPortedError, match="float16"):
-        port.NMFConfig(a_precision="float16")
+    cfg = config_from_jax(dataclasses.asdict(pydnmfk_tpu.NMFConfig(
+        norm="kl", use_fused=True, a_precision="float16")))
+    assert cfg.use_fused is True and cfg.a_dtype == torch.float16
 
 
 def test_non_cpu_tensor_never_takes_the_plain_path():

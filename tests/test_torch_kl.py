@@ -84,7 +84,8 @@ def test_non_cpu_tensor_never_takes_the_plain_path(fn):
                [(64, 48), (64, 3), (3, 48)])
     with pytest.raises(Exception):
         fn(A, W, H, EPS)
-    assert tkl.launches == {"kl_uht": 0, "kl_wtu": 0}
+    assert tkl.launches == {"kl_uht": 0, "kl_wtu": 0, "kl_uht_f16": 0,
+                            "kl_wtu_f16": 0}
 
 
 # (strip, chunk) of K2b's kernel: those of csrc/kl_ratio.cu at KP = 8 and

@@ -125,8 +125,9 @@ def test_config_from_jax_rejects_unported():
     with pytest.raises(port.NotPortedError, match="ROADMAP"):
         config_from_jax(dataclasses.asdict(pydnmfk_tpu.NMFkConfig(
             seed_grid=(2, 2))))
-    with pytest.raises(port.NotPortedError, match="bfloat16"):
-        port.NMFConfig(precision="bfloat16")
+    assert port.NMFConfig(precision="bfloat16").dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="bfloat8"):
+        port.NMFConfig(precision="bfloat8")
     cfg = config_from_jax(dataclasses.asdict(pydnmfk_tpu.NMFkConfig(
         nmf=pydnmfk_tpu.NMFConfig(k=5, norm="fro", init="nnsvd",
                                   method="hals", prune=True, hals_block=3,

@@ -154,11 +154,15 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "('jax', 'jaxlib', 'pydnmfk_tpu', 'triton')]\n"
         "assert not bad, bad\n"
         "assert fused_mu.launches == {'fused_mu_fro': 0, "
-        "'fused_mu_fro_bf16': 0, 'fused_mu_fro_u8': 0}\n"
+        "'fused_mu_fro_bf16': 0, 'fused_mu_fro_f16': 0, "
+        "'fused_mu_fro_u8': 0}\n"
         "assert fused_kl.launches == {'fused_mu_kl': 0, "
-        "'fused_mu_kl_bf16': 0, 'fused_mu_kl_u8': 0}\n"
+        "'fused_mu_kl_bf16': 0, 'fused_mu_kl_f16': 0, 'fused_mu_kl_u8': 0}\n"
+        "assert kl.launches == {'kl_uht': 0, 'kl_wtu': 0, 'kl_uht_f16': 0, "
+        "'kl_wtu_f16': 0}\n"
         "assert ell_gather.launches == {'ell_gather': 0, "
-        "'ell_gather_ratio': 0}\n"
+        "'ell_gather_ratio': 0, 'ell_gather_f16': 0, "
+        "'ell_gather_ratio_f16': 0}\n"
         "assert not cuda_lib.load.cache_info().currsize\n")
     env = {k: v for k, v in os.environ.items() if k not in ("CUDA_HOME",
                                                             "CUDA_PATH")}

@@ -55,3 +55,14 @@ def test_mixed_precision_copies_are_narrowed():
     assert out.dtype == torch.bfloat16
     ref = ts.sample_ensemble(A, 1, 0.015, range(2))
     assert torch.equal(out, ref.to(torch.bfloat16))
+
+
+def test_f16_copies_are_narrowed():
+    """Members stored at f16 (a_precision="float16"): drawn at A's
+    precision, then rounded once, as the JAX ensemble program does
+    (nmfk.py:110-113)."""
+    A = torch.rand((8, 6))
+    out = ts.sample_ensemble(A, 1, 0.015, range(3), dtype=torch.float16)
+    assert out.dtype == torch.float16
+    ref = ts.sample_ensemble(A, 1, 0.015, range(3))
+    assert torch.equal(out, ref.to(torch.float16))
