@@ -28,6 +28,13 @@ Run from the root of a checkout, with no arguments:
      k = 3 and 7 (library call: ``torch.bmm`` of a sparse COO stack);
    - K3 at k = 64 on the f32 A and K4 at k = 64 on the NYTimes shape,
      where the first port's kernels run;
+   - K2a and K2b past k = 32, on their 3xTF32 tensor-core kernels: at
+     57600 x 38400, k = 64, on the f32 A and its uint8 quantization, on one
+     14400 x 9600 member at k = 128, 256 and 300 (two output slabs) and on
+     the 10-member stack at k = 64, each within 1e-4 of the plain version,
+     bound at 165 TFLOP/s (3xTF32) with the CUDA cores' 67 beside it; K4 at
+     the NYTimes shape, k = 300 (slabs of 256; the ratio modes on the wide
+     kernel);
    profiles one batched FRO-MU and KL-MU step on that stack (wall and
    device ms, idle share, top kernels); checks NMF.fit on the card
    against the CPU path on a small input; and times one ``eigh`` of a
@@ -43,7 +50,8 @@ Run from the root of a checkout, with no arguments:
    KL-MU with ``use_fused`` (K3), HALS and BCD, at f16 factors (on A /
    max(A)) FRO-MU, KL-MU and KL-MU with ``use_fused``, and on an f16 A under
    f32 factors FRO-MU and KL-MU, each within 2 % of the f32 solve's error
-   with exact launches under the dtype's keys; then the NMFk sweep through
+   with exact launches under the dtype's keys; KL-MU at k = 64 (K2's 3xTF32
+   kernels, exactly 10 launches each); then the NMFk sweep through
    the CLI on a
    planted rank-4 14400 x
    9600 matrix (k = 2..7, 10 perturbations, 400 iterations), FRO-MU and
@@ -56,9 +64,10 @@ Run from the root of a checkout, with no arguments:
    members' dtype) and whose refit only K2b; and one FRO-MU factorization
    of that matrix through the CLI with and without ``--a_precision=uint8``;
 4. the sparse main path, the same way: NMF.fit on the NYTimes-shaped matrix,
-   10 FRO-MU, 10 KL-MU and 10 HALS iterations, k = 32, and 10 FRO-MU and
+   10 FRO-MU, 10 KL-MU and 10 HALS iterations, k = 32, 10 FRO-MU and
    KL-MU iterations on its f16 values (``a_precision="float16"``, K4's f16
-   instantiation), on the ELL format the policy must choose;
+   instantiation), and 10 KL-MU iterations at k = 300 (K4 past 256), on the
+   ELL format the policy must choose;
 5. the sparse NMFk sweep through the CLI on a planted rank-4 block-sparse
    200000 x 50000 ``.npz`` (about 50 nnz per row, 10 M nnz; the same sweep
    settings), FRO-MU and KL-MU, which must choose k = 4 on the ELL format;
@@ -66,7 +75,9 @@ Run from the root of a checkout, with no arguments:
    --prune=true`` (20 perturbations) on a planted rank-4 4800 x 3200 matrix
    with all-zero rows and columns, and through the library with ``method="bcd"`` on the
    planted 14400 x 9600 one, each of which must choose k = 4 with no kernel
-   launched;
+   launched; and the KL-MU sweep through the library at ks 4, 34 and 64 on
+   that matrix (K2 past 32), which must choose k = 4 with exact K2 launches
+   in its ensemble and its refit;
 6. prints the card's name and power limit, one JSON line of kernels, and as
    its last line ``{"ok": true, "device": {...}}``.
 
@@ -111,6 +122,10 @@ ITR = 10                                 # MU iterations of the NMF.fit runs
 CLI_ITR = 100    # the CLI factorization: the uint8 error floor stays below
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM: f32 non-tensor, HBM3
 PEAK_BF16 = 989e12                       # H100 SXM: bf16 tensor cores, dense
+PEAK_3XTF32 = 495e12 / 3                 # H100 SXM: TF32 tensor cores, three
+                                         # products a product (K2 at k > 32)
+WIDE_K = 64                              # K2 at k > 32, the KL solve
+WIDE_SWEEP = dict(start_k=4, end_k=64, step_k=30)   # ks 4, 34, 64
 
 
 def check(cond, msg):
@@ -193,8 +208,9 @@ def ptxas_k1(log):
 
 
 def ptxas_k2(log):
-    """K2's kernels: the register kernels (KP <= 32), the first port's
-    (KP >= 64) and the split reduction, keyed (kernel, A dtype, KP, vec)."""
+    """K2's kernels: the register kernels (KP <= 32), the 3xTF32 tensor-core
+    kernels (KP >= 64) and the split reduction, keyed (kernel, A dtype, KP,
+    vec)."""
     return ptxas(log, r"(kl_\w+?_kernel)(?:I(f|13__nv_bfloat16|6__half|h)Li(\d+)E"
                       r"(?:Lb([01])E)?)?",
                  lambda m: (m.group(1), MANGLED_A[m.group(2)],
@@ -203,9 +219,11 @@ def ptxas_k2(log):
 
 def ptxas_k4(log):
     """K4's kernels: the grouped kernel (k <= 32) keyed (kernel, values
-    dtype, KP, member group, ratio, False), the first port's (k > 32) keyed
-    (kernel, dtype, KP, 0, ratio, vec), and the table's interleave."""
-    return ptxas(log, r"(grouped_kernel|ell_gather_kernel|interleave_kernel)"
+    dtype, KP, member group, ratio, False), the first port's (k > 32) and
+    its wide ratio kernel (k > 256) keyed (kernel, dtype, KP, 0, ratio,
+    vec), and the table's interleave."""
+    return ptxas(log, r"(grouped_kernel|ell_gather_kernel|ell_gather_wide_kernel|"
+                      r"interleave_kernel)"
                       r"(?:I(f|13__nv_bfloat16|6__half)Li(\d+)E(?:Li(\d+)E)?Lb([01])E"
                       r"(?:Lb([01])E)?)?",
                  lambda m: (m.group(1), MANGLED_A[m.group(2)],
@@ -319,16 +337,26 @@ def main():
         return {k: v for c in counters for k, v in c.items()}
 
     def zero_counts():
-        for c in counters:
+        for c in counters + (kl.tc_launches, ell_gather.slab_launches):
             for key in c:
                 c[key] = 0
 
+    # of them, K2's at k > 32 (the 3xTF32 kernels) and K4's past 256 (in
+    # slabs), which the wrappers count apart by the same keys
+    wide_counters = (kl.tc_launches, ell_gather.slab_launches)
+
+    def wide_counts():
+        return {k: v for c in wide_counters for k, v in c.items()}
+
     main_path = {key: 0 for key in counts()}     # launches on the main path
+    main_path_wide = {key: 0 for key in wide_counts()}
 
     def read_counts():
         ran = counts()
         for key, n in ran.items():
             main_path[key] += n
+        for key, n in wide_counts().items():
+            main_path_wide[key] += n
         return ran
 
     # -- 1. build -------------------------------------------------------
@@ -389,8 +417,8 @@ def main():
           f"spills)")
 
     # K2's kernels likewise: the register kernels (KP = 8, 16, 32; vec:
-    # 16-byte loads), the first port's (KP = 64, 128, 256) and K2b's split
-    # reduction
+    # 16-byte loads), the 3xTF32 tensor-core kernels (KP = 64, 128, 256) and
+    # K2b's split reduction
     regs = ptxas_k2(cuda_lib.library_path("kl_ratio").with_suffix(
         ".log").read_text())
     for name in sorted({key[0] for key in regs}):
@@ -399,14 +427,15 @@ def main():
                           f"registers, {ss}/{sl} B spilled"
                           for (nm, dt, kp, vec), (r, ss, sl)
                           in sorted(regs.items()) if nm == name), flush=True)
-    check(len(regs) == 73 and not any(ss or sl for _, ss, sl in regs.values()),
-          f"K2 kernels: ptxas report {regs} (expected 73 instantiations, no "
+    check(len(regs) == 97 and not any(ss or sl for _, ss, sl in regs.values()),
+          f"K2 kernels: ptxas report {regs} (expected 97 instantiations, no "
           f"spills)")
 
     # K4's kernels likewise: the grouped kernel (KP = 4, 8, 16, 32 at every
-    # member group it takes) and the first port's (KP = 64, 128, 256; vec:
-    # 16-byte loads), plain and ratio, f32, bf16 and f16 values, and the
-    # interleave of the grouped kernel's table
+    # member group it takes), the first port's (KP = 64, 128, 256; vec:
+    # 16-byte loads), plain and ratio, and its wide ratio kernel (k > 256),
+    # f32, bf16 and f16 values, and the interleave of the grouped kernel's
+    # table
     regs = ptxas_k4(cuda_lib.library_path("ell_gather").with_suffix(
         ".log").read_text())
     for name in sorted({key[0] for key in regs}):
@@ -416,8 +445,8 @@ def main():
                           f"{r} registers, {ss}/{sl} B spilled"
                           for (nm, dt, kp, g, ratio, vec), (r, ss, sl)
                           in sorted(regs.items()) if nm == name), flush=True)
-    check(len(regs) == 127 and not any(ss or sl for _, ss, sl in regs.values()),
-          f"K4 kernels: ptxas report {regs} (expected 127 kernels, no spills)")
+    check(len(regs) == 133 and not any(ss or sl for _, ss, sl in regs.values()),
+          f"K4 kernels: ptxas report {regs} (expected 133 kernels, no spills)")
 
     # K3's kernels likewise: the f32 kernel and the tensor-core one for a
     # bf16, f16 or uint8 A (KP = 8, 16, 32; vec: 16-byte loads or copies)
@@ -457,6 +486,25 @@ def main():
         ms = 2 * nbytes(a) / PEAK_BYTES * 1e3
         print(f"[kernel] {name} {label}: two-read floor {ms:.3f} ms (A read "
               f"twice at {PEAK_BYTES / 1e12:g} TB/s)", flush=True)
+
+    def wide_k2_cases(label, a, W, H, chunk):
+        """K2a and K2b at k > 32 (the 3xTF32 tensor-core kernels; past 256
+        in slabs) against their plain versions, for every A dtype within
+        1e-4 (f32 arithmetic); the bound at the 3xTF32 rate, and beside it
+        the CUDA cores'. Their rows are kept apart from k <= 32's."""
+        B = a.shape[0] if a.dim() == 3 else 1
+        m, n = a.shape[-2:]
+        flops = 4 * B * m * n * W.shape[-1]
+        for name, fn, plain, out in (
+                ("K2a kl_uht", kl.kl_uht, kl.kl_uht_plain, W),
+                ("K2b kl_wtu", kl.kl_wtu, kl.kl_wtu_plain, H)):
+            kernel_case(f"{name} k>32", label, lambda: fn(a, W, H, eps),
+                        lambda: plain(a, W, H, eps, chunk),
+                        TOL[torch.float32],
+                        (flops, nbytes(a, W, H, out), PEAK_3XTF32))
+        print(f"[kernel] K2 k>32 {label}: CUDA-core bound "
+              f"{flops / PEAK_FLOPS * 1e3:.3f} ms (4 m n k at "
+              f"{PEAK_FLOPS / 1e12:g} TFLOP/s)", flush=True)
 
     A = torch.rand((M, K), generator=gen, device=dev) @ torch.rand(
         (K, N), generator=gen, device=dev)                     # planted rank K
@@ -582,7 +630,12 @@ def main():
                                                      chunk),
                 TOL[torch.float32],
                 (8 * M * N * 64, nbytes(A, W64, H64, hrs64, W64, H64)))
-    del W64, H64, hrs64
+    # K2 at k = 64, the 3xTF32 kernels, on the f32 A and its uint8
+    # quantization
+    wide_k2_cases(f"f32 {M}x{N} k=64", A, W64, H64, chunk)
+    Q, _ = linalg.quantize_uint8(A)
+    wide_k2_cases(f"uint8-A {M}x{N} k=64", Q, W64, H64, chunk)
+    del W64, H64, hrs64, Q
     torch.cuda.empty_cache()
     Ae = torch.rand((ENS, EM, EN), generator=gen, device=dev)
     We = torch.rand((ENS, EM, EK), generator=gen, device=dev)
@@ -679,7 +732,21 @@ def main():
                 lambda: kl.kl_wtu_plain(A1, W1, H1, eps, ech),
                 TOL[torch.float32],
                 (4 * EM * EN * EK, nbytes(A1, W1, H1, H1)))
-    del A1, W1, H1
+    del W1, H1
+    # K2 past 32 on one member (the refit's shape: phase 5's W-frozen refit
+    # runs K2b there at k = 34 and 64, KP = 64 with its rows split; k = 34
+    # pads; k = 300: two slabs) and on the stack at phase 5's k = 34 and at
+    # k = 64
+    for k in (34, 64, 128, 256, 300):
+        Wk = torch.rand((EM, k), generator=gen, device=dev)
+        Hk = torch.rand((k, EN), generator=gen, device=dev)
+        wide_k2_cases(f"f32 {EM}x{EN} k={k}", A1, Wk, Hk, ech)
+    del A1, Wk, Hk
+    for k in (34, WIDE_K):
+        Wk = torch.rand((ENS, EM, k), generator=gen, device=dev)
+        Hk = torch.rand((ENS, k, EN), generator=gen, device=dev)
+        wide_k2_cases(f"f32 {ENS} x {EM}x{EN} k={k}", Ae, Wk, Hk, ech)
+    del Wk, Hk
     kernel_case("K3 fused_mu_kl", f"f32 {eshape}",
                 lambda: fused_kl.fused_kl_pass(Ae, We, He, hrse, eps),
                 lambda: fused_kl.fused_kl_pass_plain(Ae, We, He, hrse, eps,
@@ -778,6 +845,12 @@ def main():
     Wn = torch.rand((NYT_M, 64), generator=gen, device=dev)
     Hn = torch.rand((64, NYT_N), generator=gen, device=dev)
     k4_cases(f"{NYT_M}x{NYT_N} k=64 f32", E, Wn, Hn, nyt_lib)
+    # K4 past 256: k = 300, the plain modes by slabs of 256 columns, the
+    # ratio modes on the wide kernel
+    Wn = torch.rand((NYT_M, 300), generator=gen, device=dev)
+    Hn = torch.rand((300, NYT_N), generator=gen, device=dev)
+    k4_cases(f"{NYT_M}x{NYT_N} k=300 f32", E, Wn, Hn, nyt_lib,
+             "K4 ell_gather k>256")
     del Wn, Hn, A_r, A_c
     torch.cuda.empty_cache()
     # the time model's constants (ops/ell.py), from this run's readings
@@ -882,6 +955,7 @@ def main():
         launches (exactly ``want``, nothing else) and factors at the
         precision's dtype."""
         A_fit = A if A_in is None else A_in
+        k = cfg.k
         timing.reset()
         zero_counts()
         t0 = time.perf_counter()
@@ -890,13 +964,13 @@ def main():
         secs = time.perf_counter() - t0
         ran = read_counts()
         solve_s = timing.TIMINGS["solve"]
-        print(f"[nmf] {label} {M}x{N} k={K}, {cfg.itr} iterations: fit "
+        print(f"[nmf] {label} {M}x{N} k={k}, {cfg.itr} iterations: fit "
               f"{secs:.3f} s, solve {solve_s:.3f} s ({cfg.itr / solve_s:.2f} "
               f"it/s incl. final error), relative error {ref_err:.6f} "
               f"({ref}) -> {err:.6f}, launches {ran}", flush=True)
         check(np.isfinite(err) and err < ref_err,
               f"NMF.fit {label}: error {err} not below the init's {ref_err}")
-        check(W.shape == (M, K) and H.shape == (K, N), "factor shapes")
+        check(W.shape == (M, k) and H.shape == (k, N), "factor shapes")
         check(W.dtype == H.dtype == cfg.dtype,
               f"NMF.fit {label}: factors {W.dtype}, {H.dtype}")
         check(ran == {**none, **want},
@@ -939,6 +1013,15 @@ def main():
               f"{tol:g})", flush=True)
         check(rel <= tol, f"{label} error {errs[label]} is not within "
                           f"{tol:g} of {ref}'s {errs[ref]}")
+
+    # KL-MU at k = 64: K2a and K2b on their 3xTF32 kernels, 10 each
+    g = torch.Generator(dev)
+    g.manual_seed(NMFConfig().seed)
+    W0, H0 = init_factors_rand(g, M, N, WIDE_K, torch.float32, dev)
+    init_wide = float(linalg.relative_error(A, W0, H0, chunk))
+    del W0, H0
+    dense_fit(f"KL-MU f32 k={WIDE_K}", NMFConfig(k=WIDE_K, norm="kl", itr=ITR),
+              {"kl_uht": ITR, "kl_wtu": ITR}, init_wide)
 
     # HALS and BCD from the same rand init: their A-sized products are plain
     # (cuBLAS), their chains small products, and no kernel of K1-K4 runs
@@ -1096,18 +1179,12 @@ def main():
             print(f"[nmfk] {label}: minimum silhouette by k {sils}", flush=True)
         return res_path
 
-    def fused_sweep(tmp, a_precision="float32", key="fused_mu_kl"):
-        """The dense KL NMFk sweep through the library with use_fused=True
-        (the same settings as the CLI sweeps), its members stored at
-        ``a_precision``: nopt = 4, every k's results, and exact launches by
-        stage: the ensemble only K3 under ``key`` (one launch per iteration
-        and k, the members in one stack), the W-frozen refit only K2b."""
-        ks = range(2, 8)
-        res = os.path.join(tmp, f"res_fused_{a_precision}")
-        cfg = NMFkConfig(nmf=NMFConfig(norm="kl", itr=400, use_fused=True,
-                                       a_precision=a_precision),
-                         start_k=ks[0], end_k=ks[-1], perturbations=10,
-                         results_path=res + "/", fname="X", checkpoint=False)
+    def staged_sweep(A_np, cfg, label, want_ens, want_refit):
+        """The dense KL NMFk sweep through the library under ``cfg``: nopt
+        = 4, every k's results, and exact launches by stage, ``want_ens``
+        in the ensemble and ``want_refit`` in the W-frozen refit, each per
+        iteration and k (the members in one stack)."""
+        ks = list(cfg.k_range)
         ens = dict(none)
 
         class Staged(NMFk):
@@ -1118,7 +1195,6 @@ def main():
                     ens[key] += n - before[key]
                 return out
 
-        A_np = np.load(os.path.join(tmp, "X.npy"))
         timing.reset()
         zero_counts()
         t0 = time.perf_counter()
@@ -1129,23 +1205,40 @@ def main():
         refit = {key: ran[key] - ens[key] for key in ran}
         stages = {st: round(timing.TIMINGS.get(st, 0.0), 3) for st in
                   ("ensemble_solve", "clustering", "regression")}
-        print(f"[nmfk] KL-MU use_fused (library) npy {A_np.shape[0]}x"
-              f"{A_np.shape[1]} a_precision={a_precision} k=2..7, 10 "
-              f"perturbations, 400 iterations: nopt {nopt}, {secs:.2f} s, "
-              f"stage seconds {stages}, launches: ensemble {ens}, refit "
-              f"{refit}", flush=True)
-        check(nopt == 4, f"NMFk KL use_fused {a_precision} chose k={nopt}, "
-                         f"not 4")
+        print(f"[nmfk] {label} (library) npy {A_np.shape[0]}x{A_np.shape[1]} "
+              f"a_precision={cfg.nmf.a_precision} k={ks}, "
+              f"{cfg.perturbations} perturbations, {cfg.nmf.itr} "
+              f"iterations: nopt {nopt}, {secs:.2f} s, stage seconds "
+              f"{stages}, launches: ensemble {ens}, refit {refit}",
+              flush=True)
+        check(nopt == 4, f"NMFk {label} chose k={nopt}, not 4")
         for k in ks:
-            out = read_cluster_results(os.path.join(res, "X", str(k)))
+            out = read_cluster_results(os.path.join(cfg.results_path,
+                                                    cfg.fname, str(k)))
             check(set(out) == set(RESULT_DATASETS)
                   and out["clusterSilhouetteCoefficients"].shape == (k,)
                   and all(np.isfinite(v).all() for v in out.values()),
-                  f"NMFk KL use_fused {a_precision} k={k} results")
+                  f"NMFk {label} k={k} results")
         itr = len(ks) * cfg.nmf.itr
-        check(ens == {**none, key: itr} and refit == {**none, "kl_wtu": itr},
-              f"NMFk KL use_fused {a_precision} launched {ens} (ensemble) and "
-              f"{refit} (refit); expected {key} {itr} and kl_wtu {itr} only")
+        want_ens = {**none, **{key: itr for key in want_ens}}
+        want_refit = {**none, **{key: itr for key in want_refit}}
+        check(ens == want_ens and refit == want_refit,
+              f"NMFk {label} launched {ens} (ensemble) and {refit} (refit); "
+              f"expected {want_ens} and {want_refit}")
+
+    def fused_sweep(tmp, a_precision="float32", key="fused_mu_kl"):
+        """The dense KL NMFk sweep through the library with use_fused=True
+        (the same settings as the CLI sweeps), its members stored at
+        ``a_precision``: the ensemble only K3 under ``key``, the refit only
+        K2b."""
+        cfg = NMFkConfig(nmf=NMFConfig(norm="kl", itr=400, use_fused=True,
+                                       a_precision=a_precision),
+                         start_k=2, end_k=7, perturbations=10,
+                         results_path=os.path.join(
+                             tmp, f"res_fused_{a_precision}") + "/",
+                         fname="X", checkpoint=False)
+        staged_sweep(np.load(os.path.join(tmp, "X.npy")), cfg,
+                     "KL-MU use_fused", (key,), ("kl_wtu",))
 
     def budget_sweep(tmp, batch=5):
         """The dense FRO NMFk sweep through the library with ``hbm_budget``
@@ -1246,17 +1339,21 @@ def main():
     # -- 4. the sparse main path: NMF.fit at the NYTimes shape ------------
     # (f16 values under f32 factors, a_precision="float16": K4's f16
     # instantiation)
-    for norm, method, a_prec in (("fro", "mu", None), ("kl", "mu", None),
-                                 ("fro", "hals", None),
-                                 ("fro", "mu", "float16"),
-                                 ("kl", "mu", "float16")):
-        cfg = NMFConfig(k=K, norm=norm, itr=10, method=method,
+    # (and KL-MU at k = 300: K4 past 256, in slabs, its ratio modes on the
+    # wide kernel)
+    for norm, method, a_prec, k in (("fro", "mu", None, K),
+                                    ("kl", "mu", None, K),
+                                    ("fro", "hals", None, K),
+                                    ("fro", "mu", "float16", K),
+                                    ("kl", "mu", "float16", K),
+                                    ("kl", "mu", None, 300)):
+        cfg = NMFConfig(k=k, norm=norm, itr=10, method=method,
                         a_precision=a_prec)
         label = "HALS" if method == "hals" else f"{norm.upper()}-MU"
         label += " f16 values" if a_prec else ""
         g = torch.Generator(dev)
         g.manual_seed(cfg.seed)
-        W0, H0 = init_factors_rand(g, NYT_M, NYT_N, K, torch.float32, dev)
+        W0, H0 = init_factors_rand(g, NYT_M, NYT_N, k, torch.float32, dev)
         init_err = float(linalg.relative_error(E, W0, H0))
         del W0, H0
         timing.reset()
@@ -1269,7 +1366,7 @@ def main():
         ran = read_counts()
         solve_s = timing.TIMINGS["solve"]
         print(f"[nmf] {label} sparse {NYT_M}x{NYT_N} ({nyt.nse} "
-              f"nnz) k={K} f32, 10 iterations: fit {secs:.3f} s (format "
+              f"nnz) k={k} f32, 10 iterations: fit {secs:.3f} s (format "
               f"{timing.TIMINGS['sparse_format']:.3f} s), solve "
               f"{solve_s:.3f} s ({10 / solve_s:.2f} it/s incl. final "
               f"error), relative error {init_err:.6f} (rand init) -> "
@@ -1279,7 +1376,7 @@ def main():
         check(np.isfinite(err) and err < init_err,
               f"sparse NMF.fit {label}: error {err} not below the init's "
               f"{init_err}")
-        check(W.shape == (NYT_M, K) and H.shape == (K, NYT_N), "factor shapes")
+        check(W.shape == (NYT_M, k) and H.shape == (k, NYT_N), "factor shapes")
         # each MU or HALS iteration makes two ELL products, one K4 launch
         # each (FRO and HALS: A H^T and W^T A, plain; KL: UHT and WTU,
         # ratio), and the final Gram-identity error one more, W^T A
@@ -1380,10 +1477,24 @@ def main():
                   and out["clusterSilhouetteCoefficients"].shape == (k,)
                   and all(np.isfinite(v).all() for v in out.values()),
                   f"NMFk BCD k={k} results")
+        # the KL-MU sweep through the library at ks 4, 34 and 64: K2 on its
+        # register kernel (k = 4) and its 3xTF32 kernel (KP = 64), the
+        # refit's rows split; nopt = 4, as the JAX package chooses at these
+        # ks on the CPU (tests/test_torch_nmfk.py::
+        # test_kl_sweep_at_wide_k_matches_jax)
+        cfg = NMFkConfig(nmf=NMFConfig(norm="kl", itr=400), **WIDE_SWEEP,
+                         perturbations=10, results_path=tmp + "/wide/",
+                         fname="X", checkpoint=False)
+        staged_sweep(X.astype(np.float32), cfg, "KL-MU", ("kl_uht", "kl_wtu"),
+                     ("kl_wtu",))
     del X
 
     for name, n in main_path.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
+    for name in ("kl_uht", "kl_wtu", "ell_gather", "ell_gather_ratio"):
+        check(main_path_wide[name] > 0, f"kernel {name} was not launched "
+                                        f"past k = 32 (K2) or 256 (K4) on "
+                                        f"the main path")
 
     # -- 6. report -------------------------------------------------------
     sources = {"K1 fused_mu_fro": ("fused_mu_fro.cu", "ops/fused_mu.py:50",
@@ -1410,13 +1521,25 @@ def main():
                "K4 ell_gather f16": ("ell_gather.cu", "ops/pallas_ell.py:52",
                                      ("ell_gather_f16",
                                       "ell_gather_ratio_f16"))}
+    # the kernels past k = 32 (K2's 3xTF32 ones) and 256 (K4's slabs),
+    # counted apart by the wrappers; the rows above count the rest
+    wide = {"K2a kl_uht k>32": ("kl_ratio.cu", "ops/pallas_kernels.py:78",
+                                ("kl_uht",)),
+            "K2b kl_wtu k>32": ("kl_ratio.cu", "ops/pallas_kernels.py:96",
+                                ("kl_wtu",)),
+            "K4 ell_gather k>256": ("ell_gather.cu", "ops/pallas_ell.py:52",
+                                    ("ell_gather", "ell_gather_ratio"))}
+    narrow = {key: main_path[key] - main_path_wide.get(key, 0)
+              for key in main_path}
     kernels = [{"name": name, "route": "cuda",
                 "source": f"pydnmfk_tpu_torch/csrc/{src}",
                 "replaces": f"pydnmfk_tpu/{tpu}",
-                "launches": sum(main_path[c] for c in keys),
-                "launches_by_mode": {c: main_path[c] for c in keys},
+                "launches": sum(counted[c] for c in keys),
+                "launches_by_mode": {c: counted[c] for c in keys},
                 **rows[name]}
-               for name, (src, tpu, keys) in sources.items()]
+               for table, counted in ((sources, narrow),
+                                      (wide, main_path_wide))
+               for name, (src, tpu, keys) in table.items()]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -148,6 +148,17 @@ class NMFConfig:
                              f"is not supported; store A at "
                              f"{self.precision!r}, as uint8, or take "
                              f"float32 factors")
+        if self.dtype in half and self.a_dtype in (torch.float32,
+                                                   torch.float64):
+            # an f32 or f64 A promotes the products and the elementwise
+            # updates, so the JAX package's solve loop gets wider factors
+            # back than it carries and raises a TypeError
+            # (pydnmfk_tpu/models/nmf.py:94-103)
+            raise ValueError(f"a_precision={self.a_precision!r} under "
+                             f"precision={self.precision!r}: an A wider "
+                             f"than its half factors is not supported; "
+                             f"store A at {self.precision!r} or as uint8, "
+                             f"or take factors at {self.a_precision!r}")
 
     @property
     def dtype(self) -> torch.dtype:

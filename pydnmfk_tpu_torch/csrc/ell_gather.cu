@@ -70,6 +70,16 @@
 // instantiations with 16-byte loads at KP = 64, 128 to 32 registers and
 // spilled 16-24 bytes.
 //
+// k > 256: the output is covered in slabs of 256 columns, the grid's z axis
+// (row stride ld = k for T, X and out). The plain modes' columns are
+// independent, so the KP = 256 kernel runs each slab as it runs k <= 256.
+// The ratio modes need <X[b, :], T[idx, :]> over all of k before any slab's
+// product: legacy::ell_gather_wide_kernel sums each slot's dot over the
+// whole row (a loop of 128 columns a step over the warp's 32 lanes), then
+// adds the slab's columns. So past 256 a ratio product reads its gathered
+// rows ceil(k / 256) + 1 times and does the dot ceil(k / 256) times: a
+// simple design, for widths no measured path needs to be fast at yet.
+//
 // Padding slots (val = 0, idx = 0) are inert. vals may be bf16 or f16; all
 // arithmetic is f32.
 #include <cuda_bf16.h>
@@ -115,25 +125,46 @@ __device__ __forceinline__ void load4(float (&r)[4], const float* __restrict__ p
   }
 }
 
+// o[c .. c + 4) <- acc[q] for the lane's columns c = (q L + g) 4, past k
+// not written
+template <int NQ, int L, bool VEC>
+__device__ __forceinline__ void store_line(float* __restrict__ o, const float (&acc)[NQ][4],
+                                           int g, int k) {
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    const int c = (q * L + g) * 4;
+    if (VEC) {
+      if (c < k) *reinterpret_cast<float4*>(o + c) =
+          make_float4(acc[q][0], acc[q][1], acc[q][2], acc[q][3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (c + j < k) o[c + j] = acc[q][j];
+    }
+  }
+}
+
 template <typename V, int KP, bool RATIO, bool VEC>
 __global__ void __launch_bounds__(NT, 4)
 ell_gather_kernel(const V* __restrict__ vals, const int* __restrict__ idx,
                   const float* __restrict__ T, const float* __restrict__ X,
-                  float eps, int dim, int w, int dim_t, int k,
+                  float eps, int dim, int w, int dim_t, int ld,
                   float* __restrict__ out) {
   constexpr int L = Layout<KP>::L, NQ = Layout<KP>::NQ;
   const int e = blockIdx.y;
+  const int c0 = blockIdx.z * KP;        // the slab's first column (ratio: 0)
+  const int k = min(KP, ld - c0);        // and its width
   const int g = threadIdx.x % L;
   const int line = blockIdx.x * Layout<KP>::LINES + threadIdx.x / L;
   const bool live = line < dim;
   const int b = live ? line : 0;
   vals += ((size_t)e * dim + b) * w;
   idx += (size_t)b * w;
-  T += (size_t)e * dim_t * k;
+  T += (size_t)e * dim_t * ld + c0;
 
   float x[NQ][4];
   if (RATIO) {
-    const float* xr = X + ((size_t)e * dim + b) * k;
+    const float* xr = X + ((size_t)e * dim + b) * ld;
 #pragma unroll
     for (int q = 0; q < NQ; ++q) load4<VEC>(x[q], xr, (q * L + g) * 4, k);
   }
@@ -157,7 +188,7 @@ ell_gather_kernel(const V* __restrict__ vals, const int* __restrict__ idx,
       if (t < ns) {
         const float vt = __shfl_sync(FULL, v, t, L);
         const int it = __shfl_sync(FULL, id, t, L);
-        const float* row = T + (size_t)it * k;
+        const float* row = T + (size_t)it * ld;
         float r[NQ][4];
 #pragma unroll
         for (int q = 0; q < NQ; ++q) load4<VEC>(r[q], row, (q * L + g) * 4, k);
@@ -180,32 +211,97 @@ ell_gather_kernel(const V* __restrict__ vals, const int* __restrict__ idx,
     }
   }
   if (!live) return;
-  float* o = out + ((size_t)e * dim + line) * k;
-#pragma unroll
-  for (int q = 0; q < NQ; ++q) {
-    const int c = (q * L + g) * 4;
-    if (VEC) {
-      if (c < k) *reinterpret_cast<float4*>(o + c) =
-          make_float4(acc[q][0], acc[q][1], acc[q][2], acc[q][3]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (c + j < k) o[c + j] = acc[q][j];
-    }
-  }
+  store_line<NQ, L, VEC>(out + ((size_t)e * dim + line) * ld + c0, acc, g, k);
 }
 
+// The ratio modes past 256 columns: block (lines x, member y, slab z) adds
+// coef T[idx, slab] over the slots of 8 lines, one warp a line, where coef =
+// val / (<X[b, :], T[idx, :]> + eps) is summed over all ld columns first.
+template <typename V, int KP, bool RATIO, bool VEC>
+__global__ void __launch_bounds__(NT, 4)
+ell_gather_wide_kernel(const V* __restrict__ vals, const int* __restrict__ idx,
+                       const float* __restrict__ T, const float* __restrict__ X,
+                       float eps, int dim, int w, int dim_t, int ld,
+                       float* __restrict__ out) {
+  static_assert(RATIO && KP == 256, "the wide kernel is the ratio slab of 256");
+  constexpr int L = 32, NQ = KP / (4 * L);
+  const int e = blockIdx.y;
+  const int c0 = blockIdx.z * KP;
+  const int k = min(KP, ld - c0);
+  const int g = threadIdx.x % L;
+  const int line = blockIdx.x * (NT / L) + threadIdx.x / L;
+  const bool live = line < dim;
+  const int b = live ? line : 0;
+  vals += ((size_t)e * dim + b) * w;
+  idx += (size_t)b * w;
+  T += (size_t)e * dim_t * ld;
+  const float* xr = X + ((size_t)e * dim + b) * ld;
+
+  float acc[NQ][4];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[q][j] = 0.f;
+  for (int s0 = 0; s0 < w; s0 += L) {
+    const int s = s0 + g;
+    float v = 0.f;
+    int id = 0;
+    if (live && s < w) {
+      v = to_f32(vals[s]);
+      id = idx[s];
+    }
+    const int ns = min(L, w - s0);       // the same for every lane of the warp
+#pragma unroll 1
+    for (int t = 0; t < ns; ++t) {
+      const float vt = __shfl_sync(FULL, v, t);
+      const int it = __shfl_sync(FULL, id, t);
+      const float* row = T + (size_t)it * ld;
+      float d = 0.f;
+      for (int c = 4 * g; c < ld; c += 4 * L) {
+        float x4[4], r4[4];
+        load4<VEC>(x4, xr, c, ld);
+        load4<VEC>(r4, row, c, ld);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) d += x4[j] * r4[j];
+      }
+#pragma unroll
+      for (int o = L / 2; o > 0; o >>= 1) d += __shfl_xor_sync(FULL, d, o);
+      const float coef = vt / (d + eps);
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        float r[4];
+        load4<VEC>(r, row + c0, (q * L + g) * 4, k);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[q][j] += coef * r[j];
+      }
+    }
+  }
+  if (!live) return;
+  store_line<NQ, L, VEC>(out + ((size_t)e * dim + line) * ld + c0, acc, g, k);
+}
+
+// ld: the rows' width k; past KP, one slab of KP columns per grid z (the
+// ratio modes on the wide kernel)
 template <typename V, int KP, bool RATIO>
 cudaError_t launch(const void* vals, const void* idx, const void* T,
                    const void* X, float eps, int B, int dim, int w, int dim_t,
-                   int k, void* out, bool vec, cudaStream_t stream) {
-  const dim3 grid((dim + Layout<KP>::LINES - 1) / Layout<KP>::LINES, B);
-  auto kernel = vec ? &ell_gather_kernel<V, KP, RATIO, true>
-                    : &ell_gather_kernel<V, KP, RATIO, false>;
+                   int ld, void* out, bool vec, cudaStream_t stream) {
+  const int slabs = (ld + KP - 1) / KP;
+  if (slabs > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((dim + Layout<KP>::LINES - 1) / Layout<KP>::LINES, B, slabs);
+  using Kernel = void (*)(const V*, const int*, const float*, const float*, float,
+                          int, int, int, int, float*);
+  Kernel kernel = vec ? &ell_gather_kernel<V, KP, RATIO, true>
+                      : &ell_gather_kernel<V, KP, RATIO, false>;
+  if constexpr (RATIO && KP == 256) {
+    if (slabs > 1)
+      kernel = vec ? &ell_gather_wide_kernel<V, KP, RATIO, true>
+                   : &ell_gather_wide_kernel<V, KP, RATIO, false>;
+  }
   kernel<<<grid, NT, 0, stream>>>(
       static_cast<const V*>(vals), static_cast<const int*>(idx),
       static_cast<const float*>(T), static_cast<const float*>(X), eps, dim, w,
-      dim_t, k, static_cast<float*>(out));
+      dim_t, ld, static_cast<float*>(out));
   return cudaGetLastError();
 }
 
@@ -418,11 +514,11 @@ cudaError_t dispatch_g(int G, const void* vals, const void* idx, const void* Ti,
 }  // namespace grouped
 
 // k's padded width: 4, 8, 16, 32 for the grouped kernel, 64, 128, 256 for
-// the legacy one; 0 outside [1, 256]
+// the legacy one (k > 256: slabs of 256); 0 for k < 1
 int padded_width(int k) {
-  if (k < 1 || k > 256) return 0;
+  if (k < 1) return 0;
   int kp = 4;
-  while (kp < k) kp *= 2;
+  while (kp < k && kp < 256) kp *= 2;
   return kp;
 }
 
@@ -466,7 +562,7 @@ int dispatch(const void* vals, const void* idx, const void* T, const void* X,
 // Plain C interface, bound with ctypes. vals is (B, dim, w) in f32, bf16 or
 // f16,
 // idx (dim, w) int32 with entries in [0, dim_t), X (B, dim, k) f32 or null
-// (plain mode), out (B, dim, k) f32; all contiguous. At k <= 32 T is the
+// (plain mode), out (B, dim, k) f32; all contiguous; any k >= 1. At k <= 32 T is the
 // interleaved table of groups of `group` members (1, 2, 4 or 8, at most
 // ell_gather_geometry's max_group): for each group, its members' rows padded
 // to KP floats side by side, (dim_t, gg, KP), gg = min(group, B - first
@@ -499,7 +595,7 @@ extern "C" int ell_gather_f16(const void* vals, const void* idx, const void* T,
 
 // The geometry the wrapper plans its member groups on: k's padded width KP
 // and the largest group the kernel takes at that width (0: k > 32, the
-// legacy kernel, no groups, T as given).
+// legacy kernel, no groups, T as given; KP = 256 past 256, by slabs).
 extern "C" int ell_gather_geometry(int k, int* kp, int* max_group) {
   *kp = padded_width(k);
   if (*kp == 0) return (int)cudaErrorInvalidValue;

@@ -1,7 +1,9 @@
 // Tile helpers of the tensor-core kernels (K1's and K3's, csrc/fused_mu_fro.cu
-// and csrc/fused_mu_kl.cu): swizzled shared-memory tiles of 128-byte rows,
-// cp.async copies, ldmatrix, bf16 and f16 mma.sync and the exact widening of
-// uint8 values. Included inside each file's anonymous namespace tc, so each
+// and csrc/fused_mu_kl.cu; K2's at k > 32, csrc/kl_ratio.cu): swizzled
+// shared-memory tiles of 128-byte rows, cp.async copies, ldmatrix, bf16 and
+// f16 mma.sync, the exact widening of uint8 values, and 3xTF32 products
+// (TF32 splits of f32 operands, TF32 mma.sync, split fragment loads).
+// Included inside a namespace of each file's anonymous namespace, so each
 // library keeps its own internal copy; the library hash
 // (ops/cuda_lib.py::library_path) covers this header.
 #pragma once
@@ -28,6 +30,17 @@ __device__ __forceinline__ int u8_off(int r, int c) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(ok ? 16 : 0));
+}
+
+// BYTES = 4, 8 or 16 bytes from global to shared, or BYTES zeros where !ok
+template <int BYTES>
+__device__ __forceinline__ void cp_async_n(uint32_t dst, const void* src, bool ok) {
+  if constexpr (BYTES == 16) {
+    cp_async16(dst, src, ok);
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src),
+                 "n"(BYTES), "r"(ok ? BYTES : 0));
+  }
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -122,3 +135,61 @@ __device__ __forceinline__ uint32_t widen2(uint32_t w, int i) {
   return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
 }
 
+
+// ---- 3xTF32: f32 products on the TF32 tensor cores --------------------------
+//
+// An f32 x is split into two TF32 values, hi = x rounded to TF32 (10
+// explicit mantissa bits) and lo = the remainder x - hi, so that x = hi + lo
+// to about 2^-21 relative. A product a b then takes three TF32 products,
+// a_lo b_hi + a_hi b_lo + a_hi b_hi (the dropped a_lo b_lo is about 2^-22 of
+// a b), summed in f32: f32 accuracy at a third of the TF32 tensor-core rate
+// (495 / 3 = 165 TFLOP/s on an H100 SXM, against 67 on its CUDA cores).
+// The tensor cores add into their f32 accumulator without rounding to
+// nearest: over a chain of n mma into one accumulator the error grows like n
+// ulps (4e-4 at n = 14400), so a kernel sums a few mma from zero and adds
+// that into its own f32 sums.
+
+// x = hi + lo: hi is x rounded to TF32 (half an ulp of TF32 added to the
+// magnitude, then the 13 low bits cleared), lo the exact remainder, whose
+// low 13 bits the tensor core ignores (about 2^-21 of x)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// two f32 from shared memory at p (8-byte aligned), split: elements e0 and
+// e1 of a fragment's hi and lo parts
+__device__ __forceinline__ void ld_split2(const float* p, uint32_t& h0, uint32_t& l0,
+                                          uint32_t& h1, uint32_t& l1) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  split_tf32(v.x, h0, l0);
+  split_tf32(v.y, h1, l1);
+}
+
+// c += a b on the TF32 tensor cores: a 16 x 8 (row), b 8 x 8 (col), c 16 x 8
+// f32. Thread (g, t) = (lane / 4, lane % 4) holds a0 = a[g][t], a1 =
+// a[g + 8][t], a2 = a[g][t + 4], a3 = a[g + 8][t + 4]; b0 = b[t][g], b1 =
+// b[t + 4][g]; c0, c1 = c[g][2t, 2t + 1], c2, c3 = c[g + 8][2t, 2t + 1]
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c[i] += a b[i] for four independent 3xTF32 products (a = ah + al, b[i] =
+// bh[i] + bl[i]), the small products first and term by term, so that no
+// mma waits on the one before it
+__device__ __forceinline__ void mma4_3xtf32(float (&c)[4][4], const uint32_t (&ah)[4],
+                                            const uint32_t (&al)[4],
+                                            const uint32_t (&bh)[4][2],
+                                            const uint32_t (&bl)[4][2]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) mma_tf32(c[i], al, bh[i][0], bh[i][1]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) mma_tf32(c[i], ah, bl[i][0], bl[i][1]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) mma_tf32(c[i], ah, bh[i][0], bh[i][1]);
+}

@@ -26,6 +26,8 @@ that :func:`interleave` lays out per group as (dim_t, G, KP): one index then
 names one contiguous run of G padded rows. :func:`member_groups` picks G from
 the width and the largest group that the kernel exports
 (``ell_gather_geometry`` in ``csrc/ell_gather.cu``) and the card's L2 size.
+K4 takes every k >= 1: past 256 it covers the output in slabs of 256
+columns, and its ratio modes sum each slot's dot over all of k first.
 """
 from __future__ import annotations
 
@@ -42,9 +44,10 @@ from .linalg import HALF, acc_dtype
 # launches)
 launches = {"ell_gather": 0, "ell_gather_ratio": 0, "ell_gather_f16": 0,
             "ell_gather_ratio_f16": 0}
+# of them, the launches past k = 256 (in slabs), by the same keys
+slab_launches = dict.fromkeys(launches, 0)
 _VALS = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
 
-MAX_K = 256         # widest factor row one group of lanes holds
 L2_SHARE = 0.5      # of the card's L2 that one group's table may fill
 LINE_BYTES = 128    # the L1's line: one gathered run fills it
 MAX_IDLE = 0.25     # of the lanes that a ragged last group may leave idle
@@ -158,7 +161,8 @@ def _lib():
 @functools.lru_cache(maxsize=None)
 def geometry(k: int) -> tuple:
     """(KP, largest member group) of K4 at width k, as the kernel exports
-    them (``ell_gather_geometry``); the group is 0 at k > 32."""
+    them (``ell_gather_geometry``); the group is 0 at k > 32, and KP is the
+    slab width 256 past 256."""
     lib = _lib()
     kp, gmax = ctypes.c_int(), ctypes.c_int()
     check(lib.ell_gather_geometry(k, ctypes.byref(kp), ctypes.byref(gmax)),
@@ -212,8 +216,8 @@ def _launch(vals, idx, T, X, eps, group=None):
         raise ValueError(
             f"K4 shapes: vals {tuple(vals.shape)}, idx {tuple(idx.shape)}, "
             f"T {tuple(T.shape)}, X {None if X is None else tuple(X.shape)}")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"K4 takes 1 <= k <= {MAX_K}, got k={k}")
+    if k < 1:
+        raise ValueError(f"K4 takes k >= 1, got k={k}")
     if vals.dtype not in _VALS:
         raise TypeError(f"K4 takes f32, bf16 or f16 values, got {vals.dtype}")
     if T.dtype in HALF:
@@ -242,8 +246,11 @@ def _launch(vals, idx, T, X, eps, group=None):
                 X.data_ptr() if ratio else None, float(eps), int(ratio), B,
                 dim, w, dim_t, k, G, out.data_ptr(), stream)
     check(rc, lib, "ell_gather_error_string", "K4 ell_gather")
-    launches[("ell_gather_ratio" if ratio else "ell_gather")
-             + ("_f16" if vals.dtype == torch.float16 else "")] += 1
+    key = (("ell_gather_ratio" if ratio else "ell_gather")
+           + ("_f16" if vals.dtype == torch.float16 else ""))
+    launches[key] += 1
+    if k > 256:
+        slab_launches[key] += 1
     return out[0] if single else out
 
 

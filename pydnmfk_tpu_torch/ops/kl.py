@@ -22,6 +22,10 @@ path rounds W H, U and each product to the half dtype instead, so at half
 factors kernel and plain version differ by that rounding. An f16 A counts
 its launches under its own keys.
 
+The kernels take every k >= 1: register kernels up to k = 32, 3xTF32
+tensor-core kernels above, and past k = 256 slabs of 256 output columns,
+each of which recomputes W H over all of k (``csrc/kl_ratio.cu``).
+
 K2b splits each member's rows over several blocks where its strips of
 columns alone would leave SMs idle (the single-member refit of NMFk):
 :func:`wtu_split_plan` picks the split from the kernel's geometry (which
@@ -41,8 +45,9 @@ from .linalg import HALF, matmul
 # K2a / K2b launches since the last reset (counted where a kernel launches):
 # an f32, bf16 or uint8 A, and an f16 A
 launches = {"kl_uht": 0, "kl_wtu": 0, "kl_uht_f16": 0, "kl_wtu_f16": 0}
+# of them, the launches at k > 32 (the 3xTF32 kernels), by the same keys
+tc_launches = dict.fromkeys(launches, 0)
 
-MAX_K = 256         # widest factor the kernels' shared-memory tiles hold
 # K2b's row split, where its strips alone leave SMs idle: aim at this many
 # blocks per SM (the refit's member: 4, 8 and 16 measured equal, PERF.md)
 SPLIT_BLOCKS_PER_SM = 8
@@ -121,7 +126,7 @@ def _lib():
 @functools.lru_cache(maxsize=None)
 def wtu_geometry(k: int) -> tuple:
     """(strip, chunk) of K2b's kernel at factor width k, as the source
-    exports them (strip 0: the kernel takes no row split)."""
+    exports them."""
     lib = _lib()
     strip, chunk = ctypes.c_int(), ctypes.c_int()
     check(lib.kl_wtu_geometry(k, ctypes.byref(strip), ctypes.byref(chunk)),
@@ -143,8 +148,8 @@ def _launch(which: str, A, W, H, eps, splits=None):
     if W.shape != (B, m, k) or H.shape != (B, k, n):
         raise ValueError(f"K2 shapes: A {tuple(A.shape)}, W {tuple(W.shape)}, "
                          f"H {tuple(H.shape)}")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"K2 takes 1 <= k <= {MAX_K}, got k={k}")
+    if k < 1:
+        raise ValueError(f"K2 takes k >= 1, got k={k}")
     check_operands("K2", A, {"W": W, "H": H})
     out_dtype = torch.result_type(A, W)
     if W.dtype in HALF:
@@ -164,7 +169,10 @@ def _launch(which: str, A, W, H, eps, splits=None):
         stream = torch.cuda.current_stream(A.device).cuda_stream
         rc = fn(*args, out.data_ptr(), stream)
     check(rc, lib, "kl_ratio_error_string", f"K2 {which}")
-    launches[which + ("_f16" if A.dtype == torch.float16 else "")] += 1
+    key = which + ("_f16" if A.dtype == torch.float16 else "")
+    launches[key] += 1
+    if k > 32:
+        tc_launches[key] += 1
     out = out.to(out_dtype)
     return out[0] if single else out
 

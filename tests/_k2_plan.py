@@ -4,10 +4,12 @@ csrc/kl_ratio.cu exports."""
 from pydnmfk_tpu_torch.ops import kl
 
 # (members, m, n, k): the refit's single member and the 10-member ensemble
-# of the NMFk sweep, the strong-scaling shape, a member too short for a
+# of the NMFk sweep (at k <= 32 and at k = 64, the 3xTF32 kernels' width),
+# the strong-scaling shape, a member too short for a
 # second chunk, ragged m at every chunk height, a width whose strips alone
 # fill the card many times, and the first-port widths (no split)
-PLAN_CASES = [(1, 14400, 9600, 8), (10, 14400, 9600, 4), (1, 57600, 38400, 32),
+PLAN_CASES = [(1, 14400, 9600, 8), (10, 14400, 9600, 4), (1, 14400, 9600, 64),
+              (10, 14400, 9600, 64), (1, 57600, 38400, 32),
               (1, 200, 300, 8), (1, 1000, 130, 3), (1, 1001, 70, 16),
               (3, 999, 65, 17), (1, 3000, 260, 32), (1, 4096, 2 ** 22, 8),
               (1, 100000, 50, 1), (2, 5000, 700, 64), (1, 9000, 40, 256)]

@@ -180,17 +180,21 @@ def test_k3_misaligned_a_matches_plain(cuda, k, dtype):
 # csrc/kl_ratio.cu have them: K2b strips of 128 columns (64 at k > 16) over
 # W chunks of 256 rows; K2a row tiles of 16, 32, 64 rows (k <= 8, 16, 32)
 # over double-buffered H tiles of 512 columns (256 at k > 16); 16-byte
-# loads when n % 4 == 0. Shapes: n ragged at the strip widths with n % 4 =
-# 1, 2, 3 (scalar path) and 0, m ragged at the row tiles, n % 4 == 0 over
-# several H tiles with a ragged last one (n = 1040: 2 or 4 whole tiles at
-# k <= 16 or k > 16, then 16 columns; n = 1540: 3 or 6, then 4), a
-# 10-member stack, and single members tall enough for K2b's row split
-# (ops/kl.py::wtu_split_plan). k = 130: a padded k in the first port's
-# KP = 256 kernel.
+# loads when n % 4 == 0. Its 3xTF32 kernels (k > 32, KP = 64, 128, 256):
+# K2a row tiles of 128 rows over H tiles of 32 columns, K2b strips of 128
+# columns over W chunks of 32 rows, and past k = 256 slabs of 256 output
+# columns, each over every chunk of 256 factors. Shapes: n ragged at the
+# strip widths with n % 4 = 1, 2, 3 (scalar path) and 0, m ragged at the row
+# tiles, n % 4 == 0 over several H tiles with a ragged last one (n = 1040:
+# 2 or 4 whole tiles at k <= 16 or k > 16, then 16 columns; n = 1540: 3 or
+# 6, then 4), a 10-member stack, and single members tall enough for K2b's
+# row split (ops/kl.py::wtu_split_plan). Widths: every KP at and off it, and
+# the slab boundaries 256 / 257 and 300 (a second slab of 44 columns).
 K2_SHAPES = SHAPES + [(1, 257, 129), (1, 129, 130), (2, 65, 131),
                       (1, 33, 260), (10, 70, 200), (1, 3000, 260),
                       (1, 2100, 67), (1, 300, 1040), (2, 129, 1540)]
-K2_K = [1, 3, 7, 8, 9, 16, 17, 31, 32, 33, 65, 130, 256]
+K2_K = [1, 3, 7, 8, 9, 16, 17, 31, 32, 33, 64, 65, 128, 129, 130, 256, 257,
+        300]
 
 
 def _k2_keys(dtype):
@@ -287,7 +291,7 @@ def test_f16_overflow_is_inf_where_plain_is(cuda, b, m, n, k, kernel):
 
 @pytest.mark.parametrize("b,m,n", [(10, 70, 200), (1, 3000, 260),
                                    (1, 2100, 67)])
-@pytest.mark.parametrize("k", [3, 8, 32, 65, 130])
+@pytest.mark.parametrize("k", [3, 8, 32, 65, 130, 300])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_k2_launches_are_bitwise_equal(cuda, b, m, n, k, dtype):
     """Partial sums meet in a fixed order (no atomics; K2b's row split adds
@@ -298,11 +302,13 @@ def test_k2_launches_are_bitwise_equal(cuda, b, m, n, k, dtype):
 
 
 @pytest.mark.parametrize("splits", [1, 2, 3, 12])
+@pytest.mark.parametrize("k", [8, 64, 300])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_k2b_given_splits_matches_plain(cuda, splits, dtype):
+def test_k2b_given_splits_matches_plain(cuda, splits, k, dtype):
     """K2b with its rows cut into as many splits as asked (at most one per
-    W chunk) on a 2-member stack, and one launch per call."""
-    A, W, H = _inputs(cuda, 2, 3000, 260, 8, dtype)
+    W chunk) on a 2-member stack, and one launch per call: the register
+    kernel (k = 8), the 3xTF32 one (64) and its two slabs (300)."""
+    A, W, H = _inputs(cuda, 2, 3000, 260, k, dtype)
     key = _k2_keys(dtype)[1]
     before = kl.launches[key]
     out = kl.kl_wtu(A, W, H, EPS, splits=splits)
@@ -312,17 +318,36 @@ def test_k2b_given_splits_matches_plain(cuda, splits, dtype):
 
 def test_wtu_split_plan_on_the_exported_geometry(cuda):
     """K2b's geometry as the source exports it: a strip of whole 4-column
-    groups and a chunk for k <= 32, no split for k > 32, and a plan that
-    keeps the split's invariants (``_k2_plan.check_plan``) on it."""
-    for k in range(1, kl.MAX_K + 1):
+    groups and a chunk at every k (the register kernels' up to 32, the
+    3xTF32 kernels' of 128 columns and 32 rows above), and a plan that keeps
+    the split's invariants (``_k2_plan.check_plan``) on it; k < 1 raises."""
+    for k in range(1, 301):
         strip, chunk = kl.wtu_geometry(k)
-        assert (strip > 0) == (k <= 32)
-        assert strip % 4 == 0 and (chunk > 0) == (strip > 0)
+        assert strip > 0 and strip % 4 == 0 and chunk > 0
+        if k > 32:
+            assert (strip, chunk) == (128, 32)
     for B, m, n, k in PLAN_CASES:
         check_plan(B, m, n, k, *kl.wtu_geometry(k))
-    for k in (0, kl.MAX_K + 1):
-        with pytest.raises(RuntimeError, match="kl_wtu_geometry"):
-            kl.wtu_geometry(k)
+    # the single-member refit at k > 32 splits its rows too
+    assert check_plan(1, 14400, 9600, 64, *kl.wtu_geometry(64)) > 1
+    with pytest.raises(RuntimeError, match="kl_wtu_geometry"):
+        kl.wtu_geometry(0)
+
+
+@pytest.mark.parametrize("k", [40, 130, 300])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k2_misaligned_a_matches_plain(cuda, k, dtype):
+    """A contiguous A that starts one element past a 16-byte boundary takes
+    the element-by-element path of the 3xTF32 kernels."""
+    b, m, n = 2, 257, 528
+    A, W, H = _inputs(cuda, b, m, n, k, dtype)
+    buf = torch.empty(A.numel() + 1, dtype=dtype, device=cuda)
+    Av = buf[1:].view(b, m, n)
+    Av.copy_(A)
+    assert Av.is_contiguous() and Av.data_ptr() % 16 != 0
+    out = (kl.kl_uht(Av, W, H, EPS), kl.kl_wtu(Av, W, H, EPS))
+    ref = (kl.kl_uht_plain(A, W, H, EPS, 50), kl.kl_wtu_plain(A, W, H, EPS))
+    assert _rel(out, ref) <= 1e-4
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
@@ -338,6 +363,73 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         kl.kl_uht(A.double(), W, H, EPS)
     with pytest.raises(ValueError, match="contiguous"):
         kl.kl_wtu(A.mT.contiguous().mT, W, H, EPS)
+    with pytest.raises(ValueError, match="k >= 1"):
+        kl.kl_uht(A, W[..., :0].contiguous(), H[:, :0].contiguous(), EPS)
+
+
+@pytest.mark.parametrize("k", [257, 300, 600])
+def test_k2_wrappers_take_every_k(cuda, k):
+    """Past 256 the wrappers raise no more: one launch each, in slabs of
+    256 output columns, against the plain version."""
+    A, W, H = _inputs(cuda, 1, 300, 200, k, torch.float32)
+    before = dict(kl.launches)
+    out = (kl.kl_uht(A, W, H, EPS), kl.kl_wtu(A, W, H, EPS))
+    assert kl.launches == {**before, "kl_uht": before["kl_uht"] + 1,
+                           "kl_wtu": before["kl_wtu"] + 1}
+    ref = (kl.kl_uht_plain(A, W, H, EPS), kl.kl_wtu_plain(A, W, H, EPS))
+    assert _rel(out, ref) <= 1e-4
+
+
+@pytest.mark.parametrize("k", [40, 300])
+def test_kl_fit_on_the_card_runs_k2(cuda, k):
+    """A KL-MU NMF.fit at k = 40 and 300 launches K2a and K2b once an
+    iteration and nothing else, and ends within 1e-3 of the CPU path's
+    relative error from the same init."""
+    import numpy as np
+    from pydnmfk_tpu_torch import NMF, NMFConfig
+    from pydnmfk_tpu_torch.utils.data_generator import generate_data
+    _, _, X = generate_data(m=400, n=330, k=5)
+    rng = np.random.default_rng(0)
+    W0, H0 = rng.random((400, k)), rng.random((k, 330))
+    cfg = NMFConfig(k=k, norm="kl", itr=20)
+    counters = (fused_mu.launches, kl.launches, fused_kl.launches,
+                ell_gather.launches)
+    before = [dict(c) for c in counters]
+    _, _, err = NMF(cfg, cuda).fit(X, factors=(W0, H0))
+    ran = [{key: c[key] - b[key] for key in c} for c, b in zip(counters, before)]
+    assert ran[1] == {"kl_uht": 20, "kl_wtu": 20, "kl_uht_f16": 0,
+                      "kl_wtu_f16": 0}
+    assert not any(v for i in (0, 2, 3) for v in ran[i].values())
+    _, _, err_cpu = NMF(cfg, "cpu").fit(X, factors=(W0, H0))
+    assert abs(err / err_cpu - 1) <= 1e-3
+
+
+def test_sparse_kl_fit_at_k300_runs_k4_in_slabs(cuda):
+    """A KL-MU NMF.fit at k = 300 on a sparse A in the dual ELL format on
+    the card (K4 past 256: its ratio modes on the wide kernel, 20 launches,
+    and one plain launch for the final error, all counted as slab launches)
+    ends within 1e-3 of the CPU path's relative error (the triplet's plain
+    products) from the same init."""
+    import numpy as np
+    from pydnmfk_tpu_torch import NMF, NMFConfig
+    rng = np.random.default_rng(3)
+    m, n, k = 400, 330, 300
+    rows = rng.integers(0, m, 8000)
+    cols = rng.integers(0, n, 8000)
+    A = sparse.from_coo(torch.from_numpy(rows).int(), torch.from_numpy(cols).int(),
+                        torch.from_numpy(rng.random(8000) + 0.1).float(), (m, n))
+    E = ell.ell_pack(A.to(cuda), max_tail_frac=1.0)
+    assert E is not None
+    W0, H0 = rng.random((m, k)), rng.random((k, n))
+    cfg = NMFConfig(k=k, norm="kl", itr=10)
+    before = dict(ell_gather.launches), dict(ell_gather.slab_launches)
+    _, _, err = NMF(cfg, cuda).fit(E, factors=(W0, H0))
+    for c, b in zip((ell_gather.launches, ell_gather.slab_launches), before):
+        assert {key: c[key] - b[key] for key in c} == {
+            "ell_gather": 1, "ell_gather_ratio": 20, "ell_gather_f16": 0,
+            "ell_gather_ratio_f16": 0}
+    _, _, err_cpu = NMF(cfg, "cpu").fit(A, factors=(W0, H0))
+    assert abs(err / err_cpu - 1) <= 1e-3
 
 
 def _ell_inputs(dev, b, m, n, k, nnz_per_row, w_cap):
@@ -364,8 +456,9 @@ def _ell_inputs(dev, b, m, n, k, nnz_per_row, w_cap):
 K4_SHAPES = [(1, 300, 97, 9, 6), (3, 1000, 777, 9, 6), (2, 77, 4000, 9, 6),
              (10, 513, 301, 40, 150), (3, 2000, 50, 9, 150)]
 # every padded width of the grouped kernel, at and off it; the legacy
-# kernel's (k > 32)
-K4_WIDTHS = [1, 2, 3, 4, 5, 7, 8, 16, 31, 32, 33, 256]
+# kernel's (k > 32), and past 256 its slabs (the ratio modes on the wide
+# kernel)
+K4_WIDTHS = [1, 2, 3, 4, 5, 7, 8, 16, 31, 32, 33, 256, 257, 300]
 VALS_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
 
 
@@ -476,15 +569,17 @@ def test_k4_geometry_and_groups_as_exported(cuda):
     (G KP / 4 <= 32); the plan on it keeps its invariants at the card's L2,
     and a group the kernel does not take raises."""
     l2 = torch.cuda.get_device_properties(cuda).L2_cache_size
-    for k in range(1, ell_gather.MAX_K + 1):
+    for k in range(1, 301):
         kp, gmax = ell_gather.geometry(k)
-        assert kp >= max(k, 4) and (kp == 4 or kp < 2 * k)
+        if k > 256:
+            assert kp == 256       # slabs of 256 columns
+        else:
+            assert kp >= max(k, 4) and (kp == 4 or kp < 2 * k)
         assert (gmax > 0) == (k <= 32) and gmax * kp <= 128
         G = ell_gather.member_groups(10, 50_000, kp, gmax, l2)
         assert (G > 0) == (k <= 32) and G <= gmax
-    for k in (0, ell_gather.MAX_K + 1):
-        with pytest.raises(RuntimeError, match="ell_gather_geometry"):
-            ell_gather.geometry(k)
+    with pytest.raises(RuntimeError, match="ell_gather_geometry"):
+        ell_gather.geometry(0)
     E, W, H = _ell_inputs(cuda, 2, 64, 48, 32, nnz_per_row=3, w_cap=4)
     for bad in (3, 8):
         with pytest.raises(ValueError, match="member groups"):
@@ -494,8 +589,12 @@ def test_k4_geometry_and_groups_as_exported(cuda):
 
 def test_k4_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     E, W, H = _ell_inputs(cuda, 1, 64, 48, 257, nnz_per_row=3, w_cap=4)
-    with pytest.raises(ValueError, match="k <= 256"):
-        ell_gather.ell_gather_product(E.rvals, E.rcols, H.mT.contiguous())
+    # k = 257 raises no more: one launch, in slabs, against the plain version
+    before = ell_gather.launches["ell_gather"]
+    out = ell_gather.ell_gather_product(E.rvals, E.rcols, H.mT.contiguous())
+    assert ell_gather.launches["ell_gather"] == before + 1
+    assert _rel([out], [ell_gather.ell_gather_product_plain(
+        E.rvals, E.rcols, H.mT.contiguous())]) <= 1e-4
     with pytest.raises(ValueError, match="contiguous"):
         ell_gather.ell_gather_product(E.rvals, E.rcols, H.mT[..., :8])
     with pytest.raises(TypeError, match="int32"):

@@ -269,3 +269,43 @@ def test_gather_plain_f16_values_matches_pallas(ratio, table,
         None if X is None else torch.from_numpy(X).to(tt), EPS)
     assert out.dtype == torch.float32
     np.testing.assert_allclose(np_(out), np_(ref), **TOL)
+
+
+def test_format_ladder_at_nytimes_k300_ends_beyond_dense():
+    """A k = 300 topic model of the NYTimes corpus (300000 x 102660, 69.7 M
+    nnz) fits no dense format on an 80 GB card (61.6 GB even at bf16, past
+    the 45 % budget), so the ladder ends in "ell_beyond": the dual ELL, and
+    with it K4, is the only path on the card at that width."""
+    from pydnmfk_tpu_torch.ops import sparse as tsp
+    m, n, nnz = 300_000, 102_660, 69_679_427
+    budget = tsp.BUDGET_FRAC * 80e9
+    ladder = tsp.format_ladder(m, n, nnz, 300, 4, budget, "cuda")
+    assert ladder[-1] == "ell_beyond" and "dense" not in ladder
+    assert m * n * 2 > budget
+
+
+@pytest.mark.parametrize("ratio", [False, True])
+def test_ell_products_at_k300_match_jax(ratio):
+    """The plain ELL products at k = 300, past the card kernel's 256-column
+    slab, against the JAX package's XLA ELL path (no width limit): A H^T and
+    W^T A, or UHT and WTU, with forced tails."""
+    _, B, T = lowrank(60, 45, 3, 0.3, 4)
+    Ej = jell.ell_pack(B, w_cap=3, max_tail_frac=1.0)
+    Et = ell_from_numpy(*(np.asarray(getattr(Ej, f)) for f in tell.FIELDS),
+                        Ej.shape, Ej.nse)
+    rng = np.random.default_rng(5)
+    W, H = (rng.random((60, 300)).astype(np.float32),
+            rng.random((300, 45)).astype(np.float32))
+    Wj, Hj, Wt, Ht = jnp.asarray(W), jnp.asarray(H), *map(torch.from_numpy,
+                                                          (W, H))
+    if ratio:
+        pairs = [(tell.ell_kl_uht(Et, Wt, Ht, EPS),
+                  jell.ell_kl_uht(Ej, Wj, Hj, EPS)),
+                 (tell.ell_kl_wtu(Et, Wt, Ht, EPS),
+                  jell.ell_kl_wtu(Ej, Wj, Hj, EPS))]
+    else:
+        pairs = [(tell.ell_a_ht(Et, Ht), jell.ell_a_ht(Ej, Hj)),
+                 (tell.ell_wt_a(Et, Wt), jell.ell_wt_a(Ej, Wj))]
+    for out, ref in pairs:
+        assert tuple(out.shape) == tuple(ref.shape)
+        np.testing.assert_allclose(np_(out), np_(ref), rtol=1e-4, atol=1e-6)

@@ -24,7 +24,10 @@ def _inputs(seed, m, n, k, b=None):
             rng.random(lead + (k, n)).astype(np.float32))
 
 
-@pytest.mark.parametrize("m,n,k", [(70, 45, 3), (130, 97, 9)])
+# k = 33, 130, 300: the widths of the 3xTF32 kernels (KP = 64, 256) and
+# past one slab; the Pallas kernels pad k to 128 lanes (384 at k = 300)
+@pytest.mark.parametrize("m,n,k", [(70, 45, 3), (130, 97, 9), (70, 45, 33),
+                                   (70, 45, 130), (70, 45, 300)])
 @pytest.mark.parametrize("chunk", [0, 32])
 def test_plain_products_match_pallas(m, n, k, chunk, interpret_pallas):
     A, W, H = _inputs(0, m, n, k)
@@ -89,8 +92,9 @@ def test_non_cpu_tensor_never_takes_the_plain_path(fn):
 
 
 # (strip, chunk) of K2b's kernel: those of csrc/kl_ratio.cu at KP = 8 and
-# 16, at KP = 32, a first-port width (no split), and an odd one
-GEOMETRIES = [(128, 256), (64, 256), (0, 0), (32, 100)]
+# 16, at KP = 32 and at KP > 32 (the 3xTF32 kernel), no split, and an odd
+# one
+GEOMETRIES = [(128, 256), (64, 256), (128, 32), (0, 0), (32, 100)]
 
 
 @pytest.mark.parametrize("B,m,n,k", PLAN_CASES)
@@ -98,7 +102,51 @@ GEOMETRIES = [(128, 256), (64, 256), (0, 0), (32, 100)]
 def test_wtu_split_plan_covers_every_row_once(B, m, n, k, strip, chunk):
     """K2b's row split (see ``_k2_plan.check_plan``)."""
     splits = check_plan(B, m, n, k, strip, chunk)
-    if (B, m, n, k, strip) == (1, 14400, 9600, 8, 128):
+    if (B, m, n, strip) == (1, 14400, 9600, 128):
         assert splits > 1          # the refit's 75 strips leave SMs idle
-    if (B, m, n, k, strip) == (10, 14400, 9600, 4, 128):
+    if (B, m, n, strip) == (10, 14400, 9600, 128):
         assert splits == 1         # the ensemble's 750 fill them
+
+
+@pytest.mark.parametrize("k", [33, 64, 130, 300])
+@pytest.mark.parametrize("b", [None, 2])
+def test_plain_products_at_wide_k_match_jax(k, b):
+    """K2's plain versions at the widths of the 3xTF32 kernels (KP = 64,
+    128, 256) and past one slab (300), row-chunked, against the JAX
+    package's chunked path, member by member for a stack."""
+    A, W, H = _inputs(4, 70, 45, k, b=b)
+    At, Wt, Ht = map(torch.from_numpy, (A, W, H))
+    uht, wtu = tkl.kl_uht(At, Wt, Ht, EPS, 32), tkl.kl_wtu(At, Wt, Ht, EPS, 32)
+    for i in ([None] if b is None else range(b)):
+        sel = (lambda x: x) if i is None else (lambda x: x[i])
+        Aj, Wj, Hj = (jnp.asarray(sel(x)) for x in (A, W, H))
+        for want, out in (("uht", uht), ("wtu", wtu)):
+            np.testing.assert_allclose(
+                np_(sel(out)), np_(jkl._chunked(Aj, Wj, Hj, EPS, 32, want)),
+                **TOL)
+
+
+@pytest.mark.parametrize("k", [40, 300])
+def test_kl_fit_at_wide_k_matches_jax(k):
+    """A KL-MU NMF.fit at k = 40 and 300 (K2's 3xTF32 widths and past one
+    slab on the card; the plain products here) on a small planted A, from
+    the same init in both packages: factors and error within rtol 1e-3 at
+    f32 after 20 iterations (f32 rounding carried through the iterations,
+    as tests/test_torch_nmf.py holds f32 fits)."""
+    import dataclasses
+
+    import pydnmfk_tpu
+    import pydnmfk_tpu_torch as port
+    from pydnmfk_tpu.utils.data_generator import generate_data
+    from pydnmfk_tpu_torch.utils.convert import config_from_jax
+    rng = np.random.default_rng(6)
+    _, _, X = generate_data(400, 330, 5, seed=6)
+    A = (X * (1.0 + 0.05 * rng.random((400, 330)))).astype(np.float32)
+    W0, H0 = rng.random((400, k)), rng.random((k, 330))
+    jcfg = pydnmfk_tpu.NMFConfig(k=k, norm="kl", itr=20, precision="float32")
+    Wj, Hj, ej = pydnmfk_tpu.NMF(jcfg).fit(A, factors=(W0, H0))
+    W, H, e = port.NMF(config_from_jax(dataclasses.asdict(jcfg)),
+                       "cpu").fit(A, factors=(W0, H0))
+    np.testing.assert_allclose(np_(W), np_(Wj), rtol=1e-3, atol=1e-6)
+    np.testing.assert_allclose(np_(H), np_(Hj), rtol=1e-3, atol=1e-6)
+    np.testing.assert_allclose(float(e), float(ej), rtol=1e-3)

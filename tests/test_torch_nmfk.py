@@ -73,6 +73,49 @@ def test_sweep_matches_jax_with_its_draws(tmp_path):
     assert model.pvalue_analysis() == nopt_jax
 
 
+def test_kl_sweep_at_wide_k_matches_jax(tmp_path):
+    """A KL-MU sweep over ks 4, 34 and 64 (K2's register kernel and its
+    3xTF32 kernel at KP = 64 on the card; the plain products here), fed the
+    JAX package's draws, at f64: per-k L_err, recon_err, L_errDist and AIC
+    within rtol 1e-5 (1.4e-6 measured), the silhouettes within 1e-3
+    absolute (1.2e-4 measured: at 34 and 64 clusters of a rank-4 matrix they
+    lie near 0, where the clustering's arccos amplifies the summation order
+    of 200 iterations of a factorization that is not unique), and the same
+    choice of k, 4."""
+    _, _, X = generate_data(m=96, n=72, k=4, seed=100)
+    jcfg = pydnmfk_tpu.NMFkConfig(
+        nmf=pydnmfk_tpu.NMFConfig(itr=200, norm="kl", method="mu",
+                                  precision="float64"),
+        start_k=4, end_k=64, step_k=30, perturbations=6, sill_thr=0.6,
+        results_path=str(tmp_path / "jax") + "/", fname="kl",
+        checkpoint=False, k_sweep_batch=False)
+    with x64():
+        jm = pydnmfk_tpu.NMFk(jcfg)
+        nopt_jax = jm.fit(X)
+        members = {k: _jax_members(jcfg, X, k) for k in jcfg.k_range}
+    assert list(jcfg.k_range) == [4, 34, 64] and nopt_jax == 4
+
+    model = port.NMFk(config_from_jax(dataclasses.asdict(jcfg.replace(
+        results_path=str(tmp_path / "torch") + "/"))), "cpu")
+    os.makedirs(model.results_path)
+    At = torch.from_numpy(np.asarray(X))
+    for k in jcfg.k_range:
+        ens = model._solve_ensemble(At, k, members=members[k])
+        stats = model.pynmfk_per_k(At, k, ensemble=ens)
+        ref = jm.per_k_stats[k]
+        for key in ("L_err", "recon_err", "AIC", "L_errDist"):
+            np.testing.assert_allclose(np.asarray(stats[key], np.float64),
+                                       np.asarray(ref[key], np.float64),
+                                       rtol=1e-5, err_msg=f"k={k} {key}")
+        for key in ("clusterSilhouetteCoefficients",
+                    "avgSilhouetteCoefficients"):
+            np.testing.assert_allclose(np.asarray(stats[key], np.float64),
+                                       np.asarray(ref[key], np.float64),
+                                       rtol=0, atol=1e-3,
+                                       err_msg=f"k={k} {key}")
+    assert model.pvalue_analysis() == nopt_jax
+
+
 def test_port_sweep_picks_planted_k(tmp_path):
     """With its own torch draws the port picks k = 3, as the JAX package
     does on the same matrix (tests/test_nmfk_pipeline.py)."""

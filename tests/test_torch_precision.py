@@ -97,6 +97,36 @@ def test_one_half_dtype_for_a_and_the_other_for_the_factors_is_refused(
                   "--k=3", "--itr=3", f"--results_path={tmp_path}/r/"])
 
 
+@pytest.mark.parametrize("precision", ["bfloat16", "float16"])
+@pytest.mark.parametrize("a_precision", ["float32", "float64"])
+def test_an_a_wider_than_half_factors_is_refused(tmp_path, precision,
+                                                 a_precision):
+    """Half factors under an f32 or f64 A: the port refuses the pair up
+    front (NMFConfig, hence NMFk, Runner, the CLI and config_from_jax),
+    where its plain solve returned wide factors. For the f32 A the JAX
+    package's solve raises a TypeError on the same inputs (its loop carries
+    the half factors and gets f32 ones back); its f64 pairs are left out, as
+    they would turn on x64 for the whole process."""
+    with pytest.raises(ValueError, match="wider than its half factors"):
+        port.NMFConfig(k=3, precision=precision, a_precision=a_precision)
+    if a_precision == "float64":
+        return
+    A, W0, H0 = _problem(0, m=40, n=30)
+    jcfg = pydnmfk_tpu.NMFConfig(k=3, itr=3, precision=precision,
+                                 a_precision=a_precision)
+    with pytest.raises(TypeError, match="carry"):
+        pydnmfk_tpu.NMF(jcfg).fit(A.astype(np.float32), factors=(W0, H0))
+    with pytest.raises(ValueError, match="wider than its half factors"):
+        config_from_jax(dataclasses.asdict(jcfg))
+    np.save(tmp_path / "X.npy", A.astype(np.float32))
+    from pydnmfk_tpu_torch import cli
+    with pytest.raises(ValueError, match="wider than its half factors"):
+        cli.main(["--cpu", "--process=pyDNMF", "--p_r=1", "--p_c=1",
+                  f"--precision={precision}", f"--a_precision={a_precision}",
+                  f"--fpath={tmp_path}/", "--fname=X", "--ftype=npy",
+                  "--k=3", "--itr=3", f"--results_path={tmp_path}/r/"])
+
+
 @pytest.mark.parametrize("precision",
                          ["bfloat16", "float16", "float32", "float64"])
 def test_eps_and_dtypes_match_jax(precision):
