@@ -18,6 +18,12 @@
 // lines of w = 50 slots into a 50000-row table) and its columns orientation
 // (50000 lines of w = 200 into a 200000-row table); the indices are uniform
 // within a quarter of the table (a topic's block), drawn from a fixed hash.
+//
+// Then the rate of K4's column slabs (k > 32): one member, 300000 lines of
+// w = 232 slots (the NYTimes rows' mean) each gathering a row segment of 64,
+// 128 or 256 bytes (16, 32, 64 floats, one float4 a lane) from a table of
+// 8 to 64 MB (inside and around the 50 MB L2) or 256 MB (device memory),
+// the indices uniform over the whole table.
 // Build and run on the card:
 //
 //     nvcc -O3 -std=c++17 -gencode arch=compute_90a,code=sm_90a \
@@ -95,7 +101,10 @@ void run(const int* idx, const float* T, int B, int dim, int w, int dim_t, float
          cudaGetErrorString(cudaGetLastError()));
 }
 
-__global__ void fill(int* idx, float* T, int dim, int w, int dim_t, size_t nt) {
+// blocks = 4: each line's indices within its quarter of the table (a topic
+// block); blocks = 1: uniform over the whole table
+__global__ void fill(int* idx, float* T, int dim, int w, int dim_t, size_t nt,
+                     int blocks = 4) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < (size_t)dim * w) {
     const size_t line = i / w;
@@ -103,8 +112,8 @@ __global__ void fill(int* idx, float* T, int dim, int w, int dim_t, size_t nt) {
     h ^= h >> 15;
     h *= 2246822519u;
     h ^= h >> 13;
-    const int block = dim_t / 4;                 // the line's topic block
-    idx[i] = (int)((line * 4 / dim) * block + h % block);
+    const int block = dim_t / blocks;            // the line's topic block
+    idx[i] = (int)((line * blocks / dim) * block + h % block);
   }
   if (i < nt) T[i] = 1.f + (float)(i % 7);
 }
@@ -122,6 +131,18 @@ void shape(int B, int dim, int w, int dim_t, const char* name, int* idx, float* 
   run<KP, K, 8>(idx, T, B, dim, w, dim_t, out, name);
 }
 
+// one member's row segments of KP floats from a table of table_mb MB
+template <int KP>
+void segments(int dim, int w, int table_mb, int* idx, float* T, float* out) {
+  const int dim_t = (int)(((size_t)table_mb << 20) / (KP * 4));
+  const size_t nt = (size_t)dim_t * KP;
+  const size_t n = (size_t)dim * w > nt ? (size_t)dim * w : nt;
+  fill<<<(unsigned)((n + 255) / 256), 256>>>(idx, T, dim, w, dim_t, nt, 1);
+  char name[16];
+  snprintf(name, sizeof name, "%dMB", table_mb);
+  run<KP, KP, 1>(idx, T, 1, dim, w, dim_t, out, name);
+}
+
 int main() {
   const int B = 10;
   int* idx;
@@ -134,5 +155,19 @@ int main() {
   shape<8, 7>(B, 50000, 200, 200000, "columns", idx, T, out);
   shape<4, 3>(B, 200000, 50, 50000, "rows", idx, T, out);
   shape<4, 3>(B, 50000, 200, 200000, "columns", idx, T, out);
+  cudaFree(idx);
+  cudaFree(T);
+  cudaFree(out);
+
+  const int dim = 300000, w = 232;
+  if (cudaMalloc(&idx, (size_t)dim * w * 4) != cudaSuccess ||
+      cudaMalloc(&T, (size_t)256 << 20) != cudaSuccess ||
+      cudaMalloc(&out, (size_t)dim * 16 * 4) != cudaSuccess)
+    return 1;
+  for (int mb : {8, 16, 24, 32, 40, 48, 64, 256}) {
+    segments<16>(dim, w, mb, idx, T, out);
+    segments<32>(dim, w, mb, idx, T, out);
+    segments<64>(dim, w, mb, idx, T, out);
+  }
   return cudaGetLastError() == cudaSuccess ? 0 : 1;
 }

@@ -2,7 +2,7 @@
 """Times kernel K4 (the ELL gather product, ``csrc/ell_gather.cu``) on one GPU.
 
     python3 bench_torch/k4_bench.py [--root DIR] [--label NAME] [--group-sweep]
-                                    [--stack-only]
+                                    [--stack-only] [--wide] [--slab-sweep]
 
 Imports ``pydnmfk_tpu_torch`` from DIR (default: the root of this
 checkout), so that two trees, say a parent commit unpacked with ``git archive``
@@ -28,6 +28,14 @@ gathered in groups of 1, 2, 4 and 8 (``ell_gather._launch``'s ``group``) and
 with the wrapper's own plan (``"group_asked": null``), twice, in rising and
 then falling order. ``--stack-only`` leaves out the NYTimes cases (for a
 profiler that takes the stack's launches).
+
+With ``--wide`` it times K4 past k = 32 instead: NYTimes at k = 64, 128,
+256 and 300 and the stack at k = 64, four modes each, with, where the
+package plans slabs, their count. With ``--slab-sweep`` it times the plain
+and ratio modes of the same cases at forced slab widths of 16 to 256
+floats (``ell_gather._launch``'s ``slab``) and at the plan's, twice, in
+rising and then falling order, with the share of the L2 that one member's
+slab of the table fills: the sweep that sets ``ell_gather.SLAB_SHARE``.
 """
 from __future__ import annotations
 
@@ -47,6 +55,8 @@ ENS = 10                  # members of the NMFk ensemble
 TOPIC = dict(m=200_000, n=50_000, k=4, nnz_per_row=50)
 NYT_M, NYT_N, NYT_NNZ = 300_000, 102_660, 69_679_427
 SWEEP = [1, 2, 4, 8, None]   # --group-sweep: members per gathered group
+SLABS = [16, 24, 32, 48, 64, 96, 128, 256, None]   # --slab-sweep widths
+WIDE_K = [64, 128, 256, 300]  # --wide: NYTimes widths (the stack at 64)
 
 
 def nbytes(*tensors):
@@ -80,6 +90,10 @@ def main():
                    help="time the stack at several member groups instead")
     p.add_argument("--stack-only", action="store_true",
                    help="leave out the NYTimes cases")
+    p.add_argument("--wide", action="store_true",
+                   help="time K4 past k = 32 instead")
+    p.add_argument("--slab-sweep", action="store_true",
+                   help="time K4 past k = 32 at several slab widths instead")
     args = p.parse_args()
     if not torch.cuda.is_available():
         sys.exit("k4_bench: no CUDA device")
@@ -120,6 +134,13 @@ def main():
         d = float((out.double() - ref.double()).abs().max())
         return d / float(ref.double().abs().max()), d
 
+    def slabs(T, ratio):
+        """The slabs the package plans for T (None where it plans none)."""
+        if not hasattr(ell_gather, "slab_for"):
+            return None
+        return ell_gather.slab_for(T.shape[-2], T.shape[-1], T.device,
+                                   ratio=ratio)[1]
+
     def cases(name, E, W, H, library):
         for label, v, i, T, X, nz, side in modes(E, W, H):
             out = ell_gather.ell_gather_product(v, i, T, X, eps)
@@ -129,7 +150,7 @@ def main():
             lib = library.get(side) if X is None else None
             bound_ms, bound_by = work(v, i, T, X, nz)
             copy_ms = None            # the table's interleave, inside ms
-            if hasattr(ell_gather, "grouped_table"):
+            if hasattr(ell_gather, "grouped_table") and T.shape[-1] <= 32:
                 T3 = T if T.dim() == 3 else T[None]
                 kp, G = ell_gather.group_for(*T3.shape, T.device)
                 if G and not (G == 1 and T.shape[-1] == kp):
@@ -141,6 +162,7 @@ def main():
                     v, i, T, X, eps)),
                 "max_rel_err": rel, "max_abs_err": abs_,
                 "bound_ms": bound_ms, "bound_by": bound_by,
+                "slabs": slabs(T, X is not None),
                 "library_ms": None if lib is None else median_ms(lib),
                 "interleave_ms": copy_ms, "card": smi}), flush=True)
 
@@ -157,6 +179,26 @@ def main():
                     "ms": median_ms(run),
                     "max_rel_err": rel, "card": smi}), flush=True)
 
+    def slab_sweep(name, E, W, H):
+        l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+        for label, v, i, T, X, nz, _ in modes(E, W, H):
+            ref = ell_gather.ell_gather_product_plain(v, i, T, X, eps)
+            k, dim_t = T.shape[-1], T.shape[-2]
+            widths = [s for s in SLABS if s is None or s <= k]
+            for asked in widths + widths[::-1]:
+                ks, count = ell_gather.slab_for(dim_t, k, T.device, asked,
+                                                X is not None)
+                run = lambda: ell_gather._launch(v, i, T, X, eps, slab=asked)
+                rel, _ = errors(run(), ref)
+                print(json.dumps({
+                    "label": args.label, "case": name, "mode": label,
+                    "slab_asked": asked, "slab": ks, "slabs": count,
+                    "l2_share": dim_t * -(-ks // 4) * 4 * 4 / l2,
+                    "ms": median_ms(run), "max_rel_err": rel,
+                    "card": smi}), flush=True)
+            del ref
+
+    wide = args.wide or args.slab_sweep
     # the stack: the sweep's planted topic matrix, perturbed per member
     r, c, v, tshape = generate_topic_sparse(**TOPIC, seed=7)
     topic = sparse.from_coo(*(torch.from_numpy(x).to(dev) for x in (r, c, v)),
@@ -166,13 +208,16 @@ def main():
     noise = 1.0 + 0.03 * torch.rand((ENS, topic.nse), generator=gen, device=dev)
     data = topic.data * noise
     stack = ell.ell_with_data(Et, *perms, data)
-    for k in (3, 7):
+    for k in (64,) if wide else (3, 7):
         W = torch.rand((ENS, tshape[0], k), generator=gen, device=dev)
         H = torch.rand((ENS, k, tshape[1]), generator=gen, device=dev)
         name = (f"{ENS} x {tshape[0]}x{tshape[1]} ({topic.nse} nnz) k={k} "
                 f"f32")
         if args.group_sweep:
             sweep(name, stack, W, H)
+            continue
+        if args.slab_sweep:
+            slab_sweep(name, stack, W, H)
             continue
         A_r = coo_stack(topic.rows, topic.cols, data, tshape)
         A_c = coo_stack(topic.cols, topic.rows, data, tshape[::-1])
@@ -195,14 +240,20 @@ def main():
                                (flat % NYT_N).to(torch.int32), (NYT_M, NYT_N))
     del flat, vals
     E = ell.ell_pack(nyt)
-    W = torch.rand((NYT_M, 32), generator=gen, device=dev)
-    H = torch.rand((32, NYT_N), generator=gen, device=dev)
     A_r = csr(nyt.rows, nyt.cols, nyt.data, nyt.shape)
     A_c = csr(nyt.cols, nyt.rows, nyt.data, nyt.shape[::-1])
-    Ht = H.mT.contiguous()
-    cases(f"{NYT_M}x{NYT_N} ({nyt.nse} nnz) k=32 f32", E, W, H,
-          {"r": lambda: torch.sparse.mm(A_r, Ht),
-           "c": lambda: torch.sparse.mm(A_c, W)})
+    widths = WIDE_K if wide else [32]
+    for k in widths:
+        W = torch.rand((NYT_M, k), generator=gen, device=dev)
+        H = torch.rand((k, NYT_N), generator=gen, device=dev)
+        name = f"{NYT_M}x{NYT_N} ({nyt.nse} nnz) k={k} f32"
+        if args.slab_sweep:
+            slab_sweep(name, E, W, H)
+            continue
+        Ht = H.mT.contiguous()
+        cases(name, E, W, H, {"r": lambda: torch.sparse.mm(A_r, Ht),
+                              "c": lambda: torch.sparse.mm(A_c, W)})
+        del W, H, Ht
 
 
 if __name__ == "__main__":

@@ -26,15 +26,17 @@ Run from the root of a checkout, with no arguments:
      of the NYTimes bag-of-words corpus (300000 x 102660, 69.7 M nnz,
      k = 32), with f32 and with f16 values, and on a 10-member stack of the planted topic matrix of 5 at
      k = 3 and 7 (library call: ``torch.bmm`` of a sparse COO stack);
-   - K3 at k = 64 on the f32 A and K4 at k = 64 on the NYTimes shape,
-     where the first port's kernels run;
+   - K3 at k = 64 on the f32 A, where the first port's kernel runs, and
+     K4 past k = 32 on its slab kernels: on the NYTimes shape at k = 64,
+     128, 256 and 300 (column slabs sized to the L2; the ratio modes in
+     several slabs in two passes) and on the 10-member topic stack at
+     k = 64, each row with an estimate of its gathers (every nonzero's k
+     floats at the L2's gather rate for uniform indices) beside its bound;
    - K2a and K2b past k = 32, on their 3xTF32 tensor-core kernels: at
      57600 x 38400, k = 64, on the f32 A and its uint8 quantization, on one
      14400 x 9600 member at k = 128, 256 and 300 (two output slabs) and on
      the 10-member stack at k = 64, each within 1e-4 of the plain version,
-     bound at 165 TFLOP/s (3xTF32) with the CUDA cores' 67 beside it; K4 at
-     the NYTimes shape, k = 300 (slabs of 256; the ratio modes on the wide
-     kernel);
+     bound at 165 TFLOP/s (3xTF32) with the CUDA cores' 67 beside it;
    profiles one batched FRO-MU and KL-MU step on that stack (wall and
    device ms, idle share, top kernels); checks NMF.fit on the card
    against the CPU path on a small input; and times one ``eigh`` of a
@@ -66,8 +68,8 @@ Run from the root of a checkout, with no arguments:
 4. the sparse main path, the same way: NMF.fit on the NYTimes-shaped matrix,
    10 FRO-MU, 10 KL-MU and 10 HALS iterations, k = 32, 10 FRO-MU and
    KL-MU iterations on its f16 values (``a_precision="float16"``, K4's f16
-   instantiation), and 10 KL-MU iterations at k = 300 (K4 past 256), on the
-   ELL format the policy must choose;
+   instantiation), and 10 KL-MU iterations at k = 300 (K4 in column slabs,
+   every call), on the ELL format the policy must choose;
 5. the sparse NMFk sweep through the CLI on a planted rank-4 block-sparse
    200000 x 50000 ``.npz`` (about 50 nnz per row, 10 M nnz; the same sweep
    settings), FRO-MU and KL-MU, which must choose k = 4 on the ELL format;
@@ -125,6 +127,8 @@ PEAK_BF16 = 989e12                       # H100 SXM: bf16 tensor cores, dense
 PEAK_3XTF32 = 495e12 / 3                 # H100 SXM: TF32 tensor cores, three
                                          # products a product (K2 at k > 32)
 WIDE_K = 64                              # K2 at k > 32, the KL solve
+PARENT_KL300_S = 1.195   # phase 4's sparse KL-MU solve at k = 300 before
+                         # the slab kernels (H100 80GB HBM3, 700 W)
 WIDE_SWEEP = dict(start_k=4, end_k=64, step_k=30)   # ks 4, 34, 64
 
 
@@ -219,16 +223,16 @@ def ptxas_k2(log):
 
 def ptxas_k4(log):
     """K4's kernels: the grouped kernel (k <= 32) keyed (kernel, values
-    dtype, KP, member group, ratio, False), the first port's (k > 32) and
-    its wide ratio kernel (k > 256) keyed (kernel, dtype, KP, 0, ratio,
-    vec), and the table's interleave."""
-    return ptxas(log, r"(grouped_kernel|ell_gather_kernel|ell_gather_wide_kernel|"
-                      r"interleave_kernel)"
-                      r"(?:I(f|13__nv_bfloat16|6__half)Li(\d+)E(?:Li(\d+)E)?Lb([01])E"
+    dtype, KP, member group, ratio), the slab kernel (k > 32) keyed
+    (kernel, dtype, KP, 0, ratio), the ratio's dot pass keyed (kernel,
+    dtype, KP, 0, True), and the two tables' layouts."""
+    return ptxas(log, r"(grouped_kernel|slab_kernel|dot_kernel|"
+                      r"interleave_kernel|slab_table_kernel)"
+                      r"(?:I(f|13__nv_bfloat16|6__half)Li(\d+)E(?:Li(\d+)E)?"
                       r"(?:Lb([01])E)?)?",
                  lambda m: (m.group(1), MANGLED_A[m.group(2)],
                             int(m.group(3) or 0), int(m.group(4) or 0),
-                            m.group(5) == "1", m.group(6) == "1"))
+                            m.group(5) == "1" or m.group(1) == "dot_kernel"))
 
 
 def ptxas_k3(log):
@@ -337,13 +341,14 @@ def main():
         return {k: v for c in counters for k, v in c.items()}
 
     def zero_counts():
-        for c in counters + (kl.tc_launches, ell_gather.slab_launches):
+        for c in counters + (kl.tc_launches, ell_gather.wide_launches,
+                             ell_gather.slab_launches):
             for key in c:
                 c[key] = 0
 
-    # of them, K2's at k > 32 (the 3xTF32 kernels) and K4's past 256 (in
-    # slabs), which the wrappers count apart by the same keys
-    wide_counters = (kl.tc_launches, ell_gather.slab_launches)
+    # of them, K2's and K4's at k > 32 (the 3xTF32 kernels, the slab
+    # kernels), which the wrappers count apart by the same keys
+    wide_counters = (kl.tc_launches, ell_gather.wide_launches)
 
     def wide_counts():
         return {k: v for c in wide_counters for k, v in c.items()}
@@ -432,21 +437,20 @@ def main():
           f"spills)")
 
     # K4's kernels likewise: the grouped kernel (KP = 4, 8, 16, 32 at every
-    # member group it takes), the first port's (KP = 64, 128, 256; vec:
-    # 16-byte loads), plain and ratio, and its wide ratio kernel (k > 256),
-    # f32, bf16 and f16 values, and the interleave of the grouped kernel's
-    # table
+    # member group it takes) and the slab kernel (KP = 32, 64, 128, 256),
+    # plain and ratio, the ratio's dot pass (the same KP), f32, bf16 and f16
+    # values, and the layouts of the two kernels' tables
     regs = ptxas_k4(cuda_lib.library_path("ell_gather").with_suffix(
         ".log").read_text())
     for name in sorted({key[0] for key in regs}):
         print(f"[ptxas] K4 {name} (registers, spill store / load bytes): "
               + ", ".join(f"{dt}{f' KP={kp}' if kp else ''}{f' G={g}' if g else ''}"
-                          f"{' ratio' if ratio else ''}{' vec' if vec else ''} "
+                          f"{' ratio' if ratio else ''} "
                           f"{r} registers, {ss}/{sl} B spilled"
-                          for (nm, dt, kp, g, ratio, vec), (r, ss, sl)
+                          for (nm, dt, kp, g, ratio), (r, ss, sl)
                           in sorted(regs.items()) if nm == name), flush=True)
-    check(len(regs) == 133 and not any(ss or sl for _, ss, sl in regs.values()),
-          f"K4 kernels: ptxas report {regs} (expected 133 kernels, no spills)")
+    check(len(regs) == 128 and not any(ss or sl for _, ss, sl in regs.values()),
+          f"K4 kernels: ptxas report {regs} (expected 128 kernels, no spills)")
 
     # K3's kernels likewise: the f32 kernel and the tensor-core one for a
     # bf16, f16 or uint8 A (KP = 8, 16, 32; vec: 16-byte loads or copies)
@@ -810,6 +814,18 @@ def main():
                 lambda: ell_gather.ell_gather_product(v, i, T, X, eps),
                 lambda: ell_gather.ell_gather_product_plain(v, i, T, X, eps),
                 TOL[torch.float32], (flops, work), lib))
+            # the gathers' own traffic, every nonzero's k floats once, at
+            # the L2's rate for uniform indices: an estimate, not a floor
+            # (sorted lines share cached rows and may gather faster)
+            rate = ell_gather.L2_GATHER_BYTES
+            slabs = ell_gather.slab_for(T.shape[-2], k, T.device,
+                                        ratio=X is not None)[1]
+            print(f"[kernel] {name} {label} {tag}: gather estimate "
+                  f"{nz * members * k * 4 / rate * 1e3:.3f} ms "
+                  f"({nz * members * k * 4 / 1e9:.1f} GB at the L2's "
+                  f"{rate / 1e12:g} TB/s for uniform indices, "
+                  f"bench_torch/gather_probe.cu), {slabs} "
+                  f"slab{'s' if slabs > 1 else ''}", flush=True)
         return out[:2], (nz_r, nz_c)
 
     Wn = torch.rand((NYT_M, K), generator=gen, device=dev)
@@ -841,16 +857,15 @@ def main():
     k4_cases(f"{NYT_M}x{NYT_N} k={K} f16 values", E.astype(torch.float16),
              Wn, Hn, nyt_lib16, "K4 ell_gather f16")
     del A_r16, A_c16
-    # K4 at k > 32, where the first port's kernel runs: k = 64
-    Wn = torch.rand((NYT_M, 64), generator=gen, device=dev)
-    Hn = torch.rand((64, NYT_N), generator=gen, device=dev)
-    k4_cases(f"{NYT_M}x{NYT_N} k=64 f32", E, Wn, Hn, nyt_lib)
-    # K4 past 256: k = 300, the plain modes by slabs of 256 columns, the
-    # ratio modes on the wide kernel
-    Wn = torch.rand((NYT_M, 300), generator=gen, device=dev)
-    Hn = torch.rand((300, NYT_N), generator=gen, device=dev)
-    k4_cases(f"{NYT_M}x{NYT_N} k=300 f32", E, Wn, Hn, nyt_lib,
-             "K4 ell_gather k>256")
+    # K4 past k = 32, on its slab kernels: the tables (H^T 102660 rows, W
+    # 300000) in column slabs sized to the L2, the ratio modes in several
+    # slabs in two passes; k = 300 first, the main path's shape (phase 4),
+    # is the row's headline in the JSON line
+    for k in (300, 64, 128, 256):
+        Wn = torch.rand((NYT_M, k), generator=gen, device=dev)
+        Hn = torch.rand((k, NYT_N), generator=gen, device=dev)
+        k4_cases(f"{NYT_M}x{NYT_N} k={k} f32", E, Wn, Hn, nyt_lib,
+                 "K4 ell_gather k>32")
     del Wn, Hn, A_r, A_c
     torch.cuda.empty_cache()
     # the time model's constants (ops/ell.py), from this run's readings
@@ -879,12 +894,14 @@ def main():
     S_c = coo_stack(topic.cols, topic.rows, data, tshape[::-1])
     stack_lib = lambda Ht, W: (lambda: torch.bmm(S_r, Ht),
                                lambda: torch.bmm(S_c, W))
-    # k = 3 (KP = 4, groups of 8) beside the sweep's top k = 7 (KP = 8)
-    for k in (3, TOPIC_K):
+    # k = 3 (KP = 4, groups of 8) beside the sweep's top k = 7 (KP = 8), and
+    # k = 64 on the slab kernels (each member's W 51 MB)
+    for k in (3, 64, TOPIC_K):
         Ws = torch.rand((ENS, tshape[0], k), generator=gen, device=dev)
         Hs = torch.rand((ENS, k, tshape[1]), generator=gen, device=dev)
         k4_cases(f"{ENS} x {tshape[0]}x{tshape[1]} ({topic.nse} nnz) "
-                 f"k={k} f32", stack, Ws, Hs, stack_lib)
+                 f"k={k} f32", stack, Ws, Hs, stack_lib,
+                 "K4 ell_gather k>32" if k > 32 else "K4 ell_gather")
     del S_r, S_c, data
     # where the time of one batched MU step of the sparse sweep goes
     for norm in ("fro", "kl"):
@@ -1339,8 +1356,8 @@ def main():
     # -- 4. the sparse main path: NMF.fit at the NYTimes shape ------------
     # (f16 values under f32 factors, a_precision="float16": K4's f16
     # instantiation)
-    # (and KL-MU at k = 300: K4 past 256, in slabs, its ratio modes on the
-    # wide kernel)
+    # (and KL-MU at k = 300: K4 in column slabs, every call, its ratio modes
+    # in two passes)
     for norm, method, a_prec, k in (("fro", "mu", None, K),
                                     ("kl", "mu", None, K),
                                     ("fro", "hals", None, K),
@@ -1388,6 +1405,16 @@ def main():
                                  f"ell_gather_ratio{tag}": 20})}
         check(ran == want, f"sparse NMF.fit {label} launches {ran}, "
                            f"expected {want}")
+        if k > 32:
+            slabbed = dict(ell_gather.slab_launches)
+            check(slabbed == {key: n for key, n in ran.items()
+                              if key.startswith("ell_gather")},
+                  f"sparse NMF.fit {label}: K4 calls in slabs {slabbed}, "
+                  f"expected every one of {want}")
+            print(f"[nmf] {label} sparse k={k}: solve {solve_s:.3f} s beside "
+                  f"{PARENT_KL300_S} s for the design with slabs of 256 "
+                  f"columns and the wide ratio kernel (H100 80GB HBM3, "
+                  f"700 W)", flush=True)
         del model, W, H
     del nyt, E
     torch.cuda.empty_cache()
@@ -1493,8 +1520,7 @@ def main():
         check(n > 0, f"kernel {name} was not launched on the main path")
     for name in ("kl_uht", "kl_wtu", "ell_gather", "ell_gather_ratio"):
         check(main_path_wide[name] > 0, f"kernel {name} was not launched "
-                                        f"past k = 32 (K2) or 256 (K4) on "
-                                        f"the main path")
+                                        f"past k = 32 on the main path")
 
     # -- 6. report -------------------------------------------------------
     sources = {"K1 fused_mu_fro": ("fused_mu_fro.cu", "ops/fused_mu.py:50",
@@ -1521,14 +1547,17 @@ def main():
                "K4 ell_gather f16": ("ell_gather.cu", "ops/pallas_ell.py:52",
                                      ("ell_gather_f16",
                                       "ell_gather_ratio_f16"))}
-    # the kernels past k = 32 (K2's 3xTF32 ones) and 256 (K4's slabs),
-    # counted apart by the wrappers; the rows above count the rest
+    # the kernels past k = 32 (K2's 3xTF32 ones; K4's slab kernels, with f32
+    # and f16 values), counted apart by the wrappers; the rows above count
+    # the rest
     wide = {"K2a kl_uht k>32": ("kl_ratio.cu", "ops/pallas_kernels.py:78",
                                 ("kl_uht",)),
             "K2b kl_wtu k>32": ("kl_ratio.cu", "ops/pallas_kernels.py:96",
                                 ("kl_wtu",)),
-            "K4 ell_gather k>256": ("ell_gather.cu", "ops/pallas_ell.py:52",
-                                    ("ell_gather", "ell_gather_ratio"))}
+            "K4 ell_gather k>32": ("ell_gather.cu", "ops/pallas_ell.py:52",
+                                   ("ell_gather", "ell_gather_ratio",
+                                    "ell_gather_f16",
+                                    "ell_gather_ratio_f16"))}
     narrow = {key: main_path[key] - main_path_wide.get(key, 0)
               for key in main_path}
     kernels = [{"name": name, "route": "cuda",

@@ -60,25 +60,52 @@
 //     depends on G. So a member's result is the same bitwise in every group
 //     size, B = 1 (G = 1) included. No atomics.
 //
-// k > 32 (legacy::ell_gather_kernel, the first port's kernel): L lanes own
-// one output line, 4 columns a lane (L = KP / 4 up to 32); the group walks
-// the line's slots L at a time, each lane loading one (val, idx) pair and
-// passing it round by shuffles, and gathers the member's row from its own
-// table (member on the grid's y axis). Rows load as float4 when k % 4 == 0
-// and the pointers are 16-byte aligned, else as scalars. Its launch bounds
-// now ask for four blocks per SM: without them ptxas kept the ratio
-// instantiations with 16-byte loads at KP = 64, 128 to 32 registers and
-// spilled 16-24 bytes.
-//
-// k > 256: the output is covered in slabs of 256 columns, the grid's z axis
-// (row stride ld = k for T, X and out). The plain modes' columns are
-// independent, so the KP = 256 kernel runs each slab as it runs k <= 256.
-// The ratio modes need <X[b, :], T[idx, :]> over all of k before any slab's
-// product: legacy::ell_gather_wide_kernel sums each slot's dot over the
-// whole row (a loop of 128 columns a step over the warp's 32 lanes), then
-// adds the slab's columns. So past 256 a ratio product reads its gathered
-// rows ceil(k / 256) + 1 times and does the dot ceil(k / 256) times: a
-// simple design, for widths no measured path needs to be fast at yet.
+// k > 32 (slab_kernel, dot_kernel below): the tables outgrow the L2 (at
+// the NYTimes shape W is 77 MB at k = 64, H^T 123 MB and W 360 MB at k =
+// 300), and rows gathered from device memory come at about half the rate
+// of rows gathered from L2 (bench_torch/gather_probe.cu). So the output is
+// covered in column slabs, each narrow enough that one member's part of
+// the table fits a share of the L2 (ops/ell_gather.py's slab_plan, bounded
+// by the widest slab exported below):
+//   * The table: the wrapper lays T out slab after slab, (B, nslab, dim_t,
+//     ldt) with ldt the slab's width rounded up to 4 floats and zeros past
+//     k (slab_table_kernel, one pass over T), so that a slab's rows are
+//     contiguous and 16-byte aligned and a member's slab fills dim_t ldt 4
+//     bytes of the L2 and no more. A table that fits runs as one slab,
+//     from T itself where k % 4 == 0.
+//   * Lanes: L = KP / 4 lanes a line (at most 32), each holding one 16-byte
+//     piece of the slab's row segment, two at KP = 256 (KP = 32, 64, 128,
+//     256: the power of two that holds the slab, 32 for any narrower slab,
+//     whose idle lanes load nothing). A block of 256 threads takes 256 / L
+//     lines of one member and one slab; lines are the grid's fast axis,
+//     members and then slabs the slow ones, so that one member's slab
+//     stays in L2 while all its lines stream past.
+//   * Values and indices: every slab reads them again, so they are staged
+//     as the grouped kernel stages them, a chunk of 8 L slots of the
+//     block's lines by cp.async one chunk ahead (bf16 and f16 values widened
+//     through registers). A line's lanes read four slots' values and
+//     indices (two at KP = 256) as two broadcasts from shared memory, then
+//     gather the four rows, two steps unrolled (one at KP = 256).
+//   * Widths: the plan takes slabs of 32, 64, 128 or 256 floats, so that
+//     every lane loads; the time of a slab follows KP, not the columns it
+//     holds (idle lanes cost as much as busy ones), and rows of 64 bytes
+//     gather at half the rate of rows of 128 (bench_torch/gather_probe.cu,
+//     k4_bench.py --slab-sweep).
+//   * Plain: each output column is summed by one lane in ascending slot
+//     order, so a result is the same bitwise at every slab width.
+//   * Ratio in one slab: <X[b, :], row> is summed over the lane's pieces
+//     and a butterfly over the line's L lanes, in registers, and divided
+//     (__fdividef) in the same pass. The wrapper gives the ratio one slab
+//     up to the widest (256), tables past the L2 share included: that one
+//     pass beat the two below over slabs that fit. Ratio in several slabs
+//     (past 256, or a slab width asked for), two passes:
+//     dot_kernel, launched once a slab, sums each slot's dot slab by slab
+//     into an f32 (B, dim, w) workspace (read back by cp.async, written a
+//     chunk at a time along s), and its last slab writes coef = val / (dot
+//     + eps) there; then slab_kernel runs the plain product on coef. Each
+//     gathered row is read twice, once a pass, and each dot done once.
+//   * Occupancy: five blocks per SM for every slab kernel, the dot pass
+//     included.
 //
 // Padding slots (val = 0, idx = 0) are inert. vals may be bf16 or f16; all
 // arithmetic is f32.
@@ -91,221 +118,6 @@
 #include <type_traits>
 
 namespace {
-
-// The first port's kernel, kept for k > 32 (KP = 64, 128, 256).
-namespace legacy {
-
-constexpr int NT = 256;                  // threads per block (8 warps)
-constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-
-// L lanes per line, NQ chunks of 4 columns per lane: lane g of a group holds
-// columns (q * L + g) * 4 + j for q < NQ, j < 4.
-template <int KP>
-struct Layout {
-  static constexpr int L = KP / 4 < 32 ? KP / 4 : 32;
-  static constexpr int NQ = KP / (4 * L);
-  static constexpr int LINES = NT / L;   // lines per block
-};
-
-// r <- p[c, c + 4), zeros at and past column k.
-template <bool VEC>
-__device__ __forceinline__ void load4(float (&r)[4], const float* __restrict__ p,
-                                      int c, int k) {
-  if (VEC) {
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (c < k) v = __ldg(reinterpret_cast<const float4*>(p + c));
-    r[0] = v.x; r[1] = v.y; r[2] = v.z; r[3] = v.w;
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) r[j] = (c + j < k) ? __ldg(p + c + j) : 0.f;
-  }
-}
-
-// o[c .. c + 4) <- acc[q] for the lane's columns c = (q L + g) 4, past k
-// not written
-template <int NQ, int L, bool VEC>
-__device__ __forceinline__ void store_line(float* __restrict__ o, const float (&acc)[NQ][4],
-                                           int g, int k) {
-#pragma unroll
-  for (int q = 0; q < NQ; ++q) {
-    const int c = (q * L + g) * 4;
-    if (VEC) {
-      if (c < k) *reinterpret_cast<float4*>(o + c) =
-          make_float4(acc[q][0], acc[q][1], acc[q][2], acc[q][3]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (c + j < k) o[c + j] = acc[q][j];
-    }
-  }
-}
-
-template <typename V, int KP, bool RATIO, bool VEC>
-__global__ void __launch_bounds__(NT, 4)
-ell_gather_kernel(const V* __restrict__ vals, const int* __restrict__ idx,
-                  const float* __restrict__ T, const float* __restrict__ X,
-                  float eps, int dim, int w, int dim_t, int ld,
-                  float* __restrict__ out) {
-  constexpr int L = Layout<KP>::L, NQ = Layout<KP>::NQ;
-  const int e = blockIdx.y;
-  const int c0 = blockIdx.z * KP;        // the slab's first column (ratio: 0)
-  const int k = min(KP, ld - c0);        // and its width
-  const int g = threadIdx.x % L;
-  const int line = blockIdx.x * Layout<KP>::LINES + threadIdx.x / L;
-  const bool live = line < dim;
-  const int b = live ? line : 0;
-  vals += ((size_t)e * dim + b) * w;
-  idx += (size_t)b * w;
-  T += (size_t)e * dim_t * ld + c0;
-
-  float x[NQ][4];
-  if (RATIO) {
-    const float* xr = X + ((size_t)e * dim + b) * ld;
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) load4<VEC>(x[q], xr, (q * L + g) * 4, k);
-  }
-  float acc[NQ][4];
-#pragma unroll
-  for (int q = 0; q < NQ; ++q)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[q][j] = 0.f;
-
-  for (int s0 = 0; s0 < w; s0 += L) {
-    const int s = s0 + g;
-    float v = 0.f;
-    int id = 0;
-    if (live && s < w) {
-      v = to_f32(vals[s]);
-      id = idx[s];
-    }
-    const int ns = min(L, w - s0);       // the same for every lane of the warp
-#pragma unroll
-    for (int t = 0; t < L; ++t) {
-      if (t < ns) {
-        const float vt = __shfl_sync(FULL, v, t, L);
-        const int it = __shfl_sync(FULL, id, t, L);
-        const float* row = T + (size_t)it * ld;
-        float r[NQ][4];
-#pragma unroll
-        for (int q = 0; q < NQ; ++q) load4<VEC>(r[q], row, (q * L + g) * 4, k);
-        float coef = vt;
-        if (RATIO) {
-          float d = 0.f;
-#pragma unroll
-          for (int q = 0; q < NQ; ++q)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) d += x[q][j] * r[q][j];
-#pragma unroll
-          for (int o = L / 2; o > 0; o >>= 1) d += __shfl_xor_sync(FULL, d, o, L);
-          coef = vt / (d + eps);
-        }
-#pragma unroll
-        for (int q = 0; q < NQ; ++q)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[q][j] += coef * r[q][j];
-      }
-    }
-  }
-  if (!live) return;
-  store_line<NQ, L, VEC>(out + ((size_t)e * dim + line) * ld + c0, acc, g, k);
-}
-
-// The ratio modes past 256 columns: block (lines x, member y, slab z) adds
-// coef T[idx, slab] over the slots of 8 lines, one warp a line, where coef =
-// val / (<X[b, :], T[idx, :]> + eps) is summed over all ld columns first.
-template <typename V, int KP, bool RATIO, bool VEC>
-__global__ void __launch_bounds__(NT, 4)
-ell_gather_wide_kernel(const V* __restrict__ vals, const int* __restrict__ idx,
-                       const float* __restrict__ T, const float* __restrict__ X,
-                       float eps, int dim, int w, int dim_t, int ld,
-                       float* __restrict__ out) {
-  static_assert(RATIO && KP == 256, "the wide kernel is the ratio slab of 256");
-  constexpr int L = 32, NQ = KP / (4 * L);
-  const int e = blockIdx.y;
-  const int c0 = blockIdx.z * KP;
-  const int k = min(KP, ld - c0);
-  const int g = threadIdx.x % L;
-  const int line = blockIdx.x * (NT / L) + threadIdx.x / L;
-  const bool live = line < dim;
-  const int b = live ? line : 0;
-  vals += ((size_t)e * dim + b) * w;
-  idx += (size_t)b * w;
-  T += (size_t)e * dim_t * ld;
-  const float* xr = X + ((size_t)e * dim + b) * ld;
-
-  float acc[NQ][4];
-#pragma unroll
-  for (int q = 0; q < NQ; ++q)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[q][j] = 0.f;
-  for (int s0 = 0; s0 < w; s0 += L) {
-    const int s = s0 + g;
-    float v = 0.f;
-    int id = 0;
-    if (live && s < w) {
-      v = to_f32(vals[s]);
-      id = idx[s];
-    }
-    const int ns = min(L, w - s0);       // the same for every lane of the warp
-#pragma unroll 1
-    for (int t = 0; t < ns; ++t) {
-      const float vt = __shfl_sync(FULL, v, t);
-      const int it = __shfl_sync(FULL, id, t);
-      const float* row = T + (size_t)it * ld;
-      float d = 0.f;
-      for (int c = 4 * g; c < ld; c += 4 * L) {
-        float x4[4], r4[4];
-        load4<VEC>(x4, xr, c, ld);
-        load4<VEC>(r4, row, c, ld);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) d += x4[j] * r4[j];
-      }
-#pragma unroll
-      for (int o = L / 2; o > 0; o >>= 1) d += __shfl_xor_sync(FULL, d, o);
-      const float coef = vt / (d + eps);
-#pragma unroll
-      for (int q = 0; q < NQ; ++q) {
-        float r[4];
-        load4<VEC>(r, row + c0, (q * L + g) * 4, k);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[q][j] += coef * r[j];
-      }
-    }
-  }
-  if (!live) return;
-  store_line<NQ, L, VEC>(out + ((size_t)e * dim + line) * ld + c0, acc, g, k);
-}
-
-// ld: the rows' width k; past KP, one slab of KP columns per grid z (the
-// ratio modes on the wide kernel)
-template <typename V, int KP, bool RATIO>
-cudaError_t launch(const void* vals, const void* idx, const void* T,
-                   const void* X, float eps, int B, int dim, int w, int dim_t,
-                   int ld, void* out, bool vec, cudaStream_t stream) {
-  const int slabs = (ld + KP - 1) / KP;
-  if (slabs > 65535) return cudaErrorInvalidValue;
-  const dim3 grid((dim + Layout<KP>::LINES - 1) / Layout<KP>::LINES, B, slabs);
-  using Kernel = void (*)(const V*, const int*, const float*, const float*, float,
-                          int, int, int, int, float*);
-  Kernel kernel = vec ? &ell_gather_kernel<V, KP, RATIO, true>
-                      : &ell_gather_kernel<V, KP, RATIO, false>;
-  if constexpr (RATIO && KP == 256) {
-    if (slabs > 1)
-      kernel = vec ? &ell_gather_wide_kernel<V, KP, RATIO, true>
-                   : &ell_gather_wide_kernel<V, KP, RATIO, false>;
-  }
-  kernel<<<grid, NT, 0, stream>>>(
-      static_cast<const V*>(vals), static_cast<const int*>(idx),
-      static_cast<const float*>(T), static_cast<const float*>(X), eps, dim, w,
-      dim_t, ld, static_cast<float*>(out));
-  return cudaGetLastError();
-}
-
-}  // namespace legacy
 
 namespace grouped {
 
@@ -513,26 +325,400 @@ cudaError_t dispatch_g(int G, const void* vals, const void* idx, const void* Ti,
 
 }  // namespace grouped
 
-// k's padded width: 4, 8, 16, 32 for the grouped kernel, 64, 128, 256 for
-// the legacy one (k > 256: slabs of 256); 0 for k < 1
+namespace slab {
+
+constexpr int NT = 256;                  // threads per block (8 warps)
+constexpr int MAX_SLAB = 256;            // the widest slab, in floats
+constexpr unsigned FULL = 0xffffffffu;
+// resident blocks per SM: five (48 registers); a gather waits on L2 or
+// device memory, and at three blocks (85 registers) the dot pass took
+// 1.3-1.6 times as long, at four the one-pass ratio at KP = 256 1.4 times
+constexpr int MIN_BLOCKS = 5;
+
+using grouped::cp_async4;
+using grouped::cp_async_commit;
+using grouped::cp_async_wait_one;
+using grouped::widen16;
+
+// The lanes and staging of the kernels whose slab is at most KP floats, in
+// 4-byte words.
+template <int KP>
+struct Geom {
+  static constexpr int L = KP / 4 < 32 ? KP / 4 : 32;   // lanes per line
+  static constexpr int NQ = KP / (4 * L);    // 16-byte pieces a lane holds
+  static constexpr int LINES = NT / L;       // lines per block
+  static constexpr int S = 8 * L;            // slots per staged chunk
+  static constexpr int U = NQ > 1 ? 2 : 4;   // slots a step of the loop
+  static constexpr int STEPS = NQ > 1 ? 1 : 2;   // steps unrolled
+  static constexpr int LS = S + 4;           // line stride: 16-byte reads of
+                                             // U slots, the LPW <= 8 lines
+                                             // of a warp in distinct banks
+  static constexpr int VN = LINES * S / NT;  // words a thread stages (8)
+  static constexpr int BUF = 2 * LINES * LS; // one buffer: values, indices
+  static constexpr size_t smem() { return 2 * sizeof(float) * (size_t)BUF; }
+  static_assert(smem() <= 48 * 1024, "within the default dynamic limit");
+};
+
+// r <- lane g's pieces of a slab row, zeros at and past the slab's width ks
+template <int NQ, int L>
+__device__ __forceinline__ void gather_row(float (&r)[NQ][4],
+                                           const float* __restrict__ row,
+                                           int g, int ks, bool live) {
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    const int c = (q * L + g) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (live && c < ks) v = __ldg(reinterpret_cast<const float4*>(row + c));
+    r[q][0] = v.x; r[q][1] = v.y; r[q][2] = v.z; r[q][3] = v.w;
+  }
+}
+
+// x <- lane g's pieces of p[0, ks) (16-byte loads where vec), zeros past ks
+template <int NQ, int L>
+__device__ __forceinline__ void load_line(float (&x)[NQ][4],
+                                          const float* __restrict__ p, int g,
+                                          int ks, bool vec) {
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    const int c = (q * L + g) * 4;
+    if (vec) {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (c < ks) v = __ldg(reinterpret_cast<const float4*>(p + c));
+      x[q][0] = v.x; x[q][1] = v.y; x[q][2] = v.z; x[q][3] = v.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) x[q][j] = c + j < ks ? __ldg(p + c + j) : 0.f;
+    }
+  }
+}
+
+// o[0, ks) <- lane g's sums (16-byte stores where vec)
+template <int NQ, int L>
+__device__ __forceinline__ void store_line(float* __restrict__ o,
+                                           const float (&acc)[NQ][4], int g,
+                                           int ks, bool vec) {
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    const int c = (q * L + g) * 4;
+    if (vec) {
+      if (c < ks) *reinterpret_cast<float4*>(o + c) =
+          make_float4(acc[q][0], acc[q][1], acc[q][2], acc[q][3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (c + j < ks) o[c + j] = acc[q][j];
+    }
+  }
+}
+
+// v <- U consecutive words of shared memory (U = 2, 4), as one load
+template <int U, typename T>
+__device__ __forceinline__ void lds(T (&v)[U], const T* p) {
+  using W = typename std::conditional<std::is_same<T, int>::value,
+      typename std::conditional<U == 4, int4, int2>::type,
+      typename std::conditional<U == 4, float4, float2>::type>::type;
+  const W a = *reinterpret_cast<const W*>(p);
+  v[0] = a.x; v[1] = a.y;
+  if constexpr (U == 4) { v[2] = a.z; v[3] = a.w; }
+}
+
+// p[0, U) <- v, as one store
+template <int U>
+__device__ __forceinline__ void sts(float* p, const float (&v)[U]) {
+  if constexpr (U == 4) *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+}
+
+// <x, r> over the line: the lane's pieces, then a butterfly over its L lanes
+template <int NQ, int L>
+__device__ __forceinline__ float line_dot(const float (&x)[NQ][4],
+                                          const float (&r)[NQ][4]) {
+  float d = 0.f;
+#pragma unroll
+  for (int q = 0; q < NQ; ++q)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) d += x[q][j] * r[q][j];
+#pragma unroll
+  for (int o = L / 2; o > 0; o >>= 1) d += __shfl_xor_sync(FULL, d, o, L);
+  return d;
+}
+
+// stages the chunk of slots [s0, s0 + S) of the block's lines into sv
+// (values, unless null) and si (indices), read along s (coalesced): f32
+// values and the indices by cp.async, bf16 and f16 values through
+// registers, widened (vals points at the member's (dim, w) values)
+template <typename V, int KP>
+__device__ __forceinline__ void stage_chunk(const V* __restrict__ vals_,
+                                            const int* __restrict__ idx,
+                                            float* sv, int* si, int b0, int s0,
+                                            int dim, int w) {
+  using Gm = Geom<KP>;
+  constexpr bool F32 = std::is_same<V, float>::value;
+  using R = typename std::conditional<F32, float, unsigned short>::type;
+  constexpr int STEP = NT / Gm::S;       // lines between a thread's words
+  const R* vals = reinterpret_cast<const R*>(vals_);
+  // word j of the thread: slot s of line l0 + j STEP (one pointer and a
+  // stride, not one held per word: the f32 kernels spilled with those)
+  const int s = threadIdx.x % Gm::S, l0 = threadIdx.x / Gm::S;
+  const bool s_ok = s0 + s < w;
+  const size_t at0 = (size_t)(b0 + l0) * w + s0 + s, step = (size_t)STEP * w;
+#pragma unroll 2
+  for (int j = 0; j < Gm::VN; ++j) {
+    const int l = l0 + j * STEP;
+    const bool ok = s_ok && b0 + l < dim;
+    const size_t at = ok ? at0 + j * step : 0;
+    if (sv != nullptr) {
+      if constexpr (F32) cp_async4(sv + l * Gm::LS + s, vals + at, ok);
+      else sv[l * Gm::LS + s] = ok ? widen16<V>(__ldcs(vals + at)) : 0.f;
+    }
+    cp_async4(si + l * Gm::LS + s, idx + at, ok);
+  }
+  cp_async_commit();
+}
+
+// Tb: the slab table, (B, nslab, dim_t, ldt) with ldt = slab rounded up to
+// 4; slab j of member e holds columns [j slab, j slab + slab) of its rows,
+// zeros past k. Block (lines x, member y, slab z) writes out[e, b, slab j]
+// = sum_s coef[e, b, s] T[e, idx[b, s], slab j] for its lines b.
+template <typename V, int KP, bool RATIO>
+__global__ void __launch_bounds__(NT, MIN_BLOCKS)
+slab_kernel(const V* __restrict__ vals, const int* __restrict__ idx,
+            const float* __restrict__ Tb, const float* __restrict__ X,
+            float eps, int dim, int w, int dim_t, int k, int slab, int vec,
+            float* __restrict__ out) {
+  using Gm = Geom<KP>;
+  constexpr int L = Gm::L, NQ = Gm::NQ, LINES = Gm::LINES, S = Gm::S;
+  constexpr int LS = Gm::LS, U = Gm::U;
+  extern __shared__ float smem[];        // two buffers: (LINES, LS) values, (LINES, LS) indices
+  const int e = blockIdx.y, j = blockIdx.z;
+  const int c0 = j * slab, ks = min(slab, k - c0), ldt = (slab + 3) & ~3;
+  const int b0 = blockIdx.x * LINES, ll = threadIdx.x / L, g = threadIdx.x % L;
+  const int line = b0 + ll;
+  const bool live = line < dim;
+  const float* tslab = Tb + ((size_t)e * gridDim.z + j) * dim_t * ldt;
+  vals += (size_t)e * dim * w;
+
+  float x[NQ][4];
+  if constexpr (RATIO)
+    load_line<NQ, L>(x, X + ((size_t)e * dim + (live ? line : 0)) * k + c0, g,
+                     live ? ks : 0, vec);
+  float acc[NQ][4];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[q][i] = 0.f;
+
+  const auto stage = [&](int s0, int buf) {
+    float* sv = smem + buf * Gm::BUF;
+    stage_chunk<V, KP>(vals, idx, sv, reinterpret_cast<int*>(sv + LINES * LS),
+                       b0, s0, dim, w);
+  };
+  stage(0, 0);
+  for (int s0 = 0, buf = 0; s0 < w; s0 += S, buf ^= 1) {
+    if (s0 + S < w) stage(s0 + S, buf ^ 1);
+    else cp_async_commit();              // an empty group keeps the count
+    cp_async_wait_one();                 // this thread's copies of s0 landed
+    __syncthreads();                     // and everyone's
+    const float* vr = smem + buf * Gm::BUF + ll * LS;
+    const int* ir = reinterpret_cast<const int*>(vr + LINES * LS);
+    // U slots a step, their values and indices read as one word each; the
+    // chunk's slots past w are staged as inert zeros
+    const int ns = min(S, w - s0);       // the same for the whole block
+#pragma unroll (Gm::STEPS)
+    for (int t = 0; t < ns; t += U) {
+      float vv[U];
+      int ii[U];
+      lds<U>(vv, vr + t);
+      lds<U>(ii, ir + t);
+      float r[U][NQ][4];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        gather_row<NQ, L>(r[u], tslab + (size_t)ii[u] * ldt, g, ks, live);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float coef = vv[u];
+        if constexpr (RATIO)
+          coef = __fdividef(coef, line_dot<NQ, L>(x, r[u]) + eps);
+#pragma unroll
+        for (int q = 0; q < NQ; ++q)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[q][i] += coef * r[u][q][i];
+      }
+    }
+    __syncthreads();                     // buf is refilled two chunks on
+  }
+  if (live) store_line<NQ, L>(out + ((size_t)e * dim + line) * k + c0, acc, g,
+                              ks, vec);
+}
+
+// Slab j of the ratio's dot pass: ws[e, b, s] = (j > 0 ? ws[e, b, s] : 0) +
+// <X[e, b, slab j], T[e, idx[b, s], slab j]>, and at the last slab ws[e, b,
+// s] = vals[e, b, s] / (ws[e, b, s] + eps), the coefficients of the plain
+// product. Block (lines x, member y).
+template <typename V, int KP>
+__global__ void __launch_bounds__(NT, MIN_BLOCKS)
+dot_kernel(const V* __restrict__ vals_, const int* __restrict__ idx,
+           const float* __restrict__ Tb, const float* __restrict__ X,
+           float eps, int dim, int w, int dim_t, int k, int slab, int j,
+           int nslab, int vec, float* ws) {
+  using Gm = Geom<KP>;
+  constexpr bool F32 = std::is_same<V, float>::value;
+  using R = typename std::conditional<F32, float, unsigned short>::type;
+  constexpr int L = Gm::L, NQ = Gm::NQ, LINES = Gm::LINES, S = Gm::S;
+  constexpr int LS = Gm::LS, U = Gm::U;
+  extern __shared__ float smem[];        // two buffers: (LINES, LS) sums, (LINES, LS) indices
+  const int e = blockIdx.y;
+  const bool first = j == 0, last = j == nslab - 1;
+  const int c0 = j * slab, ks = min(slab, k - c0), ldt = (slab + 3) & ~3;
+  const int b0 = blockIdx.x * LINES, ll = threadIdx.x / L, g = threadIdx.x % L;
+  const int line = b0 + ll;
+  const bool live = line < dim;
+  const float* tslab = Tb + ((size_t)e * nslab + j) * dim_t * ldt;
+  const R* vals = reinterpret_cast<const R*>(vals_) + (size_t)e * dim * w;
+  ws += (size_t)e * dim * w;
+
+  float x[NQ][4];
+  load_line<NQ, L>(x, X + ((size_t)e * dim + (live ? line : 0)) * k + c0, g,
+                   live ? ks : 0, vec);
+  // the earlier slabs' sums (none at the first) and the indices
+  const auto stage = [&](int s0, int buf) {
+    float* sd = smem + buf * Gm::BUF;
+    stage_chunk<float, KP>(ws, idx, first ? nullptr : sd,
+                           reinterpret_cast<int*>(sd + LINES * LS), b0, s0,
+                           dim, w);
+  };
+  stage(0, 0);
+  for (int s0 = 0, buf = 0; s0 < w; s0 += S, buf ^= 1) {
+    if (s0 + S < w) stage(s0 + S, buf ^ 1);
+    else cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    float* sd = smem + buf * Gm::BUF;
+    float* dr = sd + ll * LS;
+    const int* ir = reinterpret_cast<const int*>(dr + LINES * LS);
+    const int ns = min(S, w - s0);
+#pragma unroll 1
+    for (int t = 0; t < ns; t += U) {    // U slots a step, as slab_kernel
+      int ii[U];
+      lds<U>(ii, ir + t);
+      float r[U][NQ][4];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        gather_row<NQ, L>(r[u], tslab + (size_t)ii[u] * ldt, g, ks, live);
+      float d[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) d[u] = 0.f;
+      if (!first) lds<U>(d, dr + t);
+#pragma unroll
+      for (int u = 0; u < U; ++u) d[u] += line_dot<NQ, L>(x, r[u]);
+      if (g == 0) sts<U>(dr + t, d);
+    }
+    __syncthreads();                     // the chunk's sums are in
+    // written back along s (coalesced): the sums, or the coefficients
+#pragma unroll
+    for (int i = 0; i < Gm::VN; ++i) {
+      const int f = i * NT + threadIdx.x;
+      const int l = f / S, s = f % S;
+      if (b0 + l < dim && s0 + s < w) {
+        const size_t at = (size_t)(b0 + l) * w + s0 + s;
+        const float d = sd[l * LS + s];
+        if (last) {
+          float v;
+          if constexpr (F32) v = __ldcs(vals + at);
+          else v = widen16<V>(__ldcs(vals + at));
+          ws[at] = __fdividef(v, d + eps);
+        } else {
+          ws[at] = d;
+        }
+      }
+    }
+    __syncthreads();                     // buf is refilled two chunks on
+  }
+}
+
+// Tb <- T (B, dim_t, k) as the slab table (B, nslab, dim_t, ldt): block row
+// y = e nslab + j writes member e's slab j, columns [j slab, j slab + slab)
+// of each row, zeros past k and past the slab.
+__global__ void __launch_bounds__(NT)
+slab_table_kernel(const float* __restrict__ T, float* __restrict__ Tb,
+                  int dim_t, int k, int slab, int nslab, int ldt) {
+  const int e = blockIdx.y / nslab, j = blockIdx.y % nslab;
+  const int n = dim_t * ldt;             // < 2^31 (checked by the caller)
+  const float* t = T + (size_t)e * dim_t * k;
+  float* o = Tb + (size_t)blockIdx.y * n;
+  for (int i = blockIdx.x * NT + threadIdx.x; i < n; i += gridDim.x * NT) {
+    const int c = i % ldt, row = i / ldt, col = j * slab + c;
+    o[i] = c < slab && col < k ? __ldg(t + (size_t)row * k + col) : 0.f;
+  }
+}
+
+template <typename V, int KP, bool RATIO>
+cudaError_t run(dim3 grid, const void* vals, const void* idx, const void* Tb,
+                const void* X, float eps, int dim, int w, int dim_t, int k,
+                int slab, int vec, void* out, cudaStream_t s) {
+  slab_kernel<V, KP, RATIO><<<grid, NT, Geom<KP>::smem(), s>>>(
+      static_cast<const V*>(vals), static_cast<const int*>(idx),
+      static_cast<const float*>(Tb), static_cast<const float*>(X), eps, dim,
+      w, dim_t, k, slab, vec, static_cast<float*>(out));
+  return cudaGetLastError();
+}
+
+// The product in slabs of `slab` columns. The ratio in several slabs takes
+// nslab launches of the dot pass into ws, then the plain product on ws.
+template <typename V, int KP>
+cudaError_t launch(const void* vals, const void* idx, const void* Tb,
+                   const void* X, float eps, bool ratio, int B, int dim, int w,
+                   int dim_t, int k, int slab, void* ws, void* out, int vec,
+                   cudaStream_t s) {
+  const int nslab = (k + slab - 1) / slab;
+  if (nslab > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((dim + Geom<KP>::LINES - 1) / Geom<KP>::LINES, B, nslab);
+  if (!ratio)
+    return run<V, KP, false>(grid, vals, idx, Tb, X, eps, dim, w, dim_t, k,
+                             slab, vec, out, s);
+  if (nslab == 1)
+    return run<V, KP, true>(grid, vals, idx, Tb, X, eps, dim, w, dim_t, k,
+                            slab, vec, out, s);
+  if (ws == nullptr) return cudaErrorInvalidValue;
+  for (int j = 0; j < nslab; ++j) {
+    dot_kernel<V, KP><<<dim3(grid.x, B), NT, Geom<KP>::smem(), s>>>(
+        static_cast<const V*>(vals), static_cast<const int*>(idx),
+        static_cast<const float*>(Tb), static_cast<const float*>(X), eps, dim,
+        w, dim_t, k, slab, j, nslab, vec, static_cast<float*>(ws));
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return run<float, KP, false>(grid, ws, idx, Tb, nullptr, eps, dim, w, dim_t,
+                               k, slab, vec, out, s);
+}
+
+template <typename V>
+cudaError_t dispatch(const void* vals, const void* idx, const void* Tb,
+                     const void* X, float eps, bool ratio, int B, int dim,
+                     int w, int dim_t, int k, int slab, void* ws, void* out,
+                     int vec, cudaStream_t s) {
+  const int width = (slab + 3) & ~3;
+  if (width <= 32) return launch<V, 32>(vals, idx, Tb, X, eps, ratio, B, dim, w, dim_t, k, slab, ws, out, vec, s);
+  if (width <= 64) return launch<V, 64>(vals, idx, Tb, X, eps, ratio, B, dim, w, dim_t, k, slab, ws, out, vec, s);
+  if (width <= 128) return launch<V, 128>(vals, idx, Tb, X, eps, ratio, B, dim, w, dim_t, k, slab, ws, out, vec, s);
+  return launch<V, 256>(vals, idx, Tb, X, eps, ratio, B, dim, w, dim_t, k, slab, ws, out, vec, s);
+}
+
+}  // namespace slab
+
+// k's padded width for the grouped kernel: 4, 8, 16, 32; 0 for k < 1 and
+// past 32 (the slab kernels)
 int padded_width(int k) {
-  if (k < 1) return 0;
+  if (k < 1 || k > 32) return 0;
   int kp = 4;
-  while (kp < k && kp < 256) kp *= 2;
+  while (kp < k) kp *= 2;
   return kp;
 }
 
 template <typename V, bool RATIO>
 cudaError_t dispatch_k(const void* vals, const void* idx, const void* T,
                        const void* X, float eps, int B, int dim, int w,
-                       int dim_t, int k, int group, void* out, bool vec,
-                       cudaStream_t s) {
-  if (k > 32) {
-    if (group != 0) return cudaErrorInvalidValue;
-    if (k <= 64) return legacy::launch<V, 64, RATIO>(vals, idx, T, X, eps, B, dim, w, dim_t, k, out, vec, s);
-    if (k <= 128) return legacy::launch<V, 128, RATIO>(vals, idx, T, X, eps, B, dim, w, dim_t, k, out, vec, s);
-    return legacy::launch<V, 256, RATIO>(vals, idx, T, X, eps, B, dim, w, dim_t, k, out, vec, s);
-  }
+                       int dim_t, int k, int group, void* out, cudaStream_t s) {
   if (k <= 4) return grouped::dispatch_g<V, 4, RATIO>(group, vals, idx, T, X, eps, B, dim, w, dim_t, k, out, s);
   if (k <= 8) return grouped::dispatch_g<V, 8, RATIO>(group, vals, idx, T, X, eps, B, dim, w, dim_t, k, out, s);
   if (k <= 16) return grouped::dispatch_g<V, 16, RATIO>(group, vals, idx, T, X, eps, B, dim, w, dim_t, k, out, s);
@@ -544,62 +730,72 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 template <typename V>
 int dispatch(const void* vals, const void* idx, const void* T, const void* X,
              float eps, int ratio, int B, int dim, int w, int dim_t, int k,
-             int group, void* out, void* stream) {
-  if (B < 1 || B > 65535 || dim < 1 || w < 1 || dim_t < 1 || padded_width(k) == 0 ||
-      (ratio && X == nullptr) || (k <= 32 && !aligned16(T)))
+             int group, int slab, void* ws, void* out, void* stream) {
+  if (B < 1 || B > 65535 || dim < 1 || w < 1 || dim_t < 1 || k < 1 ||
+      (ratio && X == nullptr) || !aligned16(T))
     return (int)cudaErrorInvalidValue;
-  const bool vec = k % 4 == 0 && aligned16(T) && aligned16(out) &&
-                   (!ratio || aligned16(X));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      ratio ? dispatch_k<V, true>(vals, idx, T, X, eps, B, dim, w, dim_t, k, group, out, vec, s)
-            : dispatch_k<V, false>(vals, idx, T, X, eps, B, dim, w, dim_t, k, group, out, vec, s);
-  return (int)err;
+  if (k <= 32) {
+    if (slab != 0) return (int)cudaErrorInvalidValue;
+    return (int)(ratio ? dispatch_k<V, true>(vals, idx, T, X, eps, B, dim, w, dim_t, k, group, out, s)
+                       : dispatch_k<V, false>(vals, idx, T, X, eps, B, dim, w, dim_t, k, group, out, s));
+  }
+  if (group != 0 || slab < 1 || slab > slab::MAX_SLAB)
+    return (int)cudaErrorInvalidValue;
+  const int vec = k % 4 == 0 && slab % 4 == 0 && aligned16(out) &&
+                  (!ratio || aligned16(X));
+  return (int)slab::dispatch<V>(vals, idx, T, X, eps, ratio != 0, B, dim, w,
+                                dim_t, k, slab, ws, out, vec, s);
 }
 
 }  // namespace
 
 // Plain C interface, bound with ctypes. vals is (B, dim, w) in f32, bf16 or
-// f16,
-// idx (dim, w) int32 with entries in [0, dim_t), X (B, dim, k) f32 or null
-// (plain mode), out (B, dim, k) f32; all contiguous; any k >= 1. At k <= 32 T is the
-// interleaved table of groups of `group` members (1, 2, 4 or 8, at most
-// ell_gather_geometry's max_group): for each group, its members' rows padded
-// to KP floats side by side, (dim_t, gg, KP), gg = min(group, B - first
-// member), 16-byte aligned. At k > 32 group is 0 and T is (B, dim_t, k).
-// Every element of out is written. Returns the CUDA error code of the
-// launch (0 on success).
+// f16, idx (dim, w) int32 with entries in [0, dim_t), X (B, dim, k) f32 or
+// null (plain mode), out (B, dim, k) f32; all contiguous; any k >= 1; T
+// 16-byte aligned. At k <= 32 T is the interleaved table of groups of
+// `group` members (1, 2, 4 or 8, at most ell_gather_geometry's max_group):
+// for each group, its members' rows padded to KP floats side by side,
+// (dim_t, gg, KP), gg = min(group, B - first member); slab is 0. At k > 32
+// group is 0, slab a width from 1 to the geometry's max_slab, and T the
+// slab table (B, nslab, dim_t, ldt) of ell_gather_slab_table, nslab =
+// ceil(k / slab), ldt = slab rounded up to 4 (at one slab with k % 4 == 0,
+// T (B, dim_t, k) itself); ws an f32 (B, dim, w) workspace where the ratio
+// takes several slabs, else unused. Every element of out is written.
+// Returns the CUDA error code of the launches (0 on success).
 extern "C" int ell_gather_f32(const void* vals, const void* idx, const void* T,
                               const void* X, float eps, int ratio, int B,
                               int dim, int w, int dim_t, int k, int group,
-                              void* out, void* stream) {
+                              int slab, void* ws, void* out, void* stream) {
   return dispatch<float>(vals, idx, T, X, eps, ratio, B, dim, w, dim_t, k,
-                         group, out, stream);
+                         group, slab, ws, out, stream);
 }
 
 extern "C" int ell_gather_bf16(const void* vals, const void* idx, const void* T,
                                const void* X, float eps, int ratio, int B,
                                int dim, int w, int dim_t, int k, int group,
-                               void* out, void* stream) {
+                               int slab, void* ws, void* out, void* stream) {
   return dispatch<__nv_bfloat16>(vals, idx, T, X, eps, ratio, B, dim, w, dim_t,
-                                 k, group, out, stream);
+                                 k, group, slab, ws, out, stream);
 }
 
 extern "C" int ell_gather_f16(const void* vals, const void* idx, const void* T,
                               const void* X, float eps, int ratio, int B,
                               int dim, int w, int dim_t, int k, int group,
-                              void* out, void* stream) {
+                              int slab, void* ws, void* out, void* stream) {
   return dispatch<__half>(vals, idx, T, X, eps, ratio, B, dim, w, dim_t, k,
-                          group, out, stream);
+                          group, slab, ws, out, stream);
 }
 
-// The geometry the wrapper plans its member groups on: k's padded width KP
-// and the largest group the kernel takes at that width (0: k > 32, the
-// legacy kernel, no groups, T as given; KP = 256 past 256, by slabs).
-extern "C" int ell_gather_geometry(int k, int* kp, int* max_group) {
+// The geometry the wrapper plans on. At k <= 32: k's padded width KP and
+// the largest member group the grouped kernel takes at it (max_slab 0). Past
+// 32: the widest slab the slab kernels take (KP and max_group 0: no groups).
+extern "C" int ell_gather_geometry(int k, int* kp, int* max_group,
+                                   int* max_slab) {
+  if (k < 1) return (int)cudaErrorInvalidValue;
   *kp = padded_width(k);
-  if (*kp == 0) return (int)cudaErrorInvalidValue;
-  *max_group = *kp > 32 ? 0 : grouped::max_group(*kp);
+  *max_group = k <= 32 ? grouped::max_group(*kp) : 0;
+  *max_slab = k <= 32 ? 0 : slab::MAX_SLAB;
   return (int)cudaSuccess;
 }
 
@@ -618,6 +814,25 @@ extern "C" int ell_gather_interleave(const void* T, void* Ti, int B, int dim_t,
   grouped::interleave_kernel<<<grid, grouped::NT, 0,
                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(T), static_cast<float*>(Ti), B, dim_t, k, shift, G);
+  return (int)cudaGetLastError();
+}
+
+// The slab kernels' table: T (B, dim_t, k) f32 as Tb (B, nslab, dim_t, ldt),
+// nslab = ceil(k / slab), ldt = slab rounded up to 4, zeros past k
+// (ell_gather_f32's T at k > 32). Returns the CUDA error code.
+extern "C" int ell_gather_slab_table(const void* T, void* Tb, int B, int dim_t,
+                                     int k, int slab, void* stream) {
+  if (B < 1 || dim_t < 1 || k < 1 || slab < 1 || slab > slab::MAX_SLAB)
+    return (int)cudaErrorInvalidValue;
+  const int nslab = (k + slab - 1) / slab, ldt = (slab + 3) & ~3;
+  if ((long long)B * nslab > 65535 || (size_t)dim_t * ldt >= (1u << 31))
+    return (int)cudaErrorInvalidValue;
+  const size_t per_slab = ((size_t)dim_t * ldt + slab::NT - 1) / slab::NT;
+  const dim3 grid((unsigned)(per_slab < 1024 ? per_slab : 1024), B * nslab);
+  slab::slab_table_kernel<<<grid, slab::NT, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(T), static_cast<float*>(Tb), dim_t, k, slab,
+      nslab, ldt);
   return (int)cudaGetLastError();
 }
 

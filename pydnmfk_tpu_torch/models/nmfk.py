@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from ..config import NMFkConfig, check_device
-from ..ops import ell, linalg, sparse
+from ..ops import ell, ell_gather, linalg, sparse
 from ..utils import timing
 from ..utils.checkpoint import (Checkpoint, FLAG_CLUSTERED, FLAG_PERTS_DONE,
                                 FLAG_RUNNING, FLAG_SAVED)
@@ -144,7 +144,24 @@ class NMFk:
         ``PYDNMFK_HBM_BUDGET`` environment variable, less the shared A (at
         the work precision) and a 15 % headroom; else, on CUDA, half of the
         free device memory. Without a budget the CPU takes all of them.
+        A member's bytes are :meth:`_member_bytes`."""
+        cfg = self.cfg
+        if cfg.ensemble_batch:
+            return max(1, min(int(cfg.ensemble_batch), cfg.perturbations))
+        per_member, shared = self._member_bytes(A, k)
+        budget = cfg.hbm_budget or int(float(
+            os.environ.get("PYDNMFK_HBM_BUDGET") or 0))
+        if budget:
+            batch = (budget * HEADROOM - shared) // per_member
+        elif A.device.type == "cuda":
+            free, _ = torch.cuda.mem_get_info(A.device)
+            batch = (free // 2) // per_member
+        else:
+            batch = cfg.perturbations
+        return max(1, min(int(batch), cfg.perturbations))
 
+    def _member_bytes(self, A, k) -> tuple:
+        """(bytes of one member, bytes the batch shares) of the memory model.
         A dense member costs its copy of A at ``a_dtype``; under KL the
         plain products' f32 ratio slab (``kl_chunk`` rows, else the
         automatic ones, else all m); under nnsvd its Gram, eigenvectors and
@@ -152,23 +169,32 @@ class NMFk:
         copy of a narrower member that the SVD takes; and its factors'
         working set at their byte width. A sparse member
         (utils/memory.py:67-87) costs its f32 noise draw and data copy, the
-        ELL value arrays of both orientations (on the card), and its
-        factors' working set."""
-        cfg = self.cfg
-        ncfg = cfg.nmf
-        if cfg.ensemble_batch:
-            return max(1, min(int(cfg.ensemble_batch), cfg.perturbations))
+        ELL value arrays of both orientations (on the card), under KL the
+        f32 workspace of K4's ratio where its plan takes more than one slab
+        (past k = 256: one (dim, w) array, the wider orientation's of those
+        that do, ``ops/ell_gather.py::slab_for``), and its factors'
+        working set.
+        A dense batch shares A at the work precision, a sparse one its
+        values and indices."""
+        ncfg = self.cfg.nmf
         a_item = torch.empty((), dtype=ncfg.a_dtype).element_size()
         w_item = torch.empty((), dtype=ncfg.dtype).element_size()
         m, n = A.shape
         factors = (m + n) * k * w_item * F_WORK
         if linalg.is_sparse(A):
-            slots = 0
+            slots = ws = 0
             if self._ell is not None:
                 E = self._ell[0]
                 slots = sum(x.numel() for x in (E.rvals, E.rtail_d, E.cvals,
                                                 E.ctail_d))
-            per_member = A.nse * (a_item + 4) + slots * a_item + factors
+                if ncfg.norm.lower() == "kl":
+                    ws = max((vals.numel() * 4 for vals, dim_t in
+                              ((E.rvals, n), (E.cvals, m))
+                              if ell_gather.slab_for(dim_t, k, A.device,
+                                                     ratio=True)[1] > 1),
+                             default=0)
+            per_member = (A.nse * (a_item + 4) + slots * a_item + ws
+                          + factors)
             shared = A.nse * (w_item + 8)
         else:
             per_member = m * n * a_item + factors
@@ -180,16 +206,7 @@ class NMFk:
                 if a_item < 4:
                     per_member += m * n * 4
             shared = m * n * w_item
-        budget = cfg.hbm_budget or int(float(
-            os.environ.get("PYDNMFK_HBM_BUDGET") or 0))
-        if budget:
-            batch = (budget * HEADROOM - shared) // per_member
-        elif A.device.type == "cuda":
-            free, _ = torch.cuda.mem_get_info(A.device)
-            batch = (free // 2) // per_member
-        else:
-            batch = cfg.perturbations
-        return max(1, min(int(batch), cfg.perturbations))
+        return per_member, shared
 
     def _solve_ensemble(self, A, k, members=None):
         """Sample and factorize all perturbations; returns (W_all (p,m,k),

@@ -406,9 +406,11 @@ def test_kl_fit_on_the_card_runs_k2(cuda, k):
 
 def test_sparse_kl_fit_at_k300_runs_k4_in_slabs(cuda):
     """A KL-MU NMF.fit at k = 300 on a sparse A in the dual ELL format on
-    the card (K4 past 256: its ratio modes on the wide kernel, 20 launches,
-    and one plain launch for the final error, all counted as slab launches)
-    ends within 1e-3 of the CPU path's relative error (the triplet's plain
+    the card (K4 past its widest slab of 256, so in two slabs however small
+    the tables: 20 ratio calls, each a dot pass and a plain pass, and one
+    plain call for the final error, all counted as calls past k = 32 and
+    as calls in slabs) ends
+    within 1e-3 of the CPU path's relative error (the triplet's plain
     products) from the same init."""
     import numpy as np
     from pydnmfk_tpu_torch import NMF, NMFConfig
@@ -422,9 +424,11 @@ def test_sparse_kl_fit_at_k300_runs_k4_in_slabs(cuda):
     assert E is not None
     W0, H0 = rng.random((m, k)), rng.random((k, n))
     cfg = NMFConfig(k=k, norm="kl", itr=10)
-    before = dict(ell_gather.launches), dict(ell_gather.slab_launches)
+    counters = (ell_gather.launches, ell_gather.wide_launches,
+                ell_gather.slab_launches)
+    before = [dict(c) for c in counters]
     _, _, err = NMF(cfg, cuda).fit(E, factors=(W0, H0))
-    for c, b in zip((ell_gather.launches, ell_gather.slab_launches), before):
+    for c, b in zip(counters, before):
         assert {key: c[key] - b[key] for key in c} == {
             "ell_gather": 1, "ell_gather_ratio": 20, "ell_gather_f16": 0,
             "ell_gather_ratio_f16": 0}
@@ -455,10 +459,10 @@ def _ell_inputs(dev, b, m, n, k, nnz_per_row, w_cap):
 # chunk), 10 members in ragged groups, m and n off the lines a block takes
 K4_SHAPES = [(1, 300, 97, 9, 6), (3, 1000, 777, 9, 6), (2, 77, 4000, 9, 6),
              (10, 513, 301, 40, 150), (3, 2000, 50, 9, 150)]
-# every padded width of the grouped kernel, at and off it; the legacy
-# kernel's (k > 32), and past 256 its slabs (the ratio modes on the wide
-# kernel)
-K4_WIDTHS = [1, 2, 3, 4, 5, 7, 8, 16, 31, 32, 33, 256, 257, 300]
+# every padded width of the grouped kernel, at and off it; past 32 the
+# slab kernels in one slab (the tables fit the L2) and, past the widest
+# slab of 256, in two (the ratio modes in two passes)
+K4_WIDTHS = [1, 2, 3, 4, 5, 7, 8, 16, 31, 32, 33, 64, 128, 256, 257, 300]
 VALS_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
 
 
@@ -512,7 +516,7 @@ def test_k4_member_groups_are_bitwise_equal(cuda, k, vals_dtype):
     a warp), in one launch per call."""
     E, W, H = _ell_inputs(cuda, 4, 700, 333, k, nnz_per_row=30, w_cap=70)
     E = E.astype(vals_dtype)
-    kp, gmax = ell_gather.geometry(k)
+    kp, gmax, _ = ell_gather.geometry(k)
     groups = [g for g in (1, 2, 4, 8) if g <= gmax]
     assert groups[:3] == [1, 2, 4]
     for v, i, T, X in _k4_modes(E, W, H.mT.contiguous()):
@@ -525,6 +529,56 @@ def test_k4_member_groups_are_bitwise_equal(cuda, k, vals_dtype):
         assert all(torch.equal(o, outs[0]) for o in outs[1:])
         assert _rel([outs[0]], [ell_gather.ell_gather_product_plain(
             v, i, T, X, EPS)]) <= 1e-4
+
+
+@pytest.mark.parametrize("b,m,n,nnz_per_row,w_cap", K4_SHAPES)
+@pytest.mark.parametrize("k", [33, 100, 300])
+@pytest.mark.parametrize("vals_dtype", VALS_DTYPES)
+def test_k4_slab_widths_agree(cuda, b, m, n, nnz_per_row, w_cap, k,
+                              vals_dtype):
+    """The slab kernels at slab widths forced through ``_launch(slab=)``,
+    from 4 and 16 columns (the KP = 32 kernels with idle lanes) through
+    widths off the sectors and the powers of two to the widest, 256 (one
+    slab up to k = 256): the plain modes give the same bits at every width
+    (each column summed by one lane in slot order), the ratio modes (one
+    pass in one slab, the dot pass and the plain pass in several) agree
+    with the plain version within 1e-4. Each call counts one launch and
+    one call past k = 32, and one call in slabs where it takes more than
+    one."""
+    E, W, H = _ell_inputs(cuda, b, m, n, k, nnz_per_row=nnz_per_row,
+                          w_cap=w_cap)
+    E = E.astype(vals_dtype)
+    widths = (4, 16, 24, 56, 64, 100, 128, 256)
+    for v, i, T, X in _k4_modes(E, W, H.mT.contiguous()):
+        key = _k4_keys(vals_dtype)[X is not None]
+        ref = ell_gather.ell_gather_product_plain(v, i, T, X, EPS)
+        outs = []
+        for slab in widths:
+            counters = (ell_gather.launches, ell_gather.wide_launches,
+                        ell_gather.slab_launches)
+            before = [c[key] for c in counters]
+            outs.append(ell_gather._launch(v, i, T, X, EPS, slab=slab))
+            several = slab < k
+            assert [c[key] for c in counters] == [before[0] + 1, before[1] + 1,
+                                                  before[2] + several]
+            assert _rel([outs[-1]], [ref]) <= 1e-4
+        if X is None:
+            assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+@pytest.mark.parametrize("B,dim_t,k,slab", [(10, 1000, 300, 56), (3, 333, 33, 16),
+                                            (1, 77, 64, 64), (2, 50, 41, 41),
+                                            (5, 9, 257, 256), (2, 1, 35, 13)])
+def test_k4_slab_table_kernel_matches_plain(cuda, B, dim_t, k, slab):
+    """The card's slab table (one kernel) equals the plain torch one,
+    padding zeros included; T itself at one slab of k where k % 4 == 0."""
+    g = torch.Generator(cuda)
+    g.manual_seed(B * dim_t + k)
+    T = torch.rand((B, dim_t, k), generator=g, device=cuda)
+    table = ell_gather.slab_table(T, slab)
+    assert torch.equal(table.reshape(-1),
+                       ell_gather.slab_table_plain(T, slab))
+    assert (table.data_ptr() == T.data_ptr()) == (slab == k and k % 4 == 0)
 
 
 @pytest.mark.parametrize("b,m,n,nnz_per_row,w_cap", K4_SHAPES[:3])
@@ -564,20 +618,24 @@ def test_k4_table_kernel_matches_interleave(cuda, B, dim_t, k, G):
 
 
 def test_k4_geometry_and_groups_as_exported(cuda):
-    """K4's geometry as the source exports it: KP the power of two from 4
-    that holds k, groups only at k <= 32 and no wider than a warp's lanes
-    (G KP / 4 <= 32); the plan on it keeps its invariants at the card's L2,
-    and a group the kernel does not take raises."""
+    """K4's geometry as the source exports it: at k <= 32 KP the power of
+    two from 4 that holds k and groups no wider than a warp's lanes (G KP /
+    4 <= 32), past 32 no groups and the widest slab, the one that the
+    memory model plans on off the card; the plans on it keep their
+    invariants at the card's L2, and a group or slab the kernel does not
+    take raises."""
     l2 = torch.cuda.get_device_properties(cuda).L2_cache_size
     for k in range(1, 301):
-        kp, gmax = ell_gather.geometry(k)
-        if k > 256:
-            assert kp == 256       # slabs of 256 columns
-        else:
-            assert kp >= max(k, 4) and (kp == 4 or kp < 2 * k)
-        assert (gmax > 0) == (k <= 32) and gmax * kp <= 128
+        kp, gmax, smax = ell_gather.geometry(k)
+        if k > 32:
+            assert (kp, gmax, smax) == (0, 0, ell_gather.MAX_SLAB)
+            ks, count = ell_gather.slab_plan(102_660, k, l2, smax)
+            assert count == -(-k // ks) and ks <= smax
+            continue
+        assert kp >= max(k, 4) and (kp == 4 or kp < 2 * k) and smax == 0
+        assert gmax > 0 and gmax * kp <= 128
         G = ell_gather.member_groups(10, 50_000, kp, gmax, l2)
-        assert (G > 0) == (k <= 32) and G <= gmax
+        assert 0 < G <= gmax
     with pytest.raises(RuntimeError, match="ell_gather_geometry"):
         ell_gather.geometry(0)
     E, W, H = _ell_inputs(cuda, 2, 64, 48, 32, nnz_per_row=3, w_cap=4)
@@ -585,6 +643,17 @@ def test_k4_geometry_and_groups_as_exported(cuda):
         with pytest.raises(ValueError, match="member groups"):
             ell_gather._launch(E.rvals, E.rcols, H.mT.contiguous(), None, EPS,
                                group=bad)
+    with pytest.raises(ValueError, match="slabs past k = 32"):
+        ell_gather._launch(E.rvals, E.rcols, H.mT.contiguous(), None, EPS,
+                           slab=16)
+    E, W, H = _ell_inputs(cuda, 2, 64, 48, 40, nnz_per_row=3, w_cap=4)
+    for bad in (0, 257):
+        with pytest.raises(ValueError, match="slabs of 1 to 256"):
+            ell_gather._launch(E.rvals, E.rcols, H.mT.contiguous(), None, EPS,
+                               slab=bad)
+    with pytest.raises(ValueError, match="member groups"):
+        ell_gather._launch(E.rvals, E.rcols, H.mT.contiguous(), None, EPS,
+                           group=1)
 
 
 def test_k4_wrapper_raises_on_what_the_kernel_does_not_take(cuda):

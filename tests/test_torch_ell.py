@@ -244,6 +244,84 @@ def test_interleave_matches_numpy(B, dim_t, k, kp, G, strided):
         assert out.data_ptr() == tT.data_ptr()
 
 
+# (dim_t, k, L2 bytes, the kernel's widest slab): the NYTimes tables (H^T
+# 102660 rows, W 300000) at k = 64, 128, 256 and 300, the sweep's topic stack
+# (50000 and 200000 rows) at k = 64, small tables at k = 33 and past the
+# widest slab, a narrower widest slab, a table that fits at the widest slab,
+# and one past the L2 at the 16-float minimum
+SLAB_CASES = [(102_660, 64, H100_L2, 256), (300_000, 64, H100_L2, 256),
+              (102_660, 128, H100_L2, 256), (300_000, 128, H100_L2, 256),
+              (102_660, 256, H100_L2, 256), (300_000, 256, H100_L2, 256),
+              (102_660, 300, H100_L2, 256), (300_000, 300, H100_L2, 256),
+              (50_000, 64, H100_L2, 256), (200_000, 64, H100_L2, 256),
+              (1000, 33, H100_L2, 256), (330, 300, H100_L2, 256),
+              (400, 1000, H100_L2, 256), (5000, 200, H100_L2, 64),
+              (20_000, 256, H100_L2, 256), (10 ** 7, 40, H100_L2, 256)]
+SEVERAL = {(300_000, 64), (102_660, 300), (300_000, 300)}
+
+
+@pytest.mark.parametrize("ratio", [False, True])
+@pytest.mark.parametrize("dim_t,k,l2,smax", SLAB_CASES)
+def test_slab_plan_covers_every_column_once(dim_t, k, l2, smax, ratio):
+    """K4's column slabs past k = 32: together they cover every column once;
+    a width of at most the kernel's widest slab; one slab exactly where the
+    whole table fits (a ratio product: wherever k is at most the widest
+    slab); where there are several, a power of two of at least 16 floats
+    (the plan's minimum, 32), one member's slab within the L2 share unless
+    at the minimum, and no width that fits the share pads k less; several
+    at the NYTimes shape for k = 64 (columns) and k = 300 (plain), k = 300
+    (ratio)."""
+    ks, count = teg.slab_plan(dim_t, k, l2, smax, ratio)
+    slabs = [range(j * ks, min(k, (j + 1) * ks)) for j in range(count)]
+    assert [c for r in slabs for c in r] == list(range(k))
+    assert all(len(r) > 0 for r in slabs)
+    assert ks <= smax
+    share = teg.SLAB_SHARE * l2
+    fits = (ratio or dim_t * k * 4 <= share) and k <= smax
+    assert (count == 1) == fits
+    if count == 1:
+        assert ks == k
+    else:
+        assert ks >= teg.MIN_SLAB >= 16 and ks & (ks - 1) == 0
+        assert ks == teg.MIN_SLAB or dim_t * ks * 4 <= share
+        for w in (32, 64, 128, 256):
+            if w <= smax and dim_t * w * 4 <= share:
+                assert -(-k // w) * w >= count * ks
+    if (dim_t, k) in SEVERAL and (k > smax or not ratio):
+        assert count > 1
+
+
+@pytest.mark.parametrize("B,dim_t,k,slab", [
+    (1, 9, 33, 16), (3, 7, 300, 56), (2, 5, 40, 40), (2, 5, 41, 41),
+    (1, 4, 64, 13), (4, 3, 257, 256), (1, 1, 35, 8)])
+def test_slab_table_matches_numpy(B, dim_t, k, slab):
+    """K4's slab table against a numpy reference: member after member, its
+    slabs of ``slab`` columns one after the other, each row padded with
+    zeros to the slab's width rounded up to 4 floats."""
+    rng = np.random.default_rng(B * dim_t + k)
+    T = rng.random((B, dim_t, k)).astype(np.float32)
+    nslab, ldt = -(-k // slab), -(-slab // 4) * 4
+    ref = np.zeros((B, nslab, dim_t, ldt), np.float32)
+    for j in range(nslab):
+        c1 = min(k, (j + 1) * slab)
+        ref[:, j, :, :c1 - j * slab] = T[..., j * slab:c1]
+    out = teg.slab_table_plain(torch.from_numpy(T), slab)
+    np.testing.assert_array_equal(out.numpy(), ref.reshape(-1))
+
+
+@pytest.mark.parametrize("dim_t,k", [(102_660, 32), (102_660, 64),
+                                     (300_000, 300), (330, 300), (50, 40)])
+def test_slab_plan_off_the_card_is_the_h100s(dim_t, k):
+    """The slabs the memory model plans on a device that runs no K4: one
+    at k <= 32 (the grouped kernel), else the plan on the H100's L2 and the
+    kernel's widest slab."""
+    for ratio in (False, True):
+        want = (k, 1) if k <= 32 else teg.slab_plan(
+            dim_t, k, teg.H100_L2_BYTES, teg.MAX_SLAB, ratio)
+        assert teg.slab_for(dim_t, k, "cpu", ratio=ratio) == want
+    assert teg.H100_L2_BYTES == H100_L2
+
+
 @pytest.mark.parametrize("ratio", [False, True])
 @pytest.mark.parametrize("table", ["float32", "float16", "bfloat16"])
 def test_gather_plain_f16_values_matches_pallas(ratio, table,

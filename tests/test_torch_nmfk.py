@@ -256,6 +256,43 @@ def _triplet(A, dtype=np.float64):
     return sparse_from_numpy(rows, cols, A[rows, cols].astype(dtype), A.shape)
 
 
+@pytest.mark.parametrize("k,l2,slabs", [(32, None, False), (40, None, False),
+                                         (256, 1 << 12, False),
+                                         (257, None, True),
+                                         (300, 1 << 12, True)])
+def test_sparse_kl_budget_counts_k4s_ratio_workspace(tmp_path, monkeypatch,
+                                                     k, l2, slabs):
+    """Under KL a sparse member on the dual ELL also costs K4's f32 ratio
+    workspace, the wider orientation's (dim, w), where the ratio's slab
+    plan takes more than one slab: past the widest slab (k = 257, 300),
+    whatever the L2; not at k = 32 (no slabs) or up to k = 256, where the
+    ratio takes one slab even on an L2 too small for the table. There the
+    budget that holds three FRO members holds two KL ones."""
+    from pydnmfk_tpu_torch.models.nmfk import HEADROOM
+    from pydnmfk_tpu_torch.ops import ell, ell_gather
+    if l2:
+        monkeypatch.setattr(ell_gather, "H100_L2_BYTES", l2)
+    A = _triplet(_planted_sparse(), np.float32)
+    E = ell.ell_pack(A, return_perms=True)
+    ws = max(E[0].rvals.numel(), E[0].cvals.numel()) * 4
+    assert ws > 0
+    cost, batch = {}, {}
+    for norm in ("fro", "kl"):
+        cfg = port.NMFkConfig(nmf=port.NMFConfig(norm=norm), perturbations=8,
+                              results_path=str(tmp_path) + "/", fname=norm,
+                              checkpoint=False)
+        model = port.NMFk(cfg, "cpu")
+        model._ell = E
+        cost[norm] = model._member_bytes(A, k)
+        per, shared = cost["fro"]
+        model.cfg = cfg.replace(hbm_budget=int(
+            (3 * per + 1 + shared) / HEADROOM) + 1)
+        batch[norm] = model._ensemble_batch_size(A, k)
+    assert cost["kl"] == (cost["fro"][0] + (ws if slabs else 0),
+                          cost["fro"][1])
+    assert batch == {"fro": 3, "kl": 2 if slabs else 3}
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_sparse_sweep(root):
     """pydnmfk_tpu's per-k sparse sweep on _planted_sparse at f64, with the
