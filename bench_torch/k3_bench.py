@@ -3,7 +3,7 @@
 on one GPU, beside K2a + K2b, the unfused pair that does the same four
 products.
 
-    python3 bench_torch/k3_bench.py [--root DIR] [--label NAME]
+    python3 bench_torch/k3_bench.py [--root DIR] [--label NAME] [--wide]
 
 Imports ``pydnmfk_tpu_torch`` from DIR (default: the root of this
 checkout), so that two trees, say a parent commit unpacked with ``git
@@ -19,6 +19,18 @@ the plain version, and its bound: the larger of 8 m n k operations over
 their peak (67 TFLOP/s f32 on the CUDA cores; 989 TFLOP/s bf16 for the bf16
 operands of a bf16 or uint8 A) and the bytes, each input read once and each
 output written once, over 3.35 TB/s.
+
+``--wide`` times instead the cases of the smoke past k = 32: an f32, a bf16,
+an f16 and a uint8 A (the f32 A's copies and its ``quantize_uint8``) at
+57600 x 38400, k = 34 and 64, and the 10-member 14400 x 9600 stack in f32
+and its bf16 copy at k = 34 (the NMFk sweep's ensemble width) and 64. There
+K3 runs the 3xTF32 kernel for the f32 A (``tf::fused_mu_kl_tf32_kernel``;
+bound at 165 TFLOP/s, the 3xTF32 rate, with the CUDA cores' 67 in
+``cuda_core_bound_ms``) and the tensor-core kernel at KP = 64 for the
+others (``tc::fused_mu_kl_tc_kernel``); the parents before them ran the
+first port's ``fused_mu_kl_kernel`` at every A dtype. Without ``--wide`` the
+f32 cases run ``f32::fused_mu_kl_f32_kernel`` and the others
+``tc::fused_mu_kl_tc_kernel`` (k <= 32).
 """
 from __future__ import annotations
 
@@ -33,6 +45,7 @@ import torch
 from k1_bench import PEAK_BYTES, median_ms, rel_err
 
 PEAK_FLOPS, PEAK_BF16 = 67e12, 989e12   # H100 SXM: f32 CUDA cores, bf16 dense
+PEAK_3XTF32 = 495e12 / 3                # TF32 tensor cores, three a product
 
 
 def nbytes(*tensors):
@@ -44,6 +57,8 @@ def main():
     p.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     p.add_argument("--label", default="")
+    p.add_argument("--wide", action="store_true",
+                   help="the cases past k = 32 (k = 34 and 64)")
     args = p.parse_args()
     if not torch.cuda.is_available():
         sys.exit("k3_bench: no CUDA device")
@@ -72,21 +87,29 @@ def main():
                                      kl.kl_wtu(A, W, H, eps)))
         plain_ms = median_ms(lambda: fused_kl.fused_kl_pass_plain(
             A, W, H, hrs, eps, chunk))
-        peak = PEAK_FLOPS if A.dtype == torch.float32 else PEAK_BF16
-        t_ops = 8 * A.numel() * W.shape[-1] / peak * 1e3
+        wide = W.shape[-1] > 32
+        peak = (PEAK_BF16 if A.dtype != torch.float32 else
+                PEAK_3XTF32 if wide else PEAK_FLOPS)
+        flops = 8 * A.numel() * W.shape[-1]
+        t_ops = flops / peak * 1e3
         t_bytes = nbytes(A, W, H, hrs, W, H) / PEAK_BYTES * 1e3
-        print(json.dumps({
-            "label": args.label, "case": name, "kernel": "K3 fused_mu_kl",
-            "ms": ms, "k2a_plus_k2b_ms": pair_ms, "plain_ms": plain_ms,
-            "max_rel_err": err, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "two_read_floor_ms": 2 * nbytes(A) / PEAK_BYTES * 1e3,
-            "card": smi}), flush=True)
+        row = {"label": args.label, "case": name,
+               "kernel": "K3 fused_mu_kl" + (" k>32" if wide else ""),
+               "ms": ms, "k2a_plus_k2b_ms": pair_ms, "plain_ms": plain_ms,
+               "max_rel_err": err, "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "two_read_floor_ms": 2 * nbytes(A) / PEAK_BYTES * 1e3}
+        if wide and A.dtype == torch.float32:
+            row["cuda_core_bound_ms"] = flops / PEAK_FLOPS * 1e3
+        print(json.dumps({**row, "card": smi}), flush=True)
 
     M, N, K = 57600, 38400, 32
     E, EM, EN, EK = 10, 14400, 9600, 8
     A = torch.rand((M, K), generator=gen, device=dev) @ torch.rand(
         (K, N), generator=gen, device=dev)
+    if args.wide:
+        wide_cases(case, gen, dev, A, E, EM, EN)
+        return
     W = torch.rand((M, K), generator=gen, device=dev)
     H = torch.rand((K, N), generator=gen, device=dev)
     case(f"f32 {M}x{N} k={K}", A, W, H)
@@ -102,6 +125,33 @@ def main():
     case(f"f32 {E} x {EM}x{EN} k={EK}", Ae, We, He)
     # the members of the NMFk ensemble under --a_precision=bfloat16
     case(f"bf16-A {E} x {EM}x{EN} k={EK}", Ae.to(torch.bfloat16), We, He)
+
+
+def wide_cases(case, gen, dev, A, E, EM, EN):
+    """The cases past k = 32: every A dtype at A's shape, k = 34 and 64,
+    and the f32 and bf16 member stacks at the same ks."""
+    from pydnmfk_tpu_torch.ops import linalg
+    M, N = A.shape
+    for k in (34, 64):
+        W = torch.rand((M, k), generator=gen, device=dev)
+        H = torch.rand((k, N), generator=gen, device=dev)
+        case(f"f32 {M}x{N} k={k}", A, W, H)
+        for label, dtype in (("bf16-A", torch.bfloat16),
+                             ("f16-A", torch.float16)):
+            a = A.to(dtype)
+            case(f"{label} {M}x{N} k={k}", a, W, H)
+            del a
+        Q, _ = linalg.quantize_uint8(A)
+        case(f"uint8-A {M}x{N} k={k}", Q, W, H)
+        del Q, W, H
+    del A
+    torch.cuda.empty_cache()
+    Ae = torch.rand((E, EM, EN), generator=gen, device=dev)
+    for k in (34, 64):
+        We = torch.rand((E, EM, k), generator=gen, device=dev)
+        He = torch.rand((E, k, EN), generator=gen, device=dev)
+        case(f"f32 {E} x {EM}x{EN} k={k}", Ae, We, He)
+        case(f"bf16-A {E} x {EM}x{EN} k={k}", Ae.to(torch.bfloat16), We, He)
 
 
 if __name__ == "__main__":

@@ -2,18 +2,23 @@
 """Builds variants of kernel K3's source side by side and times their
 tensor-core kernel (a bf16 or uint8 A) on one GPU.
 
-    python3 bench_torch/k3_variants.py '{"NAME": [FLAGS...], ...}'
+    python3 bench_torch/k3_variants.py '{"NAME": [ENTRIES...], ...}'
 
 Each variant is ``csrc/fused_mu_kl.cu`` (or, when its first entry ends in
-``.cu``, that file: an edited copy kept under ``build/``, say) compiled with
-the package's nvcc flags plus FLAGS (``-D`` switches of an edited copy), all
-at once, into ``build/k3_variants/``. For each it prints the registers and
+``.cu``, that file: an edited copy kept under ``build/``, say), edited by
+its entries of the form ``s|OLD|NEW|`` (OLD, which must occur once in the
+source, replaced by NEW) and compiled with the package's nvcc flags plus
+its other entries (``-D`` switches of an edited copy), all at once, into
+``build/k3_variants/``. For each it prints the registers and
 spill bytes of the 12 tensor-core kernels (dtype, KP, ``v`` for 16-byte
 loads or ``s``), then loads it in place of the package's K3 library, checks
 it against the plain version on small ragged shapes (max relative error)
 and times it (CUDA events, median of 7) on a bf16 and a uint8 A at
-57600 x 38400 for k = 32 and 16, and on the 10-member 14400 x 9600 stacks
-at k = 8 in bf16 and uint8. The numbers compare variants within one run.
+57600 x 38400 for k = 64, 32 and 16, and on the 10-member 14400 x 9600
+stacks at k = 8 in bf16 and uint8 and at k = 64 in bf16. For example,
+128-row panels with 2 row groups at KP = 64: ``["s|KP <= 16 ? 128 : 256|KP
+!= 32 ? 128 : 256|", "s|KP >= 32 ? 4 : 2|KP == 32 ? 4 : 2|"]``. The
+numbers compare variants within one run.
 """
 from __future__ import annotations
 
@@ -45,6 +50,16 @@ def main():
         src = str(cuda_lib.CSRC / "fused_mu_kl.cu")
         if flags and flags[0].endswith(".cu"):
             src, flags = flags[0], flags[1:]
+        edits = [f.split("|")[1:3] for f in flags if f.startswith("s|")]
+        flags = [f for f in flags if not f.startswith("s|")]
+        if edits:
+            text = open(src).read()
+            for old, new in edits:
+                assert text.count(old) == 1, (name, old)
+                text = text.replace(old, new)
+            src = os.path.join(out_dir, f"k3_{name}.cu")
+            with open(src, "w") as f:
+                f.write(text)
         out = os.path.join(out_dir, f"k3_{name}.so")
         cmd = [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-I", str(cuda_lib.CSRC),
                *flags, "-o", out, src]
@@ -80,11 +95,17 @@ def main():
     We = torch.rand((10, 14400, 8), generator=gen, device=dev)
     He = torch.rand((10, 8, 9600), generator=gen, device=dev)
     W16, H16 = W[:, :16].contiguous(), H[:16].contiguous()
-    cases = [("bf16 k32", A16, W, H), ("u8 k32", Q, W, H),
+    W64 = torch.rand((M, 64), generator=gen, device=dev)
+    H64 = torch.rand((64, N), generator=gen, device=dev)
+    We64 = torch.rand((10, 14400, 64), generator=gen, device=dev)
+    He64 = torch.rand((10, 64, 9600), generator=gen, device=dev)
+    cases = [("bf16 k64", A16, W64, H64), ("u8 k64", Q, W64, H64),
+             ("bf16 k32", A16, W, H), ("u8 k32", Q, W, H),
              ("bf16 k16", A16, W16, H16), ("u8 k16", Q, W16, H16),
-             ("bf16 stack k8", Ae, We, He), ("u8 stack k8", Qe, We, He)]
+             ("bf16 stack k8", Ae, We, He), ("u8 stack k8", Qe, We, He),
+             ("bf16 stack k64", Ae, We64, He64)]
     small = [(a[:513, :1040].contiguous(), w[:513].contiguous(),
-              h[:, :1040].contiguous()) for _, a, w, h in cases[:4]]
+              h[:, :1040].contiguous()) for _, a, w, h in cases[:6]]
     p, i = ctypes.c_void_p, ctypes.c_int
     for name, path in built:
         if path is None:

@@ -26,16 +26,23 @@ Run from the root of a checkout, with no arguments:
      of the NYTimes bag-of-words corpus (300000 x 102660, 69.7 M nnz,
      k = 32), with f32 and with f16 values, and on a 10-member stack of the planted topic matrix of 5 at
      k = 3 and 7 (library call: ``torch.bmm`` of a sparse COO stack);
-   - K3 at k = 64 on the f32 A, where the first port's kernel runs, and
+   - K3 past k = 32 (the 3xTF32 kernel on an f32 A, within 1e-4 and bound
+     at 165 TFLOP/s with the CUDA cores' 67 beside it; the tensor-core
+     kernel at KP = 64 on a bf16, f16 or uint8 A, within 1e-3 and bound at
+     989 TFLOP/s or by the bytes) at 57600 x 38400, k = 64, on the f32 A and
+     its bf16, f16 and uint8 copies, and on the 10-member 14400 x 9600 stack
+     at k = 34 and 64 in f32 and bf16, each beside K2a + K2b (k > 32) on the
+     same inputs and the two-read floor; and
      K4 past k = 32 on its slab kernels: on the NYTimes shape at k = 64,
      128, 256 and 300 (column slabs sized to the L2; the ratio modes in
      several slabs in two passes) and on the 10-member topic stack at
      k = 64, each row with an estimate of its gathers (every nonzero's k
      floats at the L2's gather rate for uniform indices) beside its bound;
    - K2a and K2b past k = 32, on their 3xTF32 tensor-core kernels: at
-     57600 x 38400, k = 64, on the f32 A and its uint8 quantization, on one
-     14400 x 9600 member at k = 128, 256 and 300 (two output slabs) and on
-     the 10-member stack at k = 64, each within 1e-4 of the plain version,
+     57600 x 38400, k = 64, on the f32 A and its bf16, f16 and uint8 copies,
+     on one 14400 x 9600 member at k = 34, 64, 128, 256 and 300 (two output
+     slabs) and on the 10-member stack at k = 34 and 64 (f32 and bf16), each
+     within 1e-4 of the plain version,
      bound at 165 TFLOP/s (3xTF32) with the CUDA cores' 67 beside it;
    profiles one batched FRO-MU and KL-MU step on that stack (wall and
    device ms, idle share, top kernels); checks NMF.fit on the card
@@ -52,8 +59,12 @@ Run from the root of a checkout, with no arguments:
    KL-MU with ``use_fused`` (K3), HALS and BCD, at f16 factors (on A /
    max(A)) FRO-MU, KL-MU and KL-MU with ``use_fused``, and on an f16 A under
    f32 factors FRO-MU and KL-MU, each within 2 % of the f32 solve's error
-   with exact launches under the dtype's keys; KL-MU at k = 64 (K2's 3xTF32
-   kernels, exactly 10 launches each); then the NMFk sweep through
+   with exact launches under the dtype's keys; KL-MU at k = 64 on the f32 A,
+   its uint8 quantization and a bf16 A (K2's 3xTF32 kernels, exactly 10
+   launches each), and each with ``use_fused=True`` (K3 past k = 32, exactly
+   10 launches under the A dtype's key, counted past k = 32 too; within
+   1e-3 of the K2 solve's error on the f32 A, 2 % on the others); then the
+   NMFk sweep through
    the CLI on a
    planted rank-4 14400 x
    9600 matrix (k = 2..7, 10 perturbations, 400 iterations), FRO-MU and
@@ -78,7 +89,9 @@ Run from the root of a checkout, with no arguments:
    with all-zero rows and columns, and through the library with ``method="bcd"`` on the
    planted 14400 x 9600 one, each of which must choose k = 4 with no kernel
    launched; and the KL-MU sweep through the library at ks 4, 34 and 64 on
-   that matrix (K2 past 32), which must choose k = 4 with exact K2 launches
+   that matrix (K2 past 32), and again with ``use_fused=True`` on bf16
+   members (K3: 1200 launches in the ensemble, 800 of them past k = 32;
+   K2b in the refit), each of which must choose k = 4 with exact launches
    in its ensemble and its refit;
 6. prints the card's name and power limit, one JSON line of kernels, and as
    its last line ``{"ok": true, "device": {...}}``.
@@ -236,14 +249,16 @@ def ptxas_k4(log):
 
 
 def ptxas_k3(log):
-    """K3's kernels: the f32 kernel and the tensor-core one for a bf16, f16
-    or uint8 A (k <= 32) keyed (kernel, A dtype, KP, vec), the first port's
-    (k > 32) keyed (kernel, A dtype, KP, False)."""
+    """K3's kernels: the f32 kernel (k <= 32) and the tensor-core one for a
+    bf16, f16 or uint8 A (every k <= 64) keyed (kernel, A dtype, KP, vec),
+    and the 3xTF32 one for an f32 A past k = 32 keyed (kernel, "f32", 64,
+    vec)."""
     return ptxas(log, r"(fused_mu_kl_f32_kernel|fused_mu_kl_tc_kernel|"
-                      r"fused_mu_kl_kernel)"
-                      r"I(f|13__nv_bfloat16|6__half|h)?Li(\d+)E(?:Lb([01])E)?",
+                      r"fused_mu_kl_tf32_kernel)"
+                      r"I(?:(f|13__nv_bfloat16|6__half|h)?Li(\d+)E)?"
+                      r"(?:Lb([01])E)?",
                  lambda m: (m.group(1), MANGLED_A[m.group(2)],
-                            int(m.group(3)), m.group(4) == "1"))
+                            int(m.group(3) or 64), m.group(4) == "1"))
 
 
 def coo_stack(rows, cols, data, shape):
@@ -342,13 +357,16 @@ def main():
 
     def zero_counts():
         for c in counters + (kl.tc_launches, ell_gather.wide_launches,
-                             ell_gather.slab_launches):
+                             ell_gather.slab_launches,
+                             fused_kl.wide_launches):
             for key in c:
                 c[key] = 0
 
-    # of them, K2's and K4's at k > 32 (the 3xTF32 kernels, the slab
-    # kernels), which the wrappers count apart by the same keys
-    wide_counters = (kl.tc_launches, ell_gather.wide_launches)
+    # of them, K2's, K3's and K4's at k > 32 (the 3xTF32 kernels, K3's
+    # kernels at KP = 64, the slab kernels), which the wrappers count apart
+    # by the same keys
+    wide_counters = (kl.tc_launches, fused_kl.wide_launches,
+                     ell_gather.wide_launches)
 
     def wide_counts():
         return {k: v for c in wide_counters for k, v in c.items()}
@@ -452,9 +470,9 @@ def main():
     check(len(regs) == 128 and not any(ss or sl for _, ss, sl in regs.values()),
           f"K4 kernels: ptxas report {regs} (expected 128 kernels, no spills)")
 
-    # K3's kernels likewise: the f32 kernel and the tensor-core one for a
-    # bf16, f16 or uint8 A (KP = 8, 16, 32; vec: 16-byte loads or copies)
-    # and the first port's (every A dtype at KP = 64)
+    # K3's kernels likewise: the f32 kernel (KP = 8, 16, 32; vec: 16-byte
+    # loads), the tensor-core one for a bf16, f16 or uint8 A (KP = 8, 16, 32,
+    # 64; vec: 16-byte copies) and the 3xTF32 one for an f32 A (KP = 64)
     regs = ptxas_k3(cuda_lib.library_path("fused_mu_kl").with_suffix(
         ".log").read_text())
     for name in sorted({key[0] for key in regs}):
@@ -463,14 +481,14 @@ def main():
                           f"registers, {ss}/{sl} B spilled"
                           for (nm, dt, kp, vec), (r, ss, sl)
                           in sorted(regs.items()) if nm == name), flush=True)
-    check(len(regs) == 28 and not any(ss or sl for _, ss, sl in regs.values()),
-          f"K3 kernels: ptxas report {regs} (expected 28 kernels, no spills)")
+    check(len(regs) == 32 and not any(ss or sl for _, ss, sl in regs.values()),
+          f"K3 kernels: ptxas report {regs} (expected 32 kernels, no spills)")
 
     def beside_pair(label, tag=""):
         """K3 does the four products of K2a + K2b (its yardstick: no one
         PyTorch call computes K3's function): their times on the same
         inputs beside K3's, where this run timed them. ``tag`` names the
-        instantiation (" f16" for an f16 A)."""
+        instantiation (" f16" for an f16 A) or the width (" k>32")."""
         pair = [case_ms.get((kname + tag, label))
                 for kname in ("K2a kl_uht", "K2b kl_wtu")]
         k3 = case_ms["K3 fused_mu_kl" + tag, label]
@@ -509,6 +527,31 @@ def main():
         print(f"[kernel] K2 k>32 {label}: CUDA-core bound "
               f"{flops / PEAK_FLOPS * 1e3:.3f} ms (4 m n k at "
               f"{PEAK_FLOPS / 1e12:g} TFLOP/s)", flush=True)
+
+    def wide_k3_case(label, a, W, H, chunk):
+        """K3 at k > 32 (the 3xTF32 kernel for an f32 A, within 1e-4; the
+        tensor-core kernel at KP = 64 for a bf16, f16 or uint8 A, within
+        1e-3) against its plain version, beside K2a + K2b on the same inputs
+        and the two-read floor; an f32 A's bound at the 3xTF32 rate with the
+        CUDA cores' beside it. Its rows are kept apart from k <= 32's."""
+        B = a.shape[0] if a.dim() == 3 else 1
+        m, n = a.shape[-2:]
+        flops = 8 * B * m * n * W.shape[-1]
+        f32 = a.dtype == torch.float32
+        hrs = linalg.sum_axis(H, axis=-1)
+        kernel_case("K3 fused_mu_kl k>32", label,
+                    lambda: fused_kl.fused_kl_pass(a, W, H, hrs, eps),
+                    lambda: fused_kl.fused_kl_pass_plain(a, W, H, hrs, eps,
+                                                         chunk),
+                    TOL[a.dtype],
+                    (flops, nbytes(a, W, H, hrs, W, H),
+                     PEAK_3XTF32 if f32 else PEAK_BF16))
+        beside_pair(label, " k>32")
+        two_read_floor(label, a, "K3 fused_mu_kl k>32")
+        if f32:
+            print(f"[kernel] K3 fused_mu_kl k>32 {label}: CUDA-core bound "
+                  f"{flops / PEAK_FLOPS * 1e3:.3f} ms (8 m n k at "
+                  f"{PEAK_FLOPS / 1e12:g} TFLOP/s)", flush=True)
 
     A = torch.rand((M, K), generator=gen, device=dev) @ torch.rand(
         (K, N), generator=gen, device=dev)                     # planted rank K
@@ -624,22 +667,20 @@ def main():
     beside_pair(hshape, " f16")
     two_read_floor(hshape, Ah, "K3 fused_mu_kl f16")
     del Ah, Wh, Hh, W16, H16, W, H, HHT, hrs
-    # K3 at 32 < k <= 64, where the first port's kernel runs: k = 64, f32
+    # K2 and K3 at k = 64: K2's 3xTF32 kernels and K3's (the 3xTF32 one on
+    # the f32 A, the tensor-core one at KP = 64 on its bf16, f16 and uint8
+    # copies), K3 beside K2a + K2b on each A
     W64 = torch.rand((M, 64), generator=gen, device=dev)
     H64 = torch.rand((64, N), generator=gen, device=dev)
-    hrs64 = linalg.sum_axis(H64, axis=-1)
-    kernel_case("K3 fused_mu_kl", f"f32 {M}x{N} k=64",
-                lambda: fused_kl.fused_kl_pass(A, W64, H64, hrs64, eps),
-                lambda: fused_kl.fused_kl_pass_plain(A, W64, H64, hrs64, eps,
-                                                     chunk),
-                TOL[torch.float32],
-                (8 * M * N * 64, nbytes(A, W64, H64, hrs64, W64, H64)))
-    # K2 at k = 64, the 3xTF32 kernels, on the f32 A and its uint8
-    # quantization
-    wide_k2_cases(f"f32 {M}x{N} k=64", A, W64, H64, chunk)
-    Q, _ = linalg.quantize_uint8(A)
-    wide_k2_cases(f"uint8-A {M}x{N} k=64", Q, W64, H64, chunk)
-    del W64, H64, hrs64, Q
+    for label, make in (("f32", lambda: A),
+                        ("bf16-A", lambda: A.to(torch.bfloat16)),
+                        ("f16-A", lambda: A.to(torch.float16)),
+                        ("uint8-A", lambda: linalg.quantize_uint8(A)[0])):
+        a = make()
+        wide_k2_cases(f"{label} {M}x{N} k=64", a, W64, H64, chunk)
+        wide_k3_case(f"{label} {M}x{N} k=64", a, W64, H64, chunk)
+        del a
+    del W64, H64
     torch.cuda.empty_cache()
     Ae = torch.rand((ENS, EM, EN), generator=gen, device=dev)
     We = torch.rand((ENS, EM, EK), generator=gen, device=dev)
@@ -746,11 +787,15 @@ def main():
         Hk = torch.rand((k, EN), generator=gen, device=dev)
         wide_k2_cases(f"f32 {EM}x{EN} k={k}", A1, Wk, Hk, ech)
     del A1, Wk, Hk
+    # and K3 beside them, on the f32 members and their bf16 copies
+    Ae16 = Ae.to(torch.bfloat16)
     for k in (34, WIDE_K):
         Wk = torch.rand((ENS, EM, k), generator=gen, device=dev)
         Hk = torch.rand((ENS, k, EN), generator=gen, device=dev)
-        wide_k2_cases(f"f32 {ENS} x {EM}x{EN} k={k}", Ae, Wk, Hk, ech)
-    del Wk, Hk
+        for label, a in (("f32", Ae), ("bf16-A", Ae16)):
+            wide_k2_cases(f"{label} {ENS} x {EM}x{EN} k={k}", a, Wk, Hk, ech)
+            wide_k3_case(f"{label} {ENS} x {EM}x{EN} k={k}", a, Wk, Hk, ech)
+    del Wk, Hk, Ae16
     kernel_case("K3 fused_mu_kl", f"f32 {eshape}",
                 lambda: fused_kl.fused_kl_pass(Ae, We, He, hrse, eps),
                 lambda: fused_kl.fused_kl_pass_plain(Ae, We, He, hrse, eps,
@@ -1031,14 +1076,41 @@ def main():
         check(rel <= tol, f"{label} error {errs[label]} is not within "
                           f"{tol:g} of {ref}'s {errs[ref]}")
 
-    # KL-MU at k = 64: K2a and K2b on their 3xTF32 kernels, 10 each
+    # KL-MU at k = 64: K2a and K2b on their 3xTF32 kernels, 10 each, on the
+    # f32 A, its uint8 quantization and its bf16 copy; and with use_fused=True
+    # K3 on each (the 3xTF32 kernel, the tensor-core kernel at KP = 64), 10
+    # launches under the A dtype's key, held to the K2 solve on the same A
+    # as at k = 32
     g = torch.Generator(dev)
     g.manual_seed(NMFConfig().seed)
     W0, H0 = init_factors_rand(g, M, N, WIDE_K, torch.float32, dev)
     init_wide = float(linalg.relative_error(A, W0, H0, chunk))
     del W0, H0
-    dense_fit(f"KL-MU f32 k={WIDE_K}", NMFConfig(k=WIDE_K, norm="kl", itr=ITR),
-              {"kl_uht": ITR, "kl_wtu": ITR}, init_wide)
+    wide = []
+    for label, kw, key in (("f32", {}, "fused_mu_kl"),
+                           ("uint8-A", {"a_precision": "uint8"},
+                            "fused_mu_kl_u8"),
+                           ("bf16-A", {"a_precision": "bfloat16"},
+                            "fused_mu_kl_bf16")):
+        ref = f"KL-MU {label} k={WIDE_K}"
+        errs[ref] = dense_fit(ref, NMFConfig(k=WIDE_K, norm="kl", itr=ITR,
+                                             **kw),
+                              {"kl_uht": ITR, "kl_wtu": ITR}, init_wide)
+        fused = f"KL-MU {label} k={WIDE_K} use_fused"
+        errs[fused] = dense_fit(fused, NMFConfig(k=WIDE_K, norm="kl", itr=ITR,
+                                                 use_fused=True, **kw),
+                                {key: ITR}, init_wide)
+        check(fused_kl.wide_launches[key] == ITR,
+              f"{fused}: {fused_kl.wide_launches} past k = 32, expected "
+              f"{ITR} under {key}")
+        wide.append((fused, ref, 1e-3 if label == "f32" else 0.02))
+    for label, ref, tol in wide:
+        rel = abs(errs[label] / errs[ref] - 1)
+        print(f"[check] {label} error {errs[label]:.6f} vs {ref} "
+              f"{errs[ref]:.6f}: relative difference {rel:.2e} (limit "
+              f"{tol:g})", flush=True)
+        check(rel <= tol, f"{label} error {errs[label]} is not within "
+                          f"{tol:g} of {ref}'s {errs[ref]}")
 
     # HALS and BCD from the same rand init: their A-sized products are plain
     # (cuBLAS), their chains small products, and no kernel of K1-K4 runs
@@ -1514,11 +1586,27 @@ def main():
                          fname="X", checkpoint=False)
         staged_sweep(X.astype(np.float32), cfg, "KL-MU", ("kl_uht", "kl_wtu"),
                      ("kl_wtu",))
+        # the same ks with use_fused=True on bf16 members: K3's tensor-core
+        # kernel at KP = 8 (k = 4) and 64 (k = 34, 64) in the ensemble, one
+        # launch an iteration for the 10-member stack, K2b in the refit
+        cfg = NMFkConfig(nmf=NMFConfig(norm="kl", itr=400, use_fused=True,
+                                       a_precision="bfloat16"), **WIDE_SWEEP,
+                         perturbations=10, results_path=tmp + "/wide_fused/",
+                         fname="X", checkpoint=False)
+        staged_sweep(X.astype(np.float32), cfg, "KL-MU use_fused",
+                     ("fused_mu_kl_bf16",), ("kl_wtu",))
+        wide_k = sum(k > 32 for k in cfg.k_range) * cfg.nmf.itr
+        check(fused_kl.wide_launches == {**dict.fromkeys(
+                  fused_kl.wide_launches, 0), "fused_mu_kl_bf16": wide_k},
+              f"NMFk KL-MU use_fused at ks {list(cfg.k_range)}: K3 past k = "
+              f"32 {fused_kl.wide_launches}, expected {wide_k} under "
+              f"fused_mu_kl_bf16")
     del X
 
     for name, n in main_path.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
-    for name in ("kl_uht", "kl_wtu", "ell_gather", "ell_gather_ratio"):
+    for name in ("kl_uht", "kl_wtu", "fused_mu_kl", "fused_mu_kl_bf16",
+                 "fused_mu_kl_u8", "ell_gather", "ell_gather_ratio"):
         check(main_path_wide[name] > 0, f"kernel {name} was not launched "
                                         f"past k = 32 on the main path")
 
@@ -1547,13 +1635,16 @@ def main():
                "K4 ell_gather f16": ("ell_gather.cu", "ops/pallas_ell.py:52",
                                      ("ell_gather_f16",
                                       "ell_gather_ratio_f16"))}
-    # the kernels past k = 32 (K2's 3xTF32 ones; K4's slab kernels, with f32
-    # and f16 values), counted apart by the wrappers; the rows above count
-    # the rest
+    # the kernels past k = 32 (K2's 3xTF32 ones; K3's 3xTF32 one and its
+    # tensor-core one at KP = 64; K4's slab kernels, with f32 and f16
+    # values), counted apart by the wrappers; the rows above count the rest
     wide = {"K2a kl_uht k>32": ("kl_ratio.cu", "ops/pallas_kernels.py:78",
                                 ("kl_uht",)),
             "K2b kl_wtu k>32": ("kl_ratio.cu", "ops/pallas_kernels.py:96",
                                 ("kl_wtu",)),
+            "K3 fused_mu_kl k>32": ("fused_mu_kl.cu", "ops/fused_kl.py:44",
+                                    ("fused_mu_kl", "fused_mu_kl_bf16",
+                                     "fused_mu_kl_f16", "fused_mu_kl_u8")),
             "K4 ell_gather k>32": ("ell_gather.cu", "ops/pallas_ell.py:52",
                                    ("ell_gather", "ell_gather_ratio",
                                     "ell_gather_f16",

@@ -31,11 +31,11 @@
 // Which A takes which kernel:
 // - f32 A, k <= 32: f32::fused_mu_kl_f32_kernel (C entry fused_mu_kl_f32),
 //   register micro-tiles on the CUDA cores.
-// - bf16, f16 or uint8 A, k <= 32: tc::fused_mu_kl_tc_kernel (C entries
-//   fused_mu_kl_bf16, fused_mu_kl_f16 and fused_mu_kl_u8), on the bf16
-//   tensor cores.
-// - 32 < k <= 64, every A dtype: fused_mu_kl_kernel, the first port's simple
-//   kernel, below.
+// - f32 A, 32 < k <= 64: tf::fused_mu_kl_tf32_kernel (the same C entry),
+//   3xTF32 products on the tensor cores.
+// - bf16, f16 or uint8 A, every k <= 64: tc::fused_mu_kl_tc_kernel (C
+//   entries fused_mu_kl_bf16, fused_mu_kl_f16 and fused_mu_kl_u8), on the
+//   bf16 tensor cores.
 // Each kernel's design note stands above it.
 //
 // Types (pydnmfk_tpu/ops/fused_kl.py:52-81, matmul_compute_dtype off the
@@ -49,18 +49,11 @@
 // 65504.
 //
 // What bounds it: 8 m n k operations (four products of 2 m n k) against one
-// read of A's bytes. At f32 that is the operations on CUDA cores (8.45 ms at
-// 57600 x 38400, k = 32, at 67 TFLOP/s); at bf16 or uint8 the operations
-// fit the tensor cores, and the bytes of A bound it (1.32 ms bf16, 0.66 ms
-// uint8).
-//
-// The first port's kernel (fused_mu_kl_kernel, now only at KP = 64): panels
-// of TM = 64 rows and column tiles of TN = 64; sweep 1 forms W_i H_j in
-// registers from the W panel and an H tile in shared memory, overwrites the
-// A tile with U and accumulates U_i H^T (TM x k) in registers; sweep 2 forms
-// W'_i H_j and U' the same way and adds W'_i^T U'_i into WTU with scalar
-// atomics. Its loops read factors from shared memory at about 2 bytes per
-// FMA, and its loads are scalar and synchronous.
+// read of A's bytes. At f32 that is the operations: on the CUDA cores at k
+// <= 32 (8.45 ms at 57600 x 38400, k = 32, at 67 TFLOP/s), on the tensor
+// cores at three TF32 products a product past 32 (6.86 ms at k = 64, at
+// 165 TFLOP/s); at bf16 or uint8 the operations fit the tensor cores, and
+// the bytes of A bound it (1.32 ms bf16, 0.66 ms uint8).
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -71,214 +64,13 @@
 
 namespace {
 
-constexpr int TM = 64;        // rows of A per block
-constexpr int TN = 64;        // columns of A per tile
-constexpr int NT = 256;       // threads per block (8 warps)
-constexpr int LDA = TN + 1;   // padded row stride of the A / U tile
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-__device__ __forceinline__ float to_f32(uint8_t x) { return static_cast<float>(x); }
-
-// A value as an operand of a product: unchanged for an f32 A, rounded to
-// bf16 for a bf16, f16 or uint8 A.
-template <typename T>
-__device__ __forceinline__ float operand(float x) {
-  if constexpr (!std::is_same<T, float>::value) {
-    return __bfloat162float(__float2bfloat16(x));
-  } else {
-    return x;
-  }
-}
-
-// As [TM][LDA] <- A rows [0, rows), columns [j0, j0 + cols); zeros elsewhere.
-template <typename T>
-__device__ __forceinline__ void load_a_tile(float* As, const T* __restrict__ A,
-                                            int n, int rows, int j0, int cols) {
-  for (int e = threadIdx.x; e < TM * TN; e += NT) {
-    const int r = e / TN, j = e % TN;
-    As[r * LDA + j] = (r < rows && j < cols) ? to_f32(A[(size_t)r * n + j0 + j]) : 0.f;
-  }
-}
-
-// H as the kernels take it: f32 with an f32 A, rounded to bf16 by the
-// wrapper with a bf16, f16 or uint8 A
-template <typename T>
-using HType = typename std::conditional<std::is_same<T, float>::value, float,
-                                        __nv_bfloat16>::type;
-
-// Hs [KP][TN] <- H rows [0, k), columns [j0, j0 + cols) as operands.
-template <typename T, int KP>
-__device__ __forceinline__ void load_h_tile(float* Hs, const HType<T>* __restrict__ H,
-                                            int n, int k, int j0, int cols) {
-  for (int e = threadIdx.x; e < KP * TN; e += NT) {
-    const int c = e / TN, j = e % TN;
-    Hs[e] = (c < k && j < cols) ? to_f32(H[(size_t)c * n + j0 + j]) : 0.f;
-  }
-}
-
-// As <- operand(As / (Ws Hs + eps)) for the whole tile, Ws [TM][KP+1]
-// holding the operand panel. Thread: rows warp + 8 i, columns {lane,
-// lane + 32}.
-template <typename T, int KP>
-__device__ __forceinline__ void ratio_tile(float* As, const float* Hs,
-                                           const float* Ws, float eps) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float wh[8][2];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) wh[i][0] = wh[i][1] = 0.f;
-#pragma unroll 4
-  for (int c = 0; c < KP; ++c) {
-    const float h0 = Hs[c * TN + lane], h1 = Hs[c * TN + lane + 32];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float w = Ws[(warp + 8 * i) * (KP + 1) + c];
-      wh[i][0] += w * h0;
-      wh[i][1] += w * h1;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = warp + 8 * i;
-    As[r * LDA + lane] = operand<T>(As[r * LDA + lane] / (wh[i][0] + eps));
-    As[r * LDA + lane + 32] = operand<T>(As[r * LDA + lane + 32] / (wh[i][1] + eps));
-  }
-}
-
-template <int KP>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (TM * LDA + KP * TN + TM * (KP + 1));
-}
-
-template <typename T, int KP>
-__global__ void __launch_bounds__(NT)
-fused_mu_kl_kernel(const T* __restrict__ A, const float* __restrict__ W,
-                   const HType<T>* __restrict__ H, const float* __restrict__ hrs,
-                   float eps, int m, int n, int k, float* __restrict__ W_out,
-                   float* __restrict__ WTU) {
-  constexpr int LDW = KP + 1;   // padded row stride of the W panel
-  constexpr int CT = KP / 8;    // factor columns per thread: c = warp + 8 q
-  extern __shared__ float smem[];
-  float* As = smem;             // [TM][LDA]  A tile, then U or U'
-  float* Hs = As + TM * LDA;    // [KP][TN]   H tile (operands)
-  float* Ws = Hs + KP * TN;     // [TM][LDW]  W panel, later W' (operands)
-
-  const int b = blockIdx.y;
-  const int row0 = blockIdx.x * TM;
-  const int rows = min(TM, m - row0);
-  A += (size_t)b * m * n + (size_t)row0 * n;
-  W += ((size_t)b * m + row0) * k;
-  W_out += ((size_t)b * m + row0) * k;
-  H += (size_t)b * k * n;
-  hrs += (size_t)b * k;
-  WTU += (size_t)b * k * n;
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-
-  for (int e = tid; e < TM * KP; e += NT) {
-    const int r = e / KP, c = e % KP;
-    Ws[r * LDW + c] = (r < rows && c < k) ? operand<T>(W[(size_t)r * k + c]) : 0.f;
-  }
-
-  // Sweep 1: U H^T for rows {lane, lane + 32} and columns warp + 8 q.
-  float acc[2][CT];
-#pragma unroll
-  for (int q = 0; q < CT; ++q) acc[0][q] = acc[1][q] = 0.f;
-  for (int j0 = 0; j0 < n; j0 += TN) {
-    const int cols = min(TN, n - j0);
-    load_a_tile(As, A, n, rows, j0, cols);
-    load_h_tile<T, KP>(Hs, H, n, k, j0, cols);
-    __syncthreads();
-    ratio_tile<T, KP>(As, Hs, Ws, eps);
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < TN; ++j) {
-      const float u0 = As[lane * LDA + j], u1 = As[(lane + 32) * LDA + j];
-#pragma unroll
-      for (int q = 0; q < CT; ++q) {
-        const float h = Hs[(warp + 8 * q) * TN + j];
-        acc[0][q] += u0 * h;
-        acc[1][q] += u1 * h;
-      }
-    }
-    __syncthreads();
-  }
-
-  // W'_i = W_i * (U_i H^T) / (hrs + eps) from the unrounded f32 W; rows past
-  // m and columns past k are exactly zero. Ws then holds W' as operands.
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = lane + 32 * i;
-#pragma unroll
-    for (int q = 0; q < CT; ++q) {
-      const int c = warp + 8 * q;
-      const bool in = r < rows && c < k;
-      const float w = in ? W[(size_t)r * k + c] : 0.f;
-      const float wn = in ? w * acc[i][q] / (hrs[c] + eps) : 0.f;
-      if (in) W_out[(size_t)r * k + c] = wn;
-      Ws[r * LDW + c] = operand<T>(wn);
-    }
-  }
-  __syncthreads();
-
-  // Sweep 2: WTU[c][j0 + j] += sum_r W'[r][c] U'[r][j] for columns
-  // j in {lane, lane + 32} and factor columns c = warp + 8 q.
-  for (int j0 = 0; j0 < n; j0 += TN) {
-    const int cols = min(TN, n - j0);
-    load_a_tile(As, A, n, rows, j0, cols);
-    load_h_tile<T, KP>(Hs, H, n, k, j0, cols);
-    __syncthreads();
-    ratio_tile<T, KP>(As, Hs, Ws, eps);
-    __syncthreads();
-    float p[CT][2];
-#pragma unroll
-    for (int q = 0; q < CT; ++q) p[q][0] = p[q][1] = 0.f;
-#pragma unroll 4
-    for (int r = 0; r < TM; ++r) {
-      const float u0 = As[r * LDA + lane], u1 = As[r * LDA + lane + 32];
-#pragma unroll
-      for (int q = 0; q < CT; ++q) {
-        const float w = Ws[r * LDW + warp + 8 * q];
-        p[q][0] += w * u0;
-        p[q][1] += w * u1;
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < CT; ++q) {
-      const int c = warp + 8 * q;
-      if (c < k) {
-        if (lane < cols) atomicAdd(&WTU[(size_t)c * n + j0 + lane], p[q][0]);
-        if (lane + 32 < cols) atomicAdd(&WTU[(size_t)c * n + j0 + lane + 32], p[q][1]);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-template <typename T, int KP>
-cudaError_t launch(const void* A, const void* W, const void* H, const void* hrs,
-                   float eps, int B, int m, int n, int k, void* W_out, void* WTU,
-                   cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<KP>();
-  const auto kernel = &fused_mu_kl_kernel<T, KP>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((m + TM - 1) / TM, B);
-  kernel<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(A), static_cast<const float*>(W),
-      static_cast<const HType<T>*>(H), static_cast<const float*>(hrs), eps, m, n,
-      k, static_cast<float*>(W_out), static_cast<float*>(WTU));
-  return cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------------
 // The f32 kernel: register micro-tiles on both sweeps, 16-byte loads in
 // flight, 128-row panels with vector atomics.
 //
-// What bounds it: 8 k FMAs per element of A on the CUDA cores (true f32 has
-// no tensor-core path at the 1e-4 gate), against A read twice (the two-read
+// What bounds it: 8 k FMAs per element of A on the CUDA cores (at k <= 32;
+// past 32 the 3xTF32 kernel below carries f32 accuracy onto the tensor
+// cores), against A read twice (the two-read
 // floor: 5.28 ms at 57600 x 38400 against 8.45 ms of FMAs at k = 32; at
 // k = 8 the bytes bound it). So the FMA pipe has to be kept busy: each inner
 // loop is an outer product on registers fed by float4 shared-memory loads
@@ -324,8 +116,8 @@ cudaError_t launch(const void* A, const void* W, const void* H, const void* hrs,
 // - VEC: 16-byte loads and vector atomics when n % 4 == 0 and A, H and WTU
 //   are 16-byte aligned; otherwise the same loops load element by element
 //   (masked) and WTU takes scalar atomics.
-// - Panels of TM = 128 rows: half the panels of the first port's 64, and so
-//   half the H tiles read from L2 and the atomics into WTU. 256 threads, at
+// - Panels of TM = 128 rows: half the panels of 64-row ones, and so half
+//   the H tiles read from L2 and the atomics into WTU. 256 threads, at
 //   most 128 registers (no spill in any instantiation) and 69-99 KB of
 //   shared memory, so two blocks fit an SM: 264 at once on the 132 SMs,
 //   against 450 panels at m = 57600 (1.7 waves). On the 16-byte path at
@@ -335,7 +127,7 @@ cudaError_t launch(const void* A, const void* W, const void* H, const void* hrs,
 //   the same bytes with the same products; each sweep reaches about 75 % of
 //   the memory rate, so the fused kernel gains its time at k = 32, where the
 //   FMAs bound it.
-// KP = 64 keeps the first port's kernel.
+// Past k = 32 an f32 A takes the 3xTF32 kernel (namespace tf, below).
 
 namespace f32 {
 
@@ -789,7 +581,7 @@ cudaError_t launch_kp(const float* A, const float* W, const float* H,
 }  // namespace f32
 
 // ---------------------------------------------------------------------------
-// The tensor-core kernel: a bf16, f16 or uint8 A at k <= 32.
+// The tensor-core kernel: a bf16, f16 or uint8 A at every k <= 64.
 //
 // Numbers: mma.sync with bf16 operands and f32 sums computes the JAX rule
 // (see "Types" above) up to the order of the sums: W, U, W' and U' are
@@ -831,6 +623,18 @@ cudaError_t launch_kp(const float* A, const float* W, const float* H,
 //   SM at most 128 registers each. 128-row panels at KP = 32 measured 4-30 %
 //   slower; 256-row ones at KP <= 16 5-19 % slower on the 10-member stacks
 //   at k = 8 (5 % faster only for a uint8 A at 57600 x 38400, k = 16).
+//   At KP = 64, TM = 256 too, with sweep 2's warps at 64 rows (RG = 4:
+//   their W' fragments, both layouts, take 128 registers), up to 253
+//   registers a thread; the member's H is offset where a tile's copies
+//   are issued, so that its pointer is not held across the sweeps (held,
+//   the bf16 kernel spilled 12 bytes). Halving the panels halves the H
+//   tiles read from L2 and the atomics into WTU: at 57600 x 38400, k = 64,
+//   256-row panels measured 5.5-5.6 ms on a bf16 and a uint8 A, against
+//   6.8-7.3 (bf16) and 7.0-7.1 (uint8) in 128-row ones with RG = 2, and
+//   7.6-8.0 with RG = 4. Every A dtype lands 64 columns at KP = 64 (a
+//   uint8 A in 64-byte rows, swizzled by r & 3): the partial sums of sweep
+//   2, RG x 64 x 64 floats a 64-column sub-tile, would not fit shared
+//   memory beside a 128-column uint8 tile.
 // - Sweep 1 (U_i H^T, TM x KP, a sum over n): warp w owns rows TM / 8 w ..
 //   (one or two m16 tiles) and every column. Per 16 columns: P = W H on
 //   mma (W's bf16 fragments held in registers for the sweep, H's by
@@ -848,7 +652,7 @@ cudaError_t launch_kp(const float* A, const float* W, const float* H,
 //   W'^T (the columns of A on mma's M, H^T by ldmatrix.trans), reads A^T
 //   at the accumulator positions (ldmatrix.trans for a bf16 A), forms U'^T
 //   there and packs it as the A operand of U'^T W' = (W'^T U')^T. The 8
-//   warps are RG row groups x 8 / RG column groups (RG = 4 at KP = 32,
+//   warps are RG row groups x 8 / RG column groups (RG = 4 at KP >= 32,
 //   else 2, so that a warp's W' fragments, both layouts, fit its
 //   registers); each sums its 16-column blocks over its R = TM / RG rows in
 //   registers, the row groups' partial sums meet in shared memory, and WTU
@@ -856,11 +660,10 @@ cudaError_t launch_kp(const float* A, const float* W, const float* H,
 //   != 0). A tile's sums are added right after the next tile's ring
 //   barrier, from the second of two sets of slots, so that sweep 2 needs no
 //   barrier of its own (one set, and a barrier, where shared memory holds
-//   only one: a uint8 A at KP = 32).
+//   only one: a uint8 A at KP = 32, every A at KP = 64).
 // - VEC: 16-byte copies and vector atomics when n % 8 == 0 (bf16, f16) or
 //   n % 16 == 0 (uint8) and A, H and WTU are 16-byte aligned; otherwise the same
 //   tiles are filled element by element.
-// k > 32 keeps the first port's kernel.
 
 namespace tc {
 
@@ -870,10 +673,13 @@ constexpr int TN = 64;    // columns of a bf16 (sub-)tile: 128-byte rows
 template <typename T, int KP>
 struct Cfg {
   static constexpr bool U8 = std::is_same<T, uint8_t>::value;
-  static constexpr int TNP = U8 ? 2 * TN : TN;      // columns of a landed tile
+  // columns of a landed tile: a uint8 A lands 128 (two 64-column sub-tiles)
+  // at KP <= 32, and 64 at KP = 64, where two sub-tiles' partial sums would
+  // not fit shared memory
+  static constexpr int TNP = U8 && KP <= 32 ? 2 * TN : TN;
   static constexpr int SUB = TNP / TN;              // 64-column sub-tiles in it
   // rows per panel, and blocks an SM: at KP <= 16 two blocks of 128 rows
-  // (at most 128 registers a thread), at KP = 32 one of 256 (its W'
+  // (at most 128 registers a thread), at KP >= 32 one of 256 (its W'
   // fragments and sums take more)
   static constexpr int TM = KP <= 16 ? 128 : 256;
   static constexpr int MINB = KP <= 16 ? 2 : 1;
@@ -881,7 +687,7 @@ struct Cfg {
   static constexpr int MT = TM / 8 / 16;            // sweep 1: m16 tiles a warp
   static constexpr int KS = KP >= 16 ? KP / 16 : 1; // k-steps over the factors
   static constexpr int NF = KP / 8;                 // n8 tiles of factors
-  static constexpr int RG = KP == 32 ? 4 : 2;       // sweep 2: row groups
+  static constexpr int RG = KP >= 32 ? 4 : 2;       // sweep 2: row groups
   static constexpr int CG = 8 / RG;                 // sweep 2: column groups
   static constexpr int MJ = TN / 16 / CG;           // sweep 2: 16-column blocks a warp
   static constexpr int R = TM / RG;                 // sweep 2: rows a warp
@@ -941,7 +747,8 @@ __device__ __forceinline__ void ratio_block(uint32_t (&u)[4], const float (&a)[2
 }
 
 // Starts the copy of the landed tile of columns j0 .. j0 + TNP - 1 of the
-// panel (rows [0, rows)) and of H's rows [0, k) of those columns into
+// panel (rows [0, rows)) and of H's rows [0, k) of those columns (H of the
+// block's member, blockIdx.y) into
 // `stage`. A bf16 A lands as a swizzled tile of 64 columns, a uint8 A as
 // rows of 128 bytes, swizzled; H as TNP / 64 swizzled tiles of KP rows. VEC:
 // cp.async, to be waited for; otherwise plain copies.
@@ -952,6 +759,7 @@ __device__ __forceinline__ void load_tile(unsigned char* stage, const T* __restr
   using C = Cfg<T, KP>;
   const int tid = threadIdx.x;
   unsigned char* hs = stage + C::A_BYTES;
+  H += (size_t)blockIdx.y * k * n;   // the member's H, not held across the sweeps
   if constexpr (VEC) {
     const uint32_t s = smem_u32(stage);
     constexpr int CW = 16 / (int)sizeof(T);      // columns per 16-byte chunk
@@ -1020,7 +828,6 @@ fused_mu_kl_tc_kernel(const T* __restrict__ A, const float* __restrict__ W,
   A += (size_t)b * m * n + (size_t)row0 * n;
   W += ((size_t)b * m + row0) * k;
   W_out += ((size_t)b * m + row0) * k;
-  H += (size_t)b * k * n;
   hrs += (size_t)b * k;
   WTU += (size_t)b * k * n;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -1388,8 +1195,519 @@ cudaError_t launch_kp(const T* A, const float* W, const __nv_bfloat16* H,
 
 }  // namespace tc
 
-// bf16, f16 or uint8 A: the tensor-core kernel at k <= 32, the first port's
-// kernel at 32 < k <= 64
+// ---------------------------------------------------------------------------
+// The f32 kernel past k = 32: 3xTF32 products on the tensor cores (KP = 64).
+//
+// Numbers: each f32 operand is split into a TF32 hi part and the remainder
+// (tc::split_tf32), and a product takes three TF32 mma.sync (hi lo, lo hi,
+// hi hi) with f32 sums: f32 accuracy at 165 TFLOP/s, against 67 on the
+// CUDA cores. The tensor cores do not round their f32 sums to nearest, so
+// no accumulator takes a long chain: every sum over columns (sweep 1's U
+// H^T) or rows (sweep 2's W'^T U') is 12 mma from zero, added into f32
+// register sums; W H and W' H are 24 mma from zero over the 64 factors (as
+// K2's 3xTF32 kernels, csrc/kl_ratio.cu). U = A / (P + eps) by __fdividef,
+// W' in f32 on the CUDA cores from the unrounded W with an IEEE division on
+// the k-sized denominator, as in the kernels above.
+//
+// What bounds it: 8 m n k operations at the 3xTF32 rate (6.86 ms at 57600 x
+// 38400, k = 64) against A read twice (5.28 ms). Beside the mma, the
+// operands' splits and shared-memory loads take issue slots, so the
+// operands in shared memory, which every warp reads, are split once: H's
+// sweep-1 tiles and W' as (hi, lo) pairs. Of the fragments a warp keeps in
+// registers, W's for sweep 1 are split (64 registers), H^T's for sweep 2
+// raw (32) and split at each use, which measured within 1 % of holding
+// both parts.
+// - A block of 256 threads (8 warps) owns a panel of TM = 128 rows of one
+//   member, one block an SM (up to 255 registers a thread). A arrives by
+//   cp.async, zero-filled past the edges, in a ring of 3 stages that runs
+//   through both sweeps: sweep 1's tiles of 128 rows x 32 columns, then
+//   sweep 2's chunks of 32 rows x 128 columns (strip by strip).
+// - Sweep 1 (U H^T, a sum over n): warp w owns rows 16 w .. 16 w + 15 and
+//   every factor. Per tile, W H for the four n8 tiles of columns (four
+//   accumulators a k-step, so that no mma waits on the one before), U =
+//   A / (W H + eps) in the accumulators, split, as the A operand of U H^T
+//   (the accumulator's columns 2t, 2t + 1 at positions t, t + 4 of the
+//   reduction), and U H^T by groups of four output tiles. H's tile is
+//   loaded into registers three tiles ahead and stored, split into (hi,
+//   lo) pairs, two tiles ahead in the spare room of its ring stage,
+//   swizzled so that both of its
+//   reads (by factor rows for W H, by column pairs for U H^T) meet no bank
+//   conflict.
+// - W' = W * (U H^T) / (hrs + eps) from the warp's sums, written to W_out
+//   and split, as (hi, lo) pairs, into a swizzled W' panel whose 16-byte
+//   groups hold factors c and c + 8, so that each of sweep 2's fragment
+//   loads brings two factors (half the loads of one pair each).
+// - Sweep 2 (W'^T U', a sum over the panel's rows) in the orientation of
+//   K2b's 3xTF32 kernel: warp w owns columns 16 w .. 16 w + 15 of a strip
+//   of 128 and sums over every row of the panel, so no partial sums are
+//   exchanged. Per chunk, (W' H)^T = H^T W'^T for its four steps of 8 rows
+//   (H^T's fragments in registers, read once a strip from the strip's H,
+//   which lands with the strip's first chunk), U'^T = A^T / ((W' H)^T + eps)
+//   in the accumulators, which is the B operand of W'^T U' (rows 2t, 2t + 1
+//   at positions t, t + 4), and W'^T U' by pairs of m16 tiles of factors.
+//   When a strip is summed, pairs of lanes trade halves so that each adds 4
+//   consecutive columns into WTU by red.global.add.v4.f32.
+// - k < 64 pads with zeros; W H and W' H skip the k-steps past k, U H^T and
+//   W'^T U' the groups of output tiles past k.
+// - VEC: 16-byte copies and loads and vector atomics when n % 4 == 0 and A,
+//   H and WTU are 16-byte aligned; otherwise element by element.
+// It takes 1.03-1.16 times as long as K2a + K2b on the same inputs, its
+// products at about half the mma.sync ceiling: W's fragments from shared
+// memory or twice the accumulators side by side measured 2-14 % slower,
+// and 4 warps a block (two blocks an SM) 4 % faster at 57600 x 38400 but
+// 4-7 % slower on the 10-member stack (bench_torch/k3_tf32_variants.py).
+
+namespace tf {
+
+constexpr int NW = 8;                // warps a block
+constexpr int NT = 32 * NW;          // threads per block
+constexpr int MINB = NW == 8 ? 1 : 2;   // blocks an SM
+constexpr int KP = 64;               // factor columns, k padded with zeros
+constexpr int TM = 16 * NW;          // rows per panel, 16 a warp in sweep 1
+constexpr int TN1 = 32;              // sweep 1: columns per tile, 4 n8 tiles
+constexpr int LDA1 = TN1 + 8;        // sweep 1: row stride of an A tile
+constexpr int TN2 = 16 * NW;         // sweep 2: columns per strip, 16 a warp
+constexpr int SH2 = NW == 8 ? 5 : 4; // sweep 2: log2 of 16-byte chunks a row
+constexpr int CR = 32;               // sweep 2: rows per chunk, 4 steps of 8
+constexpr int LDA2 = TN2 + 4;        // sweep 2: row stride of an A chunk
+constexpr int LDH2 = TN2 + 8;        // sweep 2: row stride of a strip's H
+constexpr int S = 3;                 // stages of the ring
+// a stage, in floats: sweep 1's A tile and its split H tile (KP x TN1
+// pairs), or sweep 2's A chunk and, with a strip's first chunk, its H
+constexpr int O_H1 = TM * LDA1, O_H2 = CR * LDA2;
+constexpr int STAGE = O_H1 + 2 * KP * TN1 > O_H2 + KP * LDH2 ? O_H1 + 2 * KP * TN1
+                                                              : O_H2 + KP * LDH2;
+// then the split W' panel, TM x KP pairs
+constexpr int O_W = S * STAGE;
+constexpr size_t SMEM = sizeof(float) * (O_W + 2 * TM * KP);
+static_assert(SMEM <= (MINB == 1 ? 227 : 113) * 1024 && O_H1 % 4 == 0 &&
+              O_H2 % 4 == 0 && STAGE % 4 == 0 && (4 << SH2) == TN2,
+              "shared memory");
+// sweep 1's H tile: float4s a thread stages
+constexpr int HQ = KP * TN1 / 4 / NT;
+
+// pair slot of element (r, c) of a split H tile (rows of TN1 pairs): bits
+// 2-3 of c (its 32-byte granule in a 128-byte line) flipped by r, so that 4
+// rows r .. r + 3 at 4 pairs each, and 2 rows r, r + 1 (r even) at 8 pairs
+// each, fall on distinct banks
+__device__ __forceinline__ int h1_slot(int r, int c) {
+  return r * TN1 + (c ^ ((((r & 1) << 1) | ((r >> 1) & 1)) << 2));
+}
+
+// float offset of the (hi, lo) pair of element (r, c) of the split W'
+// panel: a row is KP / 2 16-byte groups, group 8 I + q holding factors
+// 16 I + q and 16 I + q + 8 (q < 8), so that one 16-byte load gives a
+// fragment's two factors 8 apart; the group index is XOR-ed with 2 s(r),
+// so that rows r, r + 1 (r even) at 4 groups each, and rows r, r + 2,
+// r + 4, r + 6 (r % 8 < 2) at 2 groups each, fall on distinct banks
+__device__ __forceinline__ int w_off(int r, int c) {
+  const int s = ((r >> 1) & 3) ^ ((r & 1) << 1);
+  return r * 2 * KP + 4 * ((8 * (c >> 4) + (c & 7)) ^ (s << 1)) + 2 * ((c >> 3) & 1);
+}
+
+__device__ __forceinline__ float2 split2(float x) {
+  uint32_t h, l;
+  tc::split_tf32(x, h, l);
+  return make_float2(__uint_as_float(h), __uint_as_float(l));
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(NT, MINB)
+fused_mu_kl_tf32_kernel(const float* __restrict__ A, const float* __restrict__ W,
+                        const float* __restrict__ H, const float* __restrict__ hrs,
+                        float eps, int m, int n, int k, float* __restrict__ W_out,
+                        float* __restrict__ WTU) {
+  extern __shared__ float4 smem_tf[];
+  float* ring = reinterpret_cast<float*>(smem_tf);
+  float* Wp = ring + O_W;              // split W', TM rows (w_off)
+
+  const int b = blockIdx.y;
+  const int row0 = blockIdx.x * TM;
+  const int rows = min(TM, m - row0);
+  A += (size_t)b * m * n + (size_t)row0 * n;
+  W += ((size_t)b * m + row0) * k;
+  W_out += ((size_t)b * m + row0) * k;
+  H += (size_t)b * k * n;
+  hrs += (size_t)b * k;
+  WTU += (size_t)b * k * n;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int nks = (k + 7) / 8;         // k-steps of 8 factors with any of k
+  const int ngr = (k + 31) / 32;       // groups of 32 factors with any of k
+
+  // Ring tiles: sweep 1's np1 tiles, then sweep 2's chunks, strip by strip
+  const int np1 = (n + TN1 - 1) / TN1;
+  const int nchunks = (rows + CR - 1) / CR;
+  const int ntot = np1 + (n + TN2 - 1) / TN2 * nchunks;
+  // rows [r0, r0 + nr) x columns [j0, j0 + TN) of src (row stride n) into
+  // dst (row stride ld), zeros outside the window and past n; 1 << sh chunks
+  // of 4 columns a row, 4 chunks a thread
+  const auto copy = [&](float* dst, int ld, const float* src, int nr, int j0, int sh,
+                        int reps) {
+    const uint32_t d = tc::smem_u32(dst);
+    if constexpr (VEC) {
+      for (int i = 0; i < reps; ++i) {
+        const int e = tid + NT * i, r = e >> sh, c = 4 * (e & ((1 << sh) - 1));
+        const bool ok = r < nr && j0 + c < n;
+        tc::cp_async16(d + 4 * (r * ld + c), ok ? src + (size_t)r * n + j0 + c : src, ok);
+      }
+    } else {
+      for (int i = 0; i < 4 * reps; ++i) {
+        const int e = tid + NT * i, r = e >> (sh + 2), c = e & ((4 << sh) - 1);
+        const bool ok = r < nr && j0 + c < n;
+        tc::cp_async_n<4>(d + 4 * (r * ld + c), ok ? src + (size_t)r * n + j0 + c : src, ok);
+      }
+    }
+  };
+  const auto load = [&](int p) {   // tile p, into stage p % S
+    float* st = ring + p % S * STAGE;
+    if (p < np1) {
+      copy(st, LDA1, A, rows, p * TN1, 3, TM * TN1 / 4 / NT);
+    } else {
+      const int q = p - np1, r0 = q % nchunks * CR, j0 = q / nchunks * TN2;
+      copy(st, LDA2, A + (size_t)r0 * n, min(CR, rows - r0), j0, SH2, CR * TN2 / 4 / NT);
+      if (r0 == 0) copy(st + O_H2, LDH2, H, k, j0, SH2, KP * TN2 / 4 / NT);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < ntot) load(s);
+    tc::cp_async_commit();
+  }
+  // waits for tile p, starts the copy of tile p + S - 1 into the stage that
+  // tile p - 1 freed, and returns tile p's stage
+  const auto next_tile = [&](int p) {
+    tc::cp_async_wait<S - 2>();
+    __syncthreads();
+    if (p + S - 1 < ntot) load(p + S - 1);
+    tc::cp_async_commit();
+    return ring + p % S * STAGE;
+  };
+
+  // -- sweep 1: U H^T over all columns ------------------------------------------
+  {
+    const int rl = 16 * warp + g;      // this lane's rows rl, rl + 8
+    // W's fragments, split (A operand of W H: M = rows, K = factors 8 ks +
+    // t at position t, 8 ks + t + 4 at t + 4)
+    uint32_t wh[KP / 8][4], wl[KP / 8][4];
+#pragma unroll
+    for (int ks = 0; ks < KP / 8; ++ks)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = rl + 8 * (e & 1), c = 8 * ks + t + 4 * (e >> 1);
+        const float w = r < rows && c < k ? __ldg(W + (size_t)r * k + c) : 0.f;
+        tc::split_tf32(w, wh[ks][e], wl[ks][e]);
+      }
+    // H's tiles: this thread's rows hr + NT / 8 q at columns hc .. hc + 3
+    const int hr = tid >> 3, hc = 4 * (tid & 7);
+    float4 hv[HQ];
+    const auto load_h = [&](int p) {
+      const int j = p * TN1 + hc;
+#pragma unroll
+      for (int q = 0; q < HQ; ++q) {
+        const int r = hr + NT / 8 * q;
+        const float* src = H + (size_t)r * n + j;
+        hv[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (p >= np1 || r >= k || j >= n) continue;
+        if constexpr (VEC) {
+          hv[q] = __ldg(reinterpret_cast<const float4*>(src));
+        } else {
+          hv[q].x = __ldg(src);
+          if (j + 1 < n) hv[q].y = __ldg(src + 1);
+          if (j + 2 < n) hv[q].z = __ldg(src + 2);
+          if (j + 3 < n) hv[q].w = __ldg(src + 3);
+        }
+      }
+    };
+    const auto store_h = [&](int p) {   // into the spare room of p's stage
+      if (p >= np1) return;
+      float2* hs = reinterpret_cast<float2*>(ring + p % S * STAGE + O_H1);
+#pragma unroll
+      for (int q = 0; q < HQ; ++q) {
+        const int r = hr + NT / 8 * q;
+        const float2 x = split2(hv[q].x), y = split2(hv[q].y), z = split2(hv[q].z),
+                     w = split2(hv[q].w);
+        *reinterpret_cast<float4*>(hs + h1_slot(r, hc)) = make_float4(x.x, x.y, y.x, y.y);
+        *reinterpret_cast<float4*>(hs + h1_slot(r, hc + 2)) = make_float4(z.x, z.y, w.x, w.y);
+      }
+    };
+    load_h(0);
+    store_h(0);
+    load_h(1);
+    store_h(1);
+    load_h(2);
+
+    float acc[KP / 8][4];
+#pragma unroll
+    for (int o = 0; o < KP / 8; ++o) acc[o][0] = acc[o][1] = acc[o][2] = acc[o][3] = 0.f;
+#pragma unroll 1
+    for (int p = 0; p < np1; ++p) {
+      const float* st = next_tile(p);
+      const float2* hs = reinterpret_cast<const float2*>(st + O_H1);
+      // P = W H for the tile's four n8 tiles of columns: b0 = H[8 ks + t][8 i
+      // + g], b1 = H[8 ks + t + 4][8 i + g]
+      float s[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KP / 8; ++ks) {
+        if (ks < nks) {
+          uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              const float2 v = hs[h1_slot(8 * ks + t + 4 * q, 8 * i + g)];
+              bh[i][q] = __float_as_uint(v.x);
+              bl[i][q] = __float_as_uint(v.y);
+            }
+          tc::mma4_3xtf32(s, wh[ks], wl[ks], bh, bl);
+        }
+      }
+      // U = A / (P + eps), split: n8 tile i's A operand of U H^T (a0 = (rl,
+      // 8 i + 2t), a1 = (rl + 8, 8 i + 2t), a2 = (rl, 8 i + 2t + 1), a3 = (rl +
+      // 8, 8 i + 2t + 1))
+      uint32_t uh[4][4], ul[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 a0 = *reinterpret_cast<const float2*>(st + rl * LDA1 + 8 * i + 2 * t);
+        const float2 a1 =
+            *reinterpret_cast<const float2*>(st + (rl + 8) * LDA1 + 8 * i + 2 * t);
+        tc::split_tf32(__fdividef(a0.x, s[i][0] + eps), uh[i][0], ul[i][0]);
+        tc::split_tf32(__fdividef(a1.x, s[i][2] + eps), uh[i][1], ul[i][1]);
+        tc::split_tf32(__fdividef(a0.y, s[i][1] + eps), uh[i][2], ul[i][2]);
+        tc::split_tf32(__fdividef(a1.y, s[i][3] + eps), uh[i][3], ul[i][3]);
+      }
+      // acc += U H^T by groups of four output tiles: the tile's 12 mma of
+      // each from zero, then one f32 add. b0 = H[8 o + g][8 i + 2t], b1 =
+      // the next column: one 16-byte load of both pairs
+#pragma unroll
+      for (int og = 0; og < KP / 32; ++og) {
+        if (og < ngr) {
+          float q4[4][4];
+#pragma unroll
+          for (int oo = 0; oo < 4; ++oo) q4[oo][0] = q4[oo][1] = q4[oo][2] = q4[oo][3] = 0.f;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+            for (int oo = 0; oo < 4; ++oo) {
+              const float4 v = *reinterpret_cast<const float4*>(
+                  hs + h1_slot(8 * (4 * og + oo) + g, 8 * i + 2 * t));
+              bh[oo][0] = __float_as_uint(v.x);
+              bl[oo][0] = __float_as_uint(v.y);
+              bh[oo][1] = __float_as_uint(v.z);
+              bl[oo][1] = __float_as_uint(v.w);
+            }
+            tc::mma4_3xtf32(q4, uh[i], ul[i], bh, bl);
+          }
+#pragma unroll
+          for (int oo = 0; oo < 4; ++oo)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[4 * og + oo][e] += q4[oo][e];
+        }
+      }
+      store_h(p + 2);   // its stage's last reader, tile p - 1, is done
+      load_h(p + 3);
+    }
+
+    // -- W' = W * (U H^T) / (hrs + eps) on this warp's rows ------------------
+    // element e of acc[o]: row rl + 8 (e >> 1), factor 8 o + 2t + (e & 1);
+    // rows past m and factors past k read W as 0, so their W' is 0
+#pragma unroll
+    for (int o = 0; o < KP / 8; ++o)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = rl + 8 * (e >> 1), c = 8 * o + 2 * t + (e & 1);
+        const bool in = r < rows && c < k;
+        const float w = in ? __ldg(W + (size_t)r * k + c) : 0.f;
+        const float den = (c < k ? __ldg(hrs + c) : 0.f) + eps;
+        const float wn = w * acc[o][e] / den;
+        if (in) W_out[(size_t)r * k + c] = wn;
+        *reinterpret_cast<float2*>(Wp + w_off(r, c)) = split2(wn);
+      }
+  }
+
+  // -- sweep 2: WTU += W'^T U' -----------------------------------------------------
+  // Warp w owns columns cw .. cw + 15 of each strip. Its H^T fragments (A
+  // operand of H^T W'^T: M = columns; K = factors, k-step ks = 2 I + h
+  // taking 16 I + 4 h + t at position t and 16 I + 4 h + t + 8 at t + 4,
+  // the factors of one 16-byte group of W') stay in registers for the
+  // strip, split at each use.
+  {
+    const int cw = 16 * warp;
+    float hraw[KP / 8][4];
+    float acc[KP / 16][2][4];
+#pragma unroll 1
+    for (int p = np1; p < ntot; ++p) {
+      const int q = p - np1, strip = q / nchunks, r0 = q % nchunks * CR;
+      const float* st = next_tile(p);
+      if (r0 == 0) {   // the strip's first chunk: its H landed with it
+        const float* hs = st + O_H2;
+#pragma unroll
+        for (int ks = 0; ks < KP / 8; ++ks)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            hraw[ks][e] = hs[(16 * (ks >> 1) + 4 * (ks & 1) + t + 8 * (e >> 1)) * LDH2 +
+                             cw + g + 8 * (e & 1)];
+#pragma unroll
+        for (int i = 0; i < KP / 16; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) acc[i][h][0] = acc[i][h][1] = acc[i][h][2] = acc[i][h][3] = 0.f;
+      }
+      // (W' H)^T for the chunk's four steps of 8 rows: b0, b1 = W'[r0 + 8 j
+      // + g] at the k-step's factors 16 I + 4 h + t and + 8, one 16-byte
+      // load of both pairs
+      float s[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KP / 8; ++ks) {
+        const int c = 16 * (ks >> 1) + 4 * (ks & 1) + t;
+        if (c - t < k) {
+          uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float4 v = *reinterpret_cast<const float4*>(Wp + w_off(r0 + 8 * j + g, c));
+            bh[j][0] = __float_as_uint(v.x);
+            bl[j][0] = __float_as_uint(v.y);
+            bh[j][1] = __float_as_uint(v.z);
+            bl[j][1] = __float_as_uint(v.w);
+          }
+          uint32_t hth[4], htl[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) tc::split_tf32(hraw[ks][e], hth[e], htl[e]);
+          tc::mma4_3xtf32(s, hth, htl, bh, bl);
+        }
+      }
+      // U'^T = A^T / ((W' H)^T + eps), split: step j's B operand of W'^T U'
+      // for the columns cw + g (h = 0) and cw + g + 8 (h = 1), rows 2t (b0)
+      // and 2t + 1 (b1) of the step
+      uint32_t ubh[4][2][2], ubl[4][2][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float* ap = st + (8 * j + 2 * t) * LDA2 + cw + g;
+        tc::split_tf32(__fdividef(ap[0], s[j][0] + eps), ubh[j][0][0], ubl[j][0][0]);
+        tc::split_tf32(__fdividef(ap[LDA2], s[j][1] + eps), ubh[j][0][1], ubl[j][0][1]);
+        tc::split_tf32(__fdividef(ap[8], s[j][2] + eps), ubh[j][1][0], ubl[j][1][0]);
+        tc::split_tf32(__fdividef(ap[LDA2 + 8], s[j][3] + eps), ubh[j][1][1], ubl[j][1][1]);
+      }
+      // acc += W'^T U' by pairs of m16 tiles of factors: the chunk's 12 mma
+      // of each from zero, then one f32 add. a0 = W'[2t][16 i + g], a1 =
+      // W'[2t][16 i + g + 8] (one 16-byte load), a2, a3 the same at row
+      // 2t + 1 of the step
+#pragma unroll
+      for (int ig = 0; ig < KP / 32; ++ig) {
+        if (ig < ngr) {
+          float pp[2][2][4];
+#pragma unroll
+          for (int ii = 0; ii < 2; ++ii)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) pp[ii][h][0] = pp[ii][h][1] = pp[ii][h][2] = pp[ii][h][3] = 0.f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int r = r0 + 8 * j + 2 * t;
+            uint32_t ah[2][4], al[2][4];
+#pragma unroll
+            for (int ii = 0; ii < 2; ++ii)
+#pragma unroll
+              for (int e = 0; e < 4; e += 2) {
+                const float4 v = *reinterpret_cast<const float4*>(
+                    Wp + w_off(r + (e >> 1), 16 * (2 * ig + ii) + g));
+                ah[ii][e] = __float_as_uint(v.x);
+                al[ii][e] = __float_as_uint(v.y);
+                ah[ii][e + 1] = __float_as_uint(v.z);
+                al[ii][e + 1] = __float_as_uint(v.w);
+              }
+#pragma unroll
+            for (int ii = 0; ii < 2; ++ii)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) tc::mma_tf32(pp[ii][h], al[ii], ubh[j][h][0], ubh[j][h][1]);
+#pragma unroll
+            for (int ii = 0; ii < 2; ++ii)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) tc::mma_tf32(pp[ii][h], ah[ii], ubl[j][h][0], ubl[j][h][1]);
+#pragma unroll
+            for (int ii = 0; ii < 2; ++ii)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) tc::mma_tf32(pp[ii][h], ah[ii], ubh[j][h][0], ubh[j][h][1]);
+          }
+#pragma unroll
+          for (int ii = 0; ii < 2; ++ii)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[2 * ig + ii][h][e] += pp[ii][h][e];
+        }
+      }
+      if (r0 + CR >= rows) {   // the strip is summed over the panel
+        // acc[i][h]: e = 0, 1 at factor 16 i + g, columns jw + 8 h + 2t, + 1;
+        // e = 2, 3 the same at factor 16 i + g + 8. VEC: lanes t, t ^ 1 trade
+        // halves, so that an even t adds columns jw + 2t .. + 3 of h = 0 and
+        // an odd t columns jw + 8 + 2t - 2 .. + 3 of h = 1
+        const int jw = strip * TN2 + cw;
+#pragma unroll
+        for (int i = 0; i < KP / 16; ++i) {
+          if (16 * i >= k) continue;   // uniform: no lane skips a shuffle
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int c = 16 * i + g + 8 * hf;
+            float* dst = WTU + (size_t)c * n;
+            const float2 p0 = make_float2(acc[i][0][2 * hf], acc[i][0][2 * hf + 1]);
+            const float2 p1 = make_float2(acc[i][1][2 * hf], acc[i][1][2 * hf + 1]);
+            if constexpr (VEC) {
+              const bool odd = t & 1;
+              const float2 give = odd ? p0 : p1;
+              const float2 got = make_float2(__shfl_xor_sync(0xffffffffu, give.x, 1),
+                                             __shfl_xor_sync(0xffffffffu, give.y, 1));
+              const int j = jw + (odd ? 8 + 2 * t - 2 : 2 * t);
+              const float4 v = odd ? make_float4(got.x, got.y, p1.x, p1.y)
+                                   : make_float4(p0.x, p0.y, got.x, got.y);
+              if (c < k && j < n) atomicAdd(reinterpret_cast<float4*>(dst + j), v);
+            } else if (c < k) {
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int j = jw + 8 * h + 2 * t;
+                const float2 v = h ? p1 : p0;
+                if (j < n) atomicAdd(dst + j, v.x);
+                if (j + 1 < n) atomicAdd(dst + j + 1, v.y);
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+template <bool VEC>
+cudaError_t launch(const float* A, const float* W, const float* H, const float* hrs,
+                   float eps, int B, int m, int n, int k, float* W_out, float* WTU,
+                   cudaStream_t stream) {
+  const auto kernel = &fused_mu_kl_tf32_kernel<VEC>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((m + TM - 1) / TM, B);
+  kernel<<<grid, NT, SMEM, stream>>>(A, W, H, hrs, eps, m, n, k, W_out, WTU);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_any(const float* A, const float* W, const float* H, const float* hrs,
+                       float eps, int B, int m, int n, int k, float* W_out, float* WTU,
+                       cudaStream_t s) {
+  // 16-byte copies, loads and vector atomics need every row of A, H and WTU
+  // aligned
+  const bool vec = n % 4 == 0 &&
+      (reinterpret_cast<uintptr_t>(A) | reinterpret_cast<uintptr_t>(H) |
+       reinterpret_cast<uintptr_t>(WTU)) % 16 == 0;
+  return vec ? launch<true>(A, W, H, hrs, eps, B, m, n, k, W_out, WTU, s)
+             : launch<false>(A, W, H, hrs, eps, B, m, n, k, W_out, WTU, s);
+}
+
+}  // namespace tf
+
+// bf16, f16 or uint8 A: the tensor-core kernel at every k <= 64
 template <typename T>
 cudaError_t dispatch(const void* A_, const void* W_, const void* H_,
                      const void* hrs_, float eps, int B, int m, int n, int k,
@@ -1402,7 +1720,7 @@ cudaError_t dispatch(const void* A_, const void* W_, const void* H_,
   if (k <= 8) return tc::launch_kp<T, 8>(A, W, H, hrs, eps, B, m, n, k, W_out, WTU, s);
   if (k <= 16) return tc::launch_kp<T, 16>(A, W, H, hrs, eps, B, m, n, k, W_out, WTU, s);
   if (k <= 32) return tc::launch_kp<T, 32>(A, W, H, hrs, eps, B, m, n, k, W_out, WTU, s);
-  if (k <= 64) return launch<T, 64>(A_, W_, H_, hrs_, eps, B, m, n, k, W_out_, WTU_, s);
+  if (k <= 64) return tc::launch_kp<T, 64>(A, W, H, hrs, eps, B, m, n, k, W_out, WTU, s);
   return cudaErrorInvalidValue;
 }
 
@@ -1416,8 +1734,7 @@ cudaError_t dispatch_f32(const void* A_, const void* W_, const void* H_,
   if (k <= 8) return f32::launch_kp<8>(A, W, H, hrs, eps, B, m, n, k, W_out, WTU, s);
   if (k <= 16) return f32::launch_kp<16>(A, W, H, hrs, eps, B, m, n, k, W_out, WTU, s);
   if (k <= 32) return f32::launch_kp<32>(A, W, H, hrs, eps, B, m, n, k, W_out, WTU, s);
-  // 32 < k <= 64: the first port's kernel
-  if (k <= 64) return launch<float, 64>(A_, W_, H_, hrs_, eps, B, m, n, k, W_out_, WTU_, s);
+  if (k <= 64) return tf::launch_any(A, W, H, hrs, eps, B, m, n, k, W_out, WTU, s);
   return cudaErrorInvalidValue;
 }
 

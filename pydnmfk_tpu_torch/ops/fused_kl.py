@@ -47,6 +47,9 @@ from .linalg import HALF
 # f32 A, bf16 A, f16 A and uint8 A
 launches = {"fused_mu_kl": 0, "fused_mu_kl_bf16": 0, "fused_mu_kl_f16": 0,
             "fused_mu_kl_u8": 0}
+# of them, the launches at k > 32 (the 3xTF32 kernel for an f32 A, the
+# tensor-core kernel at KP = 64 for a bf16, f16 or uint8 A), by the same keys
+wide_launches = dict.fromkeys(launches, 0)
 _KEY = {torch.float32: "fused_mu_kl", torch.bfloat16: "fused_mu_kl_bf16",
         torch.float16: "fused_mu_kl_f16", torch.uint8: "fused_mu_kl_u8"}
 
@@ -129,6 +132,8 @@ def _fused_kl_pass_cuda(A, W, H, hrs, eps):
                 stream)
     check(rc, lib, "fused_mu_kl_error_string", "K3 fused_mu_kl")
     launches[_KEY[A.dtype]] += 1
+    if k > 32:
+        wide_launches[_KEY[A.dtype]] += 1
     W_out = W_out.to(w_dtype)
     if single:
         return W_out[0], WTU[0]

@@ -116,8 +116,10 @@ def test_k1_half_factors_match_plain(cuda, b, m, n, k, dtype, w_dtype):
 # chunks of 4, 8, 16 rows, 16-byte loads and vector atomics when n % 4 ==
 # 0. Its tensor-core kernel (bf16, uint8 A, k <= 32) takes panels of 256
 # rows, tiles of 64 bf16 or 128 uint8 columns and 16-byte copies when n % 8
-# (bf16) or n % 16 (uint8) is 0. The first port's kernel (k > 32) takes
-# panels of 64 rows and 64-column tiles. Shapes: m ragged at the panel
+# (bf16) or n % 16 (uint8) is 0; at k > 32 (KP = 64) tiles of 64 columns
+# for every A dtype and panels of 256 rows. The f32 kernel at k > 32 (3xTF32)
+# takes panels of 128 rows, sweep-1 tiles of 32 columns and sweep-2 strips
+# of 128 columns in chunks of 32 rows. Shapes: m ragged at the panel
 # heights (129, 257, 513: one row past whole panels), n % 4 = 1, 2, 3
 # (scalar paths), n % 4 == 0 over several tiles and strips with a ragged
 # last one (1040: 32 tiles and 16 columns, strips of 1024 + 16, 2 x 512 +
@@ -125,23 +127,34 @@ def test_k1_half_factors_match_plain(cuda, b, m, n, k, dtype, w_dtype):
 # 4, 6 x 256 + 4), n below one tile (8, 20), a 10-member stack; n % 8 = 4
 # (100: bf16 and uint8 on the scalar path, f32 on the 16-byte one), n % 16
 # = 8 (264: uint8 scalar, bf16 16-byte) with m ragged at 256, and whole
-# panels and tiles (512 x 1024).
+# panels and tiles (512 x 1024); against the 128-row panels and 64-column
+# tiles of k > 32: m one row past and one short of whole panels with n one
+# column past a tile (129 x 65, 127 x 193), three panels and a row over whole
+# 64-column tiles and a ragged 128-column strip (385 x 192), a 32-row chunk
+# and a sweep-1 tile past whole ones (161 x 160), and a 256-row panel with a
+# ragged second one (511 x 200).
 K3_SHAPES = SHAPES + [(1, 129, 66), (2, 257, 131), (1, 257, 129),
                       (2, 65, 130), (1, 129, 1040), (2, 129, 1540),
                       (1, 33, 8), (3, 300, 20), (10, 70, 200), (1, 513, 600),
-                      (2, 257, 100), (1, 513, 264), (2, 512, 1024)]
+                      (2, 257, 100), (1, 513, 264), (2, 512, 1024),
+                      (1, 129, 65), (2, 127, 193), (1, 385, 192),
+                      (3, 161, 160), (1, 511, 200)]
 K3_KEY = {torch.float32: "fused_mu_kl", torch.bfloat16: "fused_mu_kl_bf16",
           torch.float16: "fused_mu_kl_f16", torch.uint8: "fused_mu_kl_u8"}
-K3_K = [1, 3, 7, 8, 9, 16, 17, 31, 32, 33, 64]
+K3_K = [1, 3, 7, 8, 9, 16, 17, 31, 32, 33, 40, 48, 56, 63, 64]
 
 
 def _k3_check(A, W, H):
-    """One K3 launch, under A's dtype key only, against the plain version."""
+    """One K3 launch, under A's dtype key only (and, at k > 32, one wide
+    launch under it), against the plain version."""
     hrs = linalg.sum_axis(H, axis=-1).float()
     key = K3_KEY[A.dtype]
     before = dict(fused_kl.launches)
+    wide = dict(fused_kl.wide_launches)
     out = fused_kl.fused_kl_pass(A, W, H, hrs, EPS)
     assert fused_kl.launches == {**before, key: before[key] + 1}
+    assert fused_kl.wide_launches == {
+        **wide, key: wide[key] + (W.shape[-1] > 32)}
     assert out[0].dtype == W.dtype and out[1].dtype == torch.float32
     ref = fused_kl.fused_kl_pass_plain(A, W, H, hrs, EPS, 50)
     tol = HALF_TOL.get(W.dtype, 1e-4 if A.dtype == torch.float32 else 1e-3)
@@ -156,7 +169,7 @@ def test_k3_matches_plain(cuda, b, m, n, k, dtype):
 
 
 @pytest.mark.parametrize("b,m,n", HALF_SHAPES)
-@pytest.mark.parametrize("k", [3, 8, 17, 32, 64])
+@pytest.mark.parametrize("k", [3, 8, 17, 32, 33, 48, 64])
 @pytest.mark.parametrize("dtype,w_dtype", HALF_PAIRS)
 def test_k3_half_factors_match_plain(cuda, b, m, n, k, dtype, w_dtype):
     _k3_check(*_inputs(cuda, b, m, n, k, dtype, w_dtype))
@@ -174,6 +187,23 @@ def test_k3_misaligned_a_matches_plain(cuda, k, dtype):
     Av.copy_(A)
     assert Av.is_contiguous() and Av.data_ptr() % 16 != 0
     _k3_check(Av, W, H)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k3_wide_launches_count_the_calls_past_k32(cuda, dtype):
+    """fused_kl.wide_launches counts exactly the K3 calls with k > 32, under
+    the A dtype's key; fused_kl.launches counts every call."""
+    key = K3_KEY[dtype]
+    ks = [8, 32, 33, 64, 17, 48]
+    before = dict(fused_kl.launches)
+    wide = dict(fused_kl.wide_launches)
+    for k in ks:
+        A, W, H = _inputs(cuda, 2, 129, 200, k, dtype)
+        hrs = linalg.sum_axis(H, axis=-1).float()
+        fused_kl.fused_kl_pass(A, W, H, hrs, EPS)
+    assert fused_kl.launches == {**before, key: before[key] + len(ks)}
+    assert fused_kl.wide_launches == {
+        **wide, key: wide[key] + sum(k > 32 for k in ks)}
 
 
 # K2's register kernels (k <= 32), as UhtGeom and WtuGeom in

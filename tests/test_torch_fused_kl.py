@@ -49,7 +49,10 @@ def _port_a(A, a_dtype):
     return At.to(torch.bfloat16) if a_dtype == "bfloat16" else At
 
 
-@pytest.mark.parametrize("m,n,k", [(300, 200, 8), (64, 48, 3), (128, 96, 8)])
+# k = 33 and 64 are the widths past 32, where the card runs the 3xTF32
+# kernel (f32 A) or the tensor-core kernel at KP = 64 (bf16, uint8 A)
+@pytest.mark.parametrize("m,n,k", [(300, 200, 8), (64, 48, 3), (128, 96, 8),
+                                   (96, 80, 33), (64, 48, 64)])
 @pytest.mark.parametrize("a_dtype", ["float32", "bfloat16", "uint8"])
 def test_step_matches_jax(m, n, k, a_dtype, interpret_pallas):
     A, W, H = _inputs(4, m, n, k, a_dtype)

@@ -201,6 +201,7 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "'fused_mu_fro_u8': 0}\n"
         "assert fused_kl.launches == {'fused_mu_kl': 0, "
         "'fused_mu_kl_bf16': 0, 'fused_mu_kl_f16': 0, 'fused_mu_kl_u8': 0}\n"
+        "assert fused_kl.wide_launches == fused_kl.launches\n"
         "assert kl.launches == {'kl_uht': 0, 'kl_wtu': 0, 'kl_uht_f16': 0, "
         "'kl_wtu_f16': 0}\n"
         "assert ell_gather.launches == {'ell_gather': 0, "
