@@ -93,7 +93,28 @@ Run from the root of a checkout, with no arguments:
    members (K3: 1200 launches in the ensemble, 800 of them past k = 32;
    K2b in the refit), each of which must choose k = 4 with exact launches
    in its ensemble and its refit;
-6. prints the card's name and power limit, one JSON line of kernels, and as
+6. the rest of the job, counters at zero before each run: NMF.fit with
+   ``solve_checkpoint_every=10`` over 40 iterations at 57600 x 38400,
+   k = 32, FRO-MU on the f32 A (K1) and its uint8 quantization (K1-u8) and
+   KL-MU with ``use_fused=True`` on a bf16 copy (K3), each unchunked,
+   chunked (exactly 40 launches, error within 1e-5), failed by a raise
+   right after the saver's second save and run again (exactly 20
+   launches, error within 1e-5, no checkpoint left), with the time of a
+   save; the FRO-MU NMFk sweep on the planted 14400 x 9600 matrix (k =
+   2..7, 10 perturbations in batches of 5, 400 iterations,
+   ``checkpoint=True``) unbroken, then failed right after k = 5's first
+   part and run again (K1 exactly 2000: k = 5's second batch and k = 6
+   and 7; none in the refits; nopt = 4, each k's statistics beside the
+   unbroken sweep's, no ``ensemble_parts/`` left), then extended to k = 9
+   (K1 exactly 1600); ``--ftype=folder`` through the CLI at 1x1 and a 2 x 2
+   chunk layout of uneven dims through DataReader (both bitwise the
+   array); ``kl_divergence`` on the card within 1e-5 of f64 on the CPU;
+   one solve under ``timing.trace`` (the trace names K1); ``train_mlp`` on
+   the card (its numpy forward within 1e-5 of the module's logits) and
+   ``predict_k`` on the sweep's results; ``seed_grid=(2, 2)`` members whose
+   four blocks are bitwise equal; and whether the selection and timing
+   plots were written (matplotlib may be absent);
+7. prints the card's name and power limit, one JSON line of kernels, and as
    its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -1603,6 +1624,344 @@ def main():
               f"fused_mu_kl_bf16")
     del X
 
+    # -- 6. checkpoints, resume and the rest of the job -----------------
+    from pydnmfk_tpu_torch.models import ml_recognition, nmfk as nmfk_mod
+    from pydnmfk_tpu_torch.models import sampler
+    from pydnmfk_tpu_torch.utils import checkpoint as ckpt_mod
+    from pydnmfk_tpu_torch.utils import io as io_mod
+    from pydnmfk_tpu_torch.utils.io import DataWriter
+
+    # a checkpointed NMF.fit (solve_checkpoint_every=10, 40 iterations) at
+    # 57600 x 38400, k = 32: K1 on the f32 A, K1-u8 on its quantization, K3
+    # on a bf16 copy (use_fused), each unchunked, chunked, failed by a raise
+    # right after the saver's second save, and resumed
+    A = torch.rand((M, K), generator=gen, device=dev) @ torch.rand(
+        (K, N), generator=gen, device=dev)
+    real_save = ckpt_mod.SolveCheckpoint.save
+    saves = []
+
+    def timed_save(self, W, H, i):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_save(self, W, H, i)
+        saves.append(time.perf_counter() - t0)
+
+    def failing_save(self, W, H, i):
+        timed_save(self, W, H, i)
+        if len(saves) == 2:
+            raise RuntimeError("injected failure after the second save")
+
+    def ckpt_fit(cfg, label):
+        """NMF.fit of A under cfg, counters from zero: (error, launches,
+        seconds)."""
+        zero_counts()
+        t0 = time.perf_counter()
+        _, _, err = NMF(cfg, dev).fit(A)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        ran = {key: n for key, n in read_counts().items() if n}
+        check(np.isfinite(err), f"checkpointed {label}: error {err}")
+        return err, ran, secs
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, norm, kw, key in (
+                ("FRO-MU f32", "fro", {}, "fused_mu_fro"),
+                ("FRO-MU uint8-A", "fro", {"a_precision": "uint8"},
+                 "fused_mu_fro_u8"),
+                ("KL-MU bf16-A use_fused", "kl",
+                 {"a_precision": "bfloat16", "use_fused": True},
+                 "fused_mu_kl_bf16")):
+            cfg = NMFConfig(k=K, norm=norm, itr=4 * ITR, results_path=tmp,
+                            **kw)
+            err0, ran0, secs0 = ckpt_fit(cfg, label)
+            cfg = cfg.replace(solve_checkpoint_every=ITR)
+            saves.clear()
+            ckpt_mod.SolveCheckpoint.save = timed_save
+            err1, ran1, secs1 = ckpt_fit(cfg, label)
+            n_saves, per_save = len(saves), 1e3 * sum(saves) / len(saves)
+            saves.clear()
+            ckpt_mod.SolveCheckpoint.save = failing_save
+            zero_counts()
+            try:
+                NMF(cfg, dev).fit(A)
+                check(False, f"checkpointed {label}: the injected failure "
+                             f"did not happen")
+            except RuntimeError as e:
+                check("injected failure" in str(e), f"checkpointed {label}: "
+                                                    f"{e!r}")
+            read_counts()
+            ckpt_mod.SolveCheckpoint.save = real_save
+            path = os.path.join(tmp, f"solve_ckpt_k{K}")
+            check(os.path.exists(path), f"checkpointed {label}: no file")
+            err2, ran2, secs2 = ckpt_fit(cfg, label)
+            rel1, rel2 = abs(err1 / err0 - 1), abs(err2 / err0 - 1)
+            print(f"[resume] {label} {M}x{N} k={K}, {cfg.itr} iterations "
+                  f"({smi}): unchunked {secs0:.3f} s, error {err0:.7f}; "
+                  f"chunks of {ITR} {secs1:.3f} s, error {err1:.7f} "
+                  f"(relative difference {rel1:.2e}), {n_saves} saves at "
+                  f"{per_save:.2f} ms each; resumed after the "
+                  f"second save {secs2:.3f} s, error {err2:.7f} ({rel2:.2e}), "
+                  f"launches {ran0} / {ran1} / {ran2}", flush=True)
+            check(ran0 == ran1 == {key: cfg.itr},
+                  f"checkpointed {label}: launches {ran0}, {ran1}, expected "
+                  f"{cfg.itr} under {key}")
+            check(ran2 == {key: cfg.itr // 2},
+                  f"resumed {label}: launches {ran2}, expected "
+                  f"{cfg.itr // 2} under {key}")
+            check(rel1 <= 1e-5 and rel2 <= 1e-5,
+                  f"checkpointed {label}: errors {err1}, {err2} not within "
+                  f"1e-5 of {err0}")
+            check(not os.path.exists(path), f"resumed {label}: checkpoint "
+                                            f"left behind")
+    del A
+    torch.cuda.empty_cache()
+
+    # the FRO-MU NMFk sweep on the planted 14400 x 9600 matrix, k = 2..7, 10
+    # members in batches of 5 with checkpoint=True: unbroken, then failed
+    # right after k = 5's first part and run again, then extended to k = 9
+    # (a resume past a finished sweep solves only the new ks)
+    _, _, X = generate_data(**PLANTED)
+    X = X.astype(np.float32)
+    stage_names = ("ensemble_solve", "clustering", "regression")
+
+    def resume_sweep(path, end_k=7):
+        cfg = NMFkConfig(nmf=NMFConfig(norm="fro", itr=400), start_k=2,
+                         end_k=end_k, perturbations=10, ensemble_batch=5,
+                         results_path=path + "/", fname="X", checkpoint=True)
+        timing.reset()
+        zero_counts()
+        t0 = time.perf_counter()
+        model = NMFk(cfg, dev)
+        nopt = model.fit(X)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        ran = {key: n for key, n in read_counts().items() if n}
+        stages = {st: round(timing.TIMINGS.get(st, 0.0), 3)
+                  for st in stage_names}
+        return cfg, nopt, secs, stages, ran
+
+    with tempfile.TemporaryDirectory() as tmp:
+        gold_cfg, nopt, secs, stages, ran = resume_sweep(tmp + "/gold")
+        print(f"[resume] FRO-MU NMFk unbroken {X.shape[0]}x{X.shape[1]} "
+              f"k=2..7, 10 perturbations in batches of 5, 400 iterations "
+              f"({smi}): nopt {nopt}, {secs:.2f} s, stage seconds {stages}, "
+              f"launches {ran}", flush=True)
+        check(nopt == 4 and ran == {"fused_mu_fro": 2 * 6 * 400},
+              f"unbroken sweep: nopt {nopt}, launches {ran}")
+        real_part = nmfk_mod._save_ensemble_part
+
+        def failing_part(parts_dir, off, *a):
+            real_part(parts_dir, off, *a)
+            if off == 0 and parts_dir.endswith(os.sep + os.path.join(
+                    "5", "ensemble_parts")):
+                raise RuntimeError("injected failure after k = 5's first "
+                                   "part")
+
+        nmfk_mod._save_ensemble_part = failing_part
+        zero_counts()
+        t0 = time.perf_counter()
+        try:
+            resume_sweep(tmp + "/run")
+            check(False, "the sweep's injected failure did not happen")
+        except RuntimeError as e:
+            check("injected failure" in str(e), f"broken sweep: {e!r}")
+        finally:
+            nmfk_mod._save_ensemble_part = real_part
+        broken_s = time.perf_counter() - t0
+        parts = os.path.join(tmp, "run", "X", "5", "ensemble_parts")
+        check(sorted(os.listdir(parts)) == ["part_000000.pt"],
+              f"broken sweep: parts {os.listdir(parts)}")
+        cfg, nopt, secs, stages, ran = resume_sweep(tmp + "/run")
+        want = 400 * (1 + 2 + 2)       # k = 5's second batch, k = 6 and 7
+        diffs = {}
+        for k in cfg.k_range:
+            a, b = (read_cluster_results(os.path.join(c.results_path, "X",
+                                                      str(k)))
+                    for c in (cfg, gold_cfg))
+            diffs[k] = {name: float(np.max(np.abs(a[name] - b[name])
+                                           / np.maximum(np.abs(b[name]),
+                                                        1e-30)))
+                        for name in ("ErrTol", "L_err", "avgErr", "AIC")}
+            diffs[k]["sils"] = float(np.max(np.abs(
+                a["clusterSilhouetteCoefficients"]
+                - b["clusterSilhouetteCoefficients"])))
+        worst = {name: max(d[name] for d in diffs.values())
+                 for name in diffs[2]}
+        print(f"[resume] FRO-MU NMFk failed after k = 5's first part "
+              f"({broken_s:.2f} s) and run again ({smi}): nopt {nopt}, "
+              f"{secs:.2f} s, stage seconds {stages}, launches {ran} "
+              f"(expected fused_mu_fro {want}: k = 5's second batch, k = 6 "
+              f"and 7; none in the refits); largest difference from the "
+              f"unbroken sweep over k = 2..7 {worst}", flush=True)
+        check(nopt == 4, f"resumed sweep chose k={nopt}, not 4")
+        check(ran == {"fused_mu_fro": want},
+              f"resumed sweep launched {ran}, expected {want}")
+        # K1 adds W'^T A in atomic order, so the runs are not bitwise: the
+        # largest differences were 2.8e-6 (ErrTol), 7.2e-5 (L_err), 5.2e-7
+        # (avgErr) and 1.4e-6 (silhouettes, absolute) on an H100
+        check(worst["ErrTol"] <= 1e-4 and worst["avgErr"] <= 1e-4
+              and worst["L_err"] <= 1e-3 and worst["sils"] <= 1e-4,
+              f"resumed sweep's stats differ from the unbroken one's: "
+              f"{worst}")
+        check(not any(os.path.exists(os.path.join(tmp, "run", "X", str(k),
+                                                  "ensemble_parts"))
+                      for k in cfg.k_range), "ensemble_parts left behind")
+        cfg, nopt9, secs, stages, ran = resume_sweep(tmp + "/run", end_k=9)
+        print(f"[resume] the same sweep extended to k = 9 ({smi}): nopt "
+              f"{nopt9}, {secs:.2f} s, stage seconds {stages}, launches "
+              f"{ran}", flush=True)
+        check(ran == {"fused_mu_fro": 2 * 2 * 400},
+              f"extended sweep launched {ran}, expected k = 8 and 9 only")
+        res_dir = os.path.join(tmp, "run", "X")
+        selection = os.path.exists(os.path.join(res_dir,
+                                                "X_selection_plot.pdf"))
+
+        # the folder format at 1x1 through the CLI (the chunk file X0.npy),
+        # and a 2 x 2 chunk layout of uneven dims through DataReader
+        np.save(os.path.join(tmp, "X0.npy"), X)
+        real_read = io_mod.DataReader.read
+        read = []
+
+        def keep(self):
+            out = real_read(self)
+            read.append(out)
+            return out
+
+        io_mod.DataReader.read = keep
+        zero_counts()
+        try:
+            out = cli.main(["--process=pyDNMF", "--p_r=1", "--p_c=1",
+                            "--ftype=folder", f"--fpath={tmp}/", "--fname=X",
+                            "--norm=fro", "--k=4", f"--itr={ITR}",
+                            f"--results_path={tmp}/res_folder/",
+                            "--timing_stats=true"])
+        finally:
+            io_mod.DataReader.read = real_read
+        ran = {key: n for key, n in read_counts().items() if n}
+        check(len(read) == 1 and np.array_equal(read[0], X)
+              and read[0].dtype == X.dtype, "the CLI's folder read")
+        check(ran == {"fused_mu_fro": ITR} and np.isfinite(out["err"]),
+              f"the CLI's folder run: launches {ran}, error {out['err']}")
+        timing_plot = os.path.exists(os.path.join(tmp, "res_folder",
+                                                  "timing.png"))
+        U = X[:9601, :6399]
+        for i in range(2):
+            r0, r1 = io_mod.block_range(U.shape[0], 2, i)
+            for j in range(2):
+                c0, c1 = io_mod.block_range(U.shape[1], 2, j)
+                np.save(os.path.join(tmp, f"U{i * 2 + j}.npy"),
+                        U[r0:r1, c0:c1])
+        U_read = io_mod.DataReader(f"{tmp}/", "U", "folder",
+                                   pgrid=(2, 2)).read()
+        check(np.array_equal(U_read, U), "DataReader folder 2x2 read")
+        print(f"[io] --ftype=folder at 1x1 through the CLI ({X.shape}) and "
+              f"a 2x2 chunk layout of {U.shape} through DataReader: equal "
+              f"bitwise; CLI relative error {out['err']:.6f}, launches {ran}",
+              flush=True)
+
+        # kl_divergence of one member (the planted matrix and its k = 4
+        # regression factors) on the card against f64 on the CPU
+        k_path = os.path.join(res_dir, "4")
+        Wr = np.load(os.path.join(k_path, "W_reg_factors", "W.npy"))
+        Hr = np.load(os.path.join(k_path, "H_reg_factors", "H.npy"))
+        on_dev = [torch.from_numpy(x).to(dev) for x in (X, Wr, Hr)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kl_dev = float(linalg.kl_divergence(*on_dev, eps,
+                                            linalg.error_chunk_rows(*X.shape)))
+        kl_s = time.perf_counter() - t0
+        del on_dev
+        kl_ref = float(linalg.kl_divergence(
+            *(torch.from_numpy(x).double() for x in (X, Wr, Hr)), eps, 2048))
+        rel = abs(kl_dev / kl_ref - 1)
+        print(f"[linalg] kl_divergence {X.shape} k=4 on the card "
+              f"{kl_dev:.6f} ({kl_s:.3f} s), f64 on the CPU {kl_ref:.6f}: "
+              f"relative difference {rel:.2e} (limit 1e-5)", flush=True)
+        check(rel <= 1e-5, f"kl_divergence {kl_dev} vs {kl_ref}")
+
+        # one solve under timing.trace: a Chrome trace that names K1
+        trace_dir = os.path.join(tmp, "trace")
+        zero_counts()
+        with timing.trace(trace_dir):
+            NMF(NMFConfig(k=4, norm="fro", itr=ITR), dev).fit(X)
+        ran = {key: n for key, n in read_counts().items() if n}
+        with open(os.path.join(trace_dir, "trace.json")) as f:
+            text = f.read()
+        check(ran == {"fused_mu_fro": ITR}, f"traced solve launched {ran}")
+        check("fused_mu_fro" in text, "the trace does not name K1")
+        print(f"[timing] trace of one FRO-MU solve: "
+              f"{len(text) / 1e6:.2f} MB, {text.count('fused_mu_fro')} "
+              f"mentions of K1", flush=True)
+
+        # the k-predictor: train_mlp on the card on windows of synthetic
+        # sweeps (silhouettes collapse past the planted k), its numpy
+        # forward against the torch module; predict_k on the sweep's dir
+        apps, true_ks = [], []
+        for i, kt in enumerate((3, 4, 5, 6, 7, 8)):
+            d = os.path.join(tmp, "ml", str(i))
+            for k in range(1, 15):
+                sils = np.where(np.arange(k) < kt, 1.0, 0.2)
+                err = 1.0 / min(k, kt) + 0.001 * k
+                DataWriter(os.path.join(d, str(k))).save_cluster_results({
+                    "clusterSilhouetteCoefficients": sils,
+                    "avgSilhouetteCoefficients": sils.mean(),
+                    "L_err": np.full(10, err), "L_errDist": err,
+                    "avgErr": err, "recon_err": np.full(4, err),
+                    "AIC": -1000.0 / min(k, kt)})
+            apps.append(ml_recognition.MLFeatureTools(
+                d, None).build_statistics())
+            true_ks.append(kt)
+        Xw, yw = ml_recognition.build_training_windows(apps, true_ks)
+        t0 = time.perf_counter()
+        mlp, net = ml_recognition.train_mlp(Xw, yw, hidden=(32,),
+                                            epochs=200, batch_size=8,
+                                            seed=0, device=dev,
+                                            return_module=True)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        with torch.no_grad():
+            logits = net(torch.from_numpy(Xw.astype(np.float32)).to(
+                dev)).double().cpu().numpy()
+        ref = mlp.logits(Xw.astype(np.float32))
+        rel = float(np.abs(ref - logits).max() / np.abs(logits).max())
+        acc = float(np.mean(mlp.predict(Xw) == yw))
+        with tempfile.NamedTemporaryFile(suffix=".json") as f:
+            mlp.to_json(f.name)
+            k_pred = ml_recognition.predict_k(res_dir, f.name)
+        print(f"[ml] train_mlp on the card, {Xw.shape[0]} windows, 200 "
+              f"epochs: {train_s:.2f} s ({smi}), training accuracy {acc:.3f}, "
+              f"numpy forward vs the module's logits {rel:.2e} (limit 1e-5); "
+              f"predict_k on the sweep's results (k = 2..9): {k_pred}",
+              flush=True)
+        check(rel <= 1e-5, f"train_mlp: numpy forward {rel:.2e} off")
+
+    # a seed_grid=(2, 2) member drawn on the card: the planted matrix's
+    # top-left block tiled 2 x 2, so that every block's data is the same;
+    # uniform noise tiles, Poisson blocks draw alike, the init tiles
+    B = torch.from_numpy(np.tile(X[:PLANTED["m"] // 2, :PLANTED["n"] // 2],
+                                 (2, 2))).to(dev)
+    bm, bn = B.shape[0] // 2, B.shape[1] // 2
+    blocks = lambda Y: [Y[..., i * bm:(i + 1) * bm, j * bn:(j + 1) * bn]
+                        for i in range(2) for j in range(2)]
+    for method, Y in (("uniform", B), ("poisson", (B * 50).round())):
+        member = sampler.sample_ensemble(Y, 100, 0.015, [3], method,
+                                         tile_grid=(2, 2))
+        parts = blocks(member)
+        check(all(torch.equal(parts[0], p) for p in parts[1:])
+              and not torch.equal(member[0], Y),
+              f"seed_grid {method} member's blocks differ")
+    W0, H0 = sampler.init_ensemble_rand(100, [3], *B.shape, 4, torch.float32,
+                                        dev, tile_grid=(2, 2))
+    check(torch.equal(W0[:, :bm // 2], W0[:, bm // 2:bm])
+          and torch.equal(H0[:, :, :bn // 2], H0[:, :, bn // 2:bn]),
+          "seed_grid init is not tiled")
+    print(f"[seed_grid] (2, 2) members of a {tuple(B.shape)} matrix drawn on "
+          f"the card: uniform and Poisson blocks bitwise equal, init tiled "
+          f"4-fold", flush=True)
+    del B, X
+    print(f"[plots] selection plot written: {selection}; timing plot "
+          f"written: {timing_plot}", flush=True)
+
     for name, n in main_path.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
     for name in ("kl_uht", "kl_wtu", "fused_mu_kl", "fused_mu_kl_bf16",
@@ -1610,7 +1969,7 @@ def main():
         check(main_path_wide[name] > 0, f"kernel {name} was not launched "
                                         f"past k = 32 on the main path")
 
-    # -- 6. report -------------------------------------------------------
+    # -- 7. report -------------------------------------------------------
     sources = {"K1 fused_mu_fro": ("fused_mu_fro.cu", "ops/fused_mu.py:50",
                                    ("fused_mu_fro", "fused_mu_fro_bf16",
                                     "fused_mu_fro_u8")),

@@ -38,7 +38,9 @@ def build_parser():
     p.add_argument("--p_c", type=int, required=True, help="grid cols (1)")
     p.add_argument("--k", type=int, default=4, help="feature count")
     p.add_argument("--fpath", type=str, default="data/")
-    p.add_argument("--ftype", type=str, default="mat", help="mat/npy/csv/txt/npz")
+    p.add_argument("--ftype", type=str, default="mat",
+                   help="mat/npy/csv/txt/npz/folder (folder: the chunk "
+                        "file {fname}0.npy at --p_r=1 --p_c=1)")
     p.add_argument("--fname", type=str, default="A_")
     p.add_argument("--init", type=str, default="rand", help="rand/nnsvd")
     p.add_argument("--itr", type=int, default=5000)
@@ -70,13 +72,17 @@ def build_parser():
                         "stay at --precision")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU instead of the CUDA card")
-    p.add_argument("--seed_grid", type=str, default=None)
+    p.add_argument("--seed_grid", type=str, default=None,
+                   help="p_r,p_c: the reference's MPI seeding on that grid "
+                        "(tiled noise and init; dense A)")
     p.add_argument("--seed", type=int, default=100,
                    help="seed of the init and perturbation generators")
     p.add_argument("--tol", type=float, default=0.0,
                    help="early stop when the relative error improves by "
                         "less than this between checks (0 = fixed --itr)")
-    p.add_argument("--solve_checkpoint_every", type=int, default=0)
+    p.add_argument("--solve_checkpoint_every", type=int, default=0,
+                   help="persist W, H every N iterations (multiple of 10) "
+                        "to --results_path; a rerun resumes (pyDNMF)")
     p.add_argument("--ensemble_batch", type=int, default=0,
                    help="NMFk members per batched solve (0 = as many as "
                         "fit the memory budget)")
@@ -98,7 +104,6 @@ def build_parser():
 
 def _reject_not_ported(args):
     checks = [
-        (args.ftype == "folder", "--ftype=folder", "queue 1 item 9"),
         ((args.p_r, args.p_c) != (1, 1), f"--p_r={args.p_r} --p_c={args.p_c}",
          "queue 1 item 15"),
         (args.multihost, "--multihost", "queue 1 item 15"),
@@ -110,10 +115,9 @@ def _reject_not_ported(args):
 
 
 def _jax_only_knobs(args):
-    """The JAX Runner's knobs among the flags, as Runner takes them."""
-    return dict(seed_grid=args.seed_grid,
-                solve_checkpoint_every=args.solve_checkpoint_every,
-                matmul_precision=args.matmul_precision,
+    """The JAX Runner's knobs among the flags that the port has no
+    counterpart for (``config.py::JAX_ONLY``), as Runner takes them."""
+    return dict(matmul_precision=args.matmul_precision,
                 sparse_grid_format=args.sparse_grid_format,
                 k_sweep_batch=args.k_sweep_batch,
                 k_sweep_merge=args.k_sweep_merge)
@@ -144,6 +148,9 @@ def main(argv=None):
         ensemble_batch=args.ensemble_batch, save_factors=args.save_factors,
         hbm_budget=args.hbm_budget, kl_chunk=args.kl_chunk,
         device=device, prune=args.prune, bcd_obj=args.bcd_obj,
+        seed_grid=(tuple(int(x) for x in args.seed_grid.split(","))
+                   if args.seed_grid else None),
+        solve_checkpoint_every=args.solve_checkpoint_every,
         **_jax_only_knobs(args))
     results = runner.run(
         grid=[args.p_r, args.p_c], fpath=args.fpath, ftype=args.ftype,

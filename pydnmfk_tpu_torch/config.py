@@ -2,8 +2,8 @@
 
 The dataclasses of ``pydnmfk_tpu/config.py`` without the TPU knobs (the
 Pallas switch, matmul precision, the XLA compilation cache and the K-padded
-sweep) and without the features not yet ported, which the entry points
-reject with :class:`NotPortedError`.
+sweep) and without the features not yet ported (device meshes), which the
+entry points reject with :class:`NotPortedError`.
 """
 from __future__ import annotations
 
@@ -37,11 +37,9 @@ JAX_ONLY = {
     # the port's products run in true f32, which "highest" asks for
     "matmul_precision": ((None, "highest", "float32"), '"Not to port"'),
     "sparse_grid_format": ((None, "auto"), "queue 1 item 15"),
-    "solve_checkpoint_every": ((0,), "queue 1 item 13"),
     # the K-padded sweep gives the per-k path's results (tests/test_k_sweep.py)
     "k_sweep_batch": ((None, False), "queue 1 item 10"),
     "k_sweep_merge": ((None, False), "queue 1 item 10"),
-    "seed_grid": ((None, (1, 1)), "queue 1 item 6"),
 }
 
 
@@ -110,6 +108,11 @@ class NMFConfig:
     # rows per slab of the plain KL products' m x n ratio; 0 = automatic
     # (ops/linalg.py::error_chunk_rows)
     kl_chunk: int = 0
+    # > 0: NMF.fit persists W, H every this many iterations (rounded down
+    # to a multiple of 10, at least 10) to results_path and resumes from
+    # the last save (pydnmfk_tpu/config.py:118); fixed-iteration MU and
+    # HALS only
+    solve_checkpoint_every: int = 0
 
     def __post_init__(self):
         if self.init not in ("rand", "nnsvd"):
@@ -205,6 +208,16 @@ class NMFkConfig:
     # the device memory budget in bytes that sizes the batch; 0 = the
     # PYDNMFK_HBM_BUDGET environment variable, else half of the free memory
     hbm_budget: int = 0
+    # (p_r, p_c): the reference's MPI seeding on a p_r x p_c grid, where
+    # every rank draws the same noise block and the same local init
+    # factors (pydnmfk_tpu/config.py:200-207); dense A only, dims divisible
+    # by the grid. None or (1, 1): one stream over the whole member
+    seed_grid: tuple | None = None
+
+    def __post_init__(self):
+        if self.seed_grid is not None:
+            object.__setattr__(self, "seed_grid",
+                               tuple(int(x) for x in self.seed_grid))
 
     @property
     def k_range(self):

@@ -17,6 +17,7 @@ Reference semantics kept (pyDNMF.py):
 """
 from __future__ import annotations
 
+import os
 from functools import partial
 from typing import Optional, Tuple
 
@@ -80,18 +81,36 @@ def _solve(A, W, H, eps, *, norm: str, itr: int, W_update: bool, chunk: int,
            use_fused: bool | None = None, tol: float = 0.0,
            tol_check_every: int = 50, err_chunk: int = 0,
            method: str = "mu", bcd_obj: str = "gram",
-           hals_block: int | None = None):
+           hals_block: int | None = None, finalize: bool = True):
     """The iteration loop of ``pydnmfk_tpu/models/nmf.py::_solve``. BCD is
     a whole inner solver (``updates.bcd_solve``): it ignores ``W_update``
     and ``tol``, as JAX's does (nmf.py:86-92), and clips once at the end,
-    where the reference's loop would clip at i = itr - 1."""
+    where the reference's loop would clip at i = itr - 1.
+
+    ``finalize=False`` returns the factors as the loop leaves them, without
+    the final normalization and error (the error comes back as a zero):
+    a chunk of a checkpointed solve, whose last call, with no iterations,
+    applies them once (nmf.py:139-146)."""
     if method == "bcd":
         W, H = updates.bcd_solve(A, W, H, eps, itr=itr, obj_mode=bcd_obj,
                                  chunk=err_chunk)
         if (itr - 1) % 10 == 0:
             W, H = W.clamp_min(eps), H.clamp_min(eps)
-        W, H = linalg.normalize_features(W, H, eps)
-        return W, H, linalg.relative_error(A, W, H, err_chunk)
+    else:
+        W, H = _iterate(A, W, H, eps, norm, itr, W_update, chunk, use_fused,
+                        tol, tol_check_every, err_chunk, method, hals_block)
+    if not finalize:
+        return W, H, torch.zeros((), dtype=linalg.acc_dtype(A.dtype),
+                                 device=W.device)
+    W, H = linalg.normalize_features(W, H, eps)
+    err = linalg.relative_error(A, W, H, err_chunk)
+    return W, H, err
+
+
+def _iterate(A, W, H, eps, norm, itr, W_update, chunk, use_fused, tol,
+             tol_check_every, err_chunk, method, hals_block):
+    """The MU or HALS loop of :func:`_solve`: ``itr`` steps, the eps clip
+    at every tenth from the first, or the early stop under ``tol``."""
     step = step_for(A, W, norm, W_update, chunk, use_fused, method,
                     hals_block)
 
@@ -135,15 +154,13 @@ def _solve(A, W, H, eps, *, norm: str, itr: int, W_update: bool, chunk: int,
         live = err_prev - err > tol
         if n_full * chunk_n < itr and bool(live.any()):
             W, H = advance(n_full * chunk_n, itr, live, W, H)
-
-    W, H = linalg.normalize_features(W, H, eps)
-    err = linalg.relative_error(A, W, H, err_chunk)
-    return W, H, err
+    return W, H
 
 
-def solve(A, W, H, eps, cfg: NMFConfig):
+def solve(A, W, H, eps, cfg: NMFConfig, finalize: bool = True):
     """Run the full iteration loop on one matrix, or on a stack of ensemble
-    members along a leading axis of A, W and H (``nmf.py::solve``). A
+    members along a leading axis of A, W and H (``nmf.py::solve``);
+    ``finalize`` as in :func:`_solve`. A
     sparse A comes in the format that its caller's ``_prepare`` chose
     (``ops/sparse.py::densify_for_backend``), and needs no row chunks; it
     takes MU and HALS, and BCD raises JAX's ValueError (nmf.py:186-189)."""
@@ -162,7 +179,8 @@ def solve(A, W, H, eps, cfg: NMFConfig):
                   use_fused=cfg.use_fused, tol=float(cfg.tol),
                   tol_check_every=int(cfg.tol_check_every),
                   err_chunk=dense_chunk, method=method,
-                  bcd_obj=cfg.bcd_obj or "gram", hals_block=cfg.hals_block)
+                  bcd_obj=cfg.bcd_obj or "gram", hals_block=cfg.hals_block,
+                  finalize=finalize)
 
 
 def init_factors_rand(generator: torch.Generator, m: int, n: int, k: int,
@@ -256,7 +274,12 @@ class NMF:
         if not cfg.a_dtype.is_floating_point:     # _prepare refused sparse
             A, a_scale = linalg.quantize_uint8(A)
         with timing.timed("solve"):
-            W, H, err = solve(A, W.contiguous(), H.contiguous(), cfg.eps, cfg)
+            if cfg.solve_checkpoint_every > 0:
+                W, H, err = self._solve_checkpointed(A, W.contiguous(),
+                                                     H.contiguous())
+            else:
+                W, H, err = solve(A, W.contiguous(), H.contiguous(), cfg.eps,
+                                  cfg)
         self.recon_err = float(err)
         self._A, self._W, self._H = A, W, H       # Q-scale, for column_err
         if a_scale is not None:
@@ -268,6 +291,42 @@ class NMF:
             with timing.timed("save_factors"):
                 DataWriter(cfg.results_path).save_factors(W, H)
         return W, H, self.recon_err
+
+    def _solve_checkpointed(self, A, W, H):
+        """The iteration loop in chunks of ``solve_checkpoint_every``
+        iterations, each saved to ``results_path`` (``nmf.py:523-561``), so
+        that a long factorization survives preemption: a later fit of the
+        same configuration resumes from the last save. The chunks skip the
+        final normalization and error and one call with no iterations
+        applies them, so the trajectory is the unchunked solve's; chunks
+        are whole tens, since the eps clip runs at every chunk's
+        iteration 0. A uint8 A saves its Q-scale factors."""
+        cfg = self.cfg
+        if cfg.tol > 0:
+            raise ValueError(
+                "solve_checkpoint_every is incompatible with tol-based "
+                "early stopping (fixed-iteration path only)")
+        if cfg.method.lower() == "bcd":
+            raise ValueError(
+                "solve_checkpoint_every does not support BCD (its inner "
+                "solver carries extrapolation state across iterations)")
+        every = max(10, (cfg.solve_checkpoint_every // 10) * 10)
+        os.makedirs(cfg.results_path, exist_ok=True)
+        tag = repr((cfg.k, cfg.itr, cfg.norm.lower(), cfg.method.lower(),
+                    cfg.seed, cfg.precision, cfg.a_precision,
+                    tuple(A.shape)))
+        from ..utils.checkpoint import solve_checkpointer
+        saver = solve_checkpointer(cfg.results_path, cfg.k, tag)
+        W, H, i = saver.load(W, H)
+        while i < cfg.itr:
+            n = min(every, cfg.itr - i)
+            W, H, _ = solve(A, W, H, cfg.eps, cfg.replace(itr=n),
+                            finalize=False)
+            i += n
+            saver.save(W, H, i)
+        W, H, err = solve(A, W, H, cfg.eps, cfg.replace(itr=0))
+        saver.cleanup()
+        return W, H, err
 
     def column_err(self) -> np.ndarray:
         """Per-column relative error of the last fit (pyDNMF.py:220-239),

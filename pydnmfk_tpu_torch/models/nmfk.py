@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import shutil
 
 import numpy as np
 import torch
@@ -49,6 +50,60 @@ F_WORK = 8
 # the share of an explicit memory budget the batch may fill
 # (utils/memory.py's HEADROOM)
 HEADROOM = 0.85
+
+
+def _ensemble_cfg_tag(ncfg, cfg, K=None) -> str:
+    """Everything that shapes a member's result (``nmfk.py:468-478``): a
+    saved part replays only under the same tag. Unlike the JAX package's
+    it holds ``bcd_obj``, ``hals_block``, ``use_fused``, ``kl_chunk``,
+    ``tol_check_every`` and the width ``K`` the members are solved at (k
+    here; a K-padded sweep would solve at a larger one)."""
+    return repr((ncfg.k, ncfg.itr, ncfg.norm.lower(), ncfg.method.lower(),
+                 ncfg.init, ncfg.precision, ncfg.a_precision, ncfg.seed,
+                 float(ncfg.tol), int(ncfg.tol_check_every), cfg.noise_var,
+                 cfg.sampling, cfg.seed_grid, ncfg.bcd_obj, ncfg.hals_block,
+                 ncfg.use_fused, ncfg.kl_chunk, K or ncfg.k))
+
+
+def _save_ensemble_part(parts_dir, offset, W, H, errs, seed, cfg_tag):
+    """One solved batch, members ``offset`` on, as ``part_{offset}.pt``
+    (``nmfk.py:481-488``): factors at their own dtype, written beside and
+    moved into place."""
+    os.makedirs(parts_dir, exist_ok=True)
+    path = os.path.join(parts_dir, f"part_{offset:06d}.pt")
+    tmp = path + ".tmp"
+    torch.save({"W": W.detach().cpu(), "H": H.detach().cpu(),
+                "errs": errs.detach().cpu(), "offset": offset, "seed": seed,
+                "cfg_tag": cfg_tag}, tmp)
+    os.replace(tmp, path)
+
+
+def _load_ensemble_parts(parts_dir, n_pert, seed, cfg_tag, device):
+    """The saved batches that cover members 0, 1, ... without a gap
+    (``nmfk.py:546-622``, one process): (members covered, W parts, H
+    parts, error parts) on ``device``. Parts of another seed or tag, and
+    torn ones, are skipped. Members are keyed by their global index, so the
+    replay takes parts of any batch size."""
+    parts = {}
+    names = sorted(os.listdir(parts_dir)) if os.path.isdir(parts_dir) else []
+    for name in names:
+        if not (name.startswith("part_") and name.endswith(".pt")):
+            continue
+        try:
+            d = torch.load(os.path.join(parts_dir, name), map_location=device,
+                           weights_only=True)
+            if d["seed"] == seed and d["cfg_tag"] == cfg_tag:
+                parts[int(d["offset"])] = (d["W"], d["H"], d["errs"])
+        except Exception:
+            continue            # torn write: recompute
+    done, W_parts, H_parts, err_parts = 0, [], [], []
+    while done < n_pert and done in parts:
+        W, H, errs = parts[done]
+        W_parts.append(W)
+        H_parts.append(H)
+        err_parts.append(errs)
+        done += W.shape[0]
+    return done, W_parts, H_parts, err_parts
 
 
 class NMFk:
@@ -81,7 +136,14 @@ class NMFk:
         start_k = self.checkpoint.resume_k(cfg.start_k, cfg.step_k)
         for k in range(start_k, cfg.end_k + 1, cfg.step_k):
             self.pynmfk_per_k(A, k)
-        return self.pvalue_analysis()
+        nopt = self.pvalue_analysis()
+        try:
+            from ..utils.plotting import plot_results_fpath
+            plot_results_fpath(self.results_path, list(cfg.k_range))
+        except Exception as e:       # best-effort, but never silent
+            import warnings          # (nmfk.py:788-795)
+            warnings.warn(f"k-selection plot failed: {e!r}")
+        return nopt
 
     def _prepare(self, A):
         """A on the device at the factor dtype (nmfk.py:653-716). A sparse A
@@ -89,9 +151,9 @@ class NMFk:
         policy picks the dual ELL, kept with its slot -> nnz perms in
         ``self._ell`` while A stays the triplet whose values the members
         perturb, or a dense A (kept at bf16 where the policy narrowed it).
-        A sparse A that stays sparse refuses prune, nnsvd and BCD with the
-        JAX package's ValueErrors (nmfk.py:677-689). A dense A is pruned
-        here, once, under ``prune``."""
+        A sparse A that stays sparse refuses prune, nnsvd, BCD and
+        ``seed_grid`` with the JAX package's ValueErrors (nmfk.py:677-691).
+        A dense A is pruned here, once, under ``prune``."""
         self._ell = None
         A = self._format(A)
         ncfg = self.cfg.nmf
@@ -106,6 +168,8 @@ class NMFk:
                 raise ValueError(
                     "sparse A supports MU (fro/kl) and HALS; the BCD "
                     "objective needs the dense residual every inner step")
+            if self.cfg.seed_grid not in (None, (1, 1)):
+                raise ValueError("seed-grid MPI compat is dense-only")
         self._orig_shape = tuple(A.shape)
         self.prune_state = None
         if ncfg.prune:
@@ -233,15 +297,31 @@ class NMFk:
             return nmf_mod.solve(A_ens, W0, H0, ncfg.eps, ncfg)
         batch = self._ensemble_batch_size(A, k)
         self.last_batch_size = batch
-        W_parts, H_parts, err_parts = [], [], []
-        for done in range(0, cfg.perturbations, batch):
-            idx = range(done, min(done + batch, cfg.perturbations))
+        n_pert = cfg.perturbations
+        tag = _ensemble_cfg_tag(ncfg, cfg)
+        parts_dir = os.path.join(self.results_path, str(k), "ensemble_parts")
+        done, W_parts, H_parts, err_parts = 0, [], [], []
+        if cfg.checkpoint:
+            st = self.checkpoint.state or self.checkpoint.load()
+            # replay the saved batches at any stage before the k's results
+            # were saved: a crash in the clustering or the refit resumes
+            # from the parts alone (nmfk.py:898-909)
+            if (st is not None and st.k == k and st.seed == ncfg.seed
+                    and st.flag < FLAG_SAVED):
+                done, W_parts, H_parts, err_parts = _load_ensemble_parts(
+                    parts_dir, n_pert, ncfg.seed, tag, self.device)
+        # the k is in progress from here on, so that a part saved before the
+        # first batch's flag replays too
+        self.checkpoint.save(FLAG_RUNNING, done, k, ncfg.seed)
+        for done in range(done, n_pert, batch):
+            idx = range(done, min(done + batch, n_pert))
             A_ens = sampler.sample_ensemble(A.data if sparse_A else A,
                                             ncfg.seed, cfg.noise_var, idx,
-                                            cfg.sampling, ncfg.a_dtype)
+                                            cfg.sampling, ncfg.a_dtype,
+                                            tile_grid=cfg.seed_grid)
             with timing.timed("ensemble_init"):
                 W0, H0 = self._init_members(ncfg, A_ens, idx, A.shape,
-                                            A.device)
+                                            A.device, cfg.seed_grid)
             if sparse_A:
                 A_ens = self._members(A, A_ens)
             W, H, errs = nmf_mod.solve(A_ens, W0, H0, ncfg.eps, ncfg)
@@ -249,13 +329,20 @@ class NMFk:
             W_parts.append(W)
             H_parts.append(H)
             err_parts.append(errs)
+            if cfg.checkpoint:
+                _save_ensemble_part(parts_dir, idx.start, W, H, errs,
+                                    ncfg.seed, tag)
             self.checkpoint.save(FLAG_RUNNING, idx.stop, k, ncfg.seed)
-        return torch.cat(W_parts), torch.cat(H_parts), torch.cat(err_parts)
+        # replayed parts overshoot where `perturbations` shrank between
+        # runs (nmfk.py:1004-1007)
+        return (torch.cat(W_parts)[:n_pert], torch.cat(H_parts)[:n_pert],
+                torch.cat(err_parts)[:n_pert])
 
     @staticmethod
-    def _init_members(ncfg, A_ens, idx, shape, device):
+    def _init_members(ncfg, A_ens, idx, shape, device, seed_grid=None):
         """Init factors of the members ``idx`` of shape (m, n)
-        (``nmfk.py::_draw_init_factors``): per-member U[0, 1) draws, or
+        (``nmfk.py::_draw_init_factors``): per-member U[0, 1) draws (under
+        ``seed_grid`` p-fold tiled, ``sampler.init_ensemble_rand``), or
         the NNDSVD of each member's own dense perturbed copy in A_ens, all
         in one batched solve (``models/svd.py::nnsvd_factors``)."""
         if ncfg.init == "nnsvd":
@@ -263,7 +350,8 @@ class NMFk:
             return (W0.to(ncfg.dtype).contiguous(),
                     H0.to(ncfg.dtype).contiguous())
         return sampler.init_ensemble_rand(ncfg.seed, idx, *shape, ncfg.k,
-                                          ncfg.dtype, device)
+                                          ncfg.dtype, device,
+                                          tile_grid=seed_grid)
 
     def pynmfk_per_k(self, A, k, ensemble=None):
         """One k: ensemble -> clustering -> regression -> stats (reference
@@ -324,6 +412,10 @@ class NMFk:
         writer.save_cluster_results(stats, config=run_cfg)
         self.per_k_stats[k] = stats
         self.checkpoint.save(FLAG_SAVED, cfg.perturbations, k, seed)
+        # this k's results are on disk: its resume parts have served
+        # (nmfk.py:1316)
+        shutil.rmtree(os.path.join(k_path, "ensemble_parts"),
+                      ignore_errors=True)
         return stats
 
     def pvalue_analysis(self) -> int:

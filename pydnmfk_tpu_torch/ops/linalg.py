@@ -231,6 +231,27 @@ def error_chunk_rows(m: int, n: int, budget_elems: int = 1 << 27) -> int:
     return max(8, (budget_elems // max(n, 1)) // 8 * 8)
 
 
+def kl_divergence(A: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
+                  eps: float, chunk: int = 0) -> torch.Tensor:
+    """Generalized KL divergence D(A || WH) = sum(A log(A / WH) - A + WH)
+    of a dense A (``pydnmfk_tpu/ops/linalg.py:236-242``), summed at the
+    accumulation dtype; one value per member for a stack. ``chunk`` > 0
+    takes rows in slabs of that many, so that W H never exists whole."""
+    if A.dim() == 3:
+        return torch.stack([kl_divergence(a, w, h, eps, chunk)
+                            for a, w, h in zip(A, W, H)])
+    acc = acc_dtype(W.dtype if not A.dtype.is_floating_point else A.dtype)
+    m = A.shape[0]
+    step = m if not chunk or chunk >= m else chunk
+    total = torch.zeros((), dtype=acc, device=A.device)
+    for r0 in range(0, m, step):
+        wh = matmul(W[r0:r0 + step], H).to(acc) + eps
+        a = A[r0:r0 + step].to(acc)
+        total += (torch.where(a > 0, a * torch.log((a + eps) / wh), 0.0)
+                  - a + wh).sum()
+    return total
+
+
 def quantize_uint8(A: torch.Tensor):
     """Global-scale uint8 quantization of a nonnegative A
     (``pydnmfk_tpu/ops/linalg.py:245-284``): Q = clip(round(A / s), 0, 255)

@@ -35,11 +35,10 @@ class Runner:
                  k_sweep_merge=None):
         if process not in ("pyDNMF", "pyDNMFk"):
             raise ValueError("process should be either pyDNMFk or pyDNMF")
-        # the JAX Runner's knobs (pydnmfk_tpu/runner.py:22-31), taken at the
-        # values the port runs the same as
+        # the JAX Runner's knobs (pydnmfk_tpu/runner.py:22-31) that the
+        # port has no counterpart for, taken at the values it runs the same
+        # as
         check_jax_only(
-            seed_grid=seed_grid,
-            solve_checkpoint_every=solve_checkpoint_every,
             matmul_precision=matmul_precision,
             sparse_grid_format=sparse_grid_format,
             k_sweep_batch=k_sweep_batch, k_sweep_merge=k_sweep_merge)
@@ -65,6 +64,8 @@ class Runner:
         self.bcd_obj = bcd_obj
         self.hbm_budget = hbm_budget
         self.kl_chunk = kl_chunk
+        self.seed_grid = seed_grid      # reference-MPI seeding (config.py)
+        self.solve_checkpoint_every = solve_checkpoint_every
         self.device = torch.device(device)
         timing.enable(timing_stats)
 
@@ -83,9 +84,11 @@ class Runner:
             verbose=self.verbose, results_path=results_path,
             a_precision=self.a_precision, seed=self.seed, tol=self.tol,
             save_factors=self.save_factors, prune=self.prune,
-            bcd_obj=self.bcd_obj, kl_chunk=self.kl_chunk)
+            bcd_obj=self.bcd_obj, kl_chunk=self.kl_chunk,
+            solve_checkpoint_every=self.solve_checkpoint_every)
         with timing.timed("read"):
-            A = DataReader(fpath, fname, ftype, precision=self.precision).read()
+            A = DataReader(fpath, fname, ftype, precision=self.precision,
+                           pgrid=grid).read()
 
         results = {}
         if self.process == "pyDNMFk":
@@ -96,7 +99,7 @@ class Runner:
                 sill_thr=self.sill_thr, checkpoint=self.checkpoint,
                 results_path=results_path, fname=fname,
                 ensemble_batch=self.ensemble_batch,
-                hbm_budget=self.hbm_budget)
+                hbm_budget=self.hbm_budget, seed_grid=self.seed_grid)
             results["nopt"] = NMFk(cfg, self.device).fit(A)
         else:
             W, H, err = NMF(nmf_cfg, self.device).fit(A)
@@ -104,5 +107,12 @@ class Runner:
 
         if self.timing_stats:
             os.makedirs(results_path, exist_ok=True)
-            timing.save_csv(os.path.join(results_path, "Timing_stats.csv"))
+            stats_path = os.path.join(results_path, "Timing_stats.csv")
+            timing.save_csv(stats_path)
+            try:
+                from .utils.plotting import plot_timing_stats
+                plot_timing_stats(stats_path, results_path)
+            except Exception as e:       # best-effort, but never silent
+                import warnings          # (runner.py:108-117)
+                warnings.warn(f"timing plot failed: {e!r}")
         return results

@@ -1,9 +1,17 @@
-"""Per-k checkpoint flags and resume for the NMFk sweep.
+"""Checkpoints: per-k flags of the NMFk sweep, and mid-solve factors.
 
-Port of the flag file and ``resume_k`` of ``pydnmfk_tpu/utils/checkpoint.py``
-(reference utils.Checkpoint, pyDNMFk/utils.py:486-536, resumed in
-pyDNMFk.py:188-196): the sweep records (flag, perturbation, k, seed) as JSON
-after each stage, and a restart skips every k whose results were saved.
+Port of ``pydnmfk_tpu/utils/checkpoint.py`` on one device:
+
+* the flag file and ``resume_k`` (reference utils.Checkpoint,
+  pyDNMFk/utils.py:486-536, resumed in pyDNMFk.py:188-196): the sweep
+  records (flag, perturbation, k, seed) as JSON after each stage, and a
+  restart skips every k whose results were saved;
+* :func:`solve_checkpointer`, the factors of a solve in progress
+  (``_NpzSolveCheckpoint``, :99-132): one ``torch.save`` file a k, written
+  beside and moved into place, with the factors at their own dtype (bf16
+  and f16 too) and a tag of the configuration. A torn file or another tag
+  restarts the solve from iteration 0: the checkpoint saves time and is
+  never needed for a correct result.
 """
 from __future__ import annotations
 
@@ -11,6 +19,8 @@ import dataclasses
 import json
 import os
 from typing import Optional
+
+import torch
 
 # pipeline-stage flags (reference pyDNMFk.py:165)
 FLAG_RUNNING = 0        # inside the perturbation loop
@@ -64,3 +74,43 @@ class Checkpoint:
         if st.flag >= FLAG_SAVED:
             return st.k + step_k
         return st.k
+
+
+def solve_checkpointer(results_path: str, k: int, tag: str):
+    """The saver of one solve's factors (``utils/checkpoint.py:93-96``,
+    single device)."""
+    return SolveCheckpoint(results_path, k, tag)
+
+
+class SolveCheckpoint:
+    """``results_path/solve_ckpt_k{k}``: W, H, the iterations done and the
+    tag, in one ``torch.save`` file."""
+
+    def __init__(self, results_path: str, k: int, tag: str):
+        self.path = os.path.join(results_path, f"solve_ckpt_k{k}")
+        self.tag = tag
+
+    def load(self, W, H):
+        """(W, H, iterations done) from the file on W's device, or the
+        given (W, H, 0) where there is no file, a torn one or another
+        tag."""
+        try:
+            d = torch.load(self.path, map_location=W.device,
+                           weights_only=True)
+            if d["tag"] == self.tag:
+                return d["W"].contiguous(), d["H"].contiguous(), int(d["i"])
+        except Exception:
+            pass                      # no file or a torn one: from 0
+        return W, H, 0
+
+    def save(self, W, H, i: int):
+        tmp = self.path + ".tmp"
+        torch.save({"W": W.detach().cpu(), "H": H.detach().cpu(), "i": i,
+                    "tag": self.tag}, tmp)
+        os.replace(tmp, self.path)
+
+    def cleanup(self):
+        try:
+            os.remove(self.path)
+        except OSError:
+            pass

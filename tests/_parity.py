@@ -23,6 +23,20 @@ def x64():
 
 
 @pytest.fixture
+def one_thread():
+    """torch on one CPU thread for the test, the caller's count back after:
+    the small matrices of the resume, seed-grid and k-predictor tests gain
+    nothing from more, and under pytest-xdist every worker's threads
+    contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+@pytest.fixture
 def interpret_pallas(monkeypatch):
     """Run the JAX package's Pallas kernels in interpret mode on the CPU, as
     tests/test_fused_mu.py does."""

@@ -703,3 +703,106 @@ def test_k4_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     out = ell_gather.ell_gather_product(E.rvals.double(), E.rcols,
                                         W[..., :8].double().contiguous())
     assert out.dtype == torch.float64 and ell_gather.launches == before
+
+
+@pytest.mark.parametrize("norm, kw, want, tol", [
+    ("fro", {}, {"fused_mu_fro": 1}, 1e-5),
+    ("fro", {"a_precision": "uint8"}, {"fused_mu_fro_u8": 1}, 1e-5),
+    ("kl", {}, {"kl_uht": 1, "kl_wtu": 1}, 1e-5),
+    ("kl", {"a_precision": "bfloat16", "use_fused": True},
+     {"fused_mu_kl_bf16": 1}, 5e-4)])
+def test_checkpointed_fit_on_the_card_resumes(cuda, tmp_path, monkeypatch,
+                                              norm, kw, want, tol):
+    """NMF.fit with solve_checkpoint_every=10 over 40 iterations launches its
+    kernel once an iteration (40), ends within ``tol`` of the unchunked
+    solve's error, and after a failure right after its second save resumes
+    with exactly 20 launches, within ``tol`` again, and removes its
+    checkpoint. The runs differ only where K1 and K3 add W'^T A in atomic
+    order: 1e-5, but K3 on a bf16 A rounds W' and its ratios to bf16
+    operands, so that such a difference can flip a rounding: on this
+    400 x 330 matrix a resumed K3 solve ended 7.5e-5 from the unchunked
+    one (H100)."""
+    import numpy as np
+    from pydnmfk_tpu_torch import NMF, NMFConfig
+    from pydnmfk_tpu_torch.utils import checkpoint
+    from pydnmfk_tpu_torch.utils.data_generator import generate_data
+    _, _, X = generate_data(m=400, n=330, k=5)
+    X = X.astype(np.float32)
+    counters = (fused_mu.launches, kl.launches, fused_kl.launches,
+                ell_gather.launches)
+
+    def fit(cfg):
+        before = [dict(c) for c in counters]
+        _, _, err = NMF(cfg, cuda).fit(X)
+        ran = {key: c[key] - b[key] for c, b in zip(counters, before)
+               for key in c}
+        return err, {key: n for key, n in ran.items() if n}
+
+    cfg = NMFConfig(k=8, norm=norm, itr=40, results_path=str(tmp_path), **kw)
+    err0, ran = fit(cfg)
+    assert ran == {key: 40 * n for key, n in want.items()}
+    cfg = cfg.replace(solve_checkpoint_every=10)
+    err1, ran = fit(cfg)
+    assert ran == {key: 40 * n for key, n in want.items()}
+    assert abs(err1 / err0 - 1) <= tol
+    real = checkpoint.SolveCheckpoint.save
+    saves = []
+
+    def failing(self, W, H, i):
+        real(self, W, H, i)
+        saves.append(i)
+        if len(saves) == 2:
+            raise RuntimeError("simulated preemption")
+
+    monkeypatch.setattr(checkpoint.SolveCheckpoint, "save", failing)
+    with pytest.raises(RuntimeError, match="preemption"):
+        fit(cfg)
+    monkeypatch.undo()
+    assert (tmp_path / "solve_ckpt_k8").exists()
+    err2, ran = fit(cfg)
+    assert ran == {key: 20 * n for key, n in want.items()}
+    assert abs(err2 / err0 - 1) <= tol
+    assert not (tmp_path / "solve_ckpt_k8").exists()
+
+
+def test_resumed_sweep_on_the_card_solves_only_the_missing_members(
+        cuda, tmp_path, monkeypatch):
+    """An FRO-MU NMFk sweep at k = 2..4, 6 members in batches of 3, failed
+    right after k = 3's first part and run again: K1 launches for k = 3's
+    second batch and k = 4's two (3 x 50 iterations), none in the refits,
+    and each k's errors within 1e-4 of an unbroken sweep's."""
+    import numpy as np
+    from pydnmfk_tpu_torch import NMFConfig, NMFk, NMFkConfig
+    from pydnmfk_tpu_torch.models import nmfk
+    from pydnmfk_tpu_torch.utils.data_generator import generate_data
+    from pydnmfk_tpu_torch.utils.io import read_cluster_results
+    _, _, X = generate_data(m=400, n=330, k=3)
+    X = X.astype(np.float32)
+
+    def cfg(path):
+        return NMFkConfig(nmf=NMFConfig(norm="fro", itr=50), start_k=2,
+                          end_k=4, perturbations=6, ensemble_batch=3,
+                          results_path=str(path) + "/", fname="X",
+                          checkpoint=True)
+
+    NMFk(cfg(tmp_path / "gold"), cuda).fit(X)
+    real = nmfk._save_ensemble_part
+
+    def failing(parts_dir, off, *a):
+        real(parts_dir, off, *a)
+        if off == 0 and parts_dir.endswith("/3/ensemble_parts"):
+            raise RuntimeError("simulated preemption")
+
+    monkeypatch.setattr(nmfk, "_save_ensemble_part", failing)
+    with pytest.raises(RuntimeError, match="preemption"):
+        NMFk(cfg(tmp_path / "run"), cuda).fit(X)
+    monkeypatch.undo()
+    before = dict(fused_mu.launches)
+    NMFk(cfg(tmp_path / "run"), cuda).fit(X)
+    assert fused_mu.launches["fused_mu_fro"] - before["fused_mu_fro"] == 150
+    for k in (2, 3, 4):
+        a, b = (read_cluster_results(str(tmp_path / d / "X" / str(k)))
+                for d in ("run", "gold"))
+        np.testing.assert_allclose(a["ErrTol"], b["ErrTol"], rtol=1e-4)
+        assert not (tmp_path / "run" / "X" / str(k) / "ensemble_parts"
+                    ).exists()

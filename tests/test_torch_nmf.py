@@ -124,7 +124,12 @@ def test_config_from_jax_rejects_unported():
             pydnmfk_tpu.NMFConfig(use_pallas=True)))
     with pytest.raises(port.NotPortedError, match="ROADMAP"):
         config_from_jax(dataclasses.asdict(pydnmfk_tpu.NMFkConfig(
-            seed_grid=(2, 2))))
+            k_sweep_batch=True)))
+    # seed_grid and solve_checkpoint_every are ported and carry across
+    cfg = config_from_jax(dataclasses.asdict(pydnmfk_tpu.NMFkConfig(
+        seed_grid=(2, 2), nmf=pydnmfk_tpu.NMFConfig(
+            solve_checkpoint_every=20))))
+    assert cfg.seed_grid == (2, 2) and cfg.nmf.solve_checkpoint_every == 20
     assert port.NMFConfig(precision="bfloat16").dtype == torch.bfloat16
     with pytest.raises(ValueError, match="bfloat8"):
         port.NMFConfig(precision="bfloat8")

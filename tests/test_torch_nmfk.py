@@ -175,8 +175,11 @@ def test_cli_single_factorization(tmp_path, capsys):
 def test_cli_rejects_unported_flags(tmp_path):
     base = ["--cpu", "--p_r=1", "--p_c=1", f"--fpath={tmp_path}/"]
     from pydnmfk_tpu_torch import cli
-    for flag in ("--solve_checkpoint_every=10", "--matmul_precision=bfloat16",
-                 "--ftype=folder", "--k_sweep_batch=true", "--seed_grid=2,2",
+    # --solve_checkpoint_every, --seed_grid and --ftype=folder at 1x1 are
+    # ported (tests/test_torch_solve_checkpoint.py, test_torch_seed_grid.py,
+    # test_torch_io_folder.py)
+    for flag in ("--matmul_precision=bfloat16", "--k_sweep_batch=true",
+                 "--k_sweep_merge=true", "--sparse_grid_format=ell",
                  "--multihost=true"):
         with pytest.raises(port.NotPortedError, match="ROADMAP"):
             cli.main(base + [flag])

@@ -2,8 +2,9 @@
 package's Runner and configs: at the values the port runs the same as they
 pass, and at any other value they raise NotPortedError naming the ROADMAP
 item that ports it (the check list of ``pydnmfk_tpu_torch/config.py``, which
-the CLI shares). ``prune``, ``bcd_obj``, the half precisions, ``hbm_budget``
-and ``kl_chunk`` are ported and run."""
+the CLI shares). ``prune``, ``bcd_obj``, the half precisions, ``hbm_budget``,
+``kl_chunk``, ``seed_grid`` and ``solve_checkpoint_every`` are ported and
+run."""
 import dataclasses
 import inspect
 
@@ -39,8 +40,11 @@ def _jax_cfg(**kw):
     # former refusal cases)
     pytest.param(lambda p: _run(p, prune=True), None,
                  id="<lambda>-queue 1 item 8"),
-    (lambda p: _run(p, seed_grid=(2, 2)), "queue 1 item 6"),
-    (lambda p: _run(p, solve_checkpoint_every=10), "queue 1 item 13"),
+    # seed_grid and solve_checkpoint_every are ported: they run
+    pytest.param(lambda p: _run(p, seed_grid=(2, 2)), None,
+                 id="<lambda>-queue 1 item 6"),
+    pytest.param(lambda p: _run(p, solve_checkpoint_every=10), None,
+                 id="<lambda>-queue 1 item 13"),
     # matmul_precision went to "Not to port": the refusal names it
     pytest.param(lambda p: _run(p, matmul_precision="bfloat16"),
                  'true f32 (ROADMAP.md "Not to port")',
@@ -84,7 +88,7 @@ def test_every_refusal_names_its_item(key):
     """Each knob left in JAX_ONLY, at a value the port does not run, raises
     NotPortedError naming the ROADMAP entry of its table."""
     accepted, item = JAX_ONLY[key]
-    bad = {"grid": (2, 2), "seed_grid": (2, 2)}.get(key, "other")
+    bad = {"grid": (2, 2)}.get(key, "other")
     assert bad not in accepted
     with pytest.raises(NotPortedError) as exc:
         check_jax_only(**{key: bad})
