@@ -114,14 +114,35 @@ Run from the root of a checkout, with no arguments:
    ``predict_k`` on the sweep's results; ``seed_grid=(2, 2)`` members whose
    four blocks are bitwise equal; and whether the selection and timing
    plots were written (matplotlib may be absent);
-7. prints the card's name and power limit, one JSON line of kernels, and as
+7. the p_r x p_c grid (``parallel/mesh.py``), launch counters from zero in
+   every rank: on a planted exact rank-48 57600 x 38400 matrix, k = 32, 10
+   iterations, the 1x1 solves of FRO-MU, KL-MU, HALS, BCD (rand init) and
+   FRO-MU from nnsvd (each also at f64: what f32 itself moves the
+   factors), the FRO-MU and KL-MU solves on a one-rank NCCL group (the 1x1
+   grid through the distributed code path), then under ``python -m
+   torch.distributed.run`` four ranks sharing the card over gloo, each
+   building only its block, on a 2 x 2 and a 4 x 1 grid: every method's
+   error within 1e-4 of the 1x1 solve's, its gathered factors beside the
+   1x1 ones, W's and H's replicas bitwise equal, K2a and K2b exactly 10
+   each per rank in KL-MU and no other launch, one MU step's collectives,
+   seconds per rank and stage; the FRO-MU NMFk sweep of the planted 14400 x
+   9600 matrix through ``-m pydnmfk_tpu_torch --p_r=2 --p_c=2`` under
+   torchrun (nopt 4 printed once, factors in the 2 x 2 chunk layout,
+   per-k statistics beside a 1x1 sweep's) and the KL-MU one with exact K2
+   launches on every rank; K2a and K2b against their plain versions on the
+   grid's block shapes (one 28800 x 19200 block at k = 32, the 10-member
+   stack of 7200 x 4800 blocks at k = 7);
+8. prints the card's name and power limit, one JSON line of kernels, and as
    its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It also exits non-zero when there is no CUDA device or no package beside it.
+``--grid-fits DIR`` and ``--grid-cli DIR ARGS`` are the rank programs of
+phase 7, which it starts itself under torchrun.
 """
 from __future__ import annotations
 
+import csv
 import json
 import os
 import re
@@ -341,6 +362,173 @@ def profile_step(norm, E, W, H, eps):
     # a device time above the wall time is a count taken twice
     check(dev_ms <= 1.1 * wall_ms, f"profile {norm}: device {dev_ms:.3f} ms "
                                    f"above wall {wall_ms:.3f} ms")
+
+
+# -- phase 7: the p_r x p_c grid, four ranks sharing the card over gloo ----
+GRID_SHAPES = ((2, 2), (4, 1))
+GRID_RANKS = 4
+GRID_PLANTED_RANK = 48       # rank of the grid phase's exact planted A
+GRID_SEED = 11
+GRID_METHODS = {"FRO-MU": dict(norm="fro"), "KL-MU": dict(norm="kl"),
+                "HALS": dict(norm="fro", method="hals"),
+                "BCD": dict(norm="fro", method="bcd"),
+                "FRO-MU nnsvd": dict(norm="fro", init="nnsvd")}
+GRID_ERR_TOL = 1e-4          # grid error vs the 1x1 solve's, relative
+# gathered factors vs the 1x1 solve's, max |difference| / max |1x1|: f32
+# sums in another order (K1's atomics at 1x1) over 10 iterations, or twice
+# what f32 itself moves the 1x1 factors (against the 1x1 solve at f64 from
+# the same init) where that is more: HALS's Gauss-Seidel chain and the
+# randomized SVD of nnsvd magnify a rounding difference in the factors far
+# more than in the error (tests/test_torch_grid_nmf.py holds every method
+# to 1e-9 at f64)
+GRID_FACTOR_TOL = 1e-3
+
+
+def planted_exact(dev, rows=slice(None), cols=slice(None)):
+    """The grid phase's M x N matrix, or its rows x cols block: the product
+    of two matrices of integers 0..4 drawn from GRID_SEED, of rank
+    GRID_PLANTED_RANK, whose entries (at most 768) are exact in f32 in any
+    order of the sums, so that a rank's block is bitwise the whole
+    matrix's."""
+    g = torch.Generator(dev)
+    g.manual_seed(GRID_SEED)
+    Wp = torch.randint(0, 5, (M, GRID_PLANTED_RANK), generator=g,
+                       device=dev).float()
+    Hp = torch.randint(0, 5, (GRID_PLANTED_RANK, N), generator=g,
+                       device=dev).float()
+    return (Wp[rows] @ Hp[:, cols]).contiguous()
+
+
+def _digest(t):
+    import hashlib
+    return hashlib.sha1(t.detach().cpu().contiguous().numpy()
+                        .tobytes()).hexdigest()
+
+
+def _rank_counters():
+    from pydnmfk_tpu_torch.ops import fused_kl, fused_mu, kl
+    return (fused_mu.launches, kl.launches, fused_kl.launches)
+
+
+def grid_fits(outdir):
+    """One rank of phase 7's fits (run under torchrun, GRID_RANKS
+    processes): on each grid of GRID_SHAPES, every method of GRID_METHODS
+    for ITR iterations at M x N, k = K, on this rank's block of
+    planted_exact, from the 1x1 solve's init (rand, seeded GRID_SEED, or
+    nnsvd); then one FRO-MU and one KL-MU step's collectives. Writes
+    ``outdir/rank{r}.json`` (errors, seconds, stages, launches, collectives,
+    digests of this rank's W and H blocks) and, on rank 0, the gathered
+    factors."""
+    sys.path.insert(0, ROOT)
+    import functools
+    from pydnmfk_tpu_torch import NMF, NMFConfig
+    from pydnmfk_tpu_torch.models import updates
+    from pydnmfk_tpu_torch.parallel import mesh
+    from pydnmfk_tpu_torch.utils import timing
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = _rank_counters()
+    report = {}
+    timing.enable(True)
+    for grid in GRID_SHAPES:
+        ctx = mesh.initialize(*grid, "cuda")
+        dev = ctx.device
+        (r0, r1), (c0, c1) = ctx.rows(M), ctx.cols(N)
+        A = planted_exact(dev, slice(r0, r1), slice(c0, c1))
+        tag = f"{grid[0]}x{grid[1]}"
+        for name, kw in GRID_METHODS.items():
+            for c in counters:
+                for key in c:
+                    c[key] = 0
+            timing.reset()
+            before = {kind: list(v) for kind, v in ctx.stats.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model = NMF(NMFConfig(k=K, itr=ITR, seed=GRID_SEED, **kw),
+                        grid=ctx)
+            W, H, err = model.fit(A)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            report[f"{tag} {name}"] = dict(
+                err=err, secs=secs,
+                stages={s: round(v, 4) for s, v in timing.TIMINGS.items()},
+                launches={k: v for c in counters for k, v in c.items() if v},
+                collectives={kind: [n - before.get(kind, (0, 0))[0],
+                                    b - before.get(kind, (0, 0))[1]]
+                             for kind, (n, b) in ctx.stats.items()},
+                w_digest=_digest(model._W), h_digest=_digest(model._H))
+            if ctx.is_proc0:
+                torch.save({"W": W.cpu(), "H": H.cpu()},
+                           os.path.join(outdir, f"{tag} {name}.pt"))
+            del model, W, H
+        g = torch.Generator(dev)
+        g.manual_seed(GRID_SEED + ctx.rank)
+        Wb = torch.rand((r1 - r0, K), generator=g, device=dev)
+        Hb = torch.rand((K, c1 - c0), generator=g, device=dev)
+        eps = float(torch.finfo(torch.float32).eps)
+        for norm, step in (("fro", updates.mu_fro_step),
+                           ("kl", updates.mu_kl_step)):
+            timing.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = timing.collective_stats(functools.partial(step, grid=ctx),
+                                         A, Wb, Hb, eps, grid=ctx)
+            torch.cuda.synchronize()
+            st["ms"] = (time.perf_counter() - t0) * 1e3
+            st["dist_comm_ms"] = timing.TIMINGS.get("dist_comm", 0.0) * 1e3
+            report[f"{tag} step {norm}"] = st
+        del A, Wb, Hb
+        torch.cuda.empty_cache()
+    report.update(backend=ctx.backend, device=str(ctx.device),
+                  coords={f"{g[0]}x{g[1]}": divmod(ctx.rank, g[1])
+                          for g in GRID_SHAPES})
+    with open(os.path.join(outdir, f"rank{ctx.rank}.json"), "w") as f:
+        json.dump(report, f)
+    torch.distributed.destroy_process_group()
+
+
+def grid_cli(outdir, argv):
+    """One rank of a CLI run under torchrun (``python3 chip_smoke.py
+    --grid-cli OUTDIR ARGS``): ``cli.main(ARGS)`` with the launch counters
+    from zero, then this rank's launches in ``outdir/cli_rank{r}.json``."""
+    sys.path.insert(0, ROOT)
+    from pydnmfk_tpu_torch import cli
+    rank = int(os.environ["RANK"])
+    counters = _rank_counters()
+    for c in counters:
+        for key in c:
+            c[key] = 0
+    t0 = time.perf_counter()
+    out = cli.main(argv)
+    with open(os.path.join(outdir, f"cli_rank{rank}.json"), "w") as f:
+        json.dump({"launches": {k: v for c in counters
+                                for k, v in c.items() if v},
+                   "secs": time.perf_counter() - t0,
+                   "nopt": out.get("nopt")}, f)
+
+
+def torchrun(args, timeout):
+    """``python -m torch.distributed.run --standalone --nproc_per_node=4
+    ARGS`` from the checkout, in a session of its own that is killed whole
+    if it outlives ``timeout`` s; fails unless it exits 0. Returns (stdout,
+    seconds)."""
+    import signal
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={GRID_RANKS}", *args]
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        check(False, f"torchrun {' '.join(args[:3])} outlived {timeout} s")
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0, f"torchrun {' '.join(args[:3])} exited "
+                                f"{proc.returncode}: {err[-4000:]}")
+    return out, secs
 
 
 def main():
@@ -1822,8 +2010,8 @@ def main():
         real_read = io_mod.DataReader.read
         read = []
 
-        def keep(self):
-            out = real_read(self)
+        def keep(self, grid=None):
+            out = real_read(self, grid)
             read.append(out)
             return out
 
@@ -1962,6 +2150,232 @@ def main():
     print(f"[plots] selection plot written: {selection}; timing plot "
           f"written: {timing_plot}", flush=True)
 
+    # -- 7. the p_r x p_c grid: four ranks sharing the card over gloo ---
+    import socket
+    import torch.distributed as dist
+    from pydnmfk_tpu_torch.parallel import mesh
+    from pydnmfk_tpu_torch.utils import io as io_mod
+    torch.cuda.empty_cache()
+    # the 1x1 solves of every grid method from the grid's init, then the
+    # same two MU solves on a one-rank NCCL group: the 1x1 grid through the
+    # distributed code path
+    A = planted_exact(dev)
+    ref = {}
+    rel_max = lambda X, Y: float((X.double() - Y.double()).abs().max()
+                                 / Y.double().abs().max())
+    for name, kw in GRID_METHODS.items():
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        W1, H1, err1 = NMF(NMFConfig(k=K, itr=ITR, seed=GRID_SEED, **kw),
+                           dev).fit(A)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        ran = {key: n for key, n in read_counts().items() if n}
+        W64, H64, err64 = NMF(NMFConfig(k=K, itr=ITR, seed=GRID_SEED,
+                                        precision="float64", **kw),
+                              dev).fit(A)
+        spread = max(rel_max(W1, W64), rel_max(H1, H64))
+        ref[name] = (err1, W1.cpu(), H1.cpu(), secs, ran,
+                     max(GRID_FACTOR_TOL, 2 * spread))
+        del W1, H1, W64, H64
+        torch.cuda.empty_cache()
+        print(f"[grid] 1x1 {name} at {M}x{N} k={K} ({ITR} iterations, "
+              f"planted rank {GRID_PLANTED_RANK}): error {err1:.6f}, "
+              f"{secs:.3f} s, launches {ran}; at f64 error {err64:.6f}, "
+              f"factors {spread:.2e} from f32's", flush=True)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    one = mesh.initialize(1, 1, "cuda", init_method=f"tcp://localhost:{port}",
+                          rank=0, world_size=1, timeout=600)
+    check(one.backend == "nccl", f"one rank took {one.backend}, not NCCL")
+    for name, want in (("FRO-MU", {"fused_mu_fro": ITR}),
+                       ("KL-MU", {"kl_uht": ITR, "kl_wtu": ITR})):
+        zero_counts()
+        before = {kind: list(v) for kind, v in one.stats.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, err = NMF(NMFConfig(k=K, itr=ITR, seed=GRID_SEED,
+                                  **GRID_METHODS[name]), grid=one).fit(A)
+        secs = time.perf_counter() - t0
+        ran = {key: n for key, n in read_counts().items() if n}
+        issued = {kind: n - before.get(kind, (0, 0))[0]
+                  for kind, (n, _) in one.stats.items()}
+        rel = abs(err / ref[name][0] - 1)
+        print(f"[grid] 1x1 grid, one NCCL rank, {name}: error {err:.6f} "
+              f"(1x1 without a grid {ref[name][0]:.6f}, relative difference "
+              f"{rel:.2e}, limit {GRID_ERR_TOL:g}), {secs:.3f} s, launches "
+              f"{ran}, collectives {issued}", flush=True)
+        check(rel <= GRID_ERR_TOL and ran == want,
+              f"one-rank NCCL {name}: error {err}, launches {ran}")
+    dist.destroy_process_group()
+    del A
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _, secs = torchrun([os.path.abspath(__file__), "--grid-fits", tmp],
+                           600)
+        ranks = []
+        for r in range(GRID_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        print(f"[grid] {GRID_RANKS} ranks on one card ({smi}), backend "
+              f"{ranks[0]['backend']} (ranks share the card, so collectives "
+              f"stage through the host: gloo times, not NCCL's), "
+              f"{secs:.1f} s for the torchrun of all fits", flush=True)
+        check(all(r["backend"] == "gloo" for r in ranks), "grid backend")
+        for grid in GRID_SHAPES:
+            tag = f"{grid[0]}x{grid[1]}"
+            for name in GRID_METHODS:
+                runs = [r[f"{tag} {name}"] for r in ranks]
+                err1, W1, H1 = ref[name][:3]
+                ftol = ref[name][5]
+                errs = {run["err"] for run in runs}
+                got = torch.load(os.path.join(tmp, f"{tag} {name}.pt"))
+                d_w, d_h = rel_max(got["W"], W1), rel_max(got["H"], H1)
+                rel = abs(runs[0]["err"] / err1 - 1)
+                rows_ok = all(a["w_digest"] == b["w_digest"]
+                              for ra, a in zip(ranks, runs)
+                              for rb, b in zip(ranks, runs)
+                              if ra["coords"][tag][0] == rb["coords"][tag][0])
+                cols_ok = all(a["h_digest"] == b["h_digest"]
+                              for ra, a in zip(ranks, runs)
+                              for rb, b in zip(ranks, runs)
+                              if ra["coords"][tag][1] == rb["coords"][tag][1])
+                want = ({"kl_uht": ITR, "kl_wtu": ITR} if name == "KL-MU"
+                        else {})
+                print(f"[grid] {tag} {name}: error {runs[0]['err']:.6f} (1x1 "
+                      f"{err1:.6f}, relative difference {rel:.2e}, limit "
+                      f"{GRID_ERR_TOL:g}); gathered W, H vs 1x1 {d_w:.2e}, "
+                      f"{d_h:.2e} (limit {ftol:.2e}); replicas "
+                      f"bitwise equal: W {rows_ok}, H {cols_ok}; seconds "
+                      f"per rank {[round(run['secs'], 3) for run in runs]} "
+                      f"(1x1 {ref[name][3]:.3f}); rank 0 stages "
+                      f"{runs[0]['stages']}; collectives (calls, bytes) "
+                      f"{runs[0]['collectives']}; launches per rank "
+                      f"{[run['launches'] for run in runs]}", flush=True)
+                check(len(errs) == 1, f"{tag} {name}: ranks' errors {errs}")
+                check(rel <= GRID_ERR_TOL and d_w <= ftol and d_h <= ftol,
+                      f"{tag} {name} is not the 1x1 solve")
+                check(rows_ok and cols_ok, f"{tag} {name}: replicas differ")
+                check(all(run["launches"] == want for run in runs),
+                      f"{tag} {name} launched "
+                      f"{[run['launches'] for run in runs]}, not {want}")
+                for run in runs:
+                    for key, n in run["launches"].items():
+                        main_path[key] += n
+            for norm in ("fro", "kl"):
+                steps = [r[f"{tag} step {norm}"] for r in ranks]
+                print(f"[grid] {tag} one {norm.upper()}-MU step: collectives "
+                      f"{steps[0]['counts']}, bytes per rank "
+                      f"{[st['bytes'] for st in steps]}, ms per rank "
+                      f"{[round(st['ms'], 2) for st in steps]}, of it in "
+                      f"collectives {[round(st['dist_comm_ms'], 2) for st in steps]}",
+                      flush=True)
+                check(all(st["counts"] == {"all-reduce": 4} for st in steps),
+                      f"{tag} {norm} step collectives {steps[0]['counts']}")
+
+    # the NMFk sweep through the CLI under torchrun on a 2 x 2 grid, beside
+    # the 1x1 sweep on the same members
+    _, _, X = generate_data(**PLANTED)
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(os.path.join(tmp, "X.npy"), X.astype(np.float32))
+        del X
+        base = ["--process=pyDNMFk", "--ftype=npy", f"--fpath={tmp}/",
+                "--fname=X", *SWEEP]
+        zero_counts()
+        t0 = time.perf_counter()
+        one_out = cli.main(["--p_r=1", "--p_c=1", "--norm=fro",
+                            f"--results_path={tmp}/one/", *base])
+        one_s = time.perf_counter() - t0
+        read_counts()
+        out, secs = torchrun(["-m", "pydnmfk_tpu_torch", "--p_r=2",
+                              "--p_c=2", "--norm=fro", "--timing_stats=true",
+                              f"--results_path={tmp}/grid/", *base], 900)
+        lines = [ln for ln in out.splitlines() if "Rank estimated" in ln]
+        with open(os.path.join(tmp, "grid", "Timing_stats.csv")) as f:
+            names, values = list(csv.reader(f))
+        stages = {n: round(float(v), 3) for n, v in zip(names, values)}
+        worst = {"ErrTol": 0.0, "avgErr": 0.0, "L_err": 0.0, "sils": 0.0}
+        for k in range(2, 8):
+            a = read_cluster_results(os.path.join(tmp, "grid", "X", str(k)))
+            b = read_cluster_results(os.path.join(tmp, "one", "X", str(k)))
+            for key in ("ErrTol", "avgErr", "L_err"):
+                worst[key] = max(worst[key], float(np.max(
+                    np.abs(a[key] - b[key]) / np.abs(b[key]).max())))
+            worst["sils"] = max(worst["sils"], float(np.max(np.abs(
+                a["clusterSilhouetteCoefficients"]
+                - b["clusterSilhouetteCoefficients"]))))
+            Wg, Hg = io_mod.read_factors(os.path.join(tmp, "grid", "X",
+                                                      str(k)), (2, 2))
+            files = sorted(os.listdir(os.path.join(tmp, "grid", "X", str(k),
+                                                   "W_reg_factors")))
+            check(Wg.shape == (PLANTED["m"], k) and Hg.shape == (
+                k, PLANTED["n"]) and files == [f"W_{b}.npy"
+                                               for b in range(4)],
+                  f"grid sweep k={k} factor files {files}")
+        print(f"[grid] NMFk FRO-MU sweep through the CLI under torchrun, 2x2 "
+              f"grid, {PLANTED['m']}x{PLANTED['n']} {' '.join(SWEEP)} "
+              f"({smi}): {lines}, {secs:.2f} s for the torchrun (1x1 "
+              f"{one_s:.2f} s, nopt {one_out['nopt']}); rank 0 stage seconds "
+              f"{stages}; per-k statistics against the 1x1 sweep's, max "
+              f"difference over max (silhouettes: absolute) {worst} "
+              f"(limits 1e-3, 1e-3, 1e-2, 1e-3)", flush=True)
+        check(lines == ["Rank estimated by NMFk = 4"],
+              f"grid sweep printed {lines}")
+        check(worst["ErrTol"] <= 1e-3 and worst["avgErr"] <= 1e-3
+              and worst["L_err"] <= 1e-2 and worst["sils"] <= 1e-3,
+              f"grid sweep's stats are not the 1x1 sweep's: {worst}")
+        # KL-MU: exact K2 launches on every rank, ensemble and refit
+        _, secs = torchrun([os.path.abspath(__file__), "--grid-cli", tmp,
+                            "--p_r=2", "--p_c=2", "--norm=kl",
+                            f"--results_path={tmp}/grid_kl/", *base], 900)
+        cli_ranks = []
+        for r in range(GRID_RANKS):
+            with open(os.path.join(tmp, f"cli_rank{r}.json")) as f:
+                cli_ranks.append(json.load(f))
+        per_k = 400 * (7 - 2 + 1)
+        want = {"kl_uht": per_k, "kl_wtu": 2 * per_k}
+        print(f"[grid] NMFk KL-MU sweep through the CLI under torchrun, 2x2 "
+              f"grid: nopt {[r['nopt'] for r in cli_ranks]}, {secs:.2f} s, "
+              f"launches per rank {[r['launches'] for r in cli_ranks]} "
+              f"(expected {want}: 400 K2a + K2b a k in the ensemble, one "
+              f"batch of 10, and 400 K2b a k in the refit)", flush=True)
+        check(all(r["nopt"] == 4 and r["launches"] == want
+                  for r in cli_ranks), "grid KL sweep")
+        for r in cli_ranks:
+            for key, n in r["launches"].items():
+                main_path[key] += n
+
+    # K2a and K2b on the grid's block shapes against their plain versions:
+    # a 2 x 2 block of the 57600 x 38400 matrix at k = 32, and the 2 x 2
+    # blocks of the 10-member 14400 x 9600 stack at k = 7
+    for label, shp in ((f"2x2 block {M // 2}x{N // 2} k={K}",
+                        (M // 2, N // 2, K)),
+                       (f"2x2 block {ENS} x {EM // 2}x{EN // 2} k=7",
+                        (ENS, EM // 2, EN // 2, 7))):
+        if len(shp) == 3:
+            a = planted_exact(dev, slice(0, M // 2), slice(0, N // 2))
+            Wb = torch.rand((shp[0], shp[2]), generator=gen, device=dev)
+            Hb = torch.rand((shp[2], shp[1]), generator=gen, device=dev)
+            B = 1
+        else:
+            B = shp[0]
+            a = torch.rand(shp[:3], generator=gen, device=dev)
+            Wb = torch.rand((B, shp[1], shp[3]), generator=gen, device=dev)
+            Hb = torch.rand((B, shp[3], shp[2]), generator=gen, device=dev)
+        work = 4 * B * a.shape[-2] * a.shape[-1] * Wb.shape[-1]
+        ch = linalg.error_chunk_rows(*a.shape[-2:])
+        kernel_case("K2a kl_uht", label, lambda: kl.kl_uht(a, Wb, Hb, eps),
+                    lambda: kl.kl_uht_plain(a, Wb, Hb, eps, ch),
+                    TOL[torch.float32], (work, nbytes(a, Wb, Hb, Wb)))
+        kernel_case("K2b kl_wtu", label, lambda: kl.kl_wtu(a, Wb, Hb, eps),
+                    lambda: kl.kl_wtu_plain(a, Wb, Hb, eps, ch),
+                    TOL[torch.float32], (work, nbytes(a, Wb, Hb, Hb)))
+        del a, Wb, Hb
+    torch.cuda.empty_cache()
+
     for name, n in main_path.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
     for name in ("kl_uht", "kl_wtu", "fused_mu_kl", "fused_mu_kl_bf16",
@@ -1969,7 +2383,7 @@ def main():
         check(main_path_wide[name] > 0, f"kernel {name} was not launched "
                                         f"past k = 32 on the main path")
 
-    # -- 7. report -------------------------------------------------------
+    # -- 8. report -------------------------------------------------------
     sources = {"K1 fused_mu_fro": ("fused_mu_fro.cu", "ops/fused_mu.py:50",
                                    ("fused_mu_fro", "fused_mu_fro_bf16",
                                     "fused_mu_fro_u8")),
@@ -2027,4 +2441,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--grid-fits"]:
+        grid_fits(sys.argv[2])
+    elif sys.argv[1:2] == ["--grid-cli"]:
+        grid_cli(sys.argv[2], sys.argv[3:])
+    else:
+        main()

@@ -3,17 +3,30 @@
 Port of ``pydnmfk_tpu/cli.py`` (reference main.py:13-88) with the same
 flags: ``python -m pydnmfk_tpu_torch --process=pyDNMFk --p_r=1 --p_c=1 ...``.
 It runs on the CUDA card, and raises if there is none; ``--cpu`` runs on the
-CPU instead. Flags of features not yet ported raise
-:class:`~pydnmfk_tpu_torch.config.NotPortedError` naming their ROADMAP item.
+CPU instead. A p_r x p_c grid runs one process per rank, as the reference
+runs under ``mpirun``:
+
+    python -m torch.distributed.run --standalone --nproc_per_node=4 \
+        -m pydnmfk_tpu_torch --p_r=2 --p_c=2 ...
+
+(``--nnodes`` and a rendezvous spread the group over nodes: ``--multihost``
+is then accepted and changes nothing). On a grid only rank 0 prints, and a
+rank that raises prints its traceback and ends its process with exit code
+1, which ends the others' collectives. Flags of features not yet ported
+raise :class:`~pydnmfk_tpu_torch.config.NotPortedError` naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
+import traceback
 
 import torch
+import torch.distributed as dist
 
-from .config import NotPortedError, check_jax_only
+from .config import check_jax_only
 
 
 def str2bool(v):
@@ -34,13 +47,14 @@ def build_parser():
     p.add_argument("--process", type=str, default="pyDNMF",
                    help="pyDNMF/pyDNMFk")
     # pyNMF block (reference main.py:13-31)
-    p.add_argument("--p_r", type=int, required=True, help="grid rows (1)")
-    p.add_argument("--p_c", type=int, required=True, help="grid cols (1)")
+    p.add_argument("--p_r", type=int, required=True,
+                   help="grid rows (one process per rank: torchrun)")
+    p.add_argument("--p_c", type=int, required=True, help="grid cols")
     p.add_argument("--k", type=int, default=4, help="feature count")
     p.add_argument("--fpath", type=str, default="data/")
     p.add_argument("--ftype", type=str, default="mat",
-                   help="mat/npy/csv/txt/npz/folder (folder: the chunk "
-                        "file {fname}0.npy at --p_r=1 --p_c=1)")
+                   help="mat/npy/csv/txt/npz/folder (folder: chunk files "
+                        "{fname}{rank}.npy of the p_r x p_c blocks)")
     p.add_argument("--fname", type=str, default="A_")
     p.add_argument("--init", type=str, default="rand", help="rand/nnsvd")
     p.add_argument("--itr", type=int, default=5000)
@@ -64,7 +78,9 @@ def build_parser():
     p.add_argument("--sampling", type=str, default="uniform",
                    help="uniform/poisson")
     # flags of the JAX package
-    p.add_argument("--multihost", type=str2bool, default=False)
+    p.add_argument("--multihost", type=str2bool, default=False,
+                   help="a grid over several nodes (torchrun --nnodes): "
+                        "the same process group")
     p.add_argument("--a_precision", type=str, default=None,
                    help="storage dtype for A only (bfloat16, float16, or "
                         "uint8: A quantized to round(A/s), s = max(A)/255, "
@@ -102,18 +118,6 @@ def build_parser():
     return p
 
 
-def _reject_not_ported(args):
-    checks = [
-        ((args.p_r, args.p_c) != (1, 1), f"--p_r={args.p_r} --p_c={args.p_c}",
-         "queue 1 item 15"),
-        (args.multihost, "--multihost", "queue 1 item 15"),
-    ]
-    for bad, what, item in checks:
-        if bad:
-            raise NotPortedError(what, item)
-    check_jax_only(**_jax_only_knobs(args))
-
-
 def _jax_only_knobs(args):
     """The JAX Runner's knobs among the flags that the port has no
     counterpart for (``config.py::JAX_ONLY``), as Runner takes them."""
@@ -125,7 +129,23 @@ def _jax_only_knobs(args):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    _reject_not_ported(args)
+    check_jax_only(**_jax_only_knobs(args))
+    if (args.p_r, args.p_c) == (1, 1):
+        return _run(args)
+    try:
+        return _run(args)
+    except BaseException:
+        if not dist.is_initialized():
+            raise
+        # one rank's failure must not leave the others waiting inside a
+        # collective: end this process, which ends theirs
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+
+
+def _run(args):
     if args.cpu:
         device = "cpu"
     elif torch.cuda.is_available():
@@ -156,10 +176,14 @@ def main(argv=None):
         grid=[args.p_r, args.p_c], fpath=args.fpath, ftype=args.ftype,
         fname=args.fname, results_path=args.results_path,
         k_range=[args.start_k, args.end_k], step_k=args.step_k, k=args.k)
-    if "nopt" in results:
-        print("Rank estimated by NMFk =", results["nopt"])
-    elif "err" in results:
-        print("relative error =", results["err"])
+    grid = (args.p_r, args.p_c) != (1, 1)
+    if not grid or dist.get_rank() == 0:
+        if "nopt" in results:
+            print("Rank estimated by NMFk =", results["nopt"])
+        elif "err" in results:
+            print("relative error =", results["err"])
+    if grid:
+        dist.destroy_process_group()
     return results
 
 

@@ -2,8 +2,8 @@
 
 The dataclasses of ``pydnmfk_tpu/config.py`` without the TPU knobs (the
 Pallas switch, matmul precision, the XLA compilation cache and the K-padded
-sweep) and without the features not yet ported (device meshes), which the
-entry points reject with :class:`NotPortedError`.
+sweep) and without the features not yet ported (a sparse A on a grid),
+which the entry points reject with :class:`NotPortedError`.
 """
 from __future__ import annotations
 
@@ -27,12 +27,16 @@ class NotPortedError(NotImplementedError):
         super().__init__(f"{what} {why} (ROADMAP.md {item})")
 
 
+# what a sparse A on a grid needs, still to port
+SPARSE_GRID = ("a sparse A on a grid (GridShardedSparse, GridEllSparse, "
+               "sparse_grid_format)")
+
+
 # Knobs of the JAX package's configs and Runner that the port has no
 # counterpart for: the values it runs the same as (the JAX defaults, or
 # settings that give the same results) and the ROADMAP item that ports the
 # rest. The CLI, Runner and utils/convert.py refuse any other value.
 JAX_ONLY = {
-    "grid": (((1, 1),), "queue 1 item 15"),
     "use_pallas": ((None, False), '"Not to port"'),
     # the port's products run in true f32, which "highest" asks for
     "matmul_precision": ((None, "highest", "float32"), '"Not to port"'),
@@ -75,6 +79,9 @@ class NMFConfig:
     """One NMF factorization (one k); mirror of ``pydnmfk_tpu.NMFConfig``."""
 
     k: int = 4
+    # (p_r, p_c): the process grid, one process per rank
+    # (parallel/mesh.py); NMF and NMFk join it where no GridContext is given
+    grid: tuple = (1, 1)
     init: str = "rand"                       # rand | nnsvd
     itr: int = 5000
     norm: str = "kl"                         # fro | kl
@@ -115,6 +122,9 @@ class NMFConfig:
     solve_checkpoint_every: int = 0
 
     def __post_init__(self):
+        object.__setattr__(self, "grid", tuple(int(p) for p in self.grid))
+        if len(self.grid) != 2 or min(self.grid) < 1:
+            raise ValueError(f"grid must be (p_r, p_c), got {self.grid!r}")
         if self.init not in ("rand", "nnsvd"):
             raise ValueError(f"unknown init {self.init!r}")
         if self.norm.lower() not in ("fro", "kl"):

@@ -22,6 +22,12 @@ Within one alignment iteration the centroids are fixed, so the p
 perturbations align independently: their similarity matrices come from one
 batched product and the greedy assignments run on the host, one transfer of
 p k x k values per iteration.
+
+On a p_r x p_c grid (``grid``) W_all holds this rank's row block of every
+member and H_all its column block; the ensemble is never gathered. Every
+sum over W's rows (the column norms, the similarity matrices, the
+silhouettes' Gram) is all-reduced over 'r' everywhere (``clustering.py:96``,
+``:140``), so that every rank computes the same assignments.
 """
 from __future__ import annotations
 
@@ -31,9 +37,14 @@ import torch
 from ..ops import linalg
 
 
-def normalize_by_w(W_all, H_all, eps):
+def _over_rows(x, grid):
+    """x, a sum over W's rows, summed over the grid's 'r' everywhere."""
+    return x if grid is None else grid.sum(x, "r", everywhere=True)
+
+
+def normalize_by_w(W_all, H_all, eps, grid=None):
     """L2-normalize each W column (sums in f32), rescale H rows."""
-    sumsq = W_all.to(torch.float32).square().sum(dim=1)          # (p, k)
+    sumsq = _over_rows(W_all.to(torch.float32).square().sum(dim=1), grid)
     temp = torch.sqrt(sumsq + float(np.float32(eps))).to(W_all.dtype)
     return W_all / temp[:, None, :], H_all * temp[:, :, None]
 
@@ -67,7 +78,7 @@ def median0(x: torch.Tensor) -> torch.Tensor:
 N_ITER = 100
 
 
-def _cluster_loop(W_all, H_all, eps):
+def _cluster_loop(W_all, H_all, eps, grid=None):
     """The alignment loop (reference :83-127); centroids restart from the
     current first perturbation. Iteration 0's centroids are W_all[0], not
     a median, so iterations 0 and 1 always run; after that an iteration
@@ -77,7 +88,7 @@ def _cluster_loop(W_all, H_all, eps):
     ident = np.arange(k)
     it, moved = 0, True
     while it < N_ITER and (moved or it <= 1):
-        dist = linalg.matmul(centroids.mT, W_all)                # (p, k, k)
+        dist = _over_rows(linalg.matmul(centroids.mT, W_all), grid)  # (p,k,k)
         perms = np.stack([greedy_assignment(d)
                           for d in dist.to(torch.float32).cpu().numpy()])
         moved = bool((perms != ident).any())
@@ -85,21 +96,22 @@ def _cluster_loop(W_all, H_all, eps):
         W_all = torch.gather(W_all, 2, idx[:, None, :].expand_as(W_all))
         H_all = torch.gather(H_all, 1, idx[:, :, None].expand_as(H_all))
         centroids = median0(W_all)
-        cn = torch.sqrt(centroids.to(torch.float32).square().sum(dim=0)
+        cn = torch.sqrt(_over_rows(centroids.to(torch.float32).square()
+                                   .sum(dim=0), grid)
                         + float(np.float32(eps)))
         centroids = centroids / cn.to(centroids.dtype)
         it += 1
     return W_all, H_all, centroids
 
 
-def _silhouettes(W_all):
+def _silhouettes(W_all, grid=None):
     """Cosine-distance silhouettes (reference dist_silhouettes :129-160).
     W_all: (p, m, k) with L2-normalized columns. Returns (k, p)."""
     P, _, K = W_all.shape
     if K == 1:
         return torch.ones((K, P), dtype=W_all.dtype, device=W_all.device)
     Wf = W_all.to(torch.float32)
-    G = torch.einsum("ami,bmj->iajb", Wf, Wf)                    # (K,P,K,P)
+    G = _over_rows(torch.einsum("ami,bmj->iajb", Wf, Wf), grid)  # (K,P,K,P)
     D = torch.arccos(torch.clamp(G, -1.0, 1.0))
     ii = torch.arange(K, device=W_all.device)
     a = D[ii, :, ii, :].sum(-1) / (P - 1)                        # (K, P)
@@ -117,20 +129,22 @@ def _mad(data):
     return median0((data - med[..., None]).abs().movedim(-1, 0))
 
 
-def cluster_ensemble(W_all, H_all, eps):
+def cluster_ensemble(W_all, H_all, eps, grid=None):
     """Returns (centroids (m,k), cent_std (m,k), H_all (p,k,n),
     cluster_sils (k,), avg_sil (scalar), sils (k,p)) as
-    ``pydnmfk_tpu.models.clustering.cluster_ensemble`` does."""
+    ``pydnmfk_tpu.models.clustering.cluster_ensemble`` does; on a grid the
+    centroids and cent_std are this rank's row block, H_all its column
+    block, and the silhouettes the same on every rank."""
     if W_all.dim() != 3 or H_all.dim() != 3:
         raise ValueError("W_all/H_all must be rank-3 ensemble tensors")
     if W_all.shape[0] != H_all.shape[0] or W_all.shape[2] != H_all.shape[1]:
         raise ValueError(
             f"layout mismatch: expected W_all (p,m,k), H_all (p,k,n); "
             f"got {tuple(W_all.shape)} and {tuple(H_all.shape)}")
-    W_all, H_all = normalize_by_w(W_all, H_all, eps)
-    W_all, H_all, centroids = _cluster_loop(W_all, H_all, eps)
+    W_all, H_all = normalize_by_w(W_all, H_all, eps, grid)
+    W_all, H_all, centroids = _cluster_loop(W_all, H_all, eps, grid)
     cent_std = _mad(W_all.movedim(0, -1))                        # (m, k)
-    W_all2, H_all2, _ = _cluster_loop(W_all, H_all, eps)
-    sils = _silhouettes(W_all2)                                  # (k, p)
+    W_all2, H_all2, _ = _cluster_loop(W_all, H_all, eps, grid)
+    sils = _silhouettes(W_all2, grid)                            # (k, p)
     return (centroids, cent_std, H_all2, sils.mean(dim=1), sils.mean(),
             sils)

@@ -1,11 +1,18 @@
 """One-step NMF updates (MU-Fro, MU-KL, HALS) and the BCD solver.
 
-Port of ``pydnmfk_tpu/models/updates.py`` on one device; the numerical
-semantics are the reference's (dist_nmf.py:715-751, :803-849, :873-934 and
-:951-1047). Inputs are one matrix or a stack with the ensemble member as the
-leading axis (JAX's vmap). A sparse A takes the products of its format
+Port of ``pydnmfk_tpu/models/updates.py``; the numerical semantics are the
+reference's (dist_nmf.py:715-751, :803-849, :873-934 and :951-1047). Inputs
+are one matrix or a stack with the ensemble member as the leading axis
+(JAX's vmap). A sparse A takes the products of its format
 (``ops/linalg.py`` dispatches the FRO products; :func:`mu_kl_step` picks the
 KL ones).
+
+On a p_r x p_c grid (``grid``) A, W and H are this rank's blocks and every
+product over W's rows or H's columns is all-reduced (``ops/linalg.py``):
+the MU steps issue four all-reduces a step (A H^T and H H^T over 'c',
+W^T A and W^T W over 'r'; KL: U H^T and H's row sums, W^T U and W's column
+sums), HALS one more per W column (its norm), BCD's restore-or-extrapolate
+choice is rank 0's objective, broadcast, so that every rank chooses alike.
 """
 from __future__ import annotations
 
@@ -14,20 +21,21 @@ import torch
 from ..ops import cuda_lib, kl, linalg
 
 
-def mu_fro_step(A, W, H, eps, W_update: bool = True):
+def mu_fro_step(A, W, H, eps, W_update: bool = True, grid=None):
     """Two-pass MU-Fro step: A is read once for A H^T and once for W^T A."""
     if W_update:
-        HHT = linalg.gram_t(H)
-        AHT = linalg.matmul_AHT(A, H)
+        HHT = linalg.gram_t(H, grid)
+        AHT = linalg.matmul_AHT(A, H, grid)
         W = W * AHT / (linalg.matmul(W, HHT) + eps)
-    WTW = linalg.gram(W)
-    WTA = linalg.matmul_WTA(W, A)
+    WTW = linalg.gram(W, grid)
+    WTA = linalg.matmul_WTA(W, A, grid)
     # reference: H *= AtW / (H^T W^T W)^T == WTW @ H (WTW symmetric)
     H = H * WTA / (linalg.matmul(WTW, H) + eps)
     return W, H
 
 
-def mu_kl_step(A, W, H, eps, W_update: bool = True, chunk: int = 0):
+def mu_kl_step(A, W, H, eps, W_update: bool = True, chunk: int = 0,
+               grid=None):
     """MU-KL step over the ratio products. On CUDA the products are kernels
     K2a/K2b where they take A's and the factors' dtypes
     (``cuda_lib.kernel_types``: f32 factors with an f32, bf16, f16 or uint8
@@ -49,6 +57,12 @@ def mu_kl_step(A, W, H, eps, W_update: bool = True, chunk: int = 0):
             nc = sparse.nnz_chunk_size(A.nse, W.shape[-1])
             uht = lambda a, w, h, e: sparse.kl_uht_sparse(a, w, h, e, nc)
             wtu = lambda a, w, h, e: sparse.kl_wtu_sparse(a, w, h, e, nc)
+    elif grid is not None:
+        plain = A.is_cuda and not cuda_lib.kernel_types(A.dtype, W.dtype)
+        uht = lambda a, w, h, e: kl.kl_uht_sharded(a, w, h, e, grid, chunk,
+                                                   plain)
+        wtu = lambda a, w, h, e: kl.kl_wtu_sharded(a, w, h, e, grid, chunk,
+                                                   plain)
     elif A.is_cuda and not cuda_lib.kernel_types(A.dtype, W.dtype):
         uht = lambda a, w, h, e: kl.kl_uht_plain(a, w, h, e, chunk)
         wtu = lambda a, w, h, e: kl.kl_wtu_plain(a, w, h, e, chunk)
@@ -56,10 +70,11 @@ def mu_kl_step(A, W, H, eps, W_update: bool = True, chunk: int = 0):
         uht = lambda a, w, h, e: kl.kl_uht(a, w, h, e, chunk)
         wtu = lambda a, w, h, e: kl.kl_wtu(a, w, h, e, chunk)
     if W_update:
-        h_rowsum = linalg.sum_axis(H, axis=-1)            # (..., k)
+        # H's row sums serve only the W replicas of this rank's row
+        h_rowsum = linalg.sum_axis(H, -1, grid, everywhere=False)  # (..., k)
         UHT = uht(A, W, H, eps)                           # (..., m, k)
         W = W * UHT / (h_rowsum.unsqueeze(-2) + eps)
-    w_colsum = linalg.sum_axis(W, axis=-2)                # (..., k)
+    w_colsum = linalg.sum_axis(W, -2, grid, everywhere=False)      # (..., k)
     WTU = wtu(A, W, H, eps)                               # uses the updated W
     H = H * WTU / (w_colsum.unsqueeze(-1) + eps)
     return W, H
@@ -71,27 +86,31 @@ def mu_kl_step(A, W, H, eps, W_update: bool = True, chunk: int = 0):
 # columns of W and rows of H: each step is a few small products on the
 # device, with no host read, so a stack of members sweeps in lockstep.
 # ---------------------------------------------------------------------------
-def _l2(v: torch.Tensor) -> torch.Tensor:
+def _l2(v: torch.Tensor, grid=None) -> torch.Tensor:
     """Per-member L2 norm of the vectors v (..., m), as (..., 1), summed at
-    the accumulation dtype (``linalg.sqnorm`` of one vector)."""
+    the accumulation dtype (``linalg.sqnorm`` of one vector); on a grid v
+    is a W column's row block, summed over 'r' everywhere."""
     va = v.to(linalg.acc_dtype(v.dtype))
-    return torch.sqrt((va * va).sum(-1, keepdim=True)).to(v.dtype)
+    ss = (va * va).sum(-1, keepdim=True)
+    if grid is not None:
+        ss = grid.sum(ss, "r", everywhere=True)
+    return torch.sqrt(ss).to(v.dtype)
 
 
-def _unit(v: torch.Tensor) -> torch.Tensor:
+def _unit(v: torch.Tensor, grid=None) -> torch.Tensor:
     """v over its L2 norm where the norm is positive (reference :889-893)."""
-    ss = _l2(v)
+    ss = _l2(v, grid)
     return torch.where(ss > 0, v / ss, v)
 
 
-def _hals_w_cols(W, HHT, AHT, eps, lo: int, hi: int):
+def _hals_w_cols(W, HHT, AHT, eps, lo: int, hi: int, grid=None):
     """The reference's column-by-column W sweep over columns [lo, hi)
     (``updates.py:104-117``)."""
     W = W.clone()
     for kk in range(lo, hi):
         v = (W[..., kk] * HHT[..., kk, kk, None] + AHT[..., kk]
              - linalg.matmul(W, HHT[..., :, kk, None])[..., 0])
-        W[..., kk] = _unit(v.clamp_min(eps))
+        W[..., kk] = _unit(v.clamp_min(eps), grid)
     return W
 
 
@@ -107,7 +126,7 @@ def _hals_h_rows(H, WTW, WTA, eps, lo: int, hi: int):
     return H
 
 
-def _hals_w_blocked(W, HHT, AHT, eps, B: int):
+def _hals_w_blocked(W, HHT, AHT, eps, B: int, grid=None):
     """The same Gauss-Seidel W sweep by delayed updates in blocks of B
     columns (``updates.py:134-175``): P = W_old HHT once, an in-block
     (m, B) correction per column and one rank-B update of P per block.
@@ -131,11 +150,11 @@ def _hals_w_blocked(W, HHT, AHT, eps, B: int):
             w_old = Wblk[..., t]
             v = (w_old * hseg[..., t, None] + AHT[..., j]
                  - (P[..., j] + corr[..., 0]))
-            D[..., t] = _unit(v.clamp_min(eps)) - w_old
+            D[..., t] = _unit(v.clamp_min(eps), grid) - w_old
         W[..., b0:b0 + B] = Wblk + D
         P = P + linalg.matmul(D, HHT_blk)
     if k % B:
-        W = _hals_w_cols(W, HHT, AHT, eps, nb * B, k)
+        W = _hals_w_cols(W, HHT, AHT, eps, nb * B, k, grid)
     return W
 
 
@@ -167,7 +186,7 @@ def _hals_h_blocked(H, WTW, WTA, eps, B: int):
     return H
 
 
-def hals_step(A, W, H, eps, W_update: bool = True, block=None):
+def hals_step(A, W, H, eps, W_update: bool = True, block=None, grid=None):
     """One HALS step (``updates.py:215-247``). ``block``: 0 or None is the
     reference's column sweep; 0 < block < k the delayed-update blocks of
     that size. A is read twice (A H^T, W^T A), through the kernels of its
@@ -176,12 +195,12 @@ def hals_step(A, W, H, eps, W_update: bool = True, block=None):
     B = block or 0
     blocked = 0 < B < k
     if W_update:
-        HHT = linalg.gram_t(H)
-        AHT = linalg.matmul_AHT(A, H)
-        W = (_hals_w_blocked(W, HHT, AHT, eps, B) if blocked
-             else _hals_w_cols(W, HHT, AHT, eps, 0, k))
-    WTW = linalg.gram(W)
-    WTA = linalg.matmul_WTA(W, A)
+        HHT = linalg.gram_t(H, grid)
+        AHT = linalg.matmul_AHT(A, H, grid)
+        W = (_hals_w_blocked(W, HHT, AHT, eps, B, grid) if blocked
+             else _hals_w_cols(W, HHT, AHT, eps, 0, k, grid))
+    WTW = linalg.gram(W, grid)
+    WTA = linalg.matmul_WTA(W, A, grid)
     H = (_hals_h_blocked(H, WTW, WTA, eps, B) if blocked
          else _hals_h_rows(H, WTW, WTA, eps, 0, k))
     return W, H
@@ -193,7 +212,7 @@ def hals_step(A, W, H, eps, W_update: bool = True, block=None):
 # whole inner solver.
 # ---------------------------------------------------------------------------
 def bcd_solve(A, W, H, eps, itr: int = 1000, rw: float = 1.0,
-              obj_mode: str = "gram", chunk: int = 0):
+              obj_mode: str = "gram", chunk: int = 0, grid=None):
     """The BCD inner loop of ``updates.py:270-368``; returns the last
     iterate (W, H), as JAX does, also where the last step restored.
 
@@ -213,37 +232,46 @@ def bcd_solve(A, W, H, eps, itr: int = 1000, rw: float = 1.0,
     no A. ``eps`` is unused: the final clip is the caller's."""
     del eps
     sdt = torch.float64 if A.dtype == torch.float64 else torch.float32
-    sq = lambda X: linalg.sqnorm(X)[..., None, None]   # (..., 1, 1)
+    # (..., 1, 1); on a grid a block sharded along ``over``
+    sq = lambda X, over="rc": linalg.sqnorm(X, grid, over)[..., None, None]
+    sq_rep = lambda X: linalg.sqnorm(X)[..., None, None]   # replicated X
     acc = linalg.acc_dtype(A.dtype)
     # init (reference initWandH :951-969): scale so |W| = |H| = |A|^(1/2)
     Xnorm = sq(A)
     scale = torch.sqrt(torch.sqrt(Xnorm))
-    W = W / torch.sqrt(sq(W)).to(W.dtype) * scale.to(W.dtype)
-    H = H / torch.sqrt(sq(H)).to(H.dtype) * scale.to(H.dtype)
+    W = W / torch.sqrt(sq(W, "r")).to(W.dtype) * scale.to(W.dtype)
+    H = H / torch.sqrt(sq(H, "c")).to(H.dtype) * scale.to(H.dtype)
     Wm, Hm, W_old, H_old = W, H, W, H
-    HHT, AHT = linalg.gram_t(H), linalg.matmul_AHT(A, H)
+    HHT, AHT = linalg.gram_t(H, grid), linalg.matmul_AHT(A, H, grid)
     obj_old = 0.5 * Xnorm
     t_old = HHTnorm = WTWnorm = torch.ones_like(Xnorm, dtype=sdt)
     for _ in range(itr):
         # W: projected Lipschitz-gradient step, then the L1 column
         # normalization of reference :1004-1011 (no eps guard)
-        HHTnorm_old, HHTnorm = HHTnorm, torch.sqrt(sq(HHT))
+        HHTnorm_old, HHTnorm = HHTnorm, torch.sqrt(sq_rep(HHT))
         GW = linalg.matmul(Wm, HHT) - AHT
         W = torch.clamp_min(Wm - GW / HHTnorm.to(GW.dtype), 0.0)
-        W = W / linalg.sum_axis(W, axis=-2).unsqueeze(-2)
-        WTW = linalg.gram(W)
+        W = W / linalg.sum_axis(W, axis=-2, grid=grid).unsqueeze(-2)
+        WTW = linalg.gram(W, grid)
         # H
-        WTWnorm_old, WTWnorm = WTWnorm, torch.sqrt(sq(WTW))
-        GH = linalg.matmul(WTW, Hm) - linalg.matmul_WTA(W, A)
+        WTWnorm_old, WTWnorm = WTWnorm, torch.sqrt(sq_rep(WTW))
+        GH = linalg.matmul(WTW, Hm) - linalg.matmul_WTA(W, A, grid)
         H = torch.clamp_min(Hm - GH / WTWnorm.to(GH.dtype), 0.0)
-        HHT_new = linalg.gram_t(H)
-        AHT_new = linalg.matmul_AHT(A, H)
+        HHT_new = linalg.gram_t(H, grid)
+        AHT_new = linalg.matmul_AHT(A, H, grid)
         if obj_mode == "gram":
             cross = (W.to(acc) * AHT_new.to(acc)).sum((-2, -1), keepdim=True)
+            if grid is not None:
+                cross = grid.sum(cross, "r")
             wh2 = (WTW.to(acc) * HHT_new.to(acc)).sum((-2, -1), keepdim=True)
             obj = 0.5 * (Xnorm - 2.0 * cross + wh2)
         else:
-            obj = 0.5 * linalg.residual_sqnorm(A, W, H, chunk)[..., None, None]
+            obj = 0.5 * linalg.residual_sqnorm(A, W, H, chunk,
+                                               grid)[..., None, None]
+        if grid is not None:
+            # WTW and HHT_new come from two subgroups: rank 0's objective
+            # decides for all
+            obj = grid.broadcast(obj)
         # restore or extrapolate (reference :1029-1047)
         t = (1.0 + torch.sqrt(1.0 + 4.0 * t_old ** 2)) / 2.0
         restore = obj >= obj_old

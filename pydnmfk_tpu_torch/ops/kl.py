@@ -13,7 +13,9 @@ time (``kl.py::_chunked``); for a CUDA tensor they launch the kernel, which
 never writes U to device memory, or raise. Inputs are one matrix or a stack
 with the ensemble member as the leading axis. A is f32, bf16, f16 or uint8, and
 the kernels' ratio is f32 for each of them, as ``pydnmfk_tpu/ops/kl.py:33-34``
-divides the integer A by an f32 WH. The factors are f32, or bf16 / f16 with
+divides the integer A by an f32 WH. On a p_r x p_c grid
+:func:`kl_uht_sharded` and :func:`kl_wtu_sharded` run them on a rank's
+blocks and all-reduce the products. The factors are f32, or bf16 / f16 with
 a bf16, f16 or uint8 A (``cuda_lib.kernel_types``): half factors are
 widened to f32 for the launch (exact, k / n of A's bytes), and the f32 sums
 are rounded once to the factor dtype, as the JAX package's ``.astype``
@@ -190,3 +192,20 @@ def kl_wtu(A, W, H, eps, chunk: int = 0, splits: int | None = None):
     if A.device.type == "cpu":
         return kl_wtu_plain(A, W, H, eps, chunk)
     return _launch("kl_wtu", A, W, H, eps, splits)
+
+
+def kl_uht_sharded(A, W, H, eps, grid, chunk: int = 0, plain: bool = False):
+    """(A / (W H + eps)) H^T on a p_r x p_c grid (``ops/kl.py:61-84``):
+    :func:`kl_uht` on this rank's blocks (K2a on CUDA, its plan sized by
+    the block; ``plain``: the plain version), summed over 'c' in the
+    rank's row, the reference's UHT_glob (dist_nmf.py:320-343)."""
+    part = (kl_uht_plain if plain else kl_uht)(A, W, H, eps, chunk)
+    return grid.sum(part, "c")
+
+
+def kl_wtu_sharded(A, W, H, eps, grid, chunk: int = 0, plain: bool = False):
+    """W^T (A / (W H + eps)) on a grid (``ops/kl.py:86-102``): K2b on this
+    rank's blocks, summed over 'r' in the rank's column (reference
+    WTU_glob, dist_nmf.py:293-318)."""
+    part = (kl_wtu_plain if plain else kl_wtu)(A, W, H, eps, chunk)
+    return grid.sum(part, "r")

@@ -1,11 +1,21 @@
 """Linear-algebra primitives of the NMF updates.
 
-Port of ``pydnmfk_tpu/ops/linalg.py`` on one device. The dense products stay
-plain PyTorch, as the JAX package leaves them to XLA. Every function takes a
+Port of ``pydnmfk_tpu/ops/linalg.py``. The dense products stay plain
+PyTorch, as the JAX package leaves them to XLA. Every function takes a
 single matrix or a stack of them with the ensemble member as the leading
 axis. A sparse A (``ops/sparse.py`` triplet, ``ops/ell.py`` dual ELL) takes
 the sparse products, and its errors come from the Gram identity, so the
 dense m x n residual never exists.
+
+On a p_r x p_c grid (``grid``, a ``parallel/mesh.py::GridContext``) the
+operands are this rank's blocks: A's block (i, j), W's row block i, H's
+column block j. A product or sum over W's rows is the local one all-reduced
+over 'r', over H's columns over 'c', over all of A over both, with the
+partial sums at the accumulation dtype (``linalg.py:93-160``). The
+products (W^T A, A H^T) and Grams stay in their subgroup, whose members are
+the replicas that use them; the small sums (norms, column sums) are taken
+``everywhere``, the same bits on every rank, because replicas along the
+other axis use them too (``parallel/mesh.py``).
 
 Precision policy (``pydnmfk_tpu/ops/linalg.py:60-88``): f32 products run
 in true f32 (TF32 off, PyTorch's default for matrix products); f64 runs in
@@ -37,18 +47,30 @@ def acc_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
-def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def result_dtype(a: torch.dtype, b: torch.dtype) -> torch.dtype:
+    """The dtype of :func:`matmul`'s result for operands of these dtypes."""
+    if not (a.is_floating_point and b.is_floating_point):
+        wide = b if not a.is_floating_point else a
+        return wide if wide.is_floating_point else torch.float32
+    return a if torch.finfo(a).bits >= torch.finfo(b).bits else b
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, acc: bool = False
+           ) -> torch.Tensor:
     """Matrix product with f32 (or f64) sums, by the module's precision
     policy. Same-dtype f32/f64 operands multiply as they are; an integer
-    operand takes the integer rule (:func:`_matmul_int`)."""
+    operand takes the integer rule (:func:`_matmul_int`). ``acc`` returns
+    the sums at the accumulation dtype instead of :func:`result_dtype`
+    (a grid's partial products, summed across ranks before rounding)."""
     if a.dtype == b.dtype and a.dtype in (torch.float32, torch.float64):
         return torch.matmul(a, b)
     if not (a.dtype.is_floating_point and b.dtype.is_floating_point):
-        return _matmul_int(a, b)
+        return _matmul_int(a, b, acc)
     narrow, wide = ((a.dtype, b.dtype)
                     if torch.finfo(a.dtype).bits <= torch.finfo(b.dtype).bits
                     else (b.dtype, a.dtype))
-    return _product(a.to(narrow), b.to(narrow), wide)
+    return _product(a.to(narrow), b.to(narrow),
+                    acc_dtype(wide) if acc else wide)
 
 
 def _product(a: torch.Tensor, b: torch.Tensor, out: torch.dtype):
@@ -89,7 +111,8 @@ def f32_sums():
          m.allow_fp16_reduced_precision_reduction) = saved
 
 
-def _matmul_int(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _matmul_int(a: torch.Tensor, b: torch.Tensor, acc: bool = False
+                ) -> torch.Tensor:
     """The integer rule of ``pydnmfk_tpu/ops/linalg.py:60-80``: an 8-bit
     operand meets a non-f64 factor as bf16 operands (exact for 8-bit values)
     with f32 sums, and the result takes the float side's dtype; wider
@@ -100,23 +123,35 @@ def _matmul_int(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         wide = torch.float32
     if int_dt.itemsize == 1 and wide != torch.float64:
         bf = torch.bfloat16
-        return _product(a.to(bf), b.to(bf), wide)
-    acc = acc_dtype(wide)
-    return torch.matmul(a.to(acc), b.to(acc)).to(wide)
+        return _product(a.to(bf), b.to(bf), acc_dtype(wide) if acc else wide)
+    out = torch.matmul(a.to(acc_dtype(wide)), b.to(acc_dtype(wide)))
+    return out if acc else out.to(wide)
 
 
-def gram(X: torch.Tensor) -> torch.Tensor:
-    """X^T X -> (k, k)."""
-    return matmul(X.mT, X)
+def _summed(a, b, grid, over):
+    """a @ b, on a grid the local product summed over ``over`` in its
+    subgroup at the accumulation dtype, then rounded once."""
+    if grid is None:
+        return matmul(a, b)
+    return grid.sum(matmul(a, b, acc=True), over).to(
+        result_dtype(a.dtype, b.dtype))
 
 
-def gram_t(X: torch.Tensor) -> torch.Tensor:
-    """X X^T -> (k, k) for row-major factors H (k, n)."""
-    return matmul(X, X.mT)
+def gram(X: torch.Tensor, grid=None) -> torch.Tensor:
+    """X^T X -> (k, k); on a grid X is a row block, summed over 'r'."""
+    return _summed(X.mT, X, grid, "r")
 
 
-def matmul_WTA(W: torch.Tensor, A) -> torch.Tensor:
-    """W^T A -> (k, n)."""
+def gram_t(X: torch.Tensor, grid=None) -> torch.Tensor:
+    """X X^T -> (k, k) for row-major factors H (k, n); on a grid X is a
+    column block, summed over 'c'."""
+    return _summed(X, X.mT, grid, "c")
+
+
+def matmul_WTA(W: torch.Tensor, A, grid=None) -> torch.Tensor:
+    """W^T A -> (k, n); on a grid the (k, n_j) block, summed over 'r'."""
+    if grid is not None:
+        return _summed(W.mT, A, grid, "r")
     if is_sparse(A):
         from . import ell, sparse
         if isinstance(A, ell.EllSparse):
@@ -126,8 +161,10 @@ def matmul_WTA(W: torch.Tensor, A) -> torch.Tensor:
     return matmul(W.mT, A)
 
 
-def matmul_AHT(A, H: torch.Tensor) -> torch.Tensor:
-    """A H^T -> (m, k)."""
+def matmul_AHT(A, H: torch.Tensor, grid=None) -> torch.Tensor:
+    """A H^T -> (m, k); on a grid the (m_i, k) block, summed over 'c'."""
+    if grid is not None:
+        return _summed(A, H.mT, grid, "c")
     if is_sparse(A):
         from . import ell, sparse
         if isinstance(A, ell.EllSparse):
@@ -137,15 +174,17 @@ def matmul_AHT(A, H: torch.Tensor) -> torch.Tensor:
     return matmul(A, H.mT)
 
 
-def sqnorm(X) -> torch.Tensor:
+def sqnorm(X, grid=None, over: str = "rc") -> torch.Tensor:
     """Squared Frobenius norm with f32/f64 accumulation; one value per
     member for a stack. A sparse X sums its stored values (padding slots of
-    an ELL X are zero)."""
+    an ELL X are zero). On a grid X is a block sharded along ``over``: A
+    over 'rc', a W block over 'r', an H block over 'c'."""
     if is_sparse(X):
         d = X.data.to(acc_dtype(X.dtype))
         return (d * d).sum(-1)
     Xa = X.to(acc_dtype(X.dtype))
-    return (Xa * Xa).sum((-2, -1))
+    s = (Xa * Xa).sum((-2, -1))
+    return s if grid is None else grid.sum(s, over, everywhere=True)
 
 
 def fro_norm(X) -> torch.Tensor:
@@ -153,8 +192,17 @@ def fro_norm(X) -> torch.Tensor:
     return torch.sqrt(sqnorm(X))
 
 
-def sum_axis(X: torch.Tensor, axis: int) -> torch.Tensor:
-    return X.to(acc_dtype(X.dtype)).sum(dim=axis).to(X.dtype)
+def sum_axis(X: torch.Tensor, axis: int, grid=None,
+             everywhere: bool = True) -> torch.Tensor:
+    """Sums of X along ``axis``; on a grid X is a block sharded along it,
+    a W block summed over its rows (axis -2, over 'r') or an H block over
+    its columns (axis -1, over 'c'), ``everywhere`` unless only the
+    subgroup uses the sums."""
+    s = X.to(acc_dtype(X.dtype)).sum(dim=axis)
+    if grid is not None:
+        over = "r" if axis % X.dim() == X.dim() - 2 else "c"
+        s = grid.sum(s, over, everywhere=everywhere)
+    return s.to(X.dtype)
 
 
 def _residual_sums(A, W, H, chunk, per_column, with_den=True):
@@ -186,38 +234,50 @@ def _residual_sums(A, W, H, chunk, per_column, with_den=True):
     return num, den
 
 
-def residual_sqnorm(A: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
-                    chunk: int = 0) -> torch.Tensor:
-    """||A - W H||_F^2 of a dense A, one value per member for a stack;
-    ``chunk`` as in :func:`relative_error`."""
+def _member_sums(A, W, H, chunk, with_den=True):
+    """:func:`_residual_sums` over all columns, per member of a stack:
+    (num, den) of shape (b,), or scalars for one matrix."""
     if A.dim() == 3:
-        return torch.stack([residual_sqnorm(a, w, h, chunk)
-                            for a, w, h in zip(A, W, H)])
-    return _residual_sums(A, W, H, chunk, per_column=False,
-                          with_den=False)[0]
+        sums = [_residual_sums(a, w, h, chunk, False, with_den)
+                for a, w, h in zip(A, W, H)]
+        return tuple(torch.stack(s) for s in zip(*sums))
+    return _residual_sums(A, W, H, chunk, False, with_den)
+
+
+def residual_sqnorm(A: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
+                    chunk: int = 0, grid=None) -> torch.Tensor:
+    """||A - W H||_F^2 of a dense A, one value per member for a stack;
+    ``chunk`` as in :func:`relative_error`; on a grid summed over all
+    ranks."""
+    num = _member_sums(A, W, H, chunk, with_den=False)[0]
+    return num if grid is None else grid.sum(num, "rc")
 
 
 def relative_error(A: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
-                   chunk: int = 0) -> torch.Tensor:
+                   chunk: int = 0, grid=None) -> torch.Tensor:
     """||A - W H||_F / ||A||_F (reference pyDNMF.py:204-210); one value per
     member for a stack. ``chunk`` > 0 bounds the residual to that many rows
-    (linalg.py:193-207)."""
+    (linalg.py:193-207). On a grid the blocks' sums are all-reduced over
+    all ranks at once, so every rank gets the same error (and a ``tol``
+    stop the same iteration)."""
     if is_sparse(A):
         return _sparse_relative_error(A, W, H)
-    if A.dim() == 3:
-        return torch.stack([relative_error(a, w, h, chunk)
-                            for a, w, h in zip(A, W, H)])
-    num, den = _residual_sums(A, W, H, chunk, per_column=False)
+    num, den = _member_sums(A, W, H, chunk)
+    if grid is not None:
+        num, den = grid.sum(torch.stack([num, den]), "rc")
     return torch.sqrt(num) / torch.sqrt(den)
 
 
 def column_error(A: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
-                 chunk: int = 0) -> torch.Tensor:
+                 chunk: int = 0, grid=None) -> torch.Tensor:
     """Per-column relative L2 error, length n (reference pyDNMF.py:220-239).
-    ``chunk`` as in relative_error."""
+    ``chunk`` as in relative_error. On a grid the errors of this rank's
+    column block, summed over 'r'."""
     if is_sparse(A):
         return _sparse_column_error(A, W, H)
     num, den = _residual_sums(A, W, H, chunk, per_column=True)
+    if grid is not None:
+        num, den = grid.sum(torch.stack([num, den]), "r")
     return torch.sqrt(num / den)
 
 
@@ -232,11 +292,14 @@ def error_chunk_rows(m: int, n: int, budget_elems: int = 1 << 27) -> int:
 
 
 def kl_divergence(A: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
-                  eps: float, chunk: int = 0) -> torch.Tensor:
+                  eps: float, chunk: int = 0, grid=None) -> torch.Tensor:
     """Generalized KL divergence D(A || WH) = sum(A log(A / WH) - A + WH)
     of a dense A (``pydnmfk_tpu/ops/linalg.py:236-242``), summed at the
     accumulation dtype; one value per member for a stack. ``chunk`` > 0
-    takes rows in slabs of that many, so that W H never exists whole."""
+    takes rows in slabs of that many, so that W H never exists whole. On a
+    grid the blocks' sums are all-reduced over all ranks."""
+    if grid is not None:
+        return grid.sum(kl_divergence(A, W, H, eps, chunk), "rc")
     if A.dim() == 3:
         return torch.stack([kl_divergence(a, w, h, eps, chunk)
                             for a, w, h in zip(A, W, H)])
@@ -252,14 +315,19 @@ def kl_divergence(A: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
     return total
 
 
-def quantize_uint8(A: torch.Tensor):
+def quantize_uint8(A: torch.Tensor, grid=None):
     """Global-scale uint8 quantization of a nonnegative A
     (``pydnmfk_tpu/ops/linalg.py:245-284``): Q = clip(round(A / s), 0, 255)
     with s = max(A) / 255 in f32 (1 where the max is 0). Returns (Q, s), s a
     0-d f32 tensor. ``torch.round`` rounds half to even, as ``jnp.round``
     does, so Q equals the JAX package's. Rows go in slabs of
-    :func:`error_chunk_rows`, so no full-size f32 temporary exists."""
-    scale = A.max().to(torch.float32) / 255.0
+    :func:`error_chunk_rows`, so no full-size f32 temporary exists. On a
+    grid the max is all ranks' (an all-reduce with MAX), so each block's Q
+    is its block of the 1x1 Q."""
+    top = A.max().to(torch.float32)
+    if grid is not None:
+        top = grid.max(top.reshape(1))[0]
+    scale = top / 255.0
     scale = torch.where(scale > 0, scale, torch.ones_like(scale))
 
     def q_block(a):
@@ -276,9 +344,11 @@ def quantize_uint8(A: torch.Tensor):
     return Q, scale
 
 
-def normalize_features(W: torch.Tensor, H: torch.Tensor, eps: float):
-    """L1-normalize W columns, rescale H rows (reference pyDNMF.py:184-194)."""
-    s = sum_axis(W, axis=-2).unsqueeze(-2)            # (..., 1, k)
+def normalize_features(W: torch.Tensor, H: torch.Tensor, eps: float,
+                       grid=None):
+    """L1-normalize W columns, rescale H rows (reference pyDNMF.py:184-194);
+    on a grid W's column sums are all-reduced over 'r' everywhere."""
+    s = sum_axis(W, axis=-2, grid=grid).unsqueeze(-2)   # (..., 1, k)
     return W / (s + eps), H * s.mT
 
 

@@ -1,10 +1,13 @@
 """High-level object API.
 
 Port of ``pydnmfk_tpu/runner.py`` (reference ``pyDNMFk_Runner``,
-pyDNMFk/runner.py:12-176) on one device: construct with hyperparameters and
-a device (the CUDA card unless ``device="cpu"``), call
-``.run(fpath=..., ...)``; returns ``{"nopt": ...}`` for
-process="pyDNMFk" or ``{"W", "H", "err"}`` for process="pyDNMF".
+pyDNMFk/runner.py:12-176): construct with hyperparameters and a device (the
+CUDA card unless ``device="cpu"``), call ``.run(fpath=..., ...)``; returns
+``{"nopt": ...}`` for process="pyDNMFk" or ``{"W", "H", "err"}`` for
+process="pyDNMF". A ``grid`` other than (1, 1) runs one process per rank,
+each calling ``run`` (under torchrun, ``parallel/mesh.py::initialize``):
+each reads its block of A, every rank returns the same result, and rank 0
+writes the files.
 """
 from __future__ import annotations
 
@@ -13,10 +16,10 @@ from typing import Sequence
 
 import torch
 
-from .config import (NMFConfig, NMFkConfig, NotPortedError, check_device,
-                     check_jax_only)
+from .config import NMFConfig, NMFkConfig, check_device, check_jax_only
 from .models.nmf import NMF
 from .models.nmfk import NMFk
+from .parallel import mesh
 from .utils import timing
 from .utils.io import DataReader
 
@@ -74,12 +77,12 @@ class Runner:
             k=4):
         if len(grid) != 2 or len(k_range) != 2:
             raise ValueError("grid and k_range need to be length-2")
-        if tuple(grid) != (1, 1):
-            raise NotPortedError(f"grid={tuple(grid)} (device meshes)",
-                                 "queue 1 item 15")
         check_device(self.device)
+        ctx = (None if tuple(grid) == (1, 1)
+               else mesh.initialize(*grid, self.device))
         nmf_cfg = NMFConfig(
-            k=k, init=self.init, itr=self.itr, norm=self.norm,
+            k=k, grid=tuple(grid), init=self.init, itr=self.itr,
+            norm=self.norm,
             method=self.method, precision=self.precision,
             verbose=self.verbose, results_path=results_path,
             a_precision=self.a_precision, seed=self.seed, tol=self.tol,
@@ -88,7 +91,7 @@ class Runner:
             solve_checkpoint_every=self.solve_checkpoint_every)
         with timing.timed("read"):
             A = DataReader(fpath, fname, ftype, precision=self.precision,
-                           pgrid=grid).read()
+                           pgrid=grid).read(ctx)
 
         results = {}
         if self.process == "pyDNMFk":
@@ -100,12 +103,12 @@ class Runner:
                 results_path=results_path, fname=fname,
                 ensemble_batch=self.ensemble_batch,
                 hbm_budget=self.hbm_budget, seed_grid=self.seed_grid)
-            results["nopt"] = NMFk(cfg, self.device).fit(A)
+            results["nopt"] = NMFk(cfg, self.device, ctx).fit(A)
         else:
-            W, H, err = NMF(nmf_cfg, self.device).fit(A)
+            W, H, err = NMF(nmf_cfg, self.device, ctx).fit(A)
             results.update(W=W, H=H, err=err)
 
-        if self.timing_stats:
+        if self.timing_stats and mesh.is_proc0(ctx):
             os.makedirs(results_path, exist_ok=True)
             stats_path = os.path.join(results_path, "Timing_stats.csv")
             timing.save_csv(stats_path)

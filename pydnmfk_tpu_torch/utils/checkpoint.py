@@ -39,8 +39,12 @@ class CheckpointState:
 
 
 class Checkpoint:
-    def __init__(self, results_path: str, enabled: bool = True):
+    def __init__(self, results_path: str, enabled: bool = True,
+                 writer: bool = True):
+        """``writer``: this process writes the file (rank 0 of a grid);
+        the others keep the state without writing it."""
         self.enabled = enabled
+        self.writer = writer
         self.path = os.path.join(results_path, "checkpoint.json")
         self.state: Optional[CheckpointState] = None
 
@@ -59,6 +63,8 @@ class Checkpoint:
             return
         self.state = CheckpointState(flag=flag, perturbation=perturbation,
                                      k=k, seed=seed)
+        if not self.writer:
+            return
         os.makedirs(os.path.dirname(self.path), exist_ok=True)
         tmp = self.path + ".tmp"
         with open(tmp, "w") as f:
@@ -76,32 +82,44 @@ class Checkpoint:
         return st.k
 
 
-def solve_checkpointer(results_path: str, k: int, tag: str):
-    """The saver of one solve's factors (``utils/checkpoint.py:93-96``,
-    single device)."""
-    return SolveCheckpoint(results_path, k, tag)
+def solve_checkpointer(results_path: str, k: int, tag: str, grid=None):
+    """The saver of one solve's factors (``utils/checkpoint.py:93-96``):
+    one file, or on a grid one file per rank (its blocks), in place of the
+    JAX package's orbax shards (:99-206)."""
+    return SolveCheckpoint(results_path, k, tag, grid)
 
 
 class SolveCheckpoint:
-    """``results_path/solve_ckpt_k{k}``: W, H, the iterations done and the
-    tag, in one ``torch.save`` file."""
+    """``results_path/solve_ckpt_k{k}`` (on a grid ``..._r{rank}``, this
+    rank's blocks): W, H, the iterations done and the tag, in one
+    ``torch.save`` file."""
 
-    def __init__(self, results_path: str, k: int, tag: str):
-        self.path = os.path.join(results_path, f"solve_ckpt_k{k}")
+    def __init__(self, results_path: str, k: int, tag: str, grid=None):
+        suffix = "" if grid is None else f"_r{grid.rank}"
+        self.path = os.path.join(results_path, f"solve_ckpt_k{k}{suffix}")
         self.tag = tag
+        self.grid = grid
 
     def load(self, W, H):
         """(W, H, iterations done) from the file on W's device, or the
         given (W, H, 0) where there is no file, a torn one or another
-        tag."""
+        tag. On a grid every rank resumes from its file only where all
+        ranks' files hold the same iteration; otherwise all start at 0."""
+        got = (W, H, 0)
         try:
             d = torch.load(self.path, map_location=W.device,
                            weights_only=True)
             if d["tag"] == self.tag:
-                return d["W"].contiguous(), d["H"].contiguous(), int(d["i"])
+                got = d["W"].contiguous(), d["H"].contiguous(), int(d["i"])
         except Exception:
             pass                      # no file or a torn one: from 0
-        return W, H, 0
+        if self.grid is not None:
+            i = got[2]
+            hi, neg_lo = (int(v) for v in self.grid.max(torch.tensor(
+                [i, -i], dtype=torch.float64, device=W.device)).cpu())
+            if hi != -neg_lo:
+                return W, H, 0
+        return got
 
     def save(self, W, H, i: int):
         tmp = self.path + ".tmp"

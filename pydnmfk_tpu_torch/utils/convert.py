@@ -2,7 +2,9 @@
 
 :func:`config_from_jax` takes ``dataclasses.asdict`` of a
 ``pydnmfk_tpu`` NMFConfig or NMFkConfig; :func:`factors_from_numpy` takes
-its factors as numpy arrays (bf16 ones too, :func:`as_tensor`); :func:`sparse_from_numpy` and
+its factors as numpy arrays (bf16 ones too, :func:`as_tensor`), and
+:func:`blocks_for_rank` cuts them, and A, into a grid rank's blocks;
+:func:`sparse_from_numpy` and
 :func:`ell_from_numpy` take the arrays of a BCOO or an ``EllSparse``, so
 that both packages compute on the same operands. None of them imports JAX:
 the caller converts its arrays with ``numpy.asarray``.
@@ -17,6 +19,7 @@ import torch
 from ..config import JAX_ONLY, NMFConfig, NMFkConfig, check_jax_only
 from ..ops.ell import EllSparse
 from ..ops.sparse import SparseTriplet, from_coo
+from ..parallel.partition import block_range
 
 def _split(d: dict, cls):
     names = {f.name for f in dataclasses.fields(cls)}
@@ -63,6 +66,22 @@ def factors_from_numpy(W, H, device, dtype=torch.float32):
                          f"pair as W (..., m, k) and H (..., k, n)")
     return (as_tensor(W).to(device, dtype).contiguous(),
             as_tensor(H).to(device, dtype).contiguous())
+
+
+def blocks_for_rank(grid_shape, rank: int, A=None, W=None, H=None):
+    """This rank's blocks, as numpy, of a global A (..., m, n), W
+    (..., m, k) and H (..., k, n) on a (p_r, p_c) grid in the
+    remainder-balanced layout (``parallel/partition.py``): A's block
+    (i, j), W's row block i, H's column block j, rank = i * p_c + j.
+    An array given as None comes back None."""
+    p_r, p_c = grid_shape
+    i, j = divmod(rank, p_c)
+    rows = lambda x: slice(*block_range(x.shape[-2], p_r, i))
+    cols = lambda x: slice(*block_range(x.shape[-1], p_c, j))
+    A, W, H = (None if x is None else np.asarray(x) for x in (A, W, H))
+    return (None if A is None else A[..., rows(A), cols(A)],
+            None if W is None else W[..., rows(W), :],
+            None if H is None else H[..., cols(H)])
 
 
 def sparse_from_numpy(rows, cols, vals, shape, device="cpu") -> SparseTriplet:

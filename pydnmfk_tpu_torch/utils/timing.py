@@ -8,7 +8,10 @@ so it measures the work and not its enqueueing.
 
 NMFk stages: ``ensemble_solve`` (sampling and the batched solve; its share
 ``ensemble_init`` is the members' init draws or nnsvd), ``clustering`` and
-``regression`` (the W-frozen refit and per-column errors).
+``regression`` (the W-frozen refit and per-column errors). On a grid the
+collectives add their wall seconds under ``dist_comm`` (each waits for the
+device before and after), and :func:`collective_stats` counts the
+collectives and bytes that a call issues.
 
 :func:`trace` records a ``torch.profiler`` trace of a region, the card's
 kernels with it, as a Chrome trace file (the JAX package's XLA trace).
@@ -51,9 +54,15 @@ def reset():
     TIMINGS.clear()
 
 
-def _sync():
+def sync():
+    """Wait for the device, where one is in use."""
     if torch.cuda.is_initialized():
         torch.cuda.synchronize()
+
+
+def record(name: str, seconds: float):
+    """Add ``seconds`` to ``name``."""
+    TIMINGS[name] = TIMINGS.get(name, 0.0) + seconds
 
 
 @contextlib.contextmanager
@@ -61,13 +70,13 @@ def timed(name: str):
     if not ENABLED:
         yield
         return
-    _sync()
+    sync()
     t0 = time.perf_counter()
     try:
         yield
     finally:
-        _sync()
-        TIMINGS[name] = TIMINGS.get(name, 0.0) + time.perf_counter() - t0
+        sync()
+        record(name, time.perf_counter() - t0)
 
 
 def timed_fn(fn: Callable) -> Callable:
@@ -81,12 +90,14 @@ def timed_fn(fn: Callable) -> Callable:
 
 
 def categorize(timings: Dict[str, float]) -> Dict[str, float]:
-    """Seconds by the reference's categories, and the rest as "other"."""
+    """Seconds by the reference's categories (a name that is a category's
+    own, as the grid's measured ``dist_comm``, falls in it), and the rest
+    as "other"."""
     out = {c: 0.0 for c in CATEGORIES}
     other = 0.0
     for name, dt in timings.items():
         for cat, names in CATEGORIES.items():
-            if name in names:
+            if name in names or name == cat:
                 out[cat] += dt
                 break
         else:
@@ -115,8 +126,39 @@ def trace(logdir: Optional[str] = None):
     os.makedirs(logdir, exist_ok=True)
     with profile(activities=activities) as prof:
         yield
-        _sync()
+        sync()
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def collective_stats(fn, *args, grid, **kwargs) -> Dict[str, object]:
+    """The collectives that ``fn(*args, **kwargs)`` issues on ``grid``
+    (``pydnmfk_tpu/utils/timing.py:114-148``, which reads them from the
+    compiled program; here they are counted as they run):
+    ``{"counts": {kind: calls}, "bytes": bytes reduced or gathered}``,
+    kinds "all-reduce", "all-gather" and "broadcast"."""
+    before = {kind: list(v) for kind, v in grid.stats.items()}
+    fn(*args, **kwargs)
+    counts, total = {}, 0
+    for kind, (calls, nbytes) in grid.stats.items():
+        calls0, bytes0 = before.get(kind, (0, 0))
+        if calls > calls0:
+            counts[kind] = calls - calls0
+        total += nbytes - bytes0
+    return {"counts": counts, "bytes": total}
+
+
+def record_dist_comm(fn, *args, grid, link_gbps: float = 45.0,
+                     iterations: int = 1, **kwargs) -> Dict[str, object]:
+    """:func:`collective_stats` of ``fn`` and the collectives' time
+    estimated as bytes over ``link_gbps`` GB/s, times ``iterations``,
+    added under ``dist_comm_est`` (``timing.py:151-166``); the measured
+    wall seconds are ``dist_comm``'s."""
+    stats = collective_stats(fn, *args, grid=grid, **kwargs)
+    est = stats["bytes"] * iterations / (link_gbps * 1e9)
+    if ENABLED:
+        record("dist_comm_est", est)
+    stats["est_seconds"] = est
+    return stats
 
 
 def save_csv(path: str):

@@ -95,6 +95,7 @@ def test_cli_and_runner_read_a_folder_at_1x1(tmp_path):
         fpath=f"{tmp_path}/", ftype="folder", fname="F",
         results_path=f"{tmp_path}/res2/", k=4)
     assert out["err"] == npy["err"]
-    # a larger grid names the mesh at the CLI, which is not ported
-    with pytest.raises(port.NotPortedError, match="item 15"):
+    # a larger grid runs one process per rank: without torchrun's group
+    # the CLI says how to start it (tests/test_torch_grid_cli.py runs it)
+    with pytest.raises(RuntimeError, match="torch.distributed.run"):
         cli.main(base + ["--ftype=folder", "--fname=F", "--p_r=2"])

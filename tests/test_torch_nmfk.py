@@ -177,13 +177,14 @@ def test_cli_rejects_unported_flags(tmp_path):
     from pydnmfk_tpu_torch import cli
     # --solve_checkpoint_every, --seed_grid and --ftype=folder at 1x1 are
     # ported (tests/test_torch_solve_checkpoint.py, test_torch_seed_grid.py,
-    # test_torch_io_folder.py)
+    # test_torch_io_folder.py), and so are grids and --multihost
+    # (tests/test_torch_grid_cli.py)
     for flag in ("--matmul_precision=bfloat16", "--k_sweep_batch=true",
-                 "--k_sweep_merge=true", "--sparse_grid_format=ell",
-                 "--multihost=true"):
+                 "--k_sweep_merge=true", "--sparse_grid_format=ell"):
         with pytest.raises(port.NotPortedError, match="ROADMAP"):
             cli.main(base + [flag])
-    with pytest.raises(port.NotPortedError, match="item 15"):
+    # a grid outside torchrun says how to start its processes
+    with pytest.raises(RuntimeError, match="torch.distributed.run"):
         cli.main(["--cpu", "--p_r=2", "--p_c=1"])
 
 
