@@ -126,19 +126,40 @@ Run from the root of a checkout, with no arguments:
    1x1 ones, W's and H's replicas bitwise equal, K2a and K2b exactly 10
    each per rank in KL-MU and no other launch, one MU step's collectives,
    seconds per rank and stage; the FRO-MU NMFk sweep of the planted 14400 x
-   9600 matrix through ``-m pydnmfk_tpu_torch --p_r=2 --p_c=2`` under
+   9600 matrix at k = 3..5 (GRID_SWEEP; since phase 8 came, three ks, not
+   k = 2..7) through ``-m pydnmfk_tpu_torch --p_r=2 --p_c=2`` under
    torchrun (nopt 4 printed once, factors in the 2 x 2 chunk layout,
    per-k statistics beside a 1x1 sweep's) and the KL-MU one with exact K2
    launches on every rank; K2a and K2b against their plain versions on the
    grid's block shapes (one 28800 x 19200 block at k = 32, the 10-member
    stack of 7200 x 4800 blocks at k = 7);
-8. prints the card's name and power limit, one JSON line of kernels, and as
+8. a sparse A on the grid (``sparse_grid_phase``), launch counters from
+   zero in every rank: FRO-MU and KL-MU on the NYTimes-shaped matrix at
+   k = 32, 10 iterations, on a one-rank NCCL group beside phase 4's 1x1
+   fits; then under torchrun four ranks sharing the card over gloo, each
+   drawing the matrix (``nytimes``) and keeping its block, on a 2 x 2 and
+   a 4 x 1 grid: FRO-MU, KL-MU and HALS from the 1x1 init, each rank's
+   block in the dual ELL that auto must pick on every rank, every error
+   within 1e-4 of the 1x1 fit's, the gathered factors within 1e-3 (HALS:
+   twice what f32 moves them from the 1x1 fit at f64), replicas bitwise
+   equal, K4 exactly the 1x1 counts on every rank and no other launch, one
+   MU step's collectives; FRO-MU on the 2 x 2 triplet blocks (no launch,
+   within 1e-4 of the ELL fit); the NMFk sweeps of phase 5's topic .npz
+   through the CLI under torchrun at k = 3..5, each rank reading its row
+   panel: FRO-MU on 4 x 1 and KL-MU on 2 x 2, every block in the dual ELL
+   and K4 exact per rank, nopt 4 on every rank, per-k statistics beside
+   phase 5's 1x1 sweeps; K4 against its plain version on a 2 x 2 NYTimes
+   block at k = 32 and a 4 x 1 block of the 10-member topic stack at
+   k = 7 (its empty column lines padded), where each product in full is
+   timed beside the triplet's;
+9. prints the card's name and power limit, one JSON line of kernels, and as
    its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It also exits non-zero when there is no CUDA device or no package beside it.
 ``--grid-fits DIR`` and ``--grid-cli DIR ARGS`` are the rank programs of
-phase 7, which it starts itself under torchrun.
+phase 7 (``--grid-cli`` of phase 8's sweeps too), ``--sparse-grid-fits
+DIR`` of phase 8; it starts them itself under torchrun.
 """
 from __future__ import annotations
 
@@ -162,6 +183,12 @@ PLANTED = dict(m=14400, n=9600, k=4)     # NMFk sweep input
 PRUNED = dict(m=4800, n=3200, k=4)       # the prune sweep's input, whose
 ZERO_EVERY = (97, 89)                    # every 97th row, 89th column is 0
 SWEEP = ["--start_k=2", "--end_k=7", "--perturbations=10", "--itr=400"]
+# the grid's CLI sweeps (phases 7 and 8), at three ks: four ranks sharing
+# the card over gloo take 5-8 times the 1x1 sweep's seconds
+GRID_SWEEP_KS = range(3, 6)
+GRID_SWEEP = [f"--start_k={GRID_SWEEP_KS[0]}",
+              f"--end_k={GRID_SWEEP_KS[-1]}", "--perturbations=10",
+              "--itr=400"]
 # NYTimes bag of words (UCI Machine Learning Repository, "Bag of Words"):
 # documents x vocabulary and nnz; drawn with replacement, ~79 k repeats drop
 NYT_M, NYT_N, NYT_NNZ = 300_000, 102_660, 69_679_427
@@ -399,6 +426,44 @@ def planted_exact(dev, rows=slice(None), cols=slice(None)):
     return (Wp[rows] @ Hp[:, cols]).contiguous()
 
 
+NYT_SEED = 2019           # the NYTimes-shaped matrix's own generator
+
+
+def nytimes(dev):
+    """The NYTimes-shaped matrix on ``dev``, the same on every process:
+    flat positions drawn uniformly with replacement from NYT_SEED, repeats
+    dropped by unique; positive counts-like values (geometric, from 1 - U
+    in (0, 1]: torch.rand can return 0)."""
+    from pydnmfk_tpu_torch.ops import sparse
+    g = torch.Generator(dev)
+    g.manual_seed(NYT_SEED)
+    flat = torch.unique(torch.randint(0, NYT_M * NYT_N, (NYT_NNZ,),
+                                      generator=g, device=dev))
+    vals = torch.floor(-2.0 * torch.log1p(-torch.rand(
+        flat.shape, generator=g, device=dev))) + 1.0
+    return sparse.SparseTriplet(vals, (flat // NYT_N).to(torch.int32),
+                                (flat % NYT_N).to(torch.int32),
+                                (NYT_M, NYT_N))
+
+
+def block_of(A, grid, rank):
+    """Rank ``rank``'s block of the triplet A on a ``grid`` = (p_r, p_c),
+    as ``ops/sparse.py::shard_sparse_grid`` cuts it on that rank."""
+    import types
+    from pydnmfk_tpu_torch.ops import sparse
+    from pydnmfk_tpu_torch.parallel.partition import block_range
+    i, j = divmod(rank, grid[1])
+    place = types.SimpleNamespace(rows=lambda m: block_range(m, grid[0], i),
+                                  cols=lambda n: block_range(n, grid[1], j))
+    return sparse.shard_sparse_grid(A, place).block
+
+
+def rel_max(X, Y):
+    """max |X - Y| / max |Y|, at f64."""
+    return float((X.double() - Y.double()).abs().max()
+                 / Y.double().abs().max())
+
+
 def _digest(t):
     import hashlib
     return hashlib.sha1(t.detach().cpu().contiguous().numpy()
@@ -406,8 +471,9 @@ def _digest(t):
 
 
 def _rank_counters():
-    from pydnmfk_tpu_torch.ops import fused_kl, fused_mu, kl
-    return (fused_mu.launches, kl.launches, fused_kl.launches)
+    from pydnmfk_tpu_torch.ops import ell_gather, fused_kl, fused_mu, kl
+    return (fused_mu.launches, kl.launches, fused_kl.launches,
+            ell_gather.launches)
 
 
 def grid_fits(outdir):
@@ -489,21 +555,431 @@ def grid_fits(outdir):
 def grid_cli(outdir, argv):
     """One rank of a CLI run under torchrun (``python3 chip_smoke.py
     --grid-cli OUTDIR ARGS``): ``cli.main(ARGS)`` with the launch counters
-    from zero, then this rank's launches in ``outdir/cli_rank{r}.json``."""
+    from zero, then this rank's launches, the row panels its reader read
+    (an .npz's) and its stage seconds in ``outdir/cli_rank{r}.json``."""
     sys.path.insert(0, ROOT)
     from pydnmfk_tpu_torch import cli
+    from pydnmfk_tpu_torch.utils import io, timing
     rank = int(os.environ["RANK"])
     counters = _rank_counters()
     for c in counters:
         for key in c:
             c[key] = 0
+    reads = []
+    real_read = io.DataReader.read
+
+    def read(self, grid=None):
+        out = real_read(self, grid)
+        reads.append(getattr(self, "rows_read", None))
+        return out
+
+    io.DataReader.read = read
     t0 = time.perf_counter()
     out = cli.main(argv)
     with open(os.path.join(outdir, f"cli_rank{rank}.json"), "w") as f:
         json.dump({"launches": {k: v for c in counters
                                 for k, v in c.items() if v},
                    "secs": time.perf_counter() - t0,
-                   "nopt": out.get("nopt")}, f)
+                   "nopt": out.get("nopt"), "rows_read": reads,
+                   "stages": {s: round(v, 3)
+                              for s, v in timing.TIMINGS.items()}}, f)
+
+
+# -- phase 8: a sparse A on the grid, four ranks sharing the card ---------
+SPARSE_GRID_METHODS = {"FRO-MU": dict(norm="fro"), "KL-MU": dict(norm="kl"),
+                       "HALS": dict(norm="fro", method="hals")}
+
+
+def k4_fit_launches(norm):
+    """K4's launches in an ITR-iteration sparse fit on the dual ELL (phase
+    4): two products an iteration, one K4 call each (FRO and HALS: A H^T
+    and W^T A, plain; KL: U H^T and W^T U, ratio), and one more for the
+    final error's W^T A (plain); on a grid every rank's block alike."""
+    return ({"ell_gather": 2 * ITR + 1} if norm == "fro"
+            else {"ell_gather": 1, "ell_gather_ratio": 2 * ITR})
+
+
+def sparse_grid_fits(outdir):
+    """One rank of phase 8's fits (run under torchrun, GRID_RANKS
+    processes): on each grid of GRID_SHAPES, this rank's block of the
+    NYTimes-shaped matrix (drawn whole from NYT_SEED, then cut), every
+    method of SPARSE_GRID_METHODS for ITR iterations at k = K from the 1x1
+    fit's init (rand, the config's seed), in the format the ranks agree
+    on; on 2 x 2 also FRO-MU on the triplet blocks; then one FRO-MU and
+    one KL-MU step's collectives on the ELL blocks. Writes
+    ``outdir/rank{r}.json`` and, on rank 0, the gathered factors."""
+    sys.path.insert(0, ROOT)
+    import functools
+    from pydnmfk_tpu_torch import NMF, NMFConfig
+    from pydnmfk_tpu_torch.models import updates
+    from pydnmfk_tpu_torch.ops import sparse
+    from pydnmfk_tpu_torch.parallel import mesh
+    from pydnmfk_tpu_torch.utils import timing
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = _rank_counters()
+    report = {}
+    timing.enable(True)
+    for grid in GRID_SHAPES:
+        ctx = mesh.initialize(*grid, "cuda")
+        dev = ctx.device
+        tag = f"{grid[0]}x{grid[1]}"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        G = sparse.shard_sparse_grid(nytimes(dev), ctx)
+        torch.cuda.synchronize()
+        report[f"{tag} block"] = dict(shape=G.shape, nnz=G.nse,
+                                      secs=time.perf_counter() - t0)
+        if "warm-up" not in report:
+            # a process's first fit sets up the libraries it calls (about
+            # 5 s): one of 2 iterations, untimed, before the timed fits
+            t0 = time.perf_counter()
+            NMF(NMFConfig(k=K, itr=2), grid=ctx).fit(G)
+            torch.cuda.synchronize()
+            report["warm-up"] = time.perf_counter() - t0
+        runs = dict(SPARSE_GRID_METHODS)
+        if grid == (2, 2):
+            runs["FRO-MU triplet"] = dict(norm="fro",
+                                          sparse_grid_format="triplet")
+        for name, kw in runs.items():
+            for c in counters:
+                for key in c:
+                    c[key] = 0
+            timing.reset()
+            before = {kind: list(v) for kind, v in ctx.stats.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model = NMF(NMFConfig(k=K, itr=ITR, **kw), grid=ctx)
+            W, H, err = model.fit(G)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            fmt = model._A
+            report[f"{tag} {name}"] = dict(
+                err=err, secs=secs, fmt=type(fmt).__name__,
+                widths=(list(fmt.rvals.shape[-1:] + fmt.cvals.shape[-1:])
+                        if hasattr(fmt, "rvals") else None),
+                stages={s: round(v, 4) for s, v in timing.TIMINGS.items()},
+                launches={k: v for c in counters for k, v in c.items() if v},
+                collectives={kind: [n - before.get(kind, (0, 0))[0],
+                                    b - before.get(kind, (0, 0))[1]]
+                             for kind, (n, b) in ctx.stats.items()},
+                w_digest=_digest(model._W), h_digest=_digest(model._H))
+            if ctx.is_proc0:
+                torch.save({"W": W.cpu(), "H": H.cpu()},
+                           os.path.join(outdir, f"{tag} {name}.pt"))
+            del model, W, H, fmt
+        E = sparse.grid_format(G, ctx).local
+        (r0, r1), (c0, c1) = ctx.rows(NYT_M), ctx.cols(NYT_N)
+        g = torch.Generator(dev)
+        g.manual_seed(GRID_SEED + ctx.rank)
+        Wb = torch.rand((r1 - r0, K), generator=g, device=dev)
+        Hb = torch.rand((K, c1 - c0), generator=g, device=dev)
+        eps = float(torch.finfo(torch.float32).eps)
+        for norm, step in (("fro", updates.mu_fro_step),
+                           ("kl", updates.mu_kl_step)):
+            timing.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = timing.collective_stats(functools.partial(step, grid=ctx),
+                                         E, Wb, Hb, eps, grid=ctx)
+            torch.cuda.synchronize()
+            st["ms"] = (time.perf_counter() - t0) * 1e3
+            st["dist_comm_ms"] = timing.TIMINGS.get("dist_comm", 0.0) * 1e3
+            report[f"{tag} step {norm}"] = st
+        del G, E, Wb, Hb
+        torch.cuda.empty_cache()
+    report.update(backend=ctx.backend, device=str(ctx.device),
+                  coords={f"{g[0]}x{g[1]}": divmod(ctx.rank, g[1])
+                          for g in GRID_SHAPES})
+    with open(os.path.join(outdir, f"rank{ctx.rank}.json"), "w") as f:
+        json.dump(report, f)
+    torch.distributed.destroy_process_group()
+
+
+def sparse_grid_phase(dev, smi, gen, nyt_ref, topic_ref, k4_cases,
+                      zero_counts, read_counts, main_path):
+    """Phase 8, a sparse A on the grid, in the parent: the one-rank NCCL
+    fits, the fits of ``--sparse-grid-fits`` under torchrun against
+    ``nyt_ref`` (phase 4's 1x1 fits by name: error, W, H, seconds,
+    launches), the CLI sweeps of the topic .npz against ``topic_ref``
+    (phase 5's statistics of GRID_SWEEP_KS by norm), and K4 on the grid's
+    block shapes through ``k4_cases``; the ranks' launches go into
+    ``main_path``."""
+    import socket
+    import torch.distributed as dist
+    from scipy import sparse as sp
+    from pydnmfk_tpu_torch import NMF, NMFConfig
+    from pydnmfk_tpu_torch.ops import ell, sparse
+    from pydnmfk_tpu_torch.parallel import mesh
+    from pydnmfk_tpu_torch.parallel.partition import block_range
+    from pydnmfk_tpu_torch.utils.data_generator import generate_topic_sparse
+    from pydnmfk_tpu_torch.utils.io import read_cluster_results
+    torch.cuda.empty_cache()
+    # the one-rank NCCL group (the 1x1 grid through the distributed code
+    # path) against phase 4's 1x1 fits from the same init
+    nyt = nytimes(dev)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    one = mesh.initialize(1, 1, "cuda", init_method=f"tcp://localhost:{port}",
+                          rank=0, world_size=1, timeout=600)
+    for name in ("FRO-MU", "KL-MU"):
+        kw = SPARSE_GRID_METHODS[name]
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = NMF(NMFConfig(k=K, itr=ITR, **kw), grid=one)
+        _, _, err = model.fit(nyt)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        ran = {key: n for key, n in read_counts().items() if n}
+        rel = abs(err / nyt_ref[name][0] - 1)
+        print(f"[grid-sparse] 1x1 grid, one NCCL rank, {name} on the "
+              f"NYTimes-shaped matrix k={K}: format "
+              f"{type(model._A).__name__}, error {err:.6f} (1x1 without a "
+              f"grid {nyt_ref[name][0]:.6f}, relative difference {rel:.2e}, "
+              f"limit {GRID_ERR_TOL:g}), {secs:.3f} s (1x1 "
+              f"{nyt_ref[name][3]:.3f} s), launches {ran}", flush=True)
+        check(isinstance(model._A, ell.EllSparse) and rel <= GRID_ERR_TOL
+              and ran == k4_fit_launches(kw["norm"]),
+              f"one-rank NCCL sparse {name}: error {err}, launches {ran}")
+        del model
+    dist.destroy_process_group()
+    del nyt
+    torch.cuda.empty_cache()
+
+    # four ranks on the card over gloo, 2 x 2 and 4 x 1, each drawing the
+    # matrix and keeping its block; HALS's factors held as phase 7 holds
+    # them, by what f32 itself moves them (the 1x1 fit at f64, on K4's
+    # plain version)
+    W64, H64, _ = NMF(NMFConfig(k=K, itr=ITR, precision="float64",
+                                **SPARSE_GRID_METHODS["HALS"]),
+                      dev).fit(nytimes(dev))
+    hals_tol = max(GRID_FACTOR_TOL, 2 * max(
+        rel_max(nyt_ref["HALS"][1], W64.cpu()),
+        rel_max(nyt_ref["HALS"][2], H64.cpu())))
+    del W64, H64
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        _, secs = torchrun([os.path.abspath(__file__), "--sparse-grid-fits",
+                            tmp], 600)
+        ranks = []
+        for r in range(GRID_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        print(f"[grid-sparse] {GRID_RANKS} ranks on one card ({smi}), "
+              f"backend {ranks[0]['backend']}, {secs:.1f} s for the torchrun "
+              f"of all fits (of it a warm-up fit of 2 iterations, a rank's "
+              f"first, {[round(r['warm-up'], 3) for r in ranks]} s); "
+              f"blocks (shape, nnz, seconds to draw and cut) per rank "
+              f"{[[r[f'{p}x{q} block'] for p, q in GRID_SHAPES] for r in ranks]}",
+              flush=True)
+        for grid in GRID_SHAPES:
+            tag = f"{grid[0]}x{grid[1]}"
+            names = list(SPARSE_GRID_METHODS) + (
+                ["FRO-MU triplet"] if grid == (2, 2) else [])
+            for name in names:
+                runs = [r[f"{tag} {name}"] for r in ranks]
+                triplet = name.endswith("triplet")
+                err1, W1, H1 = nyt_ref[name.split()[0]][:3]
+                got = torch.load(os.path.join(tmp, f"{tag} {name}.pt"))
+                d_w, d_h = rel_max(got["W"], W1), rel_max(got["H"], H1)
+                ftol = hals_tol if name == "HALS" else GRID_FACTOR_TOL
+                if triplet:       # against the ELL blocks' fit
+                    err1 = ranks[0][f"{tag} FRO-MU"]["err"]
+                rel = abs(runs[0]["err"] / err1 - 1)
+                rows_ok = all(a["w_digest"] == b["w_digest"]
+                              for ra, a in zip(ranks, runs)
+                              for rb, b in zip(ranks, runs)
+                              if ra["coords"][tag][0] == rb["coords"][tag][0])
+                cols_ok = all(a["h_digest"] == b["h_digest"]
+                              for ra, a in zip(ranks, runs)
+                              for rb, b in zip(ranks, runs)
+                              if ra["coords"][tag][1] == rb["coords"][tag][1])
+                want = ({} if triplet else k4_fit_launches(
+                    SPARSE_GRID_METHODS[name]["norm"]))
+                fmts = {run["fmt"] for run in runs}
+                print(f"[grid-sparse] {tag} {name}: formats {fmts} (ELL "
+                      f"widths rows / columns per rank "
+                      f"{[run['widths'] for run in runs]}), error "
+                      f"{runs[0]['err']:.6f} ("
+                      f"{'ELL 2x2' if triplet else '1x1'} "
+                      f"{err1:.6f}, relative difference {rel:.2e}, limit "
+                      f"{GRID_ERR_TOL:g}); gathered W, H vs 1x1 {d_w:.2e}, "
+                      f"{d_h:.2e} (limit {ftol:.2e}); replicas bitwise equal: "
+                      f"W {rows_ok}, H {cols_ok}; seconds per rank "
+                      f"{[round(run['secs'], 3) for run in runs]} (1x1 "
+                      f"{nyt_ref[name.split()[0]][3]:.3f}); rank 0 stages "
+                      f"{runs[0]['stages']}; collectives (calls, bytes) "
+                      f"{runs[0]['collectives']}; launches per rank "
+                      f"{[run['launches'] for run in runs]}", flush=True)
+                check(fmts == {"SparseTriplet" if triplet else "EllSparse"},
+                      f"{tag} {name}: the ranks ran {fmts}")
+                check(len({run["err"] for run in runs}) == 1,
+                      f"{tag} {name}: ranks' errors differ")
+                check(rel <= GRID_ERR_TOL and d_w <= ftol and d_h <= ftol,
+                      f"{tag} {name} is not the 1x1 fit")
+                check(rows_ok and cols_ok, f"{tag} {name}: replicas differ")
+                check(all(run["launches"] == want for run in runs),
+                      f"{tag} {name} launched "
+                      f"{[run['launches'] for run in runs]}, not {want}")
+                for run in runs:
+                    for key, n in run["launches"].items():
+                        main_path[key] += n
+            for norm in ("fro", "kl"):
+                steps = [r[f"{tag} step {norm}"] for r in ranks]
+                print(f"[grid-sparse] {tag} one {norm.upper()}-MU step on the "
+                      f"ELL blocks: collectives {steps[0]['counts']}, bytes "
+                      f"per rank {[st['bytes'] for st in steps]}, ms per rank "
+                      f"{[round(st['ms'], 2) for st in steps]}, of it in "
+                      f"collectives "
+                      f"{[round(st['dist_comm_ms'], 2) for st in steps]}",
+                      flush=True)
+                check(all(st["counts"] == {"all-reduce": 4} for st in steps),
+                      f"{tag} sparse {norm} step collectives "
+                      f"{steps[0]['counts']}")
+
+    # the sparse NMFk sweeps through the CLI under torchrun, each rank
+    # reading its row panel of the topic .npz: FRO-MU on 4 x 1 and KL-MU on
+    # 2 x 2 at GRID_SWEEP_KS, beside phase 5's 1x1 sweeps at those ks. The
+    # auto format is the dual ELL on every rank: a topic's rows use a
+    # quarter of the columns, so three quarters of a 4 x 1 block's column
+    # lines are empty, and grid_ell_pack counts its blow-up over the lines
+    # that hold a nonzero (the JAX package's shared widths refuse this
+    # grid); on 2 x 2 two blocks are empty and pack as padding
+    r, c, v, tshape = generate_topic_sparse(**TOPIC, seed=7)
+    topic = sparse.from_coo(*(torch.from_numpy(x).to(dev) for x in (r, c, v)),
+                            tshape)
+    ks = list(GRID_SWEEP_KS)
+    with tempfile.TemporaryDirectory() as tmp:
+        sp.save_npz(os.path.join(tmp, "T.npz"),
+                    sp.csr_matrix((v, (r, c)), shape=tshape), compressed=False)
+        del r, c, v
+        base = ["--process=pyDNMFk", "--ftype=npz", f"--fpath={tmp}/",
+                "--fname=T", *GRID_SWEEP, "--timing_stats=true"]
+        for norm, grid in (("fro", (4, 1)), ("kl", (2, 2))):
+            tag = f"{grid[0]}x{grid[1]}"
+            res = f"{tmp}/{norm}/"
+            widths = []
+            for rank in range(GRID_RANKS):
+                packed = ell.grid_ell_pack(block_of(topic, grid, rank))
+                widths.append(packed and [packed[0].rvals.shape[1],
+                                          packed[0].cvals.shape[1]])
+            print(f"[grid-sparse] topic blocks on {tag}: ELL widths rows / "
+                  f"columns per rank {widths} (None: the block refuses the "
+                  f"ELL)", flush=True)
+            check(all(widths), f"{tag} topic blocks refuse the ELL: {widths}")
+            _, secs = torchrun([os.path.abspath(__file__), "--grid-cli", tmp,
+                                f"--p_r={grid[0]}", f"--p_c={grid[1]}",
+                                f"--norm={norm}", f"--results_path={res}",
+                                *base], 900)
+            cli_ranks = []
+            for rank in range(GRID_RANKS):
+                with open(os.path.join(tmp, f"cli_rank{rank}.json")) as f:
+                    cli_ranks.append(json.load(f))
+            # a k: the ensemble's 400 steps of one batch of 10 and its final
+            # error, the refit's 400 H steps, its error and column error
+            # (phase 5's counts a k)
+            per_k = ({"ell_gather": 1203} if norm == "fro"
+                     else {"ell_gather": 3, "ell_gather_ratio": 1200})
+            want = {key: n * len(ks) for key, n in per_k.items()}
+            # one read a rank, of its rows alone
+            panels = [r["rows_read"] for r in cli_ranks]
+            want_panels = [[[list(block_range(tshape[0], grid[0],
+                                              rank // grid[1]))]]
+                           for rank in range(GRID_RANKS)]
+            worst = {"ErrTol": 0.0, "avgErr": 0.0, "L_err": 0.0, "sils": 0.0}
+            for k in ks:
+                a = read_cluster_results(os.path.join(res, "T", str(k)))
+                b = topic_ref[norm][k]
+                for key in ("ErrTol", "avgErr", "L_err"):
+                    worst[key] = max(worst[key], float(np.max(
+                        np.abs(a[key] - b[key]) / np.abs(b[key]).max())))
+                worst["sils"] = max(worst["sils"], float(np.max(np.abs(
+                    a["clusterSilhouetteCoefficients"]
+                    - b["clusterSilhouetteCoefficients"]))))
+            print(f"[grid-sparse] NMFk {norm.upper()}-MU sweep through the "
+                  f"CLI "
+                  f"under torchrun, {tag} grid, topic .npz {tshape[0]}x"
+                  f"{tshape[1]} k={ks[0]}..{ks[-1]}, 10 perturbations, 400 "
+                  f"iterations ({smi}): nopt "
+                  f"{[r['nopt'] for r in cli_ranks]}, {secs:.2f} s for the "
+                  f"torchrun; rank 0 stage seconds {cli_ranks[0]['stages']}; "
+                  f"row panels read per rank {panels}; launches per rank "
+                  f"{[r['launches'] for r in cli_ranks]} (expected {want}); "
+                  f"per-k statistics against phase 5's 1x1 sweep, max "
+                  f"difference over max (silhouettes: absolute) {worst} "
+                  f"(limits 1e-3, 1e-3, 1e-2, 1e-3)", flush=True)
+            check(all(r["nopt"] == 4 for r in cli_ranks),
+                  f"{tag} sparse {norm} sweep nopt")
+            check(all(r["launches"] == want for r in cli_ranks),
+                  f"{tag} sparse {norm} sweep launches")
+            check(panels == want_panels,
+                  f"{tag} sparse sweep row panels {panels}, not {want_panels}")
+            check(worst["ErrTol"] <= 1e-3 and worst["avgErr"] <= 1e-3
+                  and worst["L_err"] <= 1e-2 and worst["sils"] <= 1e-3,
+                  f"{tag} sparse {norm} sweep's stats are not the 1x1 "
+                  f"sweep's: {worst}")
+            for rank in cli_ranks:
+                for key, n in rank["launches"].items():
+                    main_path[key] += n
+
+    # K4 against its plain version on the grid's block shapes: a 2 x 2
+    # block of the NYTimes-shaped matrix at k = K, and a 4 x 1 block of the
+    # 10-member topic stack at k = TOPIC_K, the FRO sweep's, packed as the
+    # grid packs it (its empty column lines padded); there each product in
+    # full (K4 and the tails) beside the triplet's, which auto would run
+    # if the block refused
+    blk = block_of(nytimes(dev), (2, 2), 0)
+    Eb = ell.ell_pack(blk)
+    Wb = torch.rand((blk.shape[0], K), generator=gen, device=dev)
+    Hb = torch.rand((K, blk.shape[1]), generator=gen, device=dev)
+    B_r = csr(blk.rows, blk.cols, blk.data, blk.shape)
+    B_c = csr(blk.cols, blk.rows, blk.data, blk.shape[::-1])
+    k4_cases(f"2x2 block {blk.shape[0]}x{blk.shape[1]} ({blk.nse} nnz) "
+             f"k={K} f32", Eb, Wb, Hb,
+             lambda Ht, W: (lambda: torch.sparse.mm(B_r, Ht),
+                            lambda: torch.sparse.mm(B_c, W)))
+    del blk, Eb, Wb, Hb, B_r, B_c
+    blk = block_of(topic, (4, 1), 0)
+    del topic
+    Eb, *perms = ell.grid_ell_pack(blk)
+    data = blk.data * (1.0 + 0.03 * torch.rand((ENS, blk.nse), generator=gen,
+                                               device=dev))
+    stack = ell.ell_with_data(Eb, *perms, data)
+    S_r = coo_stack(blk.rows, blk.cols, data, blk.shape)
+    S_c = coo_stack(blk.cols, blk.rows, data, blk.shape[::-1])
+    Ws = torch.rand((ENS, blk.shape[0], TOPIC_K), generator=gen, device=dev)
+    Hs = torch.rand((ENS, TOPIC_K, blk.shape[1]), generator=gen, device=dev)
+    k4_cases(f"4x1 block {ENS} x {blk.shape[0]}x{blk.shape[1]} ({blk.nse} "
+             f"nnz, padded lines) k={TOPIC_K} f32", stack, Ws, Hs,
+             lambda Ht, W: (lambda: torch.bmm(S_r, Ht),
+                            lambda: torch.bmm(S_c, W)))
+    trip = blk.with_data(data)
+    eps = float(torch.finfo(torch.float32).eps)
+    pairs = {"A H^T": (lambda: ell.ell_a_ht(stack, Hs),
+                       lambda: sparse.a_ht_triplet(trip, Hs)),
+             "W^T A": (lambda: ell.ell_wt_a(stack, Ws),
+                       lambda: sparse.wt_a_triplet(trip, Ws)),
+             "KL U H^T": (lambda: ell.ell_kl_uht(stack, Ws, Hs, eps),
+                          lambda: sparse.kl_uht_sparse(trip, Ws, Hs, eps)),
+             "KL W^T U": (lambda: ell.ell_kl_wtu(stack, Ws, Hs, eps),
+                          lambda: sparse.kl_wtu_sparse(trip, Ws, Hs, eps))}
+    times = {}
+    for label, (f_ell, f_trip) in pairs.items():
+        _, rel = compare(f_ell(), f_trip())
+        check(rel <= TOL[torch.float32],
+              f"4x1 topic block {label}: ELL and triplet differ by {rel:.3e}")
+        times[label] = (median_ms(f_ell), median_ms(f_trip))
+    print(f"[grid-sparse] 4x1 topic block {ENS} x {blk.shape[0]}x"
+          f"{blk.shape[1]}, {blk.nse} nnz, k={TOPIC_K} ({smi}): ELL widths "
+          f"rows / columns {Eb.rvals.shape[1]} / {Eb.cvals.shape[1]}, slots "
+          f"a nonzero {Eb.rvals.numel() / blk.nse:.2f} / "
+          f"{Eb.cvals.numel() / blk.nse:.2f}; a product in full, ms, the "
+          f"ELL (K4 and the tails) against the triplet "
+          + ", ".join(f"{label} {a:.3f} / {b:.3f}"
+                      for label, (a, b) in times.items()), flush=True)
+    del blk, Eb, perms, data, stack, S_r, S_c, Ws, Hs, trip
+    torch.cuda.empty_cache()
 
 
 def torchrun(args, timeout):
@@ -1015,17 +1491,10 @@ def main():
     del Ae, We, He, HHTe, hrse
     torch.cuda.empty_cache()
 
-    # K4 at the NYTimes shape: flat positions drawn uniformly with
-    # replacement, repeats dropped by unique; positive counts-like values
-    # (geometric, from 1 - U in (0, 1]: torch.rand can return 0)
+    # K4 at the NYTimes shape (nytimes: drawn from NYT_SEED, as every rank
+    # of phase 8 draws it)
     t0 = time.perf_counter()
-    flat = torch.unique(torch.randint(0, NYT_M * NYT_N, (NYT_NNZ,),
-                                      generator=gen, device=dev))
-    vals = torch.floor(-2.0 * torch.log1p(-torch.rand(
-        flat.shape, generator=gen, device=dev))) + 1.0
-    nyt = sparse.SparseTriplet(vals, (flat // NYT_N).to(torch.int32),
-                               (flat % NYT_N).to(torch.int32), (NYT_M, NYT_N))
-    del flat, vals
+    nyt = nytimes(dev)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     E = ell.ell_pack(nyt)
@@ -1639,6 +2108,7 @@ def main():
     # instantiation)
     # (and KL-MU at k = 300: K4 in column slabs, every call, its ratio modes
     # in two passes)
+    nyt_ref = {}     # the f32 k = K fits, phase 8's 1x1 references
     for norm, method, a_prec, k in (("fro", "mu", None, K),
                                     ("kl", "mu", None, K),
                                     ("fro", "hals", None, K),
@@ -1686,6 +2156,9 @@ def main():
                                  f"ell_gather_ratio{tag}": 20})}
         check(ran == want, f"sparse NMF.fit {label} launches {ran}, "
                            f"expected {want}")
+        if a_prec is None and k == K:
+            nyt_ref[label] = (err, W.cpu(), H.cpu(), secs,
+                              {key: n for key, n in ran.items() if n})
         if k > 32:
             slabbed = dict(ell_gather.slab_launches)
             check(slabbed == {key: n for key, n in ran.items()
@@ -1713,9 +2186,15 @@ def main():
         sp.save_npz(os.path.join(tmp, "T.npz"),
                     sp.csr_matrix((v, (r, c)), shape=tshape), compressed=False)
         del r, c, v
-        sweep(tmp, "npz", "T", "fro", ("ell_gather",), tshape)
-        sweep(tmp, "npz", "T", "kl", ("ell_gather", "ell_gather_ratio"),
-              tshape)
+        # phase 8 holds its grid sweeps at ks 3..5 against these ks of the
+        # 1x1 sweeps: a member is keyed by (seed, member) alone, whatever
+        # the other ks of its sweep
+        topic_ref = {}
+        for norm, expect in (("fro", ("ell_gather",)),
+                             ("kl", ("ell_gather", "ell_gather_ratio"))):
+            res_path = sweep(tmp, "npz", "T", norm, expect, tshape)
+            topic_ref[norm] = {k: read_cluster_results(
+                os.path.join(res_path, "T", str(k))) for k in GRID_SWEEP_KS}
 
     # the HALS + nnsvd + prune sweep through the CLI: a planted matrix with
     # all-zero rows and columns, which the sweep prunes once and puts back
@@ -2161,8 +2640,6 @@ def main():
     # distributed code path
     A = planted_exact(dev)
     ref = {}
-    rel_max = lambda X, Y: float((X.double() - Y.double()).abs().max()
-                                 / Y.double().abs().max())
     for name, kw in GRID_METHODS.items():
         zero_counts()
         torch.cuda.synchronize()
@@ -2283,7 +2760,7 @@ def main():
         np.save(os.path.join(tmp, "X.npy"), X.astype(np.float32))
         del X
         base = ["--process=pyDNMFk", "--ftype=npy", f"--fpath={tmp}/",
-                "--fname=X", *SWEEP]
+                "--fname=X", *GRID_SWEEP]
         zero_counts()
         t0 = time.perf_counter()
         one_out = cli.main(["--p_r=1", "--p_c=1", "--norm=fro",
@@ -2298,7 +2775,7 @@ def main():
             names, values = list(csv.reader(f))
         stages = {n: round(float(v), 3) for n, v in zip(names, values)}
         worst = {"ErrTol": 0.0, "avgErr": 0.0, "L_err": 0.0, "sils": 0.0}
-        for k in range(2, 8):
+        for k in GRID_SWEEP_KS:
             a = read_cluster_results(os.path.join(tmp, "grid", "X", str(k)))
             b = read_cluster_results(os.path.join(tmp, "one", "X", str(k)))
             for key in ("ErrTol", "avgErr", "L_err"):
@@ -2316,7 +2793,7 @@ def main():
                                                for b in range(4)],
                   f"grid sweep k={k} factor files {files}")
         print(f"[grid] NMFk FRO-MU sweep through the CLI under torchrun, 2x2 "
-              f"grid, {PLANTED['m']}x{PLANTED['n']} {' '.join(SWEEP)} "
+              f"grid, {PLANTED['m']}x{PLANTED['n']} {' '.join(GRID_SWEEP)} "
               f"({smi}): {lines}, {secs:.2f} s for the torchrun (1x1 "
               f"{one_s:.2f} s, nopt {one_out['nopt']}); rank 0 stage seconds "
               f"{stages}; per-k statistics against the 1x1 sweep's, max "
@@ -2335,7 +2812,7 @@ def main():
         for r in range(GRID_RANKS):
             with open(os.path.join(tmp, f"cli_rank{r}.json")) as f:
                 cli_ranks.append(json.load(f))
-        per_k = 400 * (7 - 2 + 1)
+        per_k = 400 * len(GRID_SWEEP_KS)
         want = {"kl_uht": per_k, "kl_wtu": 2 * per_k}
         print(f"[grid] NMFk KL-MU sweep through the CLI under torchrun, 2x2 "
               f"grid: nopt {[r['nopt'] for r in cli_ranks]}, {secs:.2f} s, "
@@ -2376,6 +2853,11 @@ def main():
         del a, Wb, Hb
     torch.cuda.empty_cache()
 
+    # -- 8. a sparse A on the grid: each rank's block in the dual ELL ----
+    sparse_grid_phase(dev, smi, gen, nyt_ref, topic_ref, k4_cases,
+                      zero_counts, read_counts, main_path)
+    del nyt_ref, topic_ref
+
     for name, n in main_path.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
     for name in ("kl_uht", "kl_wtu", "fused_mu_kl", "fused_mu_kl_bf16",
@@ -2383,7 +2865,7 @@ def main():
         check(main_path_wide[name] > 0, f"kernel {name} was not launched "
                                         f"past k = 32 on the main path")
 
-    # -- 8. report -------------------------------------------------------
+    # -- 9. report -------------------------------------------------------
     sources = {"K1 fused_mu_fro": ("fused_mu_fro.cu", "ops/fused_mu.py:50",
                                    ("fused_mu_fro", "fused_mu_fro_bf16",
                                     "fused_mu_fro_u8")),
@@ -2443,6 +2925,8 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--grid-fits"]:
         grid_fits(sys.argv[2])
+    elif sys.argv[1:2] == ["--sparse-grid-fits"]:
+        sparse_grid_fits(sys.argv[2])
     elif sys.argv[1:2] == ["--grid-cli"]:
         grid_cli(sys.argv[2], sys.argv[3:])
     else:

@@ -112,7 +112,10 @@ def build_parser():
     p.add_argument("--matmul_precision", type=str, default=None)
     p.add_argument("--bcd_obj", type=str, default=None,
                    help="BCD objective: gram (default) or residual")
-    p.add_argument("--sparse_grid_format", type=str, default=None)
+    p.add_argument("--sparse_grid_format", type=str, default=None,
+                   help="a sparse A's format on a grid: auto (the dual "
+                        "ELL on the card where every block packs, else the "
+                        "triplet), ell or triplet")
     p.add_argument("--k_sweep_batch", type=str2bool, default=None)
     p.add_argument("--k_sweep_merge", type=str2bool, default=None)
     return p
@@ -122,7 +125,6 @@ def _jax_only_knobs(args):
     """The JAX Runner's knobs among the flags that the port has no
     counterpart for (``config.py::JAX_ONLY``), as Runner takes them."""
     return dict(matmul_precision=args.matmul_precision,
-                sparse_grid_format=args.sparse_grid_format,
                 k_sweep_batch=args.k_sweep_batch,
                 k_sweep_merge=args.k_sweep_merge)
 
@@ -171,6 +173,7 @@ def _run(args):
         seed_grid=(tuple(int(x) for x in args.seed_grid.split(","))
                    if args.seed_grid else None),
         solve_checkpoint_every=args.solve_checkpoint_every,
+        sparse_grid_format=args.sparse_grid_format,
         **_jax_only_knobs(args))
     results = runner.run(
         grid=[args.p_r, args.p_c], fpath=args.fpath, ftype=args.ftype,

@@ -2,8 +2,9 @@
 
 The dataclasses of ``pydnmfk_tpu/config.py`` without the TPU knobs (the
 Pallas switch, matmul precision, the XLA compilation cache and the K-padded
-sweep) and without the features not yet ported (a sparse A on a grid),
-which the entry points reject with :class:`NotPortedError`.
+sweep), which the entry points reject with :class:`NotPortedError`, as
+they do the features not yet ported (the ensemble axis ``p_e`` of a grid,
+``parallel/mesh.py``).
 """
 from __future__ import annotations
 
@@ -27,9 +28,10 @@ class NotPortedError(NotImplementedError):
         super().__init__(f"{what} {why} (ROADMAP.md {item})")
 
 
-# what a sparse A on a grid needs, still to port
-SPARSE_GRID = ("a sparse A on a grid (GridShardedSparse, GridEllSparse, "
-               "sparse_grid_format)")
+# the formats of a sparse A on a grid (``ops/sparse.py::grid_format``):
+# None or "auto" = the dual ELL on the card where every rank's block packs,
+# else the triplet; "ell" or "triplet" forces one
+SPARSE_GRID_FORMATS = (None, "auto", "ell", "triplet")
 
 
 # Knobs of the JAX package's configs and Runner that the port has no
@@ -40,7 +42,6 @@ JAX_ONLY = {
     "use_pallas": ((None, False), '"Not to port"'),
     # the port's products run in true f32, which "highest" asks for
     "matmul_precision": ((None, "highest", "float32"), '"Not to port"'),
-    "sparse_grid_format": ((None, "auto"), "queue 1 item 15"),
     # the K-padded sweep gives the per-k path's results (tests/test_k_sweep.py)
     "k_sweep_batch": ((None, False), "queue 1 item 10"),
     "k_sweep_merge": ((None, False), "queue 1 item 10"),
@@ -120,6 +121,9 @@ class NMFConfig:
     # the last save (pydnmfk_tpu/config.py:118); fixed-iteration MU and
     # HALS only
     solve_checkpoint_every: int = 0
+    # the format of each rank's block of a sparse A on a grid
+    # (SPARSE_GRID_FORMATS; pydnmfk_tpu/config.py:104)
+    sparse_grid_format: str | None = None
 
     def __post_init__(self):
         object.__setattr__(self, "grid", tuple(int(p) for p in self.grid))
@@ -146,6 +150,13 @@ class NMFConfig:
             raise ValueError(f"unknown precision {self.precision!r}")
         if self.a_precision not in (None, *_A_PRECISIONS):
             raise ValueError(f"unknown a_precision {self.a_precision!r}")
+        if isinstance(self.sparse_grid_format, str):
+            object.__setattr__(self, "sparse_grid_format",
+                               self.sparse_grid_format.lower())
+        if self.sparse_grid_format not in SPARSE_GRID_FORMATS:
+            # pydnmfk_tpu/ops/sparse.py:293-295
+            raise ValueError(f"sparse_grid_format must be 'ell' or "
+                             f"'triplet', got {self.sparse_grid_format!r}")
         if self.kl_chunk < 0:
             raise ValueError(f"kl_chunk must be >= 0, got {self.kl_chunk!r}")
         half = (torch.bfloat16, torch.float16)

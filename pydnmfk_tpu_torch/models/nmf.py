@@ -10,6 +10,9 @@ block (i, j) of A with W's row block i and H's column block j, and every
 product is all-reduced (``models/updates.py``); K1 and K3 stay off a grid
 of more than one rank, as the JAX package's fusion rule turns them off
 outside a single shard (nmf.py:226-227), and KL takes K2a/K2b on the block.
+A sparse A on a grid is never densified: each rank packs its own block in
+the format that ``sparse_grid_format`` and the ranks agree on (the dual
+ELL, K4 on the card, or the triplet; ``ops/sparse.py::grid_format``).
 The factors come back gathered, on every rank; rank 0 writes them.
 
 Reference semantics kept (pyDNMF.py):
@@ -31,7 +34,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import SPARSE_GRID, NMFConfig, NotPortedError, check_device
+from ..config import NMFConfig, check_device
 from ..ops import cuda_lib, fused_kl, fused_mu, linalg, sparse
 from ..parallel.mesh import is_proc0, sync_processes
 from ..utils import timing
@@ -75,7 +78,7 @@ def step_for(A, W, norm: str, W_update: bool, chunk: int,
                        grid=grid)
     if linalg.is_sparse(A):
         step = updates.mu_fro_step if norm == "fro" else updates.mu_kl_step
-        return partial(step, W_update=W_update)
+        return partial(step, W_update=W_update, grid=grid)
     k = W.shape[-1]
     kernel_types = cuda_lib.kernel_types(A.dtype, W.dtype)
     one_shard = grid is None or grid.n_ranks == 1
@@ -233,7 +236,8 @@ class NMF:
         uint8 excepted (nmf.py:364-368); a dense A that the policy narrowed
         to bf16 keeps bf16. A sparse A that stays sparse refuses prune and
         nnsvd here, and BCD in :func:`solve`, with the JAX package's
-        ValueErrors (nmf.py:358-363, :186-189)."""
+        ValueErrors (nmf.py:358-363, :186-189). On a grid a sparse A is
+        this rank's block in its grid format (:meth:`_prepare_grid`)."""
         cfg = self.cfg
         quantized = not cfg.a_dtype.is_floating_point
         if not linalg.is_sparse(A):
@@ -243,17 +247,36 @@ class NMF:
             raise ValueError("quantized (uint8) A storage applies to dense A "
                              "(the sparse formats store only the nnz values); "
                              "drop a_precision for sparse inputs")
+        if self.grid is not None:
+            self._refuse_sparse()
+            return self._prepare_grid(A)
         with timing.timed("sparse_format"):
             A = sparse.densify_for_backend(A.to(self.device), k_hint=cfg.k)
         if linalg.is_sparse(A):
-            if cfg.prune:
-                raise ValueError("prune is not supported with sparse A "
-                                 "(pruning IS implicit in sparsity)")
-            if cfg.init == "nnsvd":
-                raise ValueError("nnsvd init requires dense A; use "
-                                 "init='rand' with sparse matrices")
+            self._refuse_sparse()
             return A.astype(cfg.a_dtype)
         return A if A.dtype == torch.bfloat16 else A.to(cfg.a_dtype)
+
+    def _refuse_sparse(self):
+        if self.cfg.prune:
+            raise ValueError("prune is not supported with sparse A "
+                             "(pruning IS implicit in sparsity)")
+        if self.cfg.init == "nnsvd":
+            raise ValueError("nnsvd init requires dense A; use "
+                             "init='rand' with sparse matrices")
+
+    def _prepare_grid(self, A):
+        """This rank's block of a sparse A on the grid, in the format that
+        the ranks agree on (nmf.py:430-466; ``ops/sparse.py::grid_format``,
+        which cuts a whole SparseTriplet to the block and takes the
+        reader's SparseGridInput as the block; a bundle already agreed,
+        such as the NMFk refit's, keeps its format). Unlike the JAX
+        package, which runs a reader's blocks as triplets, a reader's block
+        packs like any other."""
+        with timing.timed("sparse_format"):
+            A = sparse.grid_format(A.to(self.device), self.grid,
+                                   self.cfg.sparse_grid_format)
+        return A.local.astype(self.cfg.a_dtype)
 
     def init_factors(self, A, spans=None):
         """Init factors of A (``nmf.py:319-338``): U[0, 1) draws from a
@@ -287,14 +310,14 @@ class NMF:
         round(A / s): the error and ``column_err`` are Q's, and the
         returned H carries s (nmf.py:477-480, :501-504).
 
-        On a grid A is this rank's block of a dense matrix, and ``factors``
+        On a grid A is this rank's block of a dense matrix, a whole sparse
+        matrix (a SparseTriplet, which each rank cuts to its block) or this
+        rank's block of one (the reader's SparseGridInput), and ``factors``
         this rank's blocks (W's row block, H's column block); the returned
         W and H are whole, gathered on every rank, and rank 0 writes
         them."""
         cfg, grid = self.cfg, self.grid
         check_device(self.device)
-        if grid is not None and linalg.is_sparse(A):
-            raise NotPortedError(SPARSE_GRID, "queue 1 item 15")
         A = self._prepare(A)
         spans = None if grid is None else (grid.span(A.shape[0], "r"),
                                            grid.span(A.shape[1], "c"))

@@ -20,8 +20,13 @@ carry zero error and the saved factors come back at the full shape. With
 ``init="nnsvd"`` every member starts from the NNDSVD of its own perturbed
 copy, one batched ``eigh`` per batch of members (nmfk.py:81-83).
 
-On a p_r x p_c grid (``grid``) each rank holds its block of a dense A and
-draws its block of every member (``models/sampler.py``); the batch is the
+On a p_r x p_c grid (``grid``) each rank holds its block of A and draws
+its block of every member (``models/sampler.py``): of a dense A by row
+panels, of a sparse A by drawing each member's whole flat values, as the
+1x1 sweep does, and keeping its block's slots (``nmfk.py:331-465``), so
+that a rank's block of a member is bitwise the 1x1 member's; a sparse
+block runs in the format that the ranks agree on (the dual ELL, K4 on the
+card, or the triplet; ``ops/sparse.py::grid_format``). The batch is the
 least any rank's memory takes; the solves, the clustering and the W-frozen
 refit run on the blocks with the grid's collectives, and the ensemble is
 never gathered. Rank 0 alone writes the per-k results, the factors (in the
@@ -39,7 +44,7 @@ import shutil
 import numpy as np
 import torch
 
-from ..config import SPARSE_GRID, NMFkConfig, NotPortedError, check_device
+from ..config import NMFkConfig, check_device
 from ..ops import ell, ell_gather, linalg, sparse
 from ..parallel.mesh import is_proc0, sync_processes
 from ..utils import timing
@@ -74,7 +79,8 @@ def _ensemble_cfg_tag(ncfg, cfg, K=None, grid=None) -> str:
                  float(ncfg.tol), int(ncfg.tol_check_every), cfg.noise_var,
                  cfg.sampling, cfg.seed_grid, ncfg.bcd_obj, ncfg.hals_block,
                  ncfg.use_fused, ncfg.kl_chunk, K or ncfg.k,
-                 grid.shape if grid is not None else (1, 1)))
+                 grid.shape if grid is not None else (1, 1),
+                 ncfg.sparse_grid_format))
 
 
 def _part_suffix(grid) -> str:
@@ -163,7 +169,9 @@ class NMFk:
     def fit(self, A) -> int:
         """Run the sweep; returns the estimated k (reference PyNMFk.fit,
         pyDNMFk.py:168-215). On a grid A is this rank's block of a dense
-        matrix, and every rank returns rank 0's k."""
+        matrix, a whole sparse one (a SparseTriplet, which each rank cuts
+        to its block) or this rank's block of one (the reader's
+        SparseGridInput), and every rank returns rank 0's k."""
         cfg, grid = self.cfg, self.grid
         if not cfg.nmf.a_dtype.is_floating_point:
             raise ValueError(
@@ -172,8 +180,6 @@ class NMFk:
                 "member; use a_precision='bfloat16' for the ensemble "
                 "(nmfk.py:647-652)")
         check_device(self.device)
-        if grid is not None and linalg.is_sparse(A):
-            raise NotPortedError(SPARSE_GRID, "queue 1 item 15")
         os.makedirs(self.results_path, exist_ok=True)
         A = self._prepare(A)
         start_k = self._rank0(self.checkpoint.resume_k(cfg.start_k,
@@ -237,6 +243,8 @@ class NMFk:
         if not linalg.is_sparse(A):
             return as_tensor(A).to(self.device,
                                          self.cfg.nmf.dtype).contiguous()
+        if self.grid is not None:
+            return self._format_grid(A)
         if not isinstance(A, sparse.SparseTriplet):
             raise TypeError("NMFk takes a sparse A as a SparseTriplet (its "
                             f"members perturb the flat values), got "
@@ -252,11 +260,26 @@ class NMFk:
             return fmt
         return fmt.to(self.cfg.nmf.dtype)
 
+    def _format_grid(self, A):
+        """This rank's block of a sparse A on the grid, at the factor
+        dtype, as a SparseGridInput in the format that the ranks agree on
+        (``ops/sparse.py::grid_format``); a dual ELL goes to ``self._ell``
+        with its perms."""
+        with timing.timed("sparse_format"):
+            A = sparse.grid_format(A.to(self.device), self.grid,
+                                   self.cfg.nmf.sparse_grid_format)
+        A = A.astype(self.cfg.nmf.dtype)
+        self._ell = A.ell
+        return A
+
     def _members(self, A, data):
         """The member stack of a sparse A for perturbed values ``data``
-        ((b, nnz)): the dual ELL through its perms, or the triplet."""
+        ((b, nnz), on a grid the block's): the dual ELL through its perms,
+        or the triplet."""
         if self._ell is not None:
             return ell.ell_with_data(*self._ell, data)
+        if isinstance(A, sparse.SparseGridInput):
+            A = A.block
         return A.with_data(data)
 
     def _ensemble_batch_size(self, A, k) -> int:
@@ -321,6 +344,10 @@ class NMFk:
             per_member = (A.nse * (a_item + 4) + slots * a_item + ws
                           + factors)
             shared = A.nse * (w_item + 8)
+            if isinstance(A, sparse.SparseGridInput):
+                # the whole flat values, one member's draw of them, and
+                # the block's slots in them
+                shared += A.flat.numel() * (w_item + 4) + A.nse * 8
         else:
             per_member = m * n * a_item + factors
             if ncfg.norm.lower() == "kl":
@@ -345,6 +372,9 @@ class NMFk:
         cfg, grid = self.cfg, self.grid
         ncfg = cfg.nmf.replace(k=k)
         sparse_A = linalg.is_sparse(A)
+        # a sparse block's members draw the whole flat values and keep the
+        # block's slots
+        slots = A.perm if isinstance(A, sparse.SparseGridInput) else None
         spans = self._spans or ((0, A.shape[0], A.shape[0]),
                                 (0, A.shape[1], A.shape[1]))
         shape = (spans[0][2], spans[1][2])
@@ -358,7 +388,8 @@ class NMFk:
                 W0, H0 = (as_tensor(x).to(self.device, ncfg.dtype)
                           .contiguous() for x in members[1:])
             if sparse_A:
-                A_ens = self._members(A, A_ens)
+                A_ens = self._members(A, A_ens if slots is None
+                                      else A_ens[..., slots])
             return nmf_mod.solve(A_ens, W0, H0, ncfg.eps, ncfg, grid=grid)
         batch = self._ensemble_batch_size(A, k)
         self.last_batch_size = batch
@@ -383,11 +414,13 @@ class NMFk:
         self.checkpoint.save(FLAG_RUNNING, done, k, ncfg.seed)
         for done in range(done, n_pert, batch):
             idx = range(done, min(done + batch, n_pert))
-            A_ens = sampler.sample_ensemble(A.data if sparse_A else A,
-                                            ncfg.seed, cfg.noise_var, idx,
-                                            cfg.sampling, ncfg.a_dtype,
+            source = A if not sparse_A else (A.data if slots is None
+                                             else A.flat)
+            A_ens = sampler.sample_ensemble(source, ncfg.seed, cfg.noise_var,
+                                            idx, cfg.sampling, ncfg.a_dtype,
                                             tile_grid=cfg.seed_grid,
-                                            grid=grid, spans=self._spans)
+                                            grid=grid, spans=self._spans,
+                                            slots=slots)
             with timing.timed("ensemble_init"):
                 W0, H0 = self._init_members(ncfg, A_ens, idx, shape,
                                             A.device, cfg.seed_grid, grid,
@@ -460,8 +493,10 @@ class NMFk:
             AvgH = median0(H_all_c)
             reg = NMF(cfg.nmf.replace(k=k, W_update=False, prune=False),
                       self.device, grid)
-            # a sparse A refits on the ELL format the sweep packed, if any
-            A_reg = A if self._ell is None else self._ell[0]
+            # a sparse A refits on the format the sweep chose: the ELL it
+            # packed, or on a grid the bundle, which holds the agreed one
+            A_reg = A if self._ell is None or grid is not None \
+                else self._ell[0]
             AvgW, AvgH, L_errDist = reg.fit(A_reg, factors=(centroids, AvgH))
             col_err = reg.column_err()
         if self.prune_state is not None:

@@ -8,7 +8,11 @@ Port of ``pydnmfk_tpu/models/sampler.py`` (reference pyDNMFk.py:8-67):
 
 A sparse A is perturbed through its flat nnz value vector, which is what
 ``models/nmfk.py`` hands to :func:`sample_ensemble` (sampler.py:65-75): both
-kinds of noise map 0 to 0, so this is exact against the dense formula.
+kinds of noise map 0 to 0, so this is exact against the dense formula. On a
+grid every rank draws each member's whole vector, one member at a time, and
+keeps its block's ``slots`` of it (``nmfk.py:426-438``): a Poisson draw's
+use of its generator depends on the data, so only the whole draw makes a
+rank's block of a member bitwise the 1x1 member's.
 
 Every member draws from its own ``torch.Generator``s, seeded from (seed,
 global member index, stream), so a member's noise and init factors do not
@@ -130,7 +134,7 @@ def sample_panels(A: torch.Tensor, seed: int, member: int, noise_var: float,
 def sample_ensemble(A: torch.Tensor, seed: int, noise_var: float,
                     members, method: str = "uniform",
                     dtype=None, tile_grid=None, grid=None,
-                    spans=None) -> torch.Tensor:
+                    spans=None, slots=None) -> torch.Tensor:
     """Perturbed copies of A for the given global member indices, stacked
     along a leading axis and stored at ``dtype`` (default A's): the noise is
     drawn at A's precision, then the copies are narrowed, as the JAX
@@ -139,9 +143,11 @@ def sample_ensemble(A: torch.Tensor, seed: int, noise_var: float,
     ``tile_grid``, by :func:`sample_member`. On a grid A is this rank's
     block (at ``spans``, as in :func:`sample_panels`); a ``tile_grid`` must
     then be the grid's shape and the blocks even, and every rank draws its
-    block as the reference's MPI rank does."""
+    block as the reference's MPI rank does. ``slots`` (a sparse A's flat
+    values on a grid) keeps those entries of each member's whole draw."""
     members = list(members)
-    out = torch.empty((len(members), *A.shape), dtype=dtype or A.dtype,
+    shape = A.shape if slots is None else slots.shape
+    out = torch.empty((len(members), *shape), dtype=dtype or A.dtype,
                       device=A.device)
     tiled = _grid(tile_grid) is not None
     if grid is not None and tiled:
@@ -161,8 +167,9 @@ def sample_ensemble(A: torch.Tensor, seed: int, noise_var: float,
                                    spans)
             continue
         g = member_generator(seed, member, NOISE_STREAM, A.device)
-        out[i] = sample_member(A, g, noise_var, method,
-                               None if grid is not None else tile_grid)
+        drawn = sample_member(A, g, noise_var, method,
+                              None if grid is not None else tile_grid)
+        out[i] = drawn if slots is None else drawn[slots]
     return out
 
 

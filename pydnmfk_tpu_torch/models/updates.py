@@ -48,15 +48,11 @@ def mu_kl_step(A, W, H, eps, W_update: bool = True, chunk: int = 0,
     A sparse A takes its format's products: the dual ELL's gathers (kernel
     K4 on CUDA, ``ops/ell.py``) or the triplet's, over nnz chunks
     (``ops/sparse.py``). U exists only on A's nonzeros, so ``chunk`` does
-    not apply."""
+    not apply. On a grid A is this rank's block in either format, and the
+    block's partial products are summed over 'c' (U H^T) and 'r' (W^T U)
+    (``updates.py:57-80``)."""
     if linalg.is_sparse(A):
-        from ..ops import ell, sparse
-        if isinstance(A, ell.EllSparse):
-            uht, wtu = ell.ell_kl_uht, ell.ell_kl_wtu
-        else:
-            nc = sparse.nnz_chunk_size(A.nse, W.shape[-1])
-            uht = lambda a, w, h, e: sparse.kl_uht_sparse(a, w, h, e, nc)
-            wtu = lambda a, w, h, e: sparse.kl_wtu_sparse(a, w, h, e, nc)
+        uht, wtu = _sparse_kl_products(A, W, grid)
     elif grid is not None:
         plain = A.is_cuda and not cuda_lib.kernel_types(A.dtype, W.dtype)
         uht = lambda a, w, h, e: kl.kl_uht_sharded(a, w, h, e, grid, chunk,
@@ -78,6 +74,29 @@ def mu_kl_step(A, W, H, eps, W_update: bool = True, chunk: int = 0,
     WTU = wtu(A, W, H, eps)                               # uses the updated W
     H = H * WTU / (w_colsum.unsqueeze(-1) + eps)
     return W, H
+
+
+def _sparse_kl_products(A, W, grid):
+    """The KL products (U H^T, W^T U) of a sparse A's format, on a grid
+    each block's partial product summed in its subgroup and rounded once
+    (``ops/ell.py::gell_kl_*``, ``ops/sparse.py::rs_kl_*``)."""
+    from ..ops import ell, sparse
+    if isinstance(A, ell.EllSparse):
+        uht, wtu = ell.ell_kl_uht, ell.ell_kl_wtu
+    else:
+        nc = sparse.nnz_chunk_size(A.nse, W.shape[-1])
+        uht = lambda a, w, h, e, acc=False: sparse.kl_uht_sparse(
+            a, w, h, e, nc, acc)
+        wtu = lambda a, w, h, e, acc=False: sparse.kl_wtu_sparse(
+            a, w, h, e, nc, acc)
+    if grid is None:
+        return uht, wtu
+
+    def summed(f, over):
+        return lambda a, w, h, e: grid.sum(f(a, w, h, e, acc=True), over).to(
+            torch.promote_types(a.dtype, w.dtype))
+
+    return summed(uht, "c"), summed(wtu, "r")
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Dual ELL sparse A: the card's format for the very sparse regime.
 
-Port of the single-device parts of ``pydnmfk_tpu/ops/ell.py``. Capped-width
-ELLPACK in both orientations, plus COO tails:
+Port of ``pydnmfk_tpu/ops/ell.py``. Capped-width ELLPACK in both
+orientations, plus COO tails:
 
     rvals/rcols : (m, w_r)  per-row values / column indices (CSR-ELL)
     rtail_*     : (t_r,)    entries beyond the per-row width cap
@@ -24,7 +24,9 @@ runs them outside any kernel:
 The KL ratio U = A / (W H + eps) is formed per orientation from the same
 gathered rows (U is zero wherever A is), so each KL product costs one
 gather. Unlike the JAX package, no gate keeps the kernel off: K4 runs on
-every ELL product on the card, single solves and ensembles alike.
+every ELL product on the card, single solves and ensembles alike. On a
+p_r x p_c grid each rank packs its own block (:func:`grid_ell_pack`), and
+``acc`` returns a product's partial sums for the grid to add up.
 """
 from __future__ import annotations
 
@@ -41,6 +43,10 @@ from .linalg import acc_dtype
 # nnz), and the mean of K1, K2a and K2b at 57600 x 38400, both at k = 32
 ELL_S_PER_SLOT = 1.75e-11   # K4 seconds per gathered slot (one nonzero)
 DENSE_S_PER_ELEM = 4.96e-12  # K1/K2 seconds per element of A
+
+# a grid block's ELL slots a nonzero, at most (grid_ell_pack): a block
+# whose occupied lines pass the cap policy may still hold mostly empty ones
+GRID_MAX_SLOTS = 16
 
 FIELDS = ("rvals", "rcols", "rtail_d", "rtail_r", "rtail_c",
           "cvals", "crows", "ctail_d", "ctail_r", "ctail_c")
@@ -93,13 +99,15 @@ class EllSparse:
 
 def ell_pack(A: sparse.SparseTriplet, max_blowup: float = 4.0,
              return_perms: bool = False, cap_q: float = 0.995, w_cap=None,
-             max_tail_frac: float = 0.25):
+             max_tail_frac: float = 0.25, occupied: bool = False):
     """Triplet -> EllSparse, in torch on A's device.
 
     The ELL width of each orientation is the ``cap_q`` quantile of the
     nnz-per-line counts (``w_cap`` overrides it); entries beyond it go to
     the COO tails. Returns None when even the capped storage blows up
-    (> max_blowup * mean + 8) or the tails pass ``max_tail_frac`` of nnz.
+    (> max_blowup * mean + 8) or the tails pass ``max_tail_frac`` of nnz;
+    ``occupied=True`` takes the mean over the lines that hold a nonzero
+    (a grid's block, :func:`grid_ell_pack`).
     The arrays equal those of ``pydnmfk_tpu/ops/ell.py::ell_pack``: the
     quantile is numpy's, on the (dim,) counts brought to the host, and the
     order is a stable sort by line.
@@ -121,7 +129,8 @@ def ell_pack(A: sparse.SparseTriplet, max_blowup: float = 4.0,
         w = int(w_cap) if w_cap else max(
             int(np.quantile(counts.cpu().numpy(), cap_q)), 1)
         w = min(w, top)
-        if w > max_blowup * max(nnz / dim, 1.0) + 8:
+        lines = int((counts > 0).sum()) if occupied else dim
+        if w > max_blowup * max(nnz / lines, 1.0) + 8:
             return None
         order = torch.argsort(keys, stable=True)
         ks, os_, vs = keys[order], others[order], vals[order]
@@ -154,6 +163,38 @@ def ell_pack(A: sparse.SparseTriplet, max_blowup: float = 4.0,
     return E
 
 
+def grid_ell_pack(block: sparse.SparseTriplet):
+    """:func:`ell_pack` of a rank's block of a sparse A on a grid, with its
+    perms (``pydnmfk_tpu/ops/ell.py::grid_ell_pack``, the same cap
+    policy). The JAX package shares one width per orientation across
+    blocks, as XLA's SPMD shapes need; each rank here packs its own block
+    at its own widths, and counts the blow-up over the lines that hold a
+    nonzero: a block of a matrix whose row panels each use a share of the
+    columns (a topic model's documents) has mostly empty column lines,
+    which would pull the mean line under the width of the lines it holds.
+    Those lines then cost padding slots that K4 gathers from row 0
+    (``PERF.md`` times K4 on such a block against the triplet), at most
+    ``GRID_MAX_SLOTS`` a nonzero in either orientation. A block
+    with no nonzeros packs as lines of one padding slot and no tails, so
+    that an empty block does not refuse the grid's ELL. None where the
+    block refuses."""
+    if block.nse:
+        packed = ell_pack(block, return_perms=True, occupied=True)
+        too_many = lambda vals: (vals.numel() > GRID_MAX_SLOTS * block.nse
+                                 + 8 * vals.shape[0])
+        if packed and (too_many(packed[0].rvals) or too_many(packed[0].cvals)):
+            return None
+        return packed
+    (m, n), dev = block.shape, block.device
+    line = lambda dim, dt: torch.zeros((dim, 1), dtype=dt, device=dev)
+    none = lambda dt: torch.zeros(0, dtype=dt, device=dev)
+    i32, dt = torch.int32, block.dtype
+    E = EllSparse(line(m, dt), line(m, i32), none(dt), none(i32), none(i32),
+                  line(n, dt), line(n, i32), none(dt), none(i32), none(i32),
+                  (m, n), 0)
+    return E, line(m, i32), line(n, i32), none(i32), none(i32)
+
+
 def ell_with_data(E: EllSparse, rperm, cperm, rtail_perm, ctail_perm, data):
     """E's pattern carrying the flat nnz values ``data`` ((..., nnz), in the
     triplet's order), gathered into both orientations through
@@ -165,29 +206,25 @@ def ell_with_data(E: EllSparse, rperm, cperm, rtail_perm, ctail_perm, data):
                      E.nse)
 
 
-def _out_dtype(A, F):
-    return torch.promote_types(A.dtype, F.dtype)
-
-
-def ell_a_ht(A: EllSparse, H):
+def ell_a_ht(A: EllSparse, H, acc: bool = False):
     """A @ H^T -> (..., m, k)."""
     out = ell_gather_product(A.rvals, A.rcols, H.mT.contiguous())
     if A.rtail_d.shape[-1]:
         out = out + sparse.a_ht(A.rtail_d, A.rtail_r, A.rtail_c, H,
                                 A.shape[0])
-    return out.to(_out_dtype(A, H))
+    return sparse.rounded(out, A, H, acc)
 
 
-def ell_wt_a(A: EllSparse, W):
+def ell_wt_a(A: EllSparse, W, acc: bool = False):
     """W^T @ A -> (..., k, n)."""
     out = ell_gather_product(A.cvals, A.crows, W.contiguous())
     if A.ctail_d.shape[-1]:
         out = out + sparse.wt_a(A.ctail_d, A.ctail_r, A.ctail_c, W,
                                 A.shape[1]).mT
-    return out.mT.to(_out_dtype(A, W))
+    return sparse.rounded(out.mT, A, W, acc)
 
 
-def ell_kl_uht(A: EllSparse, W, H, eps):
+def ell_kl_uht(A: EllSparse, W, H, eps, acc: bool = False):
     """(A / (WH + eps)) @ H^T -> (..., m, k); U shares A's pattern."""
     out = ell_gather_product(A.rvals, A.rcols, H.mT.contiguous(),
                              W.contiguous(), eps)
@@ -195,10 +232,10 @@ def ell_kl_uht(A: EllSparse, W, H, eps):
         wh = sparse.sddmm(W, H, A.rtail_r, A.rtail_c)
         u = A.rtail_d.to(wh.dtype) / (wh + eps)
         out = out + sparse.a_ht(u, A.rtail_r, A.rtail_c, H, A.shape[0])
-    return out.to(_out_dtype(A, W))
+    return sparse.rounded(out, A, W, acc)
 
 
-def ell_kl_wtu(A: EllSparse, W, H, eps):
+def ell_kl_wtu(A: EllSparse, W, H, eps, acc: bool = False):
     """W^T @ (A / (WH + eps)) -> (..., k, n)."""
     out = ell_gather_product(A.cvals, A.crows, W.contiguous(),
                              H.mT.contiguous(), eps)
@@ -206,7 +243,7 @@ def ell_kl_wtu(A: EllSparse, W, H, eps):
         wh = sparse.sddmm(W, H, A.ctail_r, A.ctail_c)
         u = A.ctail_d.to(wh.dtype) / (wh + eps)
         out = out + sparse.wt_a(u, A.ctail_r, A.ctail_c, W, A.shape[1]).mT
-    return out.mT.to(_out_dtype(A, W))
+    return sparse.rounded(out.mT, A, W, acc)
 
 
 def ell_col_sqsum(A: EllSparse):

@@ -148,29 +148,43 @@ def gram_t(X: torch.Tensor, grid=None) -> torch.Tensor:
     return _summed(X, X.mT, grid, "c")
 
 
+def _sparse_product(A, F, orient: str, grid):
+    """W^T A (``orient`` "wta", F = W) or A H^T ("aht", F = H) of a sparse
+    A through its format's products: the dual ELL's gathers (K4 on the
+    card) or the triplet's scatters. On a grid A is this rank's block, and
+    its partial product, unrounded, is summed over 'r' (W^T A) or 'c'
+    (A H^T) in its subgroup, then rounded once (``ops/sparse.py::rs_*``,
+    ``ops/ell.py::gell_*``)."""
+    from . import ell, sparse
+    acc = grid is not None
+    if isinstance(A, ell.EllSparse):
+        f = ell.ell_wt_a if orient == "wta" else ell.ell_a_ht
+        part = f(A, F, acc=acc)
+    else:
+        f = sparse.wt_a_triplet if orient == "wta" else sparse.a_ht_triplet
+        k = F.shape[-1] if orient == "wta" else F.shape[-2]
+        part = f(A, F, sparse.nnz_chunk_size(A.nse, k), acc=acc)
+    if grid is None:
+        return part
+    return grid.sum(part, "r" if orient == "wta" else "c").to(
+        torch.promote_types(A.dtype, F.dtype))
+
+
 def matmul_WTA(W: torch.Tensor, A, grid=None) -> torch.Tensor:
     """W^T A -> (k, n); on a grid the (k, n_j) block, summed over 'r'."""
+    if is_sparse(A):
+        return _sparse_product(A, W, "wta", grid)
     if grid is not None:
         return _summed(W.mT, A, grid, "r")
-    if is_sparse(A):
-        from . import ell, sparse
-        if isinstance(A, ell.EllSparse):
-            return ell.ell_wt_a(A, W)
-        return sparse.wt_a_triplet(A, W,
-                                   sparse.nnz_chunk_size(A.nse, W.shape[-1]))
     return matmul(W.mT, A)
 
 
 def matmul_AHT(A, H: torch.Tensor, grid=None) -> torch.Tensor:
     """A H^T -> (m, k); on a grid the (m_i, k) block, summed over 'c'."""
+    if is_sparse(A):
+        return _sparse_product(A, H, "aht", grid)
     if grid is not None:
         return _summed(A, H.mT, grid, "c")
-    if is_sparse(A):
-        from . import ell, sparse
-        if isinstance(A, ell.EllSparse):
-            return ell.ell_a_ht(A, H)
-        return sparse.a_ht_triplet(A, H,
-                                   sparse.nnz_chunk_size(A.nse, H.shape[-2]))
     return matmul(A, H.mT)
 
 
@@ -181,9 +195,10 @@ def sqnorm(X, grid=None, over: str = "rc") -> torch.Tensor:
     over 'rc', a W block over 'r', an H block over 'c'."""
     if is_sparse(X):
         d = X.data.to(acc_dtype(X.dtype))
-        return (d * d).sum(-1)
-    Xa = X.to(acc_dtype(X.dtype))
-    s = (Xa * Xa).sum((-2, -1))
+        s = (d * d).sum(-1)
+    else:
+        Xa = X.to(acc_dtype(X.dtype))
+        s = (Xa * Xa).sum((-2, -1))
     return s if grid is None else grid.sum(s, over, everywhere=True)
 
 
@@ -261,7 +276,7 @@ def relative_error(A: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
     all ranks at once, so every rank gets the same error (and a ``tol``
     stop the same iteration)."""
     if is_sparse(A):
-        return _sparse_relative_error(A, W, H)
+        return _sparse_relative_error(A, W, H, grid)
     num, den = _member_sums(A, W, H, chunk)
     if grid is not None:
         num, den = grid.sum(torch.stack([num, den]), "rc")
@@ -274,7 +289,7 @@ def column_error(A: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
     ``chunk`` as in relative_error. On a grid the errors of this rank's
     column block, summed over 'r'."""
     if is_sparse(A):
-        return _sparse_column_error(A, W, H)
+        return _sparse_column_error(A, W, H, grid)
     num, den = _residual_sums(A, W, H, chunk, per_column=True)
     if grid is not None:
         num, den = grid.sum(torch.stack([num, den]), "r")
@@ -358,26 +373,44 @@ def normalize_features(W: torch.Tensor, H: torch.Tensor, eps: float,
 # with <A, WH> = sum(H o (W^T A)) and ||WH||^2 = sum((W^T W) o (H H^T)):
 # every term is nnz- or k-sized. f32 cancellation limits the resolution to
 # about 1e-3 of the relative error, fine for NMF errors of 1e-2..1.
+# On a grid each term is a sum over the blocks: rank (i, j) adds
+# sum(A_ij^2), sum(H_j o W_i^T A_ij) and sum((W_i^T W_i) o (H_j H_j^T)),
+# so one all-reduce of its three partial sums (over all ranks for the
+# error, over 'r' for a column's) gives every term, the same bits on every
+# rank, and no product is summed on its own.
 # ---------------------------------------------------------------------------
-def _sparse_relative_error(A, W, H):
+def _sparse_terms(A, W, H, dims):
+    """Rank-local (||A||^2, <A, WH>, ||WH||^2), summed over ``dims`` of
+    the (..., k, n) products: all of them for the error, the rows (-2) for
+    per-column terms."""
+    from . import ell, sparse
     acc = acc_dtype(W.dtype)
-    WTA = matmul_WTA(W, A).to(acc)
-    a2 = sqnorm(A)
-    cross = (H.to(acc) * WTA).sum((-2, -1))
-    wh2 = (gram(W).to(acc) * gram_t(H).to(acc)).sum((-2, -1))
+    Ha = H.to(acc)
+    WTA = _sparse_product(A, W, "wta", None).to(acc)
+    cross = (Ha * WTA).sum(dims)
+    if dims == -2:
+        wh2 = (Ha * matmul(gram(W).to(acc), Ha)).sum(-2)
+        if isinstance(A, ell.EllSparse):
+            a2 = ell.ell_col_sqsum(A)
+        else:
+            a2 = sparse.col_sqsum(A.data, A.cols, A.shape[1])
+    else:
+        wh2 = (gram(W).to(acc) * gram_t(H).to(acc)).sum((-2, -1))
+        a2 = sqnorm(A)
+    return a2.to(acc), cross, wh2
+
+
+def _sparse_relative_error(A, W, H, grid=None):
+    a2, cross, wh2 = _sparse_terms(A, W, H, (-2, -1))
+    if grid is not None:
+        a2, cross, wh2 = grid.sum(torch.stack([a2, cross, wh2]), "rc")
     num = (a2 - 2.0 * cross + wh2).clamp_min(0.0)
     return torch.sqrt(num) / torch.sqrt(a2)
 
 
-def _sparse_column_error(A, W, H):
-    from . import ell, sparse
-    acc = acc_dtype(W.dtype)
-    Ha = H.to(acc)
-    cross = (Ha * matmul_WTA(W, A).to(acc)).sum(-2)          # (..., n)
-    wh2 = (Ha * matmul(gram(W).to(acc), Ha)).sum(-2)
-    if isinstance(A, ell.EllSparse):
-        a2 = ell.ell_col_sqsum(A)
-    else:
-        a2 = sparse.col_sqsum(A.data, A.cols, A.shape[1])
+def _sparse_column_error(A, W, H, grid=None):
+    a2, cross, wh2 = _sparse_terms(A, W, H, -2)
+    if grid is not None:
+        a2, cross, wh2 = grid.sum(torch.stack([a2, cross, wh2]), "r")
     num = (a2 - 2.0 * cross + wh2).clamp_min(0.0)
-    return torch.sqrt(num / a2.clamp_min(torch.finfo(acc).tiny))
+    return torch.sqrt(num / a2.clamp_min(torch.finfo(a2.dtype).tiny))

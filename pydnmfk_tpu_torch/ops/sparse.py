@@ -1,7 +1,7 @@
 """Sparse A as a canonical triplet, its products, and the choice of format.
 
-Port of the single-device parts of ``pydnmfk_tpu/ops/sparse.py``. A sparse A
-is a :class:`SparseTriplet`: values ``data``, int32 ``rows`` and ``cols``,
+Port of ``pydnmfk_tpu/ops/sparse.py``. A sparse A is a
+:class:`SparseTriplet`: values ``data``, int32 ``rows`` and ``cols``,
 unique (row, col) pairs in row-major order, as ``utils/io.py::_read_sparse``
 makes a BCOO. ``data`` may carry a leading member axis, (B, nnz) over shared
 indices: the NMFk ensemble perturbs only the values.
@@ -17,7 +17,10 @@ about 512 MB (:func:`nnz_chunk_size`).
 
 This is the CPU's format. On the card, :func:`densify_for_backend` turns a
 triplet into the dual ELL format of ``ops/ell.py`` (kernel K4) or a dense A,
-by the time model of ``ops/ell.py::ell_time_model``.
+by the time model of ``ops/ell.py::ell_time_model``. On a p_r x p_c grid a
+rank holds its block (:class:`SparseGridInput`), in the format that
+:func:`grid_format` agrees on with the other ranks, and is never
+densified.
 """
 from __future__ import annotations
 
@@ -87,8 +90,10 @@ def nnz_chunk_size(nnz: int, k: int, budget_elems: int = 1 << 27) -> int:
 
 
 def _spans(nnz: int, chunk: int):
+    """[start, end) of the nnz chunks; one empty span where nnz is 0 (an
+    empty block of a grid)."""
     step = chunk if chunk and chunk < nnz else max(nnz, 1)
-    return [(s, min(s + step, nnz)) for s in range(0, nnz, step)]
+    return [(s, min(s + step, nnz)) for s in range(0, max(nnz, 1), step)]
 
 
 def sddmm(W, H, rows, cols, chunk: int = 0):
@@ -130,31 +135,38 @@ def col_sqsum(data, cols, n: int):
     return out.index_add_(out.dim() - 1, cols, d * d)
 
 
-# triplet-facing wrappers (the JAX package's a_ht_bcoo, wt_a_bcoo, ...)
-def a_ht_triplet(A: SparseTriplet, H, chunk: int = 0):
-    return a_ht(A.data, A.rows, A.cols, H, A.shape[0], chunk).to(
-        torch.promote_types(A.dtype, H.dtype))
+# triplet-facing wrappers (the JAX package's a_ht_bcoo, wt_a_bcoo, ...);
+# ``acc`` returns the sums at the accumulation dtype, unrounded (a grid's
+# partial products, summed across ranks before rounding)
+def rounded(x, A, F, acc: bool):
+    """x rounded to A's and F's dtype, or x as summed where ``acc``."""
+    return x if acc else x.to(torch.promote_types(A.dtype, F.dtype))
 
 
-def wt_a_triplet(A: SparseTriplet, W, chunk: int = 0):
-    return wt_a(A.data, A.rows, A.cols, W, A.shape[1], chunk).to(
-        torch.promote_types(A.dtype, W.dtype))
+def a_ht_triplet(A: SparseTriplet, H, chunk: int = 0, acc: bool = False):
+    return rounded(a_ht(A.data, A.rows, A.cols, H, A.shape[0], chunk), A, H,
+                   acc)
 
 
-def kl_uht_sparse(A: SparseTriplet, W, H, eps, chunk: int = 0):
+def wt_a_triplet(A: SparseTriplet, W, chunk: int = 0, acc: bool = False):
+    return rounded(wt_a(A.data, A.rows, A.cols, W, A.shape[1], chunk), A, W,
+                   acc)
+
+
+def kl_uht_sparse(A: SparseTriplet, W, H, eps, chunk: int = 0,
+                  acc: bool = False):
     """(A / (W H + eps)) @ H^T; the ratio exists only on the nnz entries."""
     wh = sddmm(W, H, A.rows, A.cols, chunk)
     u = A.data.to(wh.dtype) / (wh + eps)
-    return a_ht(u, A.rows, A.cols, H, A.shape[0], chunk).to(
-        torch.promote_types(A.dtype, W.dtype))
+    return rounded(a_ht(u, A.rows, A.cols, H, A.shape[0], chunk), A, W, acc)
 
 
-def kl_wtu_sparse(A: SparseTriplet, W, H, eps, chunk: int = 0):
+def kl_wtu_sparse(A: SparseTriplet, W, H, eps, chunk: int = 0,
+                  acc: bool = False):
     """W^T @ (A / (W H + eps)); see kl_uht_sparse."""
     wh = sddmm(W, H, A.rows, A.cols, chunk)
     u = A.data.to(wh.dtype) / (wh + eps)
-    return wt_a(u, A.rows, A.cols, W, A.shape[1], chunk).to(
-        torch.promote_types(A.dtype, W.dtype))
+    return rounded(wt_a(u, A.rows, A.cols, W, A.shape[1], chunk), A, W, acc)
 
 
 # ---------------------------------------------------------------------------
@@ -239,3 +251,127 @@ def densify_for_backend(A, k_hint: int = 32, return_perms: bool = False):
         f"(> {budget / 1e9:.1f} GB of the device budget) and its row/column "
         "nnz distribution is too skewed for ELL packing; run it on the CPU "
         '(device="cpu", --cpu), where the triplet path needs O(nnz) memory')
+
+
+# ---------------------------------------------------------------------------
+# a sparse A on a p_r x p_c grid (``pydnmfk_tpu/ops/sparse.py:140-307``)
+# ---------------------------------------------------------------------------
+class SparseGridInput:
+    """This rank's block of a sparse A on a p_r x p_c grid, the counterpart
+    of ``pydnmfk_tpu/ops/sparse.py::SparseGridInput``: ``block``, the
+    triplet of the rank's rows [r0, r1) and columns [c0, c1)
+    (``GridContext.rows``, ``.cols``) with local indices; ``perm``, each
+    block entry's index in ``flat`` (int64); ``flat``, the values of the
+    whole matrix in the order that the NMFk members perturb them (the 1x1
+    triplet's, or a CSR file's storage order); ``global_shape``, the true
+    (m, n). ``shape`` and ``nse`` are the block's, as a dense block's are
+    on a grid. Unlike the JAX package's bundle nothing is padded, and each
+    rank packs its own block: :func:`grid_format` returns the bundle with
+    ``agreed`` set and, where the ranks agreed on the dual ELL, ``ell``,
+    ``grid_ell_pack``'s (E, rperm, cperm, rtail_perm, ctail_perm) with
+    slot -> index into the block's values. ``local`` is the block in the
+    agreed format."""
+
+    _pydnmfk_sparse = True            # recognized by linalg.is_sparse
+
+    def __init__(self, block: SparseTriplet, perm, flat, global_shape,
+                 ell=None, agreed: bool = False):
+        self.block = block
+        self.perm = perm
+        self.flat = flat
+        self.global_shape = (int(global_shape[0]), int(global_shape[1]))
+        self.ell = ell
+        self.agreed = agreed
+
+    @property
+    def local(self):
+        return self.block if self.ell is None else self.ell[0]
+
+    @property
+    def shape(self):
+        return self.block.shape
+
+    @property
+    def nse(self) -> int:
+        return self.block.nse
+
+    @property
+    def dtype(self):
+        return self.flat.dtype
+
+    @property
+    def device(self):
+        return self.block.device
+
+    def astype(self, dtype) -> "SparseGridInput":
+        ell = self.ell and (self.ell[0].astype(dtype), *self.ell[1:])
+        return SparseGridInput(self.block.astype(dtype), self.perm,
+                               self.flat.to(dtype), self.global_shape, ell,
+                               self.agreed)
+
+    def to(self, device) -> "SparseGridInput":
+        ell = self.ell and tuple(x.to(device) for x in self.ell)
+        return SparseGridInput(self.block.to(device), self.perm.to(device),
+                               self.flat.to(device), self.global_shape, ell,
+                               self.agreed)
+
+
+def shard_sparse_grid(A: SparseTriplet, grid) -> SparseGridInput:
+    """This rank's block of a whole triplet A on ``grid``
+    (``pydnmfk_tpu/ops/sparse.py::shard_sparse_grid``), in the port's
+    remainder-balanced, unpadded blocks (``parallel/partition.py``): the
+    block's entries keep A's order, and ``perm`` is their index in A."""
+    (r0, r1), (c0, c1) = grid.rows(A.shape[0]), grid.cols(A.shape[1])
+    rows, cols = A.rows, A.cols
+    perm = torch.nonzero((rows >= r0) & (rows < r1) & (cols >= c0)
+                         & (cols < c1)).flatten()
+    block = SparseTriplet(A.data[perm], (rows[perm] - r0).to(torch.int32),
+                          (cols[perm] - c0).to(torch.int32),
+                          (r1 - r0, c1 - c0))
+    return SparseGridInput(block, perm, A.data, A.shape)
+
+
+def grid_format(A, grid, fmt=None) -> SparseGridInput:
+    """This rank's block of a sparse A on ``grid`` in the format that the
+    ranks agree on (``pydnmfk_tpu/ops/sparse.py::shard_sparse_for_grid``),
+    the one place that NMF and NMFk decide it. ``A`` is a whole triplet,
+    cut here (:func:`shard_sparse_grid`), or a bundle (the reader's); a
+    bundle that is already agreed comes back as it is. ``fmt`` (a
+    ``sparse_grid_format`` that the config has checked) None or "auto"
+    takes the dual ELL on the card (kernel K4 on every block) where every
+    rank's block packs (``ops/ell.py::grid_ell_pack``), and the triplet on
+    the CPU; "ell" and "triplet" force one. Each rank packs its own block,
+    at its own widths; one all-reduce over all ranks agrees on the format,
+    so an "ell" that one block refuses raises the ValueError on every rank
+    (one rank alone would leave the others waiting in their next
+    collective), and an auto choice that a block refuses on the card
+    warns on every rank that the triplet's products, which launch no
+    kernel, run instead."""
+    if isinstance(A, SparseTriplet):
+        A = shard_sparse_grid(A, grid)
+    elif not isinstance(A, SparseGridInput):
+        raise TypeError("a sparse A on a grid is a SparseTriplet or a "
+                        f"SparseGridInput, got {type(A).__name__}")
+    if A.agreed:
+        return A
+    agreed = lambda ell=None: SparseGridInput(A.block, A.perm, A.flat,
+                                              A.global_shape, ell, True)
+    if fmt == "triplet" or (fmt != "ell" and A.device.type == "cpu"):
+        return agreed()
+    from .ell import grid_ell_pack
+    packed = grid_ell_pack(A.block)
+    refused = grid.max(torch.tensor([0.0 if packed else 1.0],
+                                    dtype=torch.float64, device=A.device))
+    if float(refused[0]) == 0:
+        return agreed(packed)
+    if fmt == "ell":
+        raise ValueError(
+            "sparse_grid_format='ell' but the matrix does not "
+            "ELL-pack (nnz distribution too skewed / tails too "
+            "heavy); use 'triplet'")
+    warnings.warn(
+        "sparse_grid_format auto: a block of the grid does not ELL-pack, "
+        "so every rank runs the triplet's products (PyTorch scatters, no "
+        "K4 kernel) on the card; pass sparse_grid_format='triplet' to "
+        "choose them")
+    return agreed()

@@ -6,8 +6,8 @@ CUDA card unless ``device="cpu"``), call ``.run(fpath=..., ...)``; returns
 ``{"nopt": ...}`` for process="pyDNMFk" or ``{"W", "H", "err"}`` for
 process="pyDNMF". A ``grid`` other than (1, 1) runs one process per rank,
 each calling ``run`` (under torchrun, ``parallel/mesh.py::initialize``):
-each reads its block of A, every rank returns the same result, and rank 0
-writes the files.
+each reads its block of A (of an .npz only its row panel), every rank
+returns the same result, and rank 0 writes the files.
 """
 from __future__ import annotations
 
@@ -43,7 +43,6 @@ class Runner:
         # as
         check_jax_only(
             matmul_precision=matmul_precision,
-            sparse_grid_format=sparse_grid_format,
             k_sweep_batch=k_sweep_batch, k_sweep_merge=k_sweep_merge)
         self.init = init
         self.itr = itr
@@ -69,6 +68,8 @@ class Runner:
         self.kl_chunk = kl_chunk
         self.seed_grid = seed_grid      # reference-MPI seeding (config.py)
         self.solve_checkpoint_every = solve_checkpoint_every
+        # a sparse A's format on a grid (config.py::SPARSE_GRID_FORMATS)
+        self.sparse_grid_format = sparse_grid_format
         self.device = torch.device(device)
         timing.enable(timing_stats)
 
@@ -88,7 +89,8 @@ class Runner:
             a_precision=self.a_precision, seed=self.seed, tol=self.tol,
             save_factors=self.save_factors, prune=self.prune,
             bcd_obj=self.bcd_obj, kl_chunk=self.kl_chunk,
-            solve_checkpoint_every=self.solve_checkpoint_every)
+            solve_checkpoint_every=self.solve_checkpoint_every,
+            sparse_grid_format=self.sparse_grid_format)
         with timing.timed("read"):
             A = DataReader(fpath, fname, ftype, precision=self.precision,
                            pgrid=grid).read(ctx)

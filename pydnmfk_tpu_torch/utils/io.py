@@ -9,7 +9,9 @@ scipy.sparse ``save_npz`` file (.npz) as a canonical
 On a p_r x p_c grid of processes, ``read(grid)`` gives this rank's block
 alone: an .npy by slicing a memory map, a ``folder`` from the chunks that
 meet the block (``io.py:393-420``), a .mat or .csv/.txt by reading the file
-and slicing it, as the reference does. The writer keeps the reference's
+and slicing it, as the reference does, and an .npz as a
+``ops/sparse.py::SparseGridInput``: of a CSR file only this rank's row
+panel (``io.py:231-357``). The writer keeps the reference's
 layout of factors (``W_[reg_]factors/``, ``H_[reg_]factors/``, in the
 chunks of the JAX package's ``DataWriter`` on a grid, ``io.py:504-545``)
 and per-k statistics.
@@ -86,9 +88,7 @@ class DataReader:
     def _read_block(self, grid):
         """This rank's block of the remainder-balanced layout on ``grid``."""
         if self.ftype == "npz":
-            from ..config import SPARSE_GRID, NotPortedError
-            raise NotPortedError(SPARSE_GRID + ": npz to grid-ELL",
-                                 "queue 1 item 15")
+            return self._read_sparse_block(grid)
         if self.ftype == "folder":
             m, n = self._folder_shape()
             (r0, r1), (c0, c1) = grid.rows(m), grid.cols(n)
@@ -164,6 +164,52 @@ class DataReader:
             return torch.from_numpy(data.astype(np.float32)).to(torch.bfloat16)
         return data.astype(self.precision)
 
+    def _read_sparse_block(self, grid):
+        """This rank's block of a save_npz matrix on ``grid``, as a
+        SparseGridInput (``utils/io.py:231-357``). A CSR file is read by
+        row panels: ``indptr`` whole, then ``indices`` and ``data`` of this
+        rank's rows alone, of which it keeps its columns; the flat values
+        (every rank's, for the NMFk members' noise; the block's values are
+        cut from them) in one pass, in storage order, which ``perm``
+        indexes. A canonical CSR (sorted, unique
+        column indices, as scipy writes a matrix it built) stores the
+        entries in the 1x1 triplet's row-major order, so a member's block
+        is the 1x1 member's. ``rows_read`` records the row panels read
+        (the JAX package's ``npz_rows_materialized``). Any other .npz is
+        read whole and cut (``io.py:270-278``)."""
+        import zipfile
+        from ..ops.sparse import SparseGridInput, SparseTriplet
+        from ..ops.sparse import shard_sparse_grid
+        path = os.path.join(self.fpath, self.fname + ".npz")
+        with zipfile.ZipFile(path) as zf:
+            csr = ("format.npy" in zf.namelist() and
+                   bytes(_npz_member(zf, "format.npy")) == b"csr")
+            if not csr:
+                A = self._read_sparse(path)
+                self.rows_read = [(0, A.shape[0])]
+                return shard_sparse_grid(A, grid)
+            m, n = (int(v) for v in _npz_member(zf, "shape.npy"))
+            indptr = _npz_member(zf, "indptr.npy").astype(np.int64)
+            (r0, r1), (c0, c1) = grid.rows(m), grid.cols(n)
+            s, e = int(indptr[r0]), int(indptr[r1])
+            cols = _npz_member(zf, "indices.npy", s, e - s).astype(np.int64)
+            flat = _npz_member(zf, "data.npy")
+        data = flat[s:e]
+        self.rows_read = [(r0, r1)]
+        rows = np.repeat(np.arange(r0, r1), np.diff(indptr[r0:r1 + 1]))
+        if np.any((np.diff(cols) == 0) & (np.diff(rows) == 0)):
+            raise ValueError(
+                f"{path} holds a CSR matrix with duplicate entries in a "
+                f"row; sum them (scipy's sum_duplicates) before save_npz")
+        sel = np.nonzero((cols >= c0) & (cols < c1))[0]
+        t = lambda x: torch.from_numpy(np.ascontiguousarray(x))
+        block = SparseTriplet(torch.as_tensor(self._cast(data[sel])),
+                              t((rows[sel] - r0).astype(np.int32)),
+                              t((cols[sel] - c0).astype(np.int32)),
+                              (r1 - r0, c1 - c0))
+        return SparseGridInput(block, t(s + sel), torch.as_tensor(
+            self._cast(flat)), (m, n))
+
     def _read_sparse(self, path):
         """A save_npz matrix as a canonical triplet: duplicates summed,
         row-major order (``utils/io.py:150-161``), on the CPU."""
@@ -174,6 +220,20 @@ class DataReader:
         return from_coo(torch.from_numpy(M.row.astype(np.int32)),
                         torch.from_numpy(M.col.astype(np.int32)),
                         torch.as_tensor(self._cast(M.data)), M.shape)
+
+
+def _npz_member(zf, name, start: int = 0, count=None) -> np.ndarray:
+    """The 1-D array ``name`` of an open .npz, or its elements [start,
+    start + count): the stream is read from its header to the slice, so
+    only the slice is kept."""
+    from numpy.lib import format as npfmt
+    with zf.open(name) as f:
+        version = npfmt.read_magic(f)
+        shape, _, dtype = (npfmt.read_array_header_1_0(f) if version == (1, 0)
+                           else npfmt.read_array_header_2_0(f))
+        count = int(np.prod(shape)) - start if count is None else count
+        f.seek(f.tell() + start * dtype.itemsize)
+        return np.frombuffer(f.read(count * dtype.itemsize), dtype, count)
 
 
 def to_numpy(x) -> np.ndarray:

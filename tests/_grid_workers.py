@@ -143,8 +143,9 @@ def nmfk_sweeps(grid, A, sweeps):
     from pydnmfk_tpu_torch import NMFConfig, NMFk, NMFkConfig
     from pydnmfk_tpu_torch.utils import io
     from pydnmfk_tpu_torch.utils.convert import blocks_for_rank
-    Ab = torch.from_numpy(blocks_for_rank(grid.shape, grid.rank, A)[0]
-                          .copy())
+    # a sparse A (COO arrays) goes whole: each rank cuts its block
+    Ab = _triplet(A) if isinstance(A, tuple) else torch.from_numpy(
+        blocks_for_rank(grid.shape, grid.rank, A)[0].copy())
     out = {"writes": []}
     real_write = io.DataWriter.save_cluster_results
 
@@ -177,6 +178,7 @@ def nmfk_sweeps(grid, A, sweeps):
         model = NMFk(cfg, grid=grid)
         nopt = model.fit(Ab)
         out[name] = (nopt, model.per_k_stats, len(saved))
+        out.setdefault("formats", {})[name] = model._ell is not None
     io.DataWriter.save_cluster_results = real_write
     return out
 
@@ -235,27 +237,141 @@ def nmfk_checks(grid, A, draws, sweeps, solve_path=None):
 
 def runner_reads(grid, fpath, results_path, reads):
     """``Runner.run`` on the grid for each (ftype, fname) of ``reads``:
-    each rank reads its block. Returns each run's result, or the text of
-    the NotPortedError it raised."""
-    from pydnmfk_tpu_torch import NMF, NMFConfig, NMFk, NMFkConfig
-    from pydnmfk_tpu_torch import NotPortedError, Runner
+    each rank reads its block (of an .npz its row panel). Also NMF and
+    NMFk of a whole sparse triplet, which each rank cuts to its block.
+    Returns each run's result."""
+    from pydnmfk_tpu_torch import NMF, NMFConfig, NMFk, NMFkConfig, Runner
     from pydnmfk_tpu_torch.ops.sparse import from_coo
-    out = {}
-    triplet = from_coo(torch.tensor([0, 1]), torch.tensor([1, 0]),
-                       torch.tensor([1.0, 2.0]), (2, 2))
-    for name, fit in (("nmf", NMF(NMFConfig(), grid=grid).fit),
-                      ("nmfk", NMFk(NMFkConfig(), grid=grid).fit)):
-        try:
-            fit(triplet)
-        except NotPortedError as e:
-            out[name] = str(e)
+    triplet = from_coo(torch.tensor([0, 1, 2]), torch.tensor([1, 0, 2]),
+                       torch.tensor([1.0, 2.0, 3.0], dtype=torch.float64),
+                       (3, 3))
+    ncfg = NMFConfig(k=1, itr=10, norm="fro", precision="float64")
+    out = {"nmf": NMF(ncfg, grid=grid).fit(triplet),
+           "nmfk": NMFk(NMFkConfig(nmf=ncfg, start_k=1, end_k=1,
+                                   perturbations=2, checkpoint=False,
+                                   results_path=f"{results_path}/nmfk/"),
+                        grid=grid).fit(triplet)}
     for ftype, fname in reads:
         runner = Runner(norm="fro", itr=30, precision="float64",
                         device="cpu", save_factors=True)
+        out[ftype] = runner.run(grid=grid.shape, fpath=fpath, ftype=ftype,
+                                fname=fname, k=3,
+                                results_path=f"{results_path}/{ftype}/")
+    return out
+
+
+# -- a sparse A on the grid ----------------------------------------------
+def _triplet(coo):
+    """The whole canonical triplet of COO arrays (rows, cols, vals,
+    shape)."""
+    from pydnmfk_tpu_torch.ops.sparse import from_coo
+    rows, cols, vals, shape = coo
+    return from_coo(torch.from_numpy(rows.copy()),
+                    torch.from_numpy(cols.copy()),
+                    torch.from_numpy(vals.copy()), shape)
+
+
+def sparse_grid_cases(grid, coo, W0, H0, cases, empty_coo=None):
+    """On this rank's block of the sparse A of ``coo``: its block and perm
+    (``shard_sparse_grid``); each NMF case (NMFConfig keywords by name,
+    f64) fit from its blocks of (W0, H0), as in :func:`nmf_cases`, with
+    the format it ran; the grid products of both formats at f64 (the
+    block's A H^T, W^T A, KL U H^T and W^T U, sqnorm, relative and column
+    errors); the collectives of one FRO-MU and one KL-MU step in each
+    format. ``empty_coo``: the same fits of its matrix (one block of which
+    may hold no nonzero)."""
+    from pydnmfk_tpu_torch import NMF, NMFConfig
+    from pydnmfk_tpu_torch.models import updates
+    from pydnmfk_tpu_torch.ops import linalg, sparse
+    from pydnmfk_tpu_torch.utils import timing
+    from pydnmfk_tpu_torch.utils.convert import blocks_for_rank
+    A = _triplet(coo)
+    G = sparse.shard_sparse_grid(A, grid)
+    _, Wb, Hb = (None if x is None else torch.from_numpy(x.copy())
+                 for x in blocks_for_rank(grid.shape, grid.rank, None, W0,
+                                          H0))
+    out = {"coords": grid.coords,
+           "block": (G.block.rows, G.block.cols, G.block.data, G.perm,
+                     G.block.shape)}
+
+    def fits(A, tag):
+        for name, kw in cases.items():
+            model = NMF(NMFConfig(precision="float64", **kw), grid=grid)
+            W, H, err = model.fit(A, factors=(Wb, Hb))
+            out[tag + name] = dict(W=W, H=H, err=err, col=model.column_err(),
+                                   W_blk=model._W, H_blk=model._H,
+                                   fmt=type(model._A).__name__)
+
+    fits(A, "")
+    if empty_coo is not None:
+        fits(_triplet(empty_coo), "empty ")
+    eps = 1e-16
+    for fmt in ("triplet", "ell"):
+        Af = sparse.grid_format(G, grid, fmt).local
+        out[fmt] = dict(
+            aht=linalg.matmul_AHT(Af, Hb, grid),
+            wta=linalg.matmul_WTA(Wb, Af, grid),
+            kl=updates._sparse_kl_products(Af, Wb, grid),
+            colsq=grid.sum(linalg._sparse_terms(Af, Wb, Hb, -2)[0], "r"),
+            sqnorm=linalg.sqnorm(Af, grid),
+            err=linalg.relative_error(Af, Wb, Hb, grid=grid),
+            col=linalg.column_error(Af, Wb, Hb, grid=grid),
+            stats={norm: timing.collective_stats(
+                functools.partial(step, grid=grid), Af, Wb, Hb, eps,
+                grid=grid)
+                for norm, step in (("fro", updates.mu_fro_step),
+                                   ("kl", updates.mu_kl_step))})
+        uht, wtu = out[fmt]["kl"]
+        out[fmt]["kl"] = (uht(Af, Wb, Hb, eps), wtu(Af, Wb, Hb, eps))
+    return out
+
+
+def sparse_members(grid, coo, seed, noise_var, method, idx):
+    """This rank's block of the members ``idx`` of the sparse A of
+    ``coo``: (perm, values), each member drawn whole and cut to the block's
+    slots, as NMFk draws them."""
+    from pydnmfk_tpu_torch.models import sampler
+    from pydnmfk_tpu_torch.ops import sparse
+    G = sparse.shard_sparse_grid(_triplet(coo), grid)
+    return G.perm, sampler.sample_ensemble(G.flat, seed, noise_var, idx,
+                                           method, slots=G.perm)
+
+
+def sparse_nmfk_checks(grid, coo, draws, sweeps):
+    """The sparse member draws ((seed, noise_var, method, idx) by name) and
+    the sweeps (:func:`nmfk_sweeps`) of the sparse A of ``coo``, in one
+    group."""
+    return {"draws": {name: sparse_members(grid, coo, *d)
+                      for name, d in draws.items()},
+            "sweeps": nmfk_sweeps(grid, coo, sweeps)}
+
+
+def sparse_refusals(grid, coo, results_path):
+    """The ValueErrors that NMF and NMFk raise on this rank for a sparse A
+    with BCD, nnsvd, prune, a uint8 a_precision and a forced ``"ell"``,
+    by name, and the format that the auto choice ran."""
+    from pydnmfk_tpu_torch import NMF, NMFConfig, NMFk, NMFkConfig
+    A = _triplet(coo)
+    out = {}
+
+    def attempt(name, fit):
         try:
-            out[ftype] = runner.run(grid=grid.shape, fpath=fpath,
-                                    ftype=ftype, fname=fname, k=3,
-                                    results_path=f"{results_path}/{ftype}/")
-        except NotPortedError as e:
-            out[ftype] = str(e)
+            fit()
+        except ValueError as e:
+            out[name] = str(e)
+
+    for name, kw in (("bcd", dict(norm="fro", method="bcd")),
+                     ("nnsvd", dict(norm="fro", init="nnsvd")),
+                     ("prune", dict(prune=True)),
+                     ("uint8", dict(a_precision="uint8")),
+                     ("ell", dict(sparse_grid_format="ell"))):
+        attempt(name, lambda: NMF(NMFConfig(k=2, itr=2, **kw),
+                                  grid=grid).fit(A))
+    cfg = NMFkConfig(nmf=NMFConfig(prune=True, itr=2), start_k=2, end_k=2,
+                     perturbations=2, results_path=results_path,
+                     checkpoint=False)
+    attempt("nmfk prune", lambda: NMFk(cfg, grid=grid).fit(A))
+    model = NMF(NMFConfig(k=2, itr=2), grid=grid)
+    model.fit(A)
+    out["auto"] = type(model._A).__name__
     return out

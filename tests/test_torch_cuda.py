@@ -806,3 +806,53 @@ def test_resumed_sweep_on_the_card_solves_only_the_missing_members(
         np.testing.assert_allclose(a["ErrTol"], b["ErrTol"], rtol=1e-4)
         assert not (tmp_path / "run" / "X" / str(k) / "ensemble_parts"
                     ).exists()
+
+
+class _OneRank:
+    """A grid of one rank, as far as ``sparse.grid_format`` needs it."""
+    shape, rank, n_ranks = (1, 1), 0, 1
+
+    def rows(self, m):
+        return 0, m
+
+    def cols(self, n):
+        return 0, n
+
+    def max(self, x):
+        return x
+
+
+def test_grid_format_on_the_card(cuda):
+    """auto packs a block whose column lines are mostly empty (as a 4 x 1
+    block of a topic matrix's are) in the dual ELL, whose products (K4)
+    agree with the triplet's; a block that refuses the ELL runs the
+    triplet under a warning, and a forced "ell" raises."""
+    g = torch.Generator(cuda)
+    g.manual_seed(19)
+    m, n = 400, 800
+    rows = torch.arange(m, device=cuda).repeat_interleave(60)
+    cols = torch.randint(0, n // 8, (rows.numel(),), generator=g,
+                         device=cuda)
+    T = sparse.from_coo(rows, cols, torch.rand(rows.numel(), generator=g,
+                                               device=cuda), (m, n))
+    assert ell.ell_pack(T) is None
+    G = sparse.grid_format(T, _OneRank())
+    assert isinstance(G.local, ell.EllSparse) and G.agreed
+    W = torch.rand((m, 5), generator=g, device=cuda)
+    H = torch.rand((5, n), generator=g, device=cuda)
+    before = ell_gather.launches["ell_gather"]
+    got = (linalg.matmul_AHT(G.local, H), linalg.matmul_WTA(W, G.local))
+    assert ell_gather.launches["ell_gather"] == before + 2
+    assert _rel(got, [sparse.a_ht_triplet(T, H),
+                      sparse.wt_a_triplet(T, W)]) <= 1e-4
+    skewed = sparse.from_coo(torch.cat([torch.zeros(n, device=cuda).long(),
+                                        torch.arange(1, m, device=cuda)]),
+                             torch.cat([torch.arange(n, device=cuda),
+                                        torch.arange(1, m, device=cuda)]),
+                             torch.rand(n + m - 1, generator=g, device=cuda),
+                             (m, n))
+    with pytest.warns(UserWarning, match="triplet"):
+        G = sparse.grid_format(skewed, _OneRank())
+    assert isinstance(G.local, sparse.SparseTriplet)
+    with pytest.raises(ValueError, match="does not ELL-pack"):
+        sparse.grid_format(skewed, _OneRank(), "ell")

@@ -5,8 +5,8 @@ by rank 0; each k's results and factor chunks, named and laid out as the
 JAX package's DataWriter writes them on a 2 x 2 grid, ``read_factors`` of
 both packages giving the same factors back); ``Runner.run`` on a 2 x 2
 group, each rank reading its block of an .npy, a .mat and a 2 x 2
-``folder`` (the same fit as 1x1 from each), an .npz and a sparse A given
-to NMF or NMFk refused; and a run in
+``folder`` (the same fit as 1x1 from each) and its row panel of an .npz
+(the same fit as a sparse A), NMF and NMFk of a sparse A; and a run in
 which one rank fails, which ends non-zero instead of hanging."""
 import os
 import subprocess
@@ -102,9 +102,17 @@ def test_runner_reads_each_rank_block(tmp_path):
             np.testing.assert_allclose(got["err"], ref["err"], rtol=1e-12)
             np.testing.assert_allclose(got["W"].numpy(), ref["W"].numpy(),
                                        rtol=0, atol=1e-12)
-        for key in ("npz", "nmf", "nmfk"):
-            assert "sparse A on a grid" in rank[key]
-            assert "queue 1 item 15" in rank[key]
+        # the .npz runs as a sparse A on the grid (every entry of the
+        # planted matrix is nonzero): the same fit by the Gram identity's
+        # error, to f64 cancellation
+        got = rank["npz"]
+        np.testing.assert_allclose(got["err"], ref["err"], rtol=1e-8)
+        np.testing.assert_allclose(got["W"].numpy(), ref["W"].numpy(),
+                                   rtol=0, atol=1e-10)
+        # NMF and NMFk of a whole triplet on the grid run
+        W, H, err = rank["nmf"]
+        assert W.shape == (3, 1) and H.shape == (1, 3) and np.isfinite(err)
+        assert rank["nmfk"] == 1
     W, H = io.read_factors(str(tmp_path / "grid" / "npy"), (2, 2),
                            reg=False)
     np.testing.assert_array_equal(W, out[0]["npy"]["W"].numpy())

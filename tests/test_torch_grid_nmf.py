@@ -148,12 +148,27 @@ def test_config_from_jax_carries_the_grid():
 
 
 def test_refusals_that_stay(tmp_path):
-    """Without a process group a grid asks for torchrun; a sparse A on a
-    grid and the ensemble axis raise NotPortedError naming their ROADMAP
-    entry; a GridContext needs a group of p_r * p_c ranks."""
+    """Without a process group a grid asks for torchrun; the ensemble axis
+    raises NotPortedError naming its ROADMAP entry; a GridContext needs a
+    group of p_r * p_c ranks. A sparse A on a grid runs: here on a
+    one-rank group (tests/test_torch_grid_sparse.py runs it on grids of
+    several ranks)."""
+    import torch.distributed as dist
+    from pydnmfk_tpu_torch.ops.sparse import from_coo
     with pytest.raises(RuntimeError, match="torch.distributed.run"):
         NMF(NMFConfig(grid=(2, 2)), "cpu")
     with pytest.raises(NotPortedError, match="queue 1 item 15"):
         mesh.GridContext(1, 1, "cpu", p_e=2)
     with pytest.raises(RuntimeError, match="process group"):
         mesh.GridContext(1, 1, "cpu")
+    A = from_coo(torch.tensor([0, 1, 2]), torch.tensor([1, 0, 2]),
+                 torch.tensor([1.0, 2.0, 3.0], dtype=torch.float64), (3, 3))
+    grid = mesh.initialize(1, 1, "cpu", init_method=f"file://{tmp_path}/rdv",
+                           rank=0, world_size=1, timeout=60)
+    try:
+        cfg = NMFConfig(k=2, itr=10, norm="fro", precision="float64")
+        W, H, err = NMF(cfg, grid=grid).fit(A)
+        assert W.shape == (3, 2) and H.shape == (2, 3)
+        assert err == NMF(cfg, "cpu").fit(A)[2]
+    finally:
+        dist.destroy_process_group()

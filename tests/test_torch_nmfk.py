@@ -180,9 +180,17 @@ def test_cli_rejects_unported_flags(tmp_path):
     # test_torch_io_folder.py), and so are grids and --multihost
     # (tests/test_torch_grid_cli.py)
     for flag in ("--matmul_precision=bfloat16", "--k_sweep_batch=true",
-                 "--k_sweep_merge=true", "--sparse_grid_format=ell"):
+                 "--k_sweep_merge=true"):
         with pytest.raises(port.NotPortedError, match="ROADMAP"):
             cli.main(base + [flag])
+    # --sparse_grid_format is ported (tests/test_torch_grid_sparse.py): a
+    # dense A at 1x1 runs without it mattering, and a bad value raises
+    np.save(tmp_path / "X.npy", np.random.default_rng(0).random((12, 9)))
+    run = base + ["--process=pyDNMF", "--ftype=npy", "--fname=X", "--k=2",
+                  "--norm=fro", "--itr=5", f"--results_path={tmp_path}/res/"]
+    assert cli.main(run + ["--sparse_grid_format=ell"])["W"].shape == (12, 2)
+    with pytest.raises(ValueError, match="'ell' or 'triplet'"):
+        cli.main(run + ["--sparse_grid_format=dense"])
     # a grid outside torchrun says how to start its processes
     with pytest.raises(RuntimeError, match="torch.distributed.run"):
         cli.main(["--cpu", "--p_r=2", "--p_c=1"])

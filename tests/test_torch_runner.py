@@ -3,8 +3,8 @@ package's Runner and configs: at the values the port runs the same as they
 pass, and at any other value they raise NotPortedError naming the ROADMAP
 item that ports it (the check list of ``pydnmfk_tpu_torch/config.py``, which
 the CLI shares). ``prune``, ``bcd_obj``, the half precisions, ``hbm_budget``,
-``kl_chunk``, ``seed_grid`` and ``solve_checkpoint_every`` are ported and
-run."""
+``kl_chunk``, ``seed_grid``, ``solve_checkpoint_every`` and
+``sparse_grid_format`` are ported and run."""
 import dataclasses
 import inspect
 
@@ -51,11 +51,15 @@ def _jax_cfg(**kw):
                  id="<lambda>-queue 1 item 1"),
     pytest.param(lambda p: _run(p, method="bcd", bcd_obj="residual"), None,
                  id="<lambda>-queue 1 item 12"),
-    (lambda p: _run(p, sparse_grid_format="ell"), "queue 1 item 15"),
+    # sparse_grid_format is ported: it runs (the ids are those of its
+    # former refusal cases; tests/test_torch_grid_sparse.py runs its
+    # formats on grids)
+    pytest.param(lambda p: _run(p, sparse_grid_format="ell"), None,
+                 id="<lambda>-queue 1 item 15_0"),
     (lambda p: _run(p, k_sweep_batch=True), "queue 1 item 10"),
     (lambda p: _run(p, k_sweep_merge=True), "queue 1 item 10"),
-    (lambda p: config_from_jax(_jax_cfg(sparse_grid_format="ell")),
-     "queue 1 item 15"),
+    pytest.param(lambda p: config_from_jax(_jax_cfg(sparse_grid_format="ell")),
+                 None, id="<lambda>-queue 1 item 15_1"),
     (lambda p: config_from_jax(_jax_cfg(use_pallas=True)),
      'dispatch picks the kernel (ROADMAP.md "Not to port")'),
     # the half precisions and the memory knobs are ported: they run
