@@ -152,14 +152,30 @@ Run from the root of a checkout, with no arguments:
    block at k = 32 and a 4 x 1 block of the 10-member topic stack at
    k = 7 (its empty column lines padded), where each product in full is
    timed beside the triplet's;
-9. prints the card's name and power limit, one JSON line of kernels, and as
-   its last line ``{"ok": true, "device": {...}}``.
+9. the ensemble axis p_e (``ensemble_phase``): DataReader's blocks of a
+   2 x 2 grid of an .npy (the native reader) and a .mat (its .npy cache),
+   bitwise; then under torchrun four ranks sharing the card over gloo, with
+   launch counters from zero in every rank, three NMFk sweeps through the
+   library at k = 3..5, 10 members, 400 iterations: the planted 14400 x
+   9600 FRO-MU sweep on p_e = 4 groups of 1 x 1 (K1 on each rank's
+   members), its KL-MU sweep on 2 groups of 2 x 1 (K2a/K2b on each rank's
+   block) and phase 5's topic FRO-MU sweep on 4 groups of 1 x 1 (K4 on the
+   ELL), each with exact launches per rank, nopt 4 on every rank, every
+   member's error beside the same member's in phase 3's or phase 5's 1x1
+   sweep (1e-5 on one rank a group, or twice the spread of two 1x1 sweeps
+   where phase 6 ran the second; 1e-3 on 2 x 1 blocks), per-k statistics
+   beside the 1x1 sweep's, group 0's refit (factors, column errors) bitwise
+   on every rank (and whether each group's own refit was), results
+   written by rank 0 alone and each rank's stage seconds;
+10. prints the card's name and power limit, one JSON line of kernels, and
+   as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It also exits non-zero when there is no CUDA device or no package beside it.
 ``--grid-fits DIR`` and ``--grid-cli DIR ARGS`` are the rank programs of
 phase 7 (``--grid-cli`` of phase 8's sweeps too), ``--sparse-grid-fits
-DIR`` of phase 8; it starts them itself under torchrun.
+DIR`` of phase 8, ``--ensemble-fits DIR DATA`` of phase 9; it starts them
+itself under torchrun.
 """
 from __future__ import annotations
 
@@ -980,6 +996,276 @@ def sparse_grid_phase(dev, smi, gen, nyt_ref, topic_ref, k4_cases,
                       for label, (a, b) in times.items()), flush=True)
     del blk, Eb, perms, data, stack, S_r, S_c, Ws, Hs, trip
     torch.cuda.empty_cache()
+
+
+# -- phase 9: the ensemble axis p_e, four ranks sharing the card ----------
+# each sweep: (p_e, (p_r, p_c), ftype, fname, norm); four groups of one rank
+# (K1, or K4 on the ELL, on each rank's members) and two groups of a 2 x 1
+# grid (K2a/K2b on each rank's block)
+ENSEMBLE_SWEEPS = {"e4 1x1 FRO-MU": (4, (1, 1), "npy", "X", "fro"),
+                   "e2 2x1 KL-MU": (2, (2, 1), "npy", "X", "kl"),
+                   "e4 1x1 sparse FRO-MU": (4, (1, 1), "npz", "T", "fro")}
+ENSEMBLE_MEMBERS, ENSEMBLE_ITR = 10, 400
+# a member's error against the same member's in the 1x1 sweep, relative:
+# one rank a group runs the 1x1 arithmetic on a smaller batch; a 2 x 1
+# block sums its products in another order. Where a second 1x1 sweep of
+# the same members ran (phase 6's, in batches of 5), the limit is at least
+# twice the spread between the two, which K1's atomics (their order
+# changes from run to run) open over 400 iterations
+ENSEMBLE_MEMBER_TOL = {(1, 1): 1e-5, (2, 1): 1e-3}
+
+
+def ensemble_launches(p_e, grid, norm, ftype, batch, group,
+                      ks=len(GRID_SWEEP_KS)):
+    """A rank's exact launches in a phase-9 sweep: the batches of the
+    ENSEMBLE_MEMBERS in which its group has a member (``batch`` a batch,
+    split as ``GridContext.members`` splits it), ENSEMBLE_ITR steps each;
+    the refit in every group."""
+    from pydnmfk_tpu_torch.parallel.partition import block_range
+    n = ENSEMBLE_MEMBERS
+    solves = sum(1 for s in range(0, n, batch)
+                 if len(range(*block_range(min(s + batch, n) - s, p_e,
+                                           group))))
+    itr = ENSEMBLE_ITR
+    if ftype == "npz":       # the ELL: 2 K4 a step and the final error; the
+        return {"ell_gather": ks * (solves * (2 * itr + 1)   # refit's steps
+                                    + itr + 2)}              # and errors
+    if grid == (1, 1):       # one shard: K1 a step; the refit's plain
+        return {"fused_mu_fro": ks * solves * itr}
+    return {"kl_uht": ks * solves * itr,           # K2 on the block; the
+            "kl_wtu": ks * (solves + 1) * itr}     # refit's H steps K2b
+
+
+def ensemble_fits(outdir, datadir):
+    """One rank of phase 9's sweeps (run under torchrun, GRID_RANKS
+    processes): each sweep of ENSEMBLE_SWEEPS through the library on its
+    p_e groups, A read by DataReader (this rank's block of
+    ``datadir/X.npy``, or ``datadir/T.npz`` whole on a 1 x 1 group), at
+    GRID_SWEEP_KS with ENSEMBLE_MEMBERS members and ENSEMBLE_ITR
+    iterations, the CLI's defaults otherwise. Writes
+    ``outdir/rank{r}.json``: nopt, seconds, stages, launches, the batch,
+    every member's error by k, digests of the refit's factors, the results
+    this rank wrote."""
+    sys.path.insert(0, ROOT)
+    from pydnmfk_tpu_torch import NMFConfig, NMFk, NMFkConfig
+    from pydnmfk_tpu_torch.models import nmf as nmf_mod
+    from pydnmfk_tpu_torch.parallel import mesh
+    from pydnmfk_tpu_torch.utils import io, timing
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = _rank_counters()
+    refits, writes = [], []
+    real_fit, real_write = nmf_mod.NMF.fit, io.DataWriter.save_cluster_results
+
+    def fit(self, A, factors=None):
+        W, H, err = real_fit(self, A, factors)
+        if not self.cfg.W_update:       # the W-frozen refit: whole factors
+            refits.append([_digest(W), _digest(H)])
+        return W, H, err
+
+    def write(self, *a, **kw):
+        writes.append(self.fpath)
+        return real_write(self, *a, **kw)
+
+    class Members(NMFk):
+        def _solve_ensemble(self, A, k, members=None):
+            out = super()._solve_ensemble(A, k, members)
+            self.errs[k] = out[2].double().cpu().tolist()
+            return out
+
+        def _from_group0(self, *refit):
+            out = super()._from_group0(*refit)
+            self.taken.append([_digest(x) for x in out[:2]]
+                              + [_digest(torch.from_numpy(out[2])),
+                                 out[3]])
+            return out
+
+    nmf_mod.NMF.fit, io.DataWriter.save_cluster_results = fit, write
+    timing.enable(True)
+    report = {}
+    for name, (p_e, grid, ftype, fname, norm) in ENSEMBLE_SWEEPS.items():
+        ctx = mesh.initialize(*grid, "cuda", p_e=p_e)
+        for c in counters:
+            for key in c:
+                c[key] = 0
+        timing.reset()
+        refits.clear()
+        writes.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        A = io.DataReader(datadir + "/", fname, ftype).read(ctx)
+        cfg = NMFkConfig(nmf=NMFConfig(norm=norm, itr=ENSEMBLE_ITR),
+                         start_k=GRID_SWEEP_KS[0], end_k=GRID_SWEEP_KS[-1],
+                         perturbations=ENSEMBLE_MEMBERS, checkpoint=False,
+                         results_path=os.path.join(outdir, name) + "/",
+                         fname=fname)
+        model = Members(cfg, grid=ctx)
+        model.errs, model.taken = {}, []
+        nopt = model.fit(A)
+        torch.cuda.synchronize()
+        report[name] = dict(
+            nopt=nopt, secs=time.perf_counter() - t0,
+            batch=model.last_batch_size, group=ctx.group_index,
+            coords=list(ctx.coords), errs=model.errs, refits=list(refits),
+            taken=model.taken,
+            writes=list(writes), ell=model._ell is not None,
+            launches={k: v for c in counters for k, v in c.items() if v},
+            stages={s: round(v, 3) for s, v in timing.TIMINGS.items()})
+        del A, model
+        torch.cuda.empty_cache()
+    report.update(backend=ctx.backend, device=str(ctx.device))
+    with open(os.path.join(outdir, f"rank{ctx.rank}.json"), "w") as f:
+        json.dump(report, f)
+    torch.distributed.destroy_process_group()
+
+
+def ensemble_phase(smi, refs, main_path):
+    """Phase 9 in the parent: DataReader's block reads (a 2 x 2 grid's
+    blocks of an .npy by the native reader and of a .mat through its .npy
+    cache, bitwise), then the sweeps of ``--ensemble-fits`` under torchrun
+    against ``refs`` (by sweep name: the 1x1 sweep's results at
+    GRID_SWEEP_KS, its seconds, its stage seconds and, where one ran, a
+    second 1x1 sweep's results of the same members); the ranks' launches
+    go into ``main_path``."""
+    import types
+    from scipy import sparse as sp
+    from scipy.io import savemat
+    from pydnmfk_tpu_torch import native
+    from pydnmfk_tpu_torch.parallel.partition import block_range
+    from pydnmfk_tpu_torch.utils import io as io_mod
+    from pydnmfk_tpu_torch.utils.data_generator import (generate_data,
+                                                        generate_topic_sparse)
+    from pydnmfk_tpu_torch.utils.io import read_cluster_results
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # the reader: every block of a 2 x 2 grid, of an .npy by the C
+        # reader and of a .mat through its .npy copy in the cache
+        check(native.get_lib() is not None,
+              "no C compiler built the native block reader")
+        os.environ[io_mod.CACHE_ENV] = os.path.join(tmp, "cache")
+        X = np.random.default_rng(9).random((1001, 703)).astype(np.float32)
+        np.save(os.path.join(tmp, "R.npy"), X)
+        savemat(os.path.join(tmp, "R.mat"), {"X": X})
+        reads, served = dict(io_mod.BLOCK_READS), dict(native.READS)
+        t0 = time.perf_counter()
+        for ftype in ("npy", "mat"):
+            reader = io_mod.DataReader(tmp + "/", "R", ftype)
+            for rank in range(4):
+                i, j = divmod(rank, 2)
+                place = types.SimpleNamespace(
+                    rows=lambda m, i=i: block_range(m, 2, i),
+                    cols=lambda n, j=j: block_range(n, 2, j))
+                (r0, r1), (c0, c1) = place.rows(1001), place.cols(703)
+                check(np.array_equal(reader.read(place), X[r0:r1, c0:c1]),
+                      f"DataReader {ftype} block {rank} is not the array's")
+        secs = time.perf_counter() - t0
+        got = {key: io_mod.BLOCK_READS[key] - reads[key]
+               for key in reads} | {key: native.READS[key] - served[key]
+                                    for key in served}
+        print(f"[ensemble] DataReader on a 2x2 grid, 1001x703 f32 .npy and "
+              f".mat: every block bitwise the array's, reads {got} "
+              f"(expected npy 4, cache 4, native 8), {secs:.3f} s", flush=True)
+        check(got == {"npy": 4, "cache": 4, "whole": 0, "native": 8,
+                      "mmap": 0}, f"block reads {got}")
+        del os.environ[io_mod.CACHE_ENV]
+
+        # the sweeps' inputs: phase 3's planted matrix and phase 5's topic
+        # .npz
+        _, _, X = generate_data(**PLANTED)
+        np.save(os.path.join(tmp, "X.npy"), X.astype(np.float32))
+        del X
+        r, c, v, tshape = generate_topic_sparse(**TOPIC, seed=7)
+        sp.save_npz(os.path.join(tmp, "T.npz"),
+                    sp.csr_matrix((v, (r, c)), shape=tshape),
+                    compressed=False)
+        del r, c, v
+        out = os.path.join(tmp, "out")
+        os.makedirs(out)
+        torch.cuda.empty_cache()
+        _, secs = torchrun([os.path.abspath(__file__), "--ensemble-fits",
+                            out, tmp], 900)
+        ranks = []
+        for rank in range(GRID_RANKS):
+            with open(os.path.join(out, f"rank{rank}.json")) as f:
+                ranks.append(json.load(f))
+        print(f"[ensemble] {GRID_RANKS} ranks on one card ({smi}), backend "
+              f"{ranks[0]['backend']}: {secs:.1f} s for the torchrun of "
+              f"the three sweeps (the ranks share the card's SMs: this "
+              f"times the code and its gathers, not p_e cards)", flush=True)
+        check(all(r["backend"] == "gloo" for r in ranks), "ensemble backend")
+        # every sweep prints its lines before a failed check stops the phase
+        failed = []
+        need = lambda cond, msg: cond or failed.append(msg)
+        for name, (p_e, grid, ftype, fname, norm) in ENSEMBLE_SWEEPS.items():
+            runs = [r[name] for r in ranks]
+            ref, ref_secs, ref_stages, *rerun = refs[name]
+            # two 1x1 sweeps of the same members, relative
+            spread = max(float(np.max(np.abs(
+                rerun[0][k]["ErrTol"] / ref[k]["ErrTol"] - 1)))
+                for k in GRID_SWEEP_KS) if rerun else 0.0
+            tol = max(ENSEMBLE_MEMBER_TOL[grid], 2 * spread)
+            want = [ensemble_launches(p_e, grid, norm, ftype, run["batch"],
+                                      run["group"]) for run in runs]
+            member = max(float(np.max(np.abs(
+                np.asarray(run["errs"][str(k)]) / ref[k]["ErrTol"] - 1)))
+                for run in runs for k in GRID_SWEEP_KS)
+            worst = {"ErrTol": 0.0, "avgErr": 0.0, "L_err": 0.0, "sils": 0.0}
+            for k in GRID_SWEEP_KS:
+                a = read_cluster_results(os.path.join(out, name, fname,
+                                                      str(k)))
+                b = ref[k]
+                for key in ("ErrTol", "avgErr", "L_err"):
+                    worst[key] = max(worst[key], float(np.max(
+                        np.abs(a[key] - b[key]) / np.abs(b[key]).max())))
+                worst["sils"] = max(worst["sils"], float(np.max(np.abs(
+                    a["clusterSilhouetteCoefficients"]
+                    - b["clusterSilhouetteCoefficients"]))))
+            # each group's own refit (a sparse one sums with atomics on the
+            # card), and group 0's, which every group takes
+            refits = {json.dumps(run["refits"]) for run in runs}
+            taken = {json.dumps(run["taken"]) for run in runs}
+            print(f"[ensemble] {name} ({p_e} groups of {grid[0]}x{grid[1]}"
+                  f", {ftype} {fname}, k={GRID_SWEEP_KS[0]}.."
+                  f"{GRID_SWEEP_KS[-1]}, {ENSEMBLE_MEMBERS} members, "
+                  f"{ENSEMBLE_ITR} iterations; {smi}): nopt per rank "
+                  f"{[run['nopt'] for run in runs]}, batch "
+                  f"{runs[0]['batch']}; members' errors against the 1x1 "
+                  f"sweep's, max relative difference {member:.2e} (limit "
+                  f"{tol:.2e}; two 1x1 sweeps of these members "
+                  + (f"{spread:.2e}" if rerun else "not run")
+                  + f"); per-k statistics, max difference over max "
+                  f"(silhouettes: absolute) {worst} (limits 1e-3, 1e-3, "
+                  f"1e-2, 1e-3); the groups' own refits bitwise equal: "
+                  f"{len(refits) == 1}, group 0's taken by every rank: "
+                  f"{len(taken) == 1}; results written per rank "
+                  f"{[len(run['writes']) for run in runs]}; seconds per rank "
+                  f"{[round(run['secs'], 2) for run in runs]} (1x1 "
+                  f"{ref_secs:.2f}); stage seconds per rank "
+                  f"{[run['stages'] for run in runs]} (1x1 {ref_stages}); "
+                  f"launches per rank {[run['launches'] for run in runs]} "
+                  f"(expected {want})", flush=True)
+            need(all(run["nopt"] == 4 for run in runs), f"{name} nopt")
+            need(member <= tol, f"{name}: a member's error is "
+                                 f"{member:.2e} from the 1x1 member's")
+            need(worst["ErrTol"] <= 1e-3 and worst["avgErr"] <= 1e-3
+                  and worst["L_err"] <= 1e-2 and worst["sils"] <= 1e-3,
+                  f"{name}: stats are not the 1x1 sweep's: {worst}")
+            need(len(taken) == 1 and len(runs[0]["taken"]) == len(
+                GRID_SWEEP_KS), f"{name}: the ranks' refits differ")
+            need(len(runs[0]["writes"]) == len(GRID_SWEEP_KS)
+                  and not any(run["writes"] for run in runs[1:]),
+                  f"{name}: results written by "
+                  f"{[len(run['writes']) for run in runs]}")
+            need(ftype != "npz" or all(run["ell"] for run in runs),
+                  f"{name}: a rank's members are not on the ELL")
+            need([run["launches"] for run in runs] == want,
+                  f"{name} launched {[run['launches'] for run in runs]}, "
+                  f"not {want}")
+            for run in runs:
+                for key, n in run["launches"].items():
+                    main_path[key] += n
+        check(not failed, "; ".join(failed))
+    print(f"[ensemble] phase 9 in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
 
 
 def torchrun(args, timeout):
@@ -1891,6 +2177,16 @@ def main():
     del A
     torch.cuda.empty_cache()
 
+    sweep_log = {}      # results path -> (seconds, stage seconds)
+
+    def ensemble_ref(res_path, fname):
+        """Phase 9's reference: a 1x1 sweep's results at GRID_SWEEP_KS, its
+        seconds and its stage seconds (its members at those ks are phase
+        9's: a member is keyed by (seed, member) alone)."""
+        return ({k: read_cluster_results(os.path.join(res_path, fname,
+                                                      str(k)))
+                 for k in GRID_SWEEP_KS}, *sweep_log[res_path])
+
     def sweep(tmp, ftype, fname, norm, expect, shape, a_precision=None,
               flags=(), label=None, perturbations=10, nopt=4):
         """The NMFk sweep through the CLI entry point, counters from zero;
@@ -1920,6 +2216,7 @@ def main():
         stages = {s: round(timing.TIMINGS.get(s, 0.0), 3) for s in
                   ("read", "sparse_format", "ensemble_solve", "clustering",
                    "regression")}
+        sweep_log[res_path] = (secs, stages)
         if flags:
             stages["ensemble_init"] = round(timing.TIMINGS["ensemble_init"],
                                             3)
@@ -2049,10 +2346,12 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         np.save(os.path.join(tmp, "X.npy"), X.astype(np.float32))
         del X
-        sweep(tmp, "npy", "X", "fro", ("fused_mu_fro",),
-              (PLANTED["m"], PLANTED["n"]))
-        sweep(tmp, "npy", "X", "kl", ("kl_uht", "kl_wtu"),
-              (PLANTED["m"], PLANTED["n"]))
+        # phase 9 holds its sweeps at ks 3..5 against these
+        ensemble_refs = {name: ensemble_ref(sweep(
+            tmp, "npy", "X", norm, expect, (PLANTED["m"], PLANTED["n"])), "X")
+            for name, norm, expect in (
+                ("e4 1x1 FRO-MU", "fro", ("fused_mu_fro",)),
+                ("e2 2x1 KL-MU", "kl", ("kl_uht", "kl_wtu")))}
         # the ensemble on bf16 members: K1's tensor-core kernel
         sweep(tmp, "npy", "X", "fro", ("fused_mu_fro_bf16",),
               (PLANTED["m"], PLANTED["n"]), a_precision="bfloat16")
@@ -2195,6 +2494,9 @@ def main():
             res_path = sweep(tmp, "npz", "T", norm, expect, tshape)
             topic_ref[norm] = {k: read_cluster_results(
                 os.path.join(res_path, "T", str(k))) for k in GRID_SWEEP_KS}
+            if norm == "fro":       # and phase 9 its sparse sweep
+                ensemble_refs["e4 1x1 sparse FRO-MU"] = ensemble_ref(
+                    res_path, "T")
 
     # the HALS + nnsvd + prune sweep through the CLI: a planted matrix with
     # all-zero rows and columns, which the sweep prunes once and puts back
@@ -2415,6 +2717,10 @@ def main():
               f"launches {ran}", flush=True)
         check(nopt == 4 and ran == {"fused_mu_fro": 2 * 6 * 400},
               f"unbroken sweep: nopt {nopt}, launches {ran}")
+        # phase 3's FRO sweep of the same members, in batches of 5: how far
+        # two 1x1 sweeps lie apart, for phase 9's members
+        ensemble_refs["e4 1x1 FRO-MU"] += ({k: read_cluster_results(
+            os.path.join(tmp, "gold", "X", str(k))) for k in GRID_SWEEP_KS},)
         real_part = nmfk_mod._save_ensemble_part
 
         def failing_part(parts_dir, off, *a):
@@ -2858,6 +3164,10 @@ def main():
                       zero_counts, read_counts, main_path)
     del nyt_ref, topic_ref
 
+    # -- 9. the ensemble axis p_e: NMFk's members over groups of ranks ----
+    ensemble_phase(smi, ensemble_refs, main_path)
+    del ensemble_refs
+
     for name, n in main_path.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
     for name in ("kl_uht", "kl_wtu", "fused_mu_kl", "fused_mu_kl_bf16",
@@ -2865,7 +3175,7 @@ def main():
         check(main_path_wide[name] > 0, f"kernel {name} was not launched "
                                         f"past k = 32 on the main path")
 
-    # -- 9. report -------------------------------------------------------
+    # -- 10. report ------------------------------------------------------
     sources = {"K1 fused_mu_fro": ("fused_mu_fro.cu", "ops/fused_mu.py:50",
                                    ("fused_mu_fro", "fused_mu_fro_bf16",
                                     "fused_mu_fro_u8")),
@@ -2929,5 +3239,7 @@ if __name__ == "__main__":
         sparse_grid_fits(sys.argv[2])
     elif sys.argv[1:2] == ["--grid-cli"]:
         grid_cli(sys.argv[2], sys.argv[3:])
+    elif sys.argv[1:2] == ["--ensemble-fits"]:
+        ensemble_fits(sys.argv[2], sys.argv[3])
     else:
         main()

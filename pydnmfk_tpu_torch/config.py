@@ -3,8 +3,10 @@
 The dataclasses of ``pydnmfk_tpu/config.py`` without the TPU knobs (the
 Pallas switch, matmul precision, the XLA compilation cache and the K-padded
 sweep), which the entry points reject with :class:`NotPortedError`, as
-they do the features not yet ported (the ensemble axis ``p_e`` of a grid,
-``parallel/mesh.py``).
+they do the features not yet ported (the K-padded sweep's
+``k_sweep_batch`` and ``k_sweep_merge``). The ensemble axis ``p_e`` is no
+field here, as in the JAX package: it is the grid's
+(``parallel/mesh.py::initialize``), handed to ``NMF`` and ``NMFk``.
 """
 from __future__ import annotations
 

@@ -27,7 +27,9 @@ On a p_r x p_c grid (``grid``) W_all holds this rank's row block of every
 member and H_all its column block; the ensemble is never gathered. Every
 sum over W's rows (the column norms, the similarity matrices, the
 silhouettes' Gram) is all-reduced over 'r' everywhere (``clustering.py:96``,
-``:140``), so that every rank computes the same assignments.
+``:140``), so that every rank computes the same assignments. Under p_e
+ensemble groups every group clusters all the members (gathered over 'e')
+with its own ranks alone, and gets the same bits as the others.
 """
 from __future__ import annotations
 

@@ -34,6 +34,20 @@ grid's chunk layout), ``checkpoint.json`` and the plots, runs the p-value
 walk and hands its k to every rank; a barrier after each k orders its
 writes before any read. Each rank saves its own ensemble parts, and a
 resume replays the members that every rank has.
+
+With p_e ensemble groups of the grid (``parallel/mesh.py``, the JAX
+package's mesh axis 'e', nmfk.py:339-346, :410-424) each group solves its
+share of every batch on its own p_r x p_c ranks, with no collective
+beyond the group, drawing each member by its global index, so that a
+member's blocks are bitwise those of the p_e = 1 run (on the CPU). The
+batch is a multiple of p_e (nmfk.py:799-828); a batch's members split as
+evenly as they can, none padded, and every group runs every batch, a
+group without a member in one too. After the last batch the members' W
+blocks, H blocks and errors are gathered over 'e' in global member order,
+and every group clusters and refits them; every group then takes group
+0's refit over 'e' (on the card a sparse refit's atomics may end in other
+bits in another process), so that all hold the same statistics; rank 0
+(of group 0) writes.
 """
 from __future__ import annotations
 
@@ -46,7 +60,8 @@ import torch
 
 from ..config import NMFkConfig, check_device
 from ..ops import ell, ell_gather, linalg, sparse
-from ..parallel.mesh import is_proc0, sync_processes
+from ..parallel.mesh import WORLD, is_proc0, sync_processes
+from ..parallel.partition import block_range
 from ..utils import timing
 from ..utils.checkpoint import (Checkpoint, FLAG_CLUSTERED, FLAG_PERTS_DONE,
                                 FLAG_RUNNING, FLAG_SAVED)
@@ -73,13 +88,14 @@ def _ensemble_cfg_tag(ncfg, cfg, K=None, grid=None) -> str:
     saved part replays only under the same tag. Unlike the JAX package's
     it holds ``bcd_obj``, ``hals_block``, ``use_fused``, ``kl_chunk``,
     ``tol_check_every``, the width ``K`` the members are solved at (k
-    here; a K-padded sweep would solve at a larger one) and the grid."""
+    here; a K-padded sweep would solve at a larger one) and the grid with
+    its ensemble groups."""
     return repr((ncfg.k, ncfg.itr, ncfg.norm.lower(), ncfg.method.lower(),
                  ncfg.init, ncfg.precision, ncfg.a_precision, ncfg.seed,
                  float(ncfg.tol), int(ncfg.tol_check_every), cfg.noise_var,
                  cfg.sampling, cfg.seed_grid, ncfg.bcd_obj, ncfg.hals_block,
                  ncfg.use_fused, ncfg.kl_chunk, K or ncfg.k,
-                 grid.shape if grid is not None else (1, 1),
+                 grid.shape + (grid.p_e,) if grid is not None else (1, 1, 1),
                  ncfg.sparse_grid_format))
 
 
@@ -88,28 +104,32 @@ def _part_suffix(grid) -> str:
     return ".pt" if grid is None else f"_r{grid.rank}.pt"
 
 
-def _save_ensemble_part(parts_dir, offset, W, H, errs, seed, cfg_tag,
-                        grid=None):
-    """One solved batch, members ``offset`` on, as ``part_{offset}.pt``
-    (``nmfk.py:481-488``; on a grid this rank's blocks, the JAX package's
-    per-process shards, :490-544): factors at their own dtype, written
-    beside and moved into place."""
+def _save_ensemble_part(parts_dir, offset, W, H, errs, seed, cfg_tag, grid,
+                        stop, members):
+    """One solved batch, members ``offset`` to ``stop``, as
+    ``part_{offset}.pt`` (``nmfk.py:481-488``; on a grid this rank's
+    blocks, the JAX package's per-process shards, :490-544): factors at
+    their own dtype, written beside and moved into place. ``members``, a
+    range of global indices, are those it holds: all of the batch, or
+    under p_e groups the group's share."""
     os.makedirs(parts_dir, exist_ok=True)
     path = os.path.join(parts_dir, f"part_{offset:06d}{_part_suffix(grid)}")
     tmp = path + ".tmp"
     torch.save({"W": W.detach().cpu(), "H": H.detach().cpu(),
-                "errs": errs.detach().cpu(), "offset": offset, "seed": seed,
-                "cfg_tag": cfg_tag}, tmp)
+                "errs": errs.detach().cpu(), "offset": offset, "stop": stop,
+                "members": torch.arange(members.start, members.stop),
+                "seed": seed, "cfg_tag": cfg_tag}, tmp)
     os.replace(tmp, path)
 
 
 def _load_ensemble_parts(parts_dir, n_pert, seed, cfg_tag, device,
                          grid=None):
     """The saved batches that cover members 0, 1, ... without a gap
-    (``nmfk.py:546-622``): (members covered, W parts, H parts, error
-    parts) on ``device``. Parts of another seed or tag, and torn ones, are
-    skipped. Members are keyed by their global index, so the replay takes
-    parts of any batch size. On a grid this rank's own parts."""
+    (``nmfk.py:546-622``): (members covered, the global indices of the
+    members held, W parts, H parts, error parts) on ``device``. Parts of
+    another seed or tag, and torn ones, are skipped. Members are keyed by
+    their global index, so the replay takes parts of any batch size. On a
+    grid this rank's own parts."""
     parts = {}
     names = sorted(os.listdir(parts_dir)) if os.path.isdir(parts_dir) else []
     for name in names:
@@ -120,28 +140,30 @@ def _load_ensemble_parts(parts_dir, n_pert, seed, cfg_tag, device,
             d = torch.load(os.path.join(parts_dir, name), map_location=device,
                            weights_only=True)
             if d["seed"] == seed and d["cfg_tag"] == cfg_tag:
-                parts[int(d["offset"])] = (d["W"], d["H"], d["errs"])
+                parts[int(d["offset"])] = (int(d["stop"]), d["members"],
+                                           d["W"], d["H"], d["errs"])
         except Exception:
             continue            # torn write: recompute
-    done, W_parts, H_parts, err_parts = 0, [], [], []
+    done, held = 0, ([], [], [], [])
     while done < n_pert and done in parts:
-        W, H, errs = parts[done]
-        W_parts.append(W)
-        H_parts.append(H)
-        err_parts.append(errs)
-        done += W.shape[0]
-    return done, W_parts, H_parts, err_parts
+        done, *part = parts[done]
+        for got, x in zip(held, part):
+            got.append(x)
+    return (done, *held)
 
 
 def _common_parts(grid, done, *parts):
-    """The replay that every rank of a grid has: the fewest members any
-    rank's parts cover, this rank's parts cut to them."""
+    """The replay that every rank of every ensemble group has: the fewest
+    members any rank's parts cover, this rank's parts (member indices
+    first) cut to the members below it."""
     fewest = -int(grid.max(torch.tensor([-done], dtype=torch.float64,
-                                        device=grid.device))[0])
+                                        device=grid.device), WORLD)[0])
     if fewest == done:
         return (done, *parts)
-    return (fewest, *([torch.cat(p)[:fewest]] if fewest else []
-                      for p in parts))
+    if not fewest:
+        return (0, *([] for _ in parts))
+    keep = torch.cat(parts[0]) < fewest
+    return (fewest, *([torch.cat(p)[keep.to(p[0].device)]] for p in parts))
 
 
 class NMFk:
@@ -197,11 +219,11 @@ class NMFk:
         return nopt
 
     def _rank0(self, value: int) -> int:
-        """Rank 0's ``value`` on every rank of a grid."""
+        """Rank 0's ``value`` on every rank of a grid, of every group."""
         if self.grid is None:
             return value
         return int(self.grid.broadcast(torch.tensor(
-            [value], dtype=torch.float64, device=self.device))[0])
+            [value], dtype=torch.float64, device=self.device), WORLD)[0])
 
     def _prepare(self, A):
         """A on the device at the factor dtype (nmfk.py:653-716). A sparse A
@@ -283,30 +305,39 @@ class NMFk:
         return A.with_data(data)
 
     def _ensemble_batch_size(self, A, k) -> int:
-        """Members per batched solve: ``ensemble_batch``, or as many as fit
-        the memory budget (``utils/memory.py``): ``hbm_budget``, else the
-        ``PYDNMFK_HBM_BUDGET`` environment variable, less the shared A (at
-        the work precision) and a 15 % headroom; else, on CUDA, half of the
-        free device memory. Without a budget the CPU takes all of them.
-        A member's bytes are :meth:`_member_bytes`."""
-        cfg = self.cfg
+        """Members per batched solve, of all ensemble groups together:
+        ``ensemble_batch``, or as many as fit the memory budget
+        (``utils/memory.py``) of a rank p_e times over:
+        ``hbm_budget``, else the ``PYDNMFK_HBM_BUDGET`` environment
+        variable, less the shared A (at the work precision) and a 15 %
+        headroom; else, on CUDA, half of the free device memory. Without a
+        budget the CPU takes all of them. A member's bytes are
+        :meth:`_member_bytes`. On a grid the least that any rank holds;
+        under p_e groups rounded down to a multiple of p_e, and at least
+        p_e (``nmfk.py:799-828``)."""
+        cfg, grid = self.cfg, self.grid
+        p_e = grid.p_e if grid is not None else 1
         if cfg.ensemble_batch:
-            return max(1, min(int(cfg.ensemble_batch), cfg.perturbations))
-        per_member, shared = self._member_bytes(A, k)
-        budget = cfg.hbm_budget or int(float(
-            os.environ.get("PYDNMFK_HBM_BUDGET") or 0))
-        if budget:
-            batch = (budget * HEADROOM - shared) // per_member
-        elif A.device.type == "cuda":
-            free, _ = torch.cuda.mem_get_info(A.device)
-            batch = (free // 2) // per_member
+            batch = int(cfg.ensemble_batch)
         else:
-            batch = cfg.perturbations
-        batch = max(1, min(int(batch), cfg.perturbations))
-        if self.grid is not None:       # the least that any rank holds
-            batch = -int(self.grid.max(torch.tensor(
-                [-batch], dtype=torch.float64, device=A.device))[0])
-        return batch
+            per_member, shared = self._member_bytes(A, k)
+            budget = cfg.hbm_budget or int(float(
+                os.environ.get("PYDNMFK_HBM_BUDGET") or 0))
+            if budget:
+                share = (budget * HEADROOM - shared) // per_member
+            elif A.device.type == "cuda":
+                free, _ = torch.cuda.mem_get_info(A.device)
+                share = (free // 2) // per_member
+            else:
+                share = cfg.perturbations
+            share = max(1, min(int(share), cfg.perturbations))
+            if grid is not None:        # the least that any rank holds
+                share = -int(grid.max(torch.tensor(
+                    [-share], dtype=torch.float64, device=A.device),
+                    WORLD)[0])
+            batch = share * p_e
+        batch = max(1, min(batch, cfg.perturbations))
+        return max(p_e, batch // p_e * p_e)
 
     def _member_bytes(self, A, k) -> tuple:
         """(bytes of one member, bytes the batch shares) of the memory model.
@@ -365,38 +396,32 @@ class NMFk:
         H_all (p,k,n), errs (p,)).
 
         ``members=(A_ens, W0, H0)`` supplies the perturbed copies and init
-        factors instead of drawing them (parity tests feed the JAX draws);
-        under nnsvd, ``members=(A_ens, None, None)`` takes the init from
-        the supplied copies. On a grid each of these is this rank's block,
-        and so are the returned factors."""
+        factors of all members instead of drawing them (parity tests feed
+        the JAX draws); under nnsvd, ``members=(A_ens, None, None)`` takes
+        the init from the supplied copies. On a grid each of these is this
+        rank's block, and so are the returned factors. Under p_e groups
+        each group solves its share of every batch (of the supplied
+        members: one batch) and the members come back gathered, on every
+        rank."""
         cfg, grid = self.cfg, self.grid
         ncfg = cfg.nmf.replace(k=k)
-        sparse_A = linalg.is_sparse(A)
-        # a sparse block's members draw the whole flat values and keep the
-        # block's slots
-        slots = A.perm if isinstance(A, sparse.SparseGridInput) else None
-        spans = self._spans or ((0, A.shape[0], A.shape[0]),
-                                (0, A.shape[1], A.shape[1]))
-        shape = (spans[0][2], spans[1][2])
+        n_pert = cfg.perturbations
         if members is not None:
-            A_ens = as_tensor(members[0]).to(self.device, ncfg.a_dtype)
-            A_ens = A_ens.contiguous()
-            if members[1] is None:
-                W0, H0 = self._init_members(ncfg, A_ens, None, shape, None,
-                                            grid=grid, spans=self._spans)
-            else:
-                W0, H0 = (as_tensor(x).to(self.device, ncfg.dtype)
-                          .contiguous() for x in members[1:])
-            if sparse_A:
-                A_ens = self._members(A, A_ens if slots is None
-                                      else A_ens[..., slots])
-            return nmf_mod.solve(A_ens, W0, H0, ncfg.eps, ncfg, grid=grid)
+            A_ens = as_tensor(members[0])
+            lo, hi = grid.members(A_ens.shape[0]) if grid is not None \
+                else (0, A_ens.shape[0])
+            W, H, errs = self._solve_members(
+                A, ncfg, range(lo, hi), members=tuple(
+                    None if x is None else as_tensor(x)[lo:hi]
+                    for x in members))
+            return self._gather_members(
+                torch.arange(lo, hi, device=self.device), W, H, errs,
+                A_ens.shape[0])
         batch = self._ensemble_batch_size(A, k)
         self.last_batch_size = batch
-        n_pert = cfg.perturbations
         tag = _ensemble_cfg_tag(ncfg, cfg, grid=grid)
         parts_dir = os.path.join(self.results_path, str(k), "ensemble_parts")
-        done, W_parts, H_parts, err_parts = 0, [], [], []
+        done, parts = 0, ([], [], [], [])     # member indices, W, H, errs
         if cfg.checkpoint:
             st = self.checkpoint.state or self.checkpoint.load()
             # replay the saved batches at any stage before the k's results
@@ -404,16 +429,63 @@ class NMFk:
             # from the parts alone (nmfk.py:898-909)
             if (st is not None and st.k == k and st.seed == ncfg.seed
                     and st.flag < FLAG_SAVED):
-                done, W_parts, H_parts, err_parts = _load_ensemble_parts(
+                done, *parts = _load_ensemble_parts(
                     parts_dir, n_pert, ncfg.seed, tag, self.device, grid)
             if grid is not None:
-                done, W_parts, H_parts, err_parts = _common_parts(
-                    grid, done, W_parts, H_parts, err_parts)
+                done, *parts = _common_parts(grid, done, *parts)
         # the k is in progress from here on, so that a part saved before the
         # first batch's flag replays too
         self.checkpoint.save(FLAG_RUNNING, done, k, ncfg.seed)
-        for done in range(done, n_pert, batch):
-            idx = range(done, min(done + batch, n_pert))
+        for start in range(done, n_pert, batch):
+            stop = min(start + batch, n_pert)
+            lo, hi = grid.members(stop - start) if grid is not None \
+                else (0, stop - start)
+            idx = range(start + lo, start + hi)
+            # a group without a member in this batch solves nothing (its
+            # solve's collectives are its own) and saves an empty part
+            W, H, errs = self._solve_members(A, ncfg, idx)
+            for got, x in zip(parts, (torch.arange(
+                    idx.start, idx.stop, device=self.device), W, H, errs)):
+                got.append(x)
+            if cfg.checkpoint:
+                _save_ensemble_part(parts_dir, start, W, H, errs, ncfg.seed,
+                                    tag, grid, stop, idx)
+            self.checkpoint.save(FLAG_RUNNING, stop, k, ncfg.seed)
+        held, W, H, errs = (torch.cat(p) for p in parts)
+        return self._gather_members(held, W, H, errs, n_pert)
+
+    def _solve_members(self, A, ncfg, idx, members=None):
+        """(W, H, errs) of the members ``idx`` (global indices): drawn, or
+        the supplied ``members`` (as in :meth:`_solve_ensemble`); on a
+        grid this rank's blocks. No member: empty tensors of their
+        shapes."""
+        cfg, grid = self.cfg, self.grid
+        sparse_A = linalg.is_sparse(A)
+        # a sparse block's members draw the whole flat values and keep the
+        # block's slots
+        slots = A.perm if isinstance(A, sparse.SparseGridInput) else None
+        spans = self._spans or ((0, A.shape[0], A.shape[0]),
+                                (0, A.shape[1], A.shape[1]))
+        shape = (spans[0][2], spans[1][2])
+        if not len(idx):
+            m, n = A.shape
+            return (torch.empty((0, m, ncfg.k), dtype=ncfg.dtype,
+                                device=self.device),
+                    torch.empty((0, ncfg.k, n), dtype=ncfg.dtype,
+                                device=self.device),
+                    torch.empty((0,), dtype=linalg.acc_dtype(ncfg.a_dtype),
+                                device=self.device))
+        if members is not None:
+            A_ens = members[0].to(self.device, ncfg.a_dtype).contiguous()
+            if members[1] is None:
+                W0, H0 = self._init_members(ncfg, A_ens, None, shape, None,
+                                            grid=grid, spans=self._spans)
+            else:
+                W0, H0 = (x.to(self.device, ncfg.dtype).contiguous()
+                          for x in members[1:])
+            if sparse_A and slots is not None:
+                A_ens = A_ens[..., slots]
+        else:
             source = A if not sparse_A else (A.data if slots is None
                                              else A.flat)
             A_ens = sampler.sample_ensemble(source, ncfg.seed, cfg.noise_var,
@@ -425,22 +497,25 @@ class NMFk:
                 W0, H0 = self._init_members(ncfg, A_ens, idx, shape,
                                             A.device, cfg.seed_grid, grid,
                                             self._spans)
-            if sparse_A:
-                A_ens = self._members(A, A_ens)
-            W, H, errs = nmf_mod.solve(A_ens, W0, H0, ncfg.eps, ncfg,
-                                       grid=grid)
-            del A_ens
-            W_parts.append(W)
-            H_parts.append(H)
-            err_parts.append(errs)
-            if cfg.checkpoint:
-                _save_ensemble_part(parts_dir, idx.start, W, H, errs,
-                                    ncfg.seed, tag, grid)
-            self.checkpoint.save(FLAG_RUNNING, idx.stop, k, ncfg.seed)
-        # replayed parts overshoot where `perturbations` shrank between
-        # runs (nmfk.py:1004-1007)
-        return (torch.cat(W_parts)[:n_pert], torch.cat(H_parts)[:n_pert],
-                torch.cat(err_parts)[:n_pert])
+        if sparse_A:
+            A_ens = self._members(A, A_ens)
+        return nmf_mod.solve(A_ens, W0, H0, ncfg.eps, ncfg, grid=grid)
+
+    def _gather_members(self, held, W, H, errs, n_pert):
+        """The first ``n_pert`` members, in global order, from this rank's
+        (``held``: their global indices; replayed parts overshoot where
+        ``perturbations`` shrank between runs, nmfk.py:1004-1007); under
+        p_e groups gathered over 'e' first, so that every group holds every
+        member's blocks."""
+        grid = self.grid
+        if grid is not None and grid.p_e > 1:
+            with timing.timed("ensemble_gather"):
+                held = grid.gather(held, "e", 0)
+                W, H, errs = (grid.gather(x.contiguous(), "e", 0)
+                              for x in (W, H, errs))
+            order = torch.argsort(held)
+            W, H, errs = W[order], H[order], errs[order]
+        return W[:n_pert], H[:n_pert], errs[:n_pert]
 
     @staticmethod
     def _init_members(ncfg, A_ens, idx, shape, device, seed_grid=None,
@@ -499,6 +574,9 @@ class NMFk:
                 else self._ell[0]
             AvgW, AvgH, L_errDist = reg.fit(A_reg, factors=(centroids, AvgH))
             col_err = reg.column_err()
+            if grid is not None and grid.p_e > 1:
+                AvgW, AvgH, col_err, L_errDist = self._from_group0(
+                    AvgW, AvgH, col_err, L_errDist)
         if self.prune_state is not None:
             # pruned (all-zero) columns carry zero error; the factors go
             # back to the full shape (nmfk.py:1277-1287)
@@ -534,6 +612,18 @@ class NMFk:
             shutil.rmtree(os.path.join(k_path, "ensemble_parts"),
                           ignore_errors=True)
         return stats
+
+    def _from_group0(self, W, H, col_err, err):
+        """Group 0's refit (its factors, column errors and error) on every
+        ensemble group: each group refits the same members alike, but on
+        the card a sum taken with atomics (a sparse tail's ``index_add_``)
+        may end in other bits in another process."""
+        grid, dev = self.grid, self.device
+        col = grid.broadcast(torch.as_tensor(col_err, device=dev), "e")
+        err = grid.broadcast(torch.tensor([err], dtype=torch.float64,
+                                          device=dev), "e")
+        return (grid.broadcast(W, "e"), grid.broadcast(H, "e"),
+                col.cpu().numpy(), float(err[0]))
 
     def pvalue_analysis(self) -> int:
         """Wilcoxon walk over the recorded per-k column-error distributions

@@ -288,8 +288,9 @@ def bcd_solve(A, W, H, eps, itr: int = 1000, rw: float = 1.0,
             obj = 0.5 * linalg.residual_sqnorm(A, W, H, chunk,
                                                grid)[..., None, None]
         if grid is not None:
-            # WTW and HHT_new come from two subgroups: rank 0's objective
-            # decides for all
+            # WTW and HHT_new come from two subgroups: the group's first
+            # rank's objective decides for its ranks (each ensemble group
+            # holds other members)
             obj = grid.broadcast(obj)
         # restore or extrapolate (reference :1029-1047)
         t = (1.0 + torch.sqrt(1.0 + 4.0 * t_old ** 2)) / 2.0

@@ -14,8 +14,9 @@ over 'r', over H's columns over 'c', over all of A over both, with the
 partial sums at the accumulation dtype (``linalg.py:93-160``). The
 products (W^T A, A H^T) and Grams stay in their subgroup, whose members are
 the replicas that use them; the small sums (norms, column sums) are taken
-``everywhere``, the same bits on every rank, because replicas along the
-other axis use them too (``parallel/mesh.py``).
+``everywhere``, the same bits on every rank of the group, because
+replicas along the other axis use them too (``parallel/mesh.py``). No sum
+here leaves the rank's ensemble group, whose members are its own.
 
 Precision policy (``pydnmfk_tpu/ops/linalg.py:60-88``): f32 products run
 in true f32 (TF32 off, PyTorch's default for matrix products); f64 runs in

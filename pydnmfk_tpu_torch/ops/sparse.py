@@ -341,7 +341,8 @@ def grid_format(A, grid, fmt=None) -> SparseGridInput:
     takes the dual ELL on the card (kernel K4 on every block) where every
     rank's block packs (``ops/ell.py::grid_ell_pack``), and the triplet on
     the CPU; "ell" and "triplet" force one. Each rank packs its own block,
-    at its own widths; one all-reduce over all ranks agrees on the format,
+    at its own widths; one all-reduce over all ranks (of every ensemble
+    group, whose blocks are group 0's) agrees on the format,
     so an "ell" that one block refuses raises the ValueError on every rank
     (one rank alone would leave the others waiting in their next
     collective), and an auto choice that a block refuses on the card
@@ -361,7 +362,8 @@ def grid_format(A, grid, fmt=None) -> SparseGridInput:
     from .ell import grid_ell_pack
     packed = grid_ell_pack(A.block)
     refused = grid.max(torch.tensor([0.0 if packed else 1.0],
-                                    dtype=torch.float64, device=A.device))
+                                    dtype=torch.float64, device=A.device),
+                       "world")
     if float(refused[0]) == 0:
         return agreed(packed)
     if fmt == "ell":

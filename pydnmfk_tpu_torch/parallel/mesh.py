@@ -20,6 +20,17 @@ Ranks are row-major over the grid, rank = i * p_c + j, as the reference's
 ``Create_cart``. Blocks are the reference's remainder-balanced ones
 (``parallel/partition.py``); nothing is padded.
 
+The ensemble axis ``p_e`` (the JAX package's outer mesh axis 'e',
+``pydnmfk_tpu/parallel/mesh.py:41-55``) repeats the grid: the world is
+p_e groups of p_r x p_c ranks, 'e' outermost, rank = e * p_r * p_c +
+i * p_c + j, so a group's ranks are consecutive. Each group holds the whole
+A in the same blocks and factorizes its own share of the NMFk members
+(``models/nmfk.py``); the 'e' subgroup joins the ranks of one (i, j)
+across the groups, over which the members are gathered once a k. Every
+collective acts on the rank's own group unless its caller names the world
+(``over="world"``): a sum or a restore choice of one group's members must
+never mix with another group's.
+
 Two rules, each fixed before the group forms (neither is a retry after a
 failure):
 
@@ -50,12 +61,13 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from ..config import NotPortedError
 from ..utils import timing
 from .partition import block_range
 
 ROW_AXIS = "r"
 COL_AXIS = "c"
+ENSEMBLE_AXIS = "e"
+WORLD = "world"
 
 
 def device_for(device, local_rank: int) -> torch.device:
@@ -80,44 +92,67 @@ def backend_for(device: torch.device, local_world_size: int) -> str:
 
 
 class GridContext:
-    """This rank's place in the p_r x p_c grid, its row and column
-    subgroups and the grid's collectives; the counterpart of the
-    reference's ``params.comm/comm1/row_comm/col_comm`` bundle
-    (main.py:62-67). Built on every rank, in the same order, after the
-    process group has formed (:func:`initialize`)."""
+    """This rank's place in the p_e x p_r x p_c world, its row, column,
+    group and ensemble subgroups and the grid's collectives; the
+    counterpart of the reference's ``params.comm/comm1/row_comm/col_comm``
+    bundle (main.py:62-67). Built on every rank, in the same order, after
+    the process group has formed (:func:`initialize`).
+
+    ``shape`` and ``coords`` are the rank's place in its group's p_r x p_c
+    grid; ``rank`` is its rank in the world, ``group_index`` its group."""
 
     def __init__(self, p_r: int, p_c: int, device, p_e: int = 1):
-        if p_e != 1:
-            raise NotPortedError(f"the ensemble axis p_e={p_e}",
-                                 "queue 1 item 15")
         if not dist.is_initialized():
             raise RuntimeError("GridContext needs a process group: call "
                                "parallel.mesh.initialize first")
+        if min(p_r, p_c, p_e) < 1:
+            raise ValueError(f"a grid needs p_r, p_c, p_e >= 1, got "
+                             f"({p_r}, {p_c}, {p_e})")
         world = dist.get_world_size()
-        if world != p_r * p_c:
-            raise ValueError(f"a {p_r}x{p_c} grid needs {p_r * p_c} ranks, "
-                             f"the process group has {world}")
+        n = p_r * p_c
+        if world != p_e * n:
+            what = (f"a {p_r}x{p_c} grid" if p_e == 1
+                    else f"{p_e} groups of a {p_r}x{p_c} grid")
+            raise ValueError(f"{what} needs {p_e * n} ranks, the process "
+                             f"group has {world}")
         self.shape = (p_r, p_c)
+        self.p_e = p_e
         self.rank = dist.get_rank()
-        self.coords = divmod(self.rank, p_c)
+        self.group_index, local = divmod(self.rank, n)
+        self.coords = divmod(local, p_c)
         self.device = torch.device(device)
         self.backend = dist.get_backend()
-        rows = [[i * p_c + j for j in range(p_c)] for i in range(p_r)]
-        cols = [[i * p_c + j for i in range(p_r)] for j in range(p_c)]
+        rows = [[e * n + i * p_c + j for j in range(p_c)]
+                for e in range(p_e) for i in range(p_r)]
+        cols = [[e * n + i * p_c + j for i in range(p_r)]
+                for e in range(p_e) for j in range(p_c)]
+        # every rank creates every subgroup, in this order; at p_e = 1 the
+        # group is the world
         self._groups = {COL_AXIS: dist.new_subgroups_by_enumeration(rows)[0],
                         ROW_AXIS: dist.new_subgroups_by_enumeration(cols)[0],
-                        "rc": None}
+                        "rc": None, ENSEMBLE_AXIS: None, WORLD: None}
+        if p_e > 1:
+            self._groups["rc"] = dist.new_subgroups_by_enumeration(
+                [[e * n + r for r in range(n)] for e in range(p_e)])[0]
+            self._groups[ENSEMBLE_AXIS] = dist.new_subgroups_by_enumeration(
+                [[e * n + r for e in range(p_e)] for r in range(n)])[0]
         # collectives issued: kind -> [calls, bytes] (utils/timing.py's
         # collective_stats reads it)
         self.stats = {}
 
     @property
     def n_ranks(self) -> int:
+        """The ranks of one group, which share A's blocks."""
         return self.shape[0] * self.shape[1]
 
     @property
+    def world_size(self) -> int:
+        return self.p_e * self.n_ranks
+
+    @property
     def is_proc0(self) -> bool:
-        """Whether this rank plays the reference's rank-0 writer role."""
+        """Whether this rank plays the reference's rank-0 writer role: rank
+        0 of the world, (0, 0) of group 0."""
         return self.rank == 0
 
     def rows(self, m: int):
@@ -132,6 +167,12 @@ class GridContext:
         """This rank's block of the last two dims of X (global)."""
         (r0, r1), (c0, c1) = self.rows(X.shape[-2]), self.cols(X.shape[-1])
         return X[..., r0:r1, c0:c1]
+
+    def members(self, count: int):
+        """[start, end) of this group's share of ``count`` members: the
+        groups split them as evenly as they can, the first ones one more
+        (no member is padded)."""
+        return block_range(count, self.p_e, self.group_index)
 
     # -- collectives ----------------------------------------------------
     def _run(self, kind, x, call):
@@ -149,40 +190,52 @@ class GridContext:
 
     def sum(self, x: torch.Tensor, over: str, everywhere: bool = False):
         """x summed over the grid axis ``over``: 'r' (the ranks of this
-        rank's column), 'c' (of its row) or 'rc' (all ranks); in place on
-        x where it is contiguous, and returned. ``everywhere``: the same
-        sum with the same bits on every rank of the grid (the ranks of the
-        first column, or of the first row, contribute)."""
+        rank's column), 'c' (of its row) or 'rc' (all ranks of its group);
+        in place on x where it is contiguous, and returned. ``everywhere``:
+        the same sum with the same bits on every rank of the group (the
+        ranks of its first column, or of its first row, contribute)."""
         x = x.contiguous()
         group = self._groups[over]
         if everywhere and over != "rc":
             i, j = self.coords
             if (j if over == ROW_AXIS else i) != 0:
                 x.zero_()
-            group = None
+            group = self._groups["rc"]
         self._run("all-reduce", x, lambda: dist.all_reduce(x, group=group))
         return x
 
     def max(self, x: torch.Tensor, over: str = "rc"):
-        """The elementwise maximum of x over ``over``, in place."""
+        """The elementwise maximum of x over ``over`` (an axis, the group
+        'rc', or ``"world"``), in place."""
         x = x.contiguous()
         group = self._groups[over]
         self._run("all-reduce", x, lambda: dist.all_reduce(
             x, op=dist.ReduceOp.MAX, group=group))
         return x
 
-    def broadcast(self, x: torch.Tensor, src: int = 0):
-        """Rank ``src``'s x on every rank, in place."""
+    def broadcast(self, x: torch.Tensor, over: str = "rc"):
+        """x of one rank on every rank along ``over``, in place: of the
+        group's first rank, (e, 0, 0), on the group ('rc'); of group 0's
+        rank at this rank's (i, j) over 'e'; of world rank 0 over
+        ``"world"``."""
         x = x.contiguous()
-        self._run("broadcast", x, lambda: dist.broadcast(x, src=src))
+        if over == ENSEMBLE_AXIS and self.p_e == 1:
+            return x
+        src = {WORLD: 0, ENSEMBLE_AXIS: self.rank % self.n_ranks}.get(
+            over, self.group_index * self.n_ranks)
+        self._run("broadcast", x, lambda: dist.broadcast(
+            x, src=src, group=self._groups[over]))
         return x
 
     def gather(self, x: torch.Tensor, over: str, dim: int):
         """The blocks of x of the ranks along ``over`` ('r': this rank's
-        column, in order of i; 'c': its row, in order of j), concatenated
-        along ``dim``, on every one of them. Blocks may differ in length
-        along ``dim`` (an uneven or pruned block): their lengths are
-        gathered first."""
+        column, in order of i; 'c': its row, in order of j; 'e': the ranks
+        of its (i, j) in every group, in order of e), concatenated along
+        ``dim``, on every one of them. Blocks may differ in length along
+        ``dim`` (an uneven or pruned block, a group's share of the
+        members): their lengths are gathered first."""
+        if over == ENSEMBLE_AXIS and self.p_e == 1:
+            return x
         group = self._groups[over]
         dim = dim % x.dim()
         lens = self._lengths(x.shape[dim], over)
@@ -215,11 +268,12 @@ class GridContext:
                          else self.coords[1]])
         return start, start + length, sum(lens)
 
-    def barrier(self):
-        """Every rank waits here for the others (the reference orders rank
-        0's writes before the others' reads by its blocking
+    def barrier(self, over: str = "rc"):
+        """Every rank of this rank's group, or of the world with
+        ``over="world"``, waits here for the others (the reference orders
+        rank 0's writes before the others' reads by its blocking
         collectives)."""
-        dist.barrier()
+        dist.barrier(group=self._groups[over])
 
 
 def is_proc0(grid: Optional[GridContext]) -> bool:
@@ -229,16 +283,18 @@ def is_proc0(grid: Optional[GridContext]) -> bool:
 
 
 def sync_processes(grid: Optional[GridContext]) -> None:
-    """A barrier on a grid; nothing without one."""
+    """A barrier of the whole world on a grid (rank 0's writes come before
+    any rank's reads); nothing without one."""
     if grid is not None:
-        grid.barrier()
+        grid.barrier(WORLD)
 
 
-def initialize(p_r: int, p_c: int, device="cuda", *,
+def initialize(p_r: int, p_c: int, device="cuda", *, p_e: int = 1,
                init_method: Optional[str] = None, rank: Optional[int] = None,
                world_size: Optional[int] = None,
                timeout: Optional[float] = None) -> GridContext:
-    """This process's GridContext on a p_r x p_c grid, joining the process
+    """This process's GridContext on p_e groups of a p_r x p_c grid (one
+    group where ``p_e`` is 1, the default), joining the process
     group first where it has not formed: from torchrun's environment
     (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``,
     ``MASTER_ADDR``, ``MASTER_PORT``), or from ``init_method``, ``rank``
@@ -248,11 +304,19 @@ def initialize(p_r: int, p_c: int, device="cuda", *,
     others' wait."""
     if not dist.is_initialized():
         if init_method is None and "RANK" not in os.environ:
+            ranks = p_e * p_r * p_c
             raise RuntimeError(
                 f"a {p_r}x{p_c} grid runs one process per rank: start "
-                f"{p_r * p_c} of them, e.g. python -m torch.distributed.run "
-                f"--standalone --nproc_per_node={p_r * p_c} -m "
-                f"pydnmfk_tpu_torch --p_r={p_r} --p_c={p_c} ...")
+                f"{ranks} of them, e.g. python -m torch.distributed.run "
+                f"--standalone --nproc_per_node={ranks} -m "
+                f"pydnmfk_tpu_torch --p_r={p_r} --p_c={p_c} ..."
+                if p_e == 1 else
+                f"{p_e} groups of a {p_r}x{p_c} grid run one process per "
+                f"rank: start {ranks} of them under python -m "
+                f"torch.distributed.run --standalone --nproc_per_node="
+                f"{ranks} SCRIPT, where SCRIPT calls parallel.mesh."
+                f"initialize({p_r}, {p_c}, p_e={p_e}) and hands the grid to "
+                f"NMF or NMFk")
         rank = int(os.environ["RANK"]) if rank is None else rank
         world_size = (int(os.environ["WORLD_SIZE"]) if world_size is None
                       else world_size)
@@ -272,4 +336,4 @@ def initialize(p_r: int, p_c: int, device="cuda", *,
             "LOCAL_RANK", dist.get_rank())))
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    return GridContext(p_r, p_c, device)
+    return GridContext(p_r, p_c, device, p_e)

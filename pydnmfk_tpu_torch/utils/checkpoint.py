@@ -104,7 +104,8 @@ class SolveCheckpoint:
         """(W, H, iterations done) from the file on W's device, or the
         given (W, H, 0) where there is no file, a torn one or another
         tag. On a grid every rank resumes from its file only where all
-        ranks' files hold the same iteration; otherwise all start at 0."""
+        ranks' files, of every ensemble group, hold the same iteration;
+        otherwise all start at 0."""
         got = (W, H, 0)
         try:
             d = torch.load(self.path, map_location=W.device,
@@ -116,7 +117,8 @@ class SolveCheckpoint:
         if self.grid is not None:
             i = got[2]
             hi, neg_lo = (int(v) for v in self.grid.max(torch.tensor(
-                [i, -i], dtype=torch.float64, device=W.device)).cpu())
+                [i, -i], dtype=torch.float64, device=W.device),
+                "world").cpu())
             if hi != -neg_lo:
                 return W, H, 0
         return got

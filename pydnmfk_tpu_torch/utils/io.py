@@ -7,11 +7,14 @@ scipy.sparse ``save_npz`` file (.npz) as a canonical
 ``{fname}{rank}.npy`` that split A into the remainder-balanced blocks of a
 ``pgrid`` (reference data_io.py:44-47), assembled into the whole matrix.
 On a p_r x p_c grid of processes, ``read(grid)`` gives this rank's block
-alone: an .npy by slicing a memory map, a ``folder`` from the chunks that
-meet the block (``io.py:393-420``), a .mat or .csv/.txt by reading the file
-and slicing it, as the reference does, and an .npz as a
+alone (on every ensemble group alike): an .npy through the native block
+reader (``native/``), which reads only the block's bytes; a .mat or
+.csv/.txt through a one-time .npy copy of it in a cache directory, read
+the same way (``io.py:76-128``); a ``folder`` from the chunks that meet
+the block (``io.py:393-420``); and an .npz as a
 ``ops/sparse.py::SparseGridInput``: of a CSR file only this rank's row
-panel (``io.py:231-357``). The writer keeps the reference's
+panel (``io.py:231-357``). ``read_chunk`` reads a block of a dense file
+the same way. The writer keeps the reference's
 layout of factors (``W_[reg_]factors/``, ``H_[reg_]factors/``, in the
 chunks of the JAX package's ``DataWriter`` on a grid, ``io.py:504-545``)
 and per-k statistics.
@@ -29,12 +32,24 @@ whichever exists.
 from __future__ import annotations
 
 import glob
+import hashlib
 import os
+import warnings
 
 import numpy as np
 import torch
 
+from .. import native
 from ..parallel.partition import block_range, rank_to_block_order_H
+
+# the directory of the .npy copies of .mat, .csv and .txt files that block
+# reads take (the JAX package's, ``io.py:88-90``, under the port's name)
+CACHE_ENV = "PYDNMFK_CACHE_DIR"
+DEFAULT_CACHE_DIR = os.path.join("~", ".cache", "pydnmfk_tpu_torch")
+# dense block reads by source: the .npy itself, the cached copy of a .mat,
+# .csv or .txt, or the whole file parsed (no writable cache directory);
+# ``native.READS`` says which reader served the first two
+BLOCK_READS = {"npy": 0, "cache": 0, "whole": 0}
 
 # dataset names of results.h5 (pydnmfk_tpu/utils/io.py:557-565) and the
 # stats keys they hold
@@ -72,14 +87,13 @@ class DataReader:
             return self._read_block(grid)
         if self.ftype == "folder":
             return self._cast(self._read_folder())
-        path = os.path.join(self.fpath, self.fname + "." + self.ftype)
         if self.ftype == "npz":
-            return self._read_sparse(path)
-        return self._cast(self._load(path, mmap=False))
+            return self._read_sparse(self._path())
+        return self._cast(self._load(self._path()))
 
-    def _load(self, path, mmap: bool):
+    def _load(self, path):
         if self.ftype == "npy":
-            return np.load(path, mmap_mode="r" if mmap else None)
+            return np.load(path)
         if self.ftype == "mat":
             from scipy.io import loadmat
             return np.asarray(loadmat(path)["X"])
@@ -93,24 +107,81 @@ class DataReader:
             m, n = self._folder_shape()
             (r0, r1), (c0, c1) = grid.rows(m), grid.cols(n)
             return self._cast(self._read_folder_block(r0, r1, c0, c1, m, n))
-        data = self._load(os.path.join(self.fpath,
-                                       self.fname + "." + self.ftype),
-                          mmap=True)
-        return self._cast(np.ascontiguousarray(grid.block(data)))
+        return self._dense_block(lambda m, n: (grid.rows(m), grid.cols(n)))
 
     def read_chunk(self, rank: int):
         """Chunk ``rank`` of a ``folder`` (reference data_partition,
         data_io.py:70-83), or block ``rank`` of the ``pgrid`` of any other
-        dense format, read whole."""
+        dense format, read as a grid's rank reads its block."""
         if self.ftype == "folder":
             return self._cast(np.load(self._chunk_path(rank)))
         if self.ftype == "npz":
             raise ValueError("read_chunk takes a dense format, not npz")
         i, j = divmod(rank, self.pgrid[1])
-        data = self.read()
-        r0, r1 = block_range(data.shape[0], self.pgrid[0], i)
-        c0, c1 = block_range(data.shape[1], self.pgrid[1], j)
-        return data[r0:r1, c0:c1]
+        return self._dense_block(lambda m, n: (
+            block_range(m, self.pgrid[0], i), block_range(n, self.pgrid[1],
+                                                          j)))
+
+    def _dense_block(self, ranges):
+        """The block ``ranges(m, n)`` = ((r0, r1), (c0, c1)) of a dense
+        m x n file: of an .npy, or of a .mat, .csv or .txt through its
+        cached .npy copy, only the block's bytes (the native reader, else
+        a numpy memory map); where the cache directory is not writable,
+        of the whole file parsed (``io.py:113-125``)."""
+        path = self._block_readable_path()
+        if path is None:
+            data = self._load(self._path())
+            BLOCK_READS["whole"] += 1
+            (r0, r1), (c0, c1) = ranges(*data.shape)
+            return self._cast(np.ascontiguousarray(data[r0:r1, c0:c1]))
+        BLOCK_READS["npy" if self.ftype == "npy" else "cache"] += 1
+        mapped = np.load(path, mmap_mode="r")
+        (r0, r1), (c0, c1) = ranges(*mapped.shape)
+        blk = native.read_npy_block(path, r0, r1, c0, c1)
+        if blk is None:
+            native.READS["mmap"] += 1
+            blk = np.ascontiguousarray(mapped[r0:r1, c0:c1])
+        return self._cast(blk)
+
+    def _path(self) -> str:
+        return os.path.join(self.fpath, self.fname + "." + self.ftype)
+
+    def _block_readable_path(self):
+        """An .npy that the block reader can read (``io.py:76-128``): the
+        file itself for an .npy; for a .mat, .csv or .txt a copy of it as
+        an .npy in ``$PYDNMFK_CACHE_DIR`` (default
+        ``~/.cache/pydnmfk_tpu_torch``), written once, the first time a
+        block is read, and again only where the source is newer. The
+        reference parses the whole file on every rank of every run
+        (data_io.py:92-105); here the whole parse happens once a file.
+        None, with one loud warning a reader, where the directory is not
+        writable: every block then parses the whole file."""
+        if self.ftype == "npy":
+            return self._path()
+        src = self._path()
+        root = os.path.expanduser(os.environ.get(CACHE_ENV)
+                                  or DEFAULT_CACHE_DIR)
+        key = hashlib.sha1(os.path.abspath(src).encode()).hexdigest()[:16]
+        cache = os.path.join(root, f"{self.fname}.{key}.npy")
+        try:
+            if (os.path.exists(cache)
+                    and os.path.getmtime(cache) >= os.path.getmtime(src)):
+                return cache
+            os.makedirs(root, exist_ok=True)
+            data = np.ascontiguousarray(self._load(src))
+            tmp = f"{cache}.tmp{os.getpid()}.npy"
+            np.save(tmp, data)
+            os.replace(tmp, cache)    # atomic: ranks that race write the
+            return cache              # same bytes
+        except OSError:
+            if not getattr(self, "_warned_cache", False):
+                self._warned_cache = True
+                warnings.warn(
+                    f"cache directory {root!r} is not writable: every block "
+                    f"read of {src!r} parses the whole file (set "
+                    f"{CACHE_ENV} to a writable directory to block-read "
+                    f"{self.ftype} files)")
+            return None
 
     def _chunk_path(self, rank: int) -> str:
         return os.path.join(self.fpath, f"{self.fname}{rank}.npy")

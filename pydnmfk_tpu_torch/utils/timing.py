@@ -7,7 +7,9 @@ region waits for the device (``torch.cuda.synchronize``) on entry and exit,
 so it measures the work and not its enqueueing.
 
 NMFk stages: ``ensemble_solve`` (sampling and the batched solve; its share
-``ensemble_init`` is the members' init draws or nnsvd), ``clustering`` and
+``ensemble_init`` is the members' init draws or nnsvd, and under p_e
+ensemble groups ``ensemble_gather`` the members' gather over 'e'),
+``clustering`` and
 ``regression`` (the W-frozen refit and per-column errors). On a grid the
 collectives add their wall seconds under ``dist_comm`` (each waits for the
 device before and after), and :func:`collective_stats` counts the

@@ -23,13 +23,14 @@ COLLECTIVE_TIMEOUT = 60
 SPAWN_TIMEOUT = 240
 
 
-def _entry(fn, rank, world, p_r, p_c, init, out_dir, args):
+def _entry(fn, rank, world, p_r, p_c, p_e, init, out_dir, args):
     torch.set_num_threads(1)
     path = os.path.join(out_dir, f"rank{rank}")
     try:
         from pydnmfk_tpu_torch.parallel import mesh
-        grid = mesh.initialize(p_r, p_c, "cpu", init_method=init, rank=rank,
-                               world_size=world, timeout=COLLECTIVE_TIMEOUT)
+        grid = mesh.initialize(p_r, p_c, "cpu", p_e=p_e, init_method=init,
+                               rank=rank, world_size=world,
+                               timeout=COLLECTIVE_TIMEOUT)
         out = fn(grid, *args)
         torch.save(out, path + ".pt")
         torch.distributed.destroy_process_group()
@@ -41,17 +42,17 @@ def _entry(fn, rank, world, p_r, p_c, init, out_dir, args):
 
 def run_grid(fn, grid, tmp_path, *args, tag="g"):
     """``fn(GridContext, *args)`` on every rank of a ``grid`` = (p_r, p_c)
-    group of CPU processes; returns the ranks' results in rank order.
-    ``fn`` must be a module-level function of a module that imports no
-    JAX."""
-    p_r, p_c = grid
-    world = p_r * p_c
-    out_dir = os.path.join(str(tmp_path), f"{tag}_{p_r}x{p_c}")
+    group of CPU processes, or of p_e such groups where ``grid`` = (p_r,
+    p_c, p_e); returns the ranks' results in rank order. ``fn`` must be a
+    module-level function of a module that imports no JAX."""
+    p_r, p_c, p_e = (*grid, 1)[:3]
+    world = p_e * p_r * p_c
+    out_dir = os.path.join(str(tmp_path), f"{tag}_{p_r}x{p_c}x{p_e}")
     os.makedirs(out_dir, exist_ok=True)
     init = "file://" + os.path.join(out_dir, "rendezvous")
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_entry, args=(fn, r, world, p_r, p_c, init,
-                                              out_dir, args))
+    procs = [ctx.Process(target=_entry, args=(fn, r, world, p_r, p_c, p_e,
+                                              init, out_dir, args))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -77,6 +78,12 @@ def run_grid(fn, grid, tmp_path, *args, tag="g"):
 
 
 # -- rank functions ------------------------------------------------------
+def _local(grid):
+    """This rank's place in its p_r x p_c grid, row-major: its rank in the
+    world less its ensemble group's first."""
+    return grid.coords[0] * grid.shape[1] + grid.coords[1]
+
+
 def nmf_cases(grid, A, W0, H0, cases):
     """Each NMF case (NMFConfig keywords by name) fit on this rank's block
     of A from its blocks of (W0, H0), or from nnsvd; per case the gathered
@@ -88,7 +95,8 @@ def nmf_cases(grid, A, W0, H0, cases):
     from pydnmfk_tpu_torch.utils import timing
     from pydnmfk_tpu_torch.utils.convert import blocks_for_rank
     Ab, Wb, Hb = (torch.from_numpy(x.copy())
-                  for x in blocks_for_rank(grid.shape, grid.rank, A, W0, H0))
+                  for x in blocks_for_rank(grid.shape, _local(grid), A, W0,
+                                           H0))
     out = {"coords": grid.coords, "shape": tuple(Ab.shape)}
     for name, kw in cases.items():
         cfg = NMFConfig(precision="float64", **kw)
@@ -120,7 +128,7 @@ def members(grid, A, seed, noise_var, method, idx, prune, tile_grid=None):
     from pydnmfk_tpu_torch.models import sampler
     from pydnmfk_tpu_torch.utils.convert import blocks_for_rank
     from pydnmfk_tpu_torch.utils.pruning import prune_A
-    Ab = torch.from_numpy(blocks_for_rank(grid.shape, grid.rank, A)[0]
+    Ab = torch.from_numpy(blocks_for_rank(grid.shape, _local(grid), A)[0]
                           .copy())
     if prune:
         Ab, _ = prune_A(Ab, grid)
@@ -145,7 +153,7 @@ def nmfk_sweeps(grid, A, sweeps):
     from pydnmfk_tpu_torch.utils.convert import blocks_for_rank
     # a sparse A (COO arrays) goes whole: each rank cuts its block
     Ab = _triplet(A) if isinstance(A, tuple) else torch.from_numpy(
-        blocks_for_rank(grid.shape, grid.rank, A)[0].copy())
+        blocks_for_rank(grid.shape, _local(grid), A)[0].copy())
     out = {"writes": []}
     real_write = io.DataWriter.save_cluster_results
 
@@ -154,6 +162,15 @@ def nmfk_sweeps(grid, A, sweeps):
         return real_write(self, *a, **k)
 
     io.DataWriter.save_cluster_results = write
+    solved = {}
+    real_solve = nmfk_mod.NMFk._solve_ensemble
+
+    def solve_ensemble(self, A, k, members=None):
+        got = real_solve(self, A, k, members)
+        solved[k] = tuple(x.clone() for x in got)
+        return got
+
+    nmfk_mod.NMFk._solve_ensemble = solve_ensemble
     for name, (kw, nmf_kw) in sweeps.items():
         kw = dict(kw)
         break_after = kw.pop("break_after", 0)
@@ -176,10 +193,17 @@ def nmfk_sweeps(grid, A, sweeps):
             finally:
                 nmfk_mod._save_ensemble_part = real
         model = NMFk(cfg, grid=grid)
+        solved.clear()
         nopt = model.fit(Ab)
         out[name] = (nopt, model.per_k_stats, len(saved))
         out.setdefault("formats", {})[name] = model._ell is not None
+        # this rank's blocks of every member (W, H, error) by k, and the
+        # batch, of the last run
+        out.setdefault("members", {})[name] = dict(solved)
+        out.setdefault("batch", {})[name] = getattr(model, "last_batch_size",
+                                                    None)
     io.DataWriter.save_cluster_results = real_write
+    nmfk_mod.NMFk._solve_ensemble = real_solve
     return out
 
 
@@ -191,7 +215,7 @@ def checkpointed_solve(grid, A, results_path):
     import pydnmfk_tpu_torch.utils.checkpoint as ckpt
     from pydnmfk_tpu_torch import NMF, NMFConfig
     from pydnmfk_tpu_torch.utils.convert import blocks_for_rank
-    Ab = torch.from_numpy(blocks_for_rank(grid.shape, grid.rank, A)[0]
+    Ab = torch.from_numpy(blocks_for_rank(grid.shape, _local(grid), A)[0]
                           .copy())
     cfg = NMFConfig(k=3, itr=40, norm="fro", precision="float64",
                     solve_checkpoint_every=10, results_path=results_path)
@@ -288,7 +312,7 @@ def sparse_grid_cases(grid, coo, W0, H0, cases, empty_coo=None):
     A = _triplet(coo)
     G = sparse.shard_sparse_grid(A, grid)
     _, Wb, Hb = (None if x is None else torch.from_numpy(x.copy())
-                 for x in blocks_for_rank(grid.shape, grid.rank, None, W0,
+                 for x in blocks_for_rank(grid.shape, _local(grid), None, W0,
                                           H0))
     out = {"coords": grid.coords,
            "block": (G.block.rows, G.block.cols, G.block.data, G.perm,
@@ -374,4 +398,88 @@ def sparse_refusals(grid, coo, results_path):
     model = NMF(NMFConfig(k=2, itr=2), grid=grid)
     model.fit(A)
     out["auto"] = type(model._A).__name__
+    return out
+
+
+# -- ensemble groups (p_e) ------------------------------------------------
+def context_checks(grid):
+    """This rank's context on p_e groups of a grid and the collectives'
+    reach: a sum over the group ('rc', and 'r' everywhere), a max over the
+    world, a broadcast in the group, over 'e' and in the world, a gather
+    over 'e' of blocks of unequal length; and the ValueError of a context
+    whose p_e x p_r x p_c is not the world's size."""
+    from pydnmfk_tpu_torch.parallel import mesh
+    me = torch.tensor([float(grid.rank + 1)], dtype=torch.float64)
+    out = {"rank": grid.rank, "coords": grid.coords, "shape": grid.shape,
+           "p_e": grid.p_e, "group": grid.group_index,
+           "n_ranks": grid.n_ranks, "world": grid.world_size,
+           "proc0": grid.is_proc0, "members": grid.members(5),
+           "sum rc": float(grid.sum(me.clone(), "rc")[0]),
+           "sum r everywhere": float(grid.sum(me.clone(), "r",
+                                              everywhere=True)[0]),
+           "max world": float(grid.max(me.clone(), mesh.WORLD)[0]),
+           "max rc": float(grid.max(me.clone())[0]),
+           "broadcast rc": float(grid.broadcast(me.clone())[0]),
+           "broadcast world": float(grid.broadcast(me.clone(),
+                                                   mesh.WORLD)[0]),
+           "broadcast e": float(grid.broadcast(me.clone(), "e")[0]),
+           "gather e": grid.gather(torch.full((grid.group_index + 1, 2),
+                                              float(grid.rank)), "e", 0)}
+    try:
+        mesh.GridContext(*grid.shape, "cpu", p_e=grid.p_e + 1)
+    except ValueError as e:
+        out["refused"] = str(e)
+    return out
+
+
+def ensemble_checks(grid, A, coo, sweeps, sparse_sweeps, budgets, nmf_kw):
+    """On p_e groups of a grid (or one): the dense sweeps of A and the
+    sparse sweeps of the A of ``coo`` (:func:`nmfk_sweeps`: nopt,
+    statistics and every member's blocks by k); the auto batch of a
+    20-member FRO sweep at k = 3 under each ``hbm_budget`` of
+    ``budgets``; and one NMF fit (``nmf_kw``, f64, rand init) of this
+    rank's block of A: its gathered W, H and error."""
+    from pydnmfk_tpu_torch import NMF, NMFConfig, NMFk, NMFkConfig
+    from pydnmfk_tpu_torch.utils.convert import blocks_for_rank
+    out = {"context": context_checks(grid),
+           "dense": nmfk_sweeps(grid, A, sweeps) if sweeps else None,
+           "sparse": (nmfk_sweeps(grid, coo, sparse_sweeps)
+                      if sparse_sweeps else None)}
+    Ab = torch.from_numpy(blocks_for_rank(grid.shape, _local(grid), A)[0]
+                          .copy())
+    out["batch"] = [NMFk(NMFkConfig(
+        nmf=NMFConfig(precision="float64"), perturbations=20,
+        hbm_budget=budget, checkpoint=False,
+        results_path="unused/"), grid=grid)._ensemble_batch_size(Ab, 3)
+        for budget in budgets]
+    if nmf_kw:
+        out["nmf"] = NMF(NMFConfig(precision="float64", **nmf_kw),
+                         grid=grid).fit(Ab)
+    return out
+
+
+def fed_sweeps(grid, A, coo, cases):
+    """Each sweep of ``cases`` (name: (NMFkConfig keywords, NMFConfig
+    keywords, sparse, {k: (A_ens, W0, H0)})) fed the given members, whole:
+    a dense one on this rank's block of A, whose blocks of the members it
+    takes, a sparse one on the A of ``coo``, whose members are the whole
+    flat values. Returns (nopt, per-k statistics) by name."""
+    from pydnmfk_tpu_torch import NMFConfig, NMFk, NMFkConfig
+    from pydnmfk_tpu_torch.utils.convert import blocks_for_rank
+    out = {}
+    for name, (kw, nmf_kw, sparse_A, members) in cases.items():
+        cfg = NMFkConfig(nmf=NMFConfig(precision="float64", **nmf_kw), **kw)
+        model = NMFk(cfg, grid=grid)
+        os.makedirs(model.results_path, exist_ok=True)
+        m, n = coo[3] if sparse_A else A.shape
+        (r0, r1), (c0, c1) = grid.rows(m), grid.cols(n)
+        X = model._prepare(_triplet(coo) if sparse_A else torch.from_numpy(
+            blocks_for_rank(grid.shape, _local(grid), A)[0].copy()))
+        for k, (A_ens, W0, H0) in members.items():
+            if not sparse_A:
+                A_ens = A_ens[:, r0:r1, c0:c1]
+            ens = model._solve_ensemble(X, k, members=(
+                A_ens, W0[:, r0:r1], H0[:, :, c0:c1]))
+            model.pynmfk_per_k(X, k, ensemble=ens)
+        out[name] = (model.pvalue_analysis(), model.per_k_stats)
     return out

@@ -818,7 +818,7 @@ class _OneRank:
     def cols(self, n):
         return 0, n
 
-    def max(self, x):
+    def max(self, x, over="rc"):
         return x
 
 

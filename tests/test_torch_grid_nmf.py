@@ -17,7 +17,7 @@ from _grid_workers import nmf_cases, run_grid
 from _parity import np_, x64
 import pydnmfk_tpu
 from pydnmfk_tpu.parallel import partition as jpart
-from pydnmfk_tpu_torch import NMF, NMFConfig, NotPortedError
+from pydnmfk_tpu_torch import NMF, NMFConfig
 from pydnmfk_tpu_torch.parallel import mesh, partition
 
 GRIDS = [(2, 2), (4, 1), (1, 4), (3, 1)]
@@ -148,24 +148,42 @@ def test_config_from_jax_carries_the_grid():
 
 
 def test_refusals_that_stay(tmp_path):
-    """Without a process group a grid asks for torchrun; the ensemble axis
-    raises NotPortedError naming its ROADMAP entry; a GridContext needs a
-    group of p_r * p_c ranks. A sparse A on a grid runs: here on a
+    """Without a process group a grid asks for torchrun; a GridContext
+    needs a group of p_e * p_r * p_c ranks: on two ranks a 1 x 1 x 2
+    context puts rank e in group e at (0, 0), its collectives stay in the
+    group unless the world is named, and a third group is refused; on one
+    rank so is a second group. A sparse A on a grid runs: here on a
     one-rank group (tests/test_torch_grid_sparse.py runs it on grids of
     several ranks)."""
     import torch.distributed as dist
+    from _grid_workers import context_checks, run_grid
     from pydnmfk_tpu_torch.ops.sparse import from_coo
     with pytest.raises(RuntimeError, match="torch.distributed.run"):
         NMF(NMFConfig(grid=(2, 2)), "cpu")
-    with pytest.raises(NotPortedError, match="queue 1 item 15"):
-        mesh.GridContext(1, 1, "cpu", p_e=2)
     with pytest.raises(RuntimeError, match="process group"):
         mesh.GridContext(1, 1, "cpu")
+    for rank, c in enumerate(run_grid(context_checks, (1, 1, 2), tmp_path)):
+        assert (c["rank"], c["coords"], c["group"], c["shape"], c["p_e"],
+                c["n_ranks"], c["world"], c["proc0"]) == (
+                    rank, (0, 0), rank, (1, 1), 2, 1, 2, rank == 0)
+        assert c["members"] == ((0, 3), (3, 5))[rank]
+        assert c["sum rc"] == c["sum r everywhere"] == c["max rc"] == \
+            c["broadcast rc"] == rank + 1
+        assert c["max world"] == 2 and c["broadcast world"] == 1
+        assert c["broadcast e"] == 1
+        assert torch.equal(c["gather e"], torch.tensor([[0.0, 0.0],
+                                                        [1.0, 1.0],
+                                                        [1.0, 1.0]]))
+        assert "3 groups of a 1x1 grid needs 3 ranks" in c["refused"]
     A = from_coo(torch.tensor([0, 1, 2]), torch.tensor([1, 0, 2]),
                  torch.tensor([1.0, 2.0, 3.0], dtype=torch.float64), (3, 3))
     grid = mesh.initialize(1, 1, "cpu", init_method=f"file://{tmp_path}/rdv",
                            rank=0, world_size=1, timeout=60)
     try:
+        with pytest.raises(ValueError, match="2 groups of a 1x1 grid needs "
+                                             "2 ranks, the process group "
+                                             "has 1"):
+            mesh.GridContext(1, 1, "cpu", p_e=2)
         cfg = NMFConfig(k=2, itr=10, norm="fro", precision="float64")
         W, H, err = NMF(cfg, grid=grid).fit(A)
         assert W.shape == (3, 2) and H.shape == (2, 3)
