@@ -73,7 +73,8 @@ Run from the root of a checkout, with no arguments:
    choose k = 4; the FRO-MU sweep through the library with ``hbm_budget``
    set to hold 5 of the 10 members, which must run each k in two batches;
    the same KL-MU sweep through the library with ``use_fused=True``,
-   on f32 and on bf16 members, whose ensemble must launch only K3 (for the
+   on f32 and on bf16 members (the latter twice), whose ensemble must
+   launch only K3 (for the
    members' dtype) and whose refit only K2b; and one FRO-MU factorization
    of that matrix through the CLI with and without ``--a_precision=uint8``;
 4. the sparse main path, the same way: NMF.fit on the NYTimes-shaped matrix,
@@ -167,7 +168,27 @@ Run from the root of a checkout, with no arguments:
    beside the 1x1 sweep's, group 0's refit (factors, column errors) bitwise
    on every rank (and whether each group's own refit was), results
    written by rank 0 alone and each rank's stage seconds;
-10. prints the card's name and power limit, one JSON line of kernels, and
+10. the K-padded NMFk sweep (``k_sweep_phase``, ``[k-sweep]`` lines): K1,
+   K2a, K2b and K3 (f32 and bf16 A) on a 10-member stack of the planted
+   14400 x 9600 matrix's copies and K4's four modes on the topic stack,
+   each with k = 3 factors zero-padded to K = 7: every output's inactive
+   columns exactly 0, the active ones within the kernel's limit of the
+   same kernel on the unpadded stack and of the plain version on the
+   padded one, both timed; then, launch counters from zero before each,
+   five library sweeps at k = 2..7, 10 members, 400 iterations, with
+   ``k_sweep_batch=True`` and ``checkpoint=True``: the planted FRO-MU
+   sweep one k a batch and merged, KL-MU merged, KL-MU ``use_fused`` on
+   bf16 members merged (K3) and the topic .npz FRO-MU merged (K4 on the
+   ELL), each with nopt 4, exact launches at K's dispatch from the batch
+   it reports, every member's error beside the same member's in the per-k
+   sweep of phase 3 or 5 (1e-4, or twice the spread of two per-k sweeps
+   where a second ran: phase 6's FRO, phase 3's second use_fused sweep on
+   bf16 members), per-k statistics within phase 9's limits (or twice the
+   two per-k sweeps' own difference where that is more), no
+   ``ensemble_parts/`` left, and its seconds and stage seconds
+   beside the per-k sweep's (no torchrun: the K-padded path on grids and
+   p_e groups is held by the CPU tests);
+11. prints the card's name and power limit, one JSON line of kernels, and
    as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -1056,8 +1077,8 @@ def ensemble_fits(outdir, datadir):
     refits, writes = [], []
     real_fit, real_write = nmf_mod.NMF.fit, io.DataWriter.save_cluster_results
 
-    def fit(self, A, factors=None):
-        W, H, err = real_fit(self, A, factors)
+    def fit(self, A, factors=None, **kw):
+        W, H, err = real_fit(self, A, factors, **kw)
         if not self.cfg.W_update:       # the W-frozen refit: whole factors
             refits.append([_digest(W), _digest(H)])
         return W, H, err
@@ -1265,6 +1286,273 @@ def ensemble_phase(smi, refs, main_path):
                     main_path[key] += n
         check(not failed, "; ".join(failed))
     print(f"[ensemble] phase 9 in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+# -- the [k-sweep] phase: the K-padded NMFk sweep on one card -------------
+KSWEEP_KS = range(2, 8)         # the ks of phases 3 and 5's sweeps
+PAD_K, PAD_KK = 3, 7            # the padded stack: k = 3 active of K = 7
+# each library sweep: (the per-k sweep it is held against, its input,
+# NMFConfig keywords, k_sweep_merge); 10 members, 400 iterations, the
+# per-k sweeps' seeds
+KSWEEPS = {
+    "planted FRO-MU K-padded": ("planted FRO-MU", "X", dict(norm="fro"),
+                                False),
+    "planted FRO-MU merged": ("planted FRO-MU", "X", dict(norm="fro"), True),
+    "planted KL-MU merged": ("planted KL-MU", "X", dict(norm="kl"), True),
+    "planted KL-MU use_fused bf16 merged": (
+        "planted KL-MU use_fused bf16", "X",
+        dict(norm="kl", use_fused=True, a_precision="bfloat16"), True),
+    "topic FRO-MU merged": ("topic FRO-MU", "T", dict(norm="fro"), True)}
+KSWEEP_MEMBERS, KSWEEP_ITR = 10, 400
+# a member's error against the same member's in the per-k sweep, relative:
+# at least this, or twice the spread of two per-k sweeps of the same
+# members where a second ran (phase 6's FRO, phase 3's second use_fused
+# bf16 sweep): K1's and K3's atomics open such a spread (K3 on bf16
+# members 8.21e-4 over 400 iterations on an H100 80GB HBM3 at 700 W); the
+# per-k statistics likewise: phase 9's limits, or twice the two per-k
+# sweeps' own difference where it is larger
+KSWEEP_MEMBER_TOL = 1e-4
+KSWEEP_STAT_TOL = {"ErrTol": 1e-3, "avgErr": 1e-3, "L_err": 1e-2,
+                   "sils": 1e-3}
+
+
+def ksweep_solves(batch, merged, ks=KSWEEP_KS, n=KSWEEP_MEMBERS):
+    """The batched solves of a [k-sweep] sweep of ``batch`` members a
+    batch: ceil(n / batch) a k, or merged, each k's chunks packed in k
+    order into batches of at most ``batch`` members, as
+    ``models/nmfk.py::NMFk._solve_ensembles_merged`` packs them."""
+    chunks = [min(batch, n - off) for _ in ks for off in range(0, n, batch)]
+    if not merged:
+        return len(chunks)
+    solves, room = 0, 0
+    for size in chunks:
+        if size > room:
+            solves, room = solves + 1, batch
+        room -= size
+    return solves
+
+
+def ksweep_launches(norm, ftype, fused, solves, ks=KSWEEP_KS,
+                    itr=KSWEEP_ITR):
+    """Exact launches of a [k-sweep] sweep at K = 7's dispatch: K1, K2a +
+    K2b, or K3 (bf16 members) once a step of each batched solve, K4 twice
+    a step and once for its error; the W-frozen refit of each k K2b once a
+    step (KL), K4 once a step and twice for its errors (sparse), nothing
+    for dense FRO."""
+    if ftype == "T":
+        return {"ell_gather": solves * (2 * itr + 1) + len(ks) * (itr + 2)}
+    if norm == "fro":
+        return {"fused_mu_fro": solves * itr}
+    if fused:
+        return {"fused_mu_kl_bf16": solves * itr, "kl_wtu": len(ks) * itr}
+    return {"kl_uht": solves * itr, "kl_wtu": (solves + len(ks)) * itr}
+
+
+def ksweep_diffs(got, ref, ks=KSWEEP_KS):
+    """How far one sweep's per-k results lie from another's: (the largest
+    relative difference of a member's error, by statistic the largest
+    difference over the largest value; the silhouettes absolute)."""
+    member = 0.0
+    worst = {key: 0.0 for key in KSWEEP_STAT_TOL}
+    for kk in ks:
+        a, b = got[kk], ref[kk]
+        member = max(member, float(np.max(np.abs(
+            a["ErrTol"] / b["ErrTol"] - 1))))
+        for key in ("ErrTol", "avgErr", "L_err"):
+            worst[key] = max(worst[key], float(np.max(
+                np.abs(a[key] - b[key]) / np.abs(b[key]).max())))
+        worst["sils"] = max(worst["sils"], float(np.max(np.abs(
+            a["clusterSilhouetteCoefficients"]
+            - b["clusterSilhouetteCoefficients"]))))
+    return member, worst
+
+
+def k_sweep_phase(dev, smi, gen, refs, zero_counts, read_counts):
+    """The [k-sweep] phase: the kernels on a K-padded stack, then the
+    K-padded NMFk sweeps of KSWEEPS through the library against ``refs``
+    (by name: the per-k sweep's results at KSWEEP_KS, its seconds, its
+    stage seconds and, where one ran, a second per-k sweep's results of
+    the same members); each sweep's launches go to ``read_counts``."""
+    from scipy import sparse as sp
+    from pydnmfk_tpu_torch import NMFConfig, NMFk, NMFkConfig
+    from pydnmfk_tpu_torch.ops import ell, ell_gather, fused_kl, fused_mu, kl
+    from pydnmfk_tpu_torch.ops import linalg, sparse
+    from pydnmfk_tpu_torch.utils import timing
+    from pydnmfk_tpu_torch.utils.data_generator import (generate_data,
+                                                        generate_topic_sparse)
+    from pydnmfk_tpu_torch.utils.io import DataReader, read_cluster_results
+    t_phase = time.perf_counter()
+    eps = float(torch.finfo(torch.float32).eps)
+    k, K = PAD_K, PAD_KK
+    failed = []
+    need = lambda cond, msg: cond or failed.append(msg)
+
+    def pad(W, H):
+        return (torch.nn.functional.pad(W, (0, K - k)),
+                torch.nn.functional.pad(H, (0, 0, 0, K - k)))
+
+    def padded_case(label, kernel, plain, W, H, tol):
+        """kernel(W, H) on the padded factors against itself on the
+        unpadded ones and against plain() on the padded ones; every
+        output's columns (or rows) past k exactly 0. Both timed."""
+        Wp, Hp = pad(W, H)
+        out, unpadded, ref = kernel(Wp, Hp), kernel(W, H), plain(Wp, Hp)
+        active, zero = [], True
+        for x, u in zip(out, unpadded):
+            sl = [slice(None)] * x.dim()
+            for a in (-2, -1):
+                if x.shape[a] != u.shape[a]:
+                    rest = list(sl)
+                    rest[a] = slice(k, None)
+                    zero = zero and not bool(x[tuple(rest)].any())
+                    sl[a] = slice(None, k)
+            active.append(x[tuple(sl)])
+        _, rel_u = compare(tuple(active), unpadded)
+        _, rel_p = compare(out, ref)
+        del out, unpadded, ref, active
+        ms_p = median_ms(lambda: kernel(Wp, Hp))
+        ms_u = median_ms(lambda: kernel(W, H))
+        print(f"[k-sweep] {label} k={k} padded to K={K}: inactive columns "
+              f"exactly 0: {zero}; active columns against the unpadded "
+              f"call, max rel err {rel_u:.3e}, against the plain version "
+              f"{rel_p:.3e} (tol {tol:g}); padded {ms_p:.3f} ms, unpadded "
+              f"{ms_u:.3f} ms ({smi})", flush=True)
+        need(zero, f"{label}: an inactive column is not 0")
+        need(rel_u <= tol and rel_p <= tol,
+             f"{label}: {rel_u:.3e} / {rel_p:.3e} > {tol:g}")
+
+    # K1, K2a, K2b and K3 on a 10-member stack of the planted matrix's
+    # perturbed copies, f32 and bf16; K4 on the topic stack's ELL
+    _, _, X = generate_data(**PLANTED)
+    Xt = torch.from_numpy(X.astype(np.float32)).to(dev)
+    A = Xt * (1 + 0.03 * torch.rand((ENS,) + tuple(Xt.shape), generator=gen,
+                                    device=dev))
+    W = torch.rand((ENS, Xt.shape[0], k), generator=gen, device=dev)
+    H = torch.rand((ENS, k, Xt.shape[1]), generator=gen, device=dev)
+    del Xt
+    shape = f"{ENS} x {PLANTED['m']}x{PLANTED['n']}"
+    hrs = lambda H: linalg.sum_axis(H, axis=-1).float()
+    for a in (A, A.to(torch.bfloat16)):
+        tag = {torch.float32: "f32", torch.bfloat16: "bf16"}[a.dtype]
+        tol = TOL[a.dtype]
+        padded_case(f"K1 fused_mu_fro {tag} A {shape}",
+                    lambda W, H: fused_mu.fused_w_pass(
+                        a, W, H, linalg.gram_t(H), eps),
+                    lambda W, H: fused_mu.fused_w_pass_plain(
+                        a, W, H, linalg.gram_t(H), eps), W, H, tol)
+        ch = linalg.error_chunk_rows(*a.shape[-2:])
+        padded_case(f"K2a kl_uht {tag} A {shape}",
+                    lambda W, H: (kl.kl_uht(a, W, H, eps),),
+                    lambda W, H: (kl.kl_uht_plain(a, W, H, eps, ch),),
+                    W, H, TOL[torch.float32])
+        padded_case(f"K2b kl_wtu {tag} A {shape}",
+                    lambda W, H: (kl.kl_wtu(a, W, H, eps),),
+                    lambda W, H: (kl.kl_wtu_plain(a, W, H, eps, ch),),
+                    W, H, TOL[torch.float32])
+        padded_case(f"K3 fused_mu_kl {tag} A {shape}",
+                    lambda W, H: fused_kl.fused_kl_pass(a, W, H, hrs(H), eps),
+                    lambda W, H: fused_kl.fused_kl_pass_plain(
+                        a, W, H, hrs(H), eps, ch), W, H, tol)
+        del a
+    del A, W, H
+    torch.cuda.empty_cache()
+    r, c, v, tshape = generate_topic_sparse(**TOPIC, seed=7)
+    topic = sparse.from_coo(*(torch.from_numpy(x).to(dev) for x in (r, c, v)),
+                            tshape)
+    Et, *perms = ell.ell_pack(topic, return_perms=True)
+    stack = ell.ell_with_data(Et, *perms, topic.data * (
+        1.0 + 0.03 * torch.rand((ENS, topic.nse), generator=gen,
+                                device=dev)))
+    W = torch.rand((ENS, tshape[0], k), generator=gen, device=dev)
+    H = torch.rand((ENS, k, tshape[1]), generator=gen, device=dev)
+    for label, vals, idx, table, other in (
+            ("rows plain", stack.rvals, stack.rcols, "Ht", None),
+            ("columns plain", stack.cvals, stack.crows, "W", None),
+            ("rows ratio", stack.rvals, stack.rcols, "Ht", "W"),
+            ("columns ratio", stack.cvals, stack.crows, "W", "Ht")):
+        pick = lambda name, W, H: (None if name is None else W if name == "W"
+                                   else H.mT.contiguous())
+        padded_case(f"K4 ell_gather {label} {ENS} x {tshape[0]}x{tshape[1]} "
+                    f"({topic.nse} nnz)",
+                    lambda W, H: (ell_gather.ell_gather_product(
+                        vals, idx, pick(table, W, H), pick(other, W, H),
+                        eps),),
+                    lambda W, H: (ell_gather.ell_gather_product_plain(
+                        vals, idx, pick(table, W, H), pick(other, W, H),
+                        eps),), W, H, TOL[torch.float32])
+    del topic, Et, perms, stack, W, H
+    torch.cuda.empty_cache()
+
+    # the K-padded sweeps through the library, beside the per-k sweeps
+    timing.enable(True)
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(os.path.join(tmp, "X.npy"), X.astype(np.float32))
+        sp.save_npz(os.path.join(tmp, "T.npz"),
+                    sp.csr_matrix((v, (r, c)), shape=tshape),
+                    compressed=False)
+        del X, r, c, v
+        inputs = {"X": DataReader(tmp + "/", "X", "npy").read(),
+                  "T": DataReader(tmp + "/", "T", "npz").read()}
+        for name, (ref_name, fname, nmf_kw, merged) in KSWEEPS.items():
+            ref, ref_secs, ref_stages, *rerun = refs[ref_name]
+            cfg = NMFkConfig(nmf=NMFConfig(itr=KSWEEP_ITR, **nmf_kw),
+                             start_k=KSWEEP_KS[0], end_k=KSWEEP_KS[-1],
+                             perturbations=KSWEEP_MEMBERS,
+                             k_sweep_batch=True, k_sweep_merge=merged,
+                             results_path=os.path.join(tmp, name) + "/",
+                             fname=fname, checkpoint=True)
+            torch.cuda.empty_cache()
+            timing.reset()
+            zero_counts()
+            t0 = time.perf_counter()
+            model = NMFk(cfg, dev)
+            nopt = model.fit(inputs[fname])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            ran = {key: n for key, n in read_counts().items() if n}
+            stages = {st: round(timing.TIMINGS.get(st, 0.0), 3) for st in
+                      ("sparse_format", "ensemble_solve", "ensemble_init",
+                       "clustering", "regression")}
+            solves = ksweep_solves(model.last_batch_size, merged)
+            want = ksweep_launches(nmf_kw["norm"], fname,
+                                   nmf_kw.get("use_fused", False), solves)
+            got = {kk: read_cluster_results(os.path.join(
+                cfg.results_path, fname, str(kk))) for kk in KSWEEP_KS}
+            member, worst = ksweep_diffs(got, ref)
+            spread, twice = ksweep_diffs(rerun[0], ref) if rerun else (
+                0.0, {key: 0.0 for key in KSWEEP_STAT_TOL})
+            tol = max(KSWEEP_MEMBER_TOL, 2 * spread)
+            limits = {key: max(lim, 2 * twice[key])
+                      for key, lim in KSWEEP_STAT_TOL.items()}
+            left = [kk for kk in KSWEEP_KS if os.path.exists(os.path.join(
+                cfg.results_path, fname, str(kk), "ensemble_parts"))]
+            print(f"[k-sweep] {name} ({fname}, k={KSWEEP_KS[0]}.."
+                  f"{KSWEEP_KS[-1]} at K={KSWEEP_KS[-1]}, {KSWEEP_MEMBERS} "
+                  f"members, {KSWEEP_ITR} iterations; {smi}): nopt {nopt}, "
+                  f"batch {model.last_batch_size} ({solves} batched "
+                  f"solves), {secs:.2f} s (per-k {ref_secs:.2f} s), stage "
+                  f"seconds {stages} (per-k {ref_stages}); members' errors "
+                  f"against the per-k sweep's, max relative difference "
+                  f"{member:.2e} (limit {tol:.2e}; two per-k sweeps of "
+                  f"these members " + (f"{spread:.2e}" if rerun else
+                                       "not run")
+                  + f"); per-k statistics, max difference over max "
+                  f"(silhouettes: absolute) {worst} (limits {limits}; two "
+                  f"per-k sweeps " + (f"{twice}" if rerun else "not run")
+                  + f"); parts left {left}; launches {ran} "
+                  f"(expected {want})", flush=True)
+            need(nopt == 4, f"{name} chose k={nopt}, not 4")
+            need(member <= tol, f"{name}: a member's error is {member:.2e} "
+                                f"from the per-k member's")
+            need(all(worst[key] <= limits[key] for key in limits),
+                 f"{name}: stats are not the per-k sweep's: {worst}")
+            need(not left, f"{name}: ensemble_parts/ left at ks {left}")
+            need(ran == want, f"{name} launched {ran}, not {want}")
+            del model
+        del inputs
+    check(not failed, "; ".join(failed))
+    print(f"[k-sweep] phase in {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
 
@@ -2180,12 +2468,13 @@ def main():
     sweep_log = {}      # results path -> (seconds, stage seconds)
 
     def ensemble_ref(res_path, fname):
-        """Phase 9's reference: a 1x1 sweep's results at GRID_SWEEP_KS, its
-        seconds and its stage seconds (its members at those ks are phase
-        9's: a member is keyed by (seed, member) alone)."""
+        """Phase 9's and the [k-sweep] phase's reference: a 1x1 sweep's
+        results at KSWEEP_KS (phase 9 reads GRID_SWEEP_KS of them), its
+        seconds and its stage seconds (its members at those ks are theirs:
+        a member is keyed by (seed, member) alone)."""
         return ({k: read_cluster_results(os.path.join(res_path, fname,
                                                       str(k)))
-                 for k in GRID_SWEEP_KS}, *sweep_log[res_path])
+                 for k in KSWEEP_KS}, *sweep_log[res_path])
 
     def sweep(tmp, ftype, fname, norm, expect, shape, a_precision=None,
               flags=(), label=None, perturbations=10, nopt=4):
@@ -2269,6 +2558,7 @@ def main():
         refit = {key: ran[key] - ens[key] for key in ran}
         stages = {st: round(timing.TIMINGS.get(st, 0.0), 3) for st in
                   ("ensemble_solve", "clustering", "regression")}
+        sweep_log[cfg.results_path] = (secs, stages)
         print(f"[nmfk] {label} (library) npy {A_np.shape[0]}x{A_np.shape[1]} "
               f"a_precision={cfg.nmf.a_precision} k={ks}, "
               f"{cfg.perturbations} perturbations, {cfg.nmf.itr} "
@@ -2290,19 +2580,20 @@ def main():
               f"NMFk {label} launched {ens} (ensemble) and {refit} (refit); "
               f"expected {want_ens} and {want_refit}")
 
-    def fused_sweep(tmp, a_precision="float32", key="fused_mu_kl"):
+    def fused_sweep(tmp, a_precision="float32", key="fused_mu_kl", run=""):
         """The dense KL NMFk sweep through the library with use_fused=True
         (the same settings as the CLI sweeps), its members stored at
         ``a_precision``: the ensemble only K3 under ``key``, the refit only
-        K2b."""
+        K2b. Returns the results path (``run`` tells a second one apart)."""
         cfg = NMFkConfig(nmf=NMFConfig(norm="kl", itr=400, use_fused=True,
                                        a_precision=a_precision),
                          start_k=2, end_k=7, perturbations=10,
                          results_path=os.path.join(
-                             tmp, f"res_fused_{a_precision}") + "/",
+                             tmp, f"res_fused_{a_precision}{run}") + "/",
                          fname="X", checkpoint=False)
         staged_sweep(np.load(os.path.join(tmp, "X.npy")), cfg,
                      "KL-MU use_fused", (key,), ("kl_wtu",))
+        return cfg.results_path
 
     def budget_sweep(tmp, batch=5):
         """The dense FRO NMFk sweep through the library with ``hbm_budget``
@@ -2373,8 +2664,13 @@ def main():
               label="FRO-MU f16", nopt=None)
         budget_sweep(tmp)
         fused_sweep(tmp)
-        # the ensemble on bf16 members: K3's tensor-core kernel
-        fused_sweep(tmp, "bfloat16", "fused_mu_kl_bf16")
+        # the ensemble on bf16 members: K3's tensor-core kernel; the
+        # [k-sweep] phase holds its merged K-padded sweep against it, and
+        # against how far a second run of it lies (K3's atomics)
+        fused_bf16_ref = ensemble_ref(
+            fused_sweep(tmp, "bfloat16", "fused_mu_kl_bf16"), "X") + (
+            ensemble_ref(fused_sweep(tmp, "bfloat16", "fused_mu_kl_bf16",
+                                     "_rerun"), "X")[0],)
         # one FRO factorization through the CLI, on the uint8-quantized A
         # (K1's uint8 instantiation) and on the f32 A (K1)
         cli_err = {}
@@ -2718,9 +3014,10 @@ def main():
         check(nopt == 4 and ran == {"fused_mu_fro": 2 * 6 * 400},
               f"unbroken sweep: nopt {nopt}, launches {ran}")
         # phase 3's FRO sweep of the same members, in batches of 5: how far
-        # two 1x1 sweeps lie apart, for phase 9's members
+        # two 1x1 sweeps lie apart, for phase 9's and the [k-sweep]
+        # phase's members
         ensemble_refs["e4 1x1 FRO-MU"] += ({k: read_cluster_results(
-            os.path.join(tmp, "gold", "X", str(k))) for k in GRID_SWEEP_KS},)
+            os.path.join(tmp, "gold", "X", str(k))) for k in KSWEEP_KS},)
         real_part = nmfk_mod._save_ensemble_part
 
         def failing_part(parts_dir, off, *a):
@@ -3166,7 +3463,15 @@ def main():
 
     # -- 9. the ensemble axis p_e: NMFk's members over groups of ranks ----
     ensemble_phase(smi, ensemble_refs, main_path)
-    del ensemble_refs
+    ksweep_refs = {"planted FRO-MU": ensemble_refs["e4 1x1 FRO-MU"],
+                   "planted KL-MU": ensemble_refs["e2 2x1 KL-MU"],
+                   "planted KL-MU use_fused bf16": fused_bf16_ref,
+                   "topic FRO-MU": ensemble_refs["e4 1x1 sparse FRO-MU"]}
+    del ensemble_refs, fused_bf16_ref
+
+    # -- 10. the K-padded sweep: padded kernels, then the library sweeps ---
+    k_sweep_phase(dev, smi, gen, ksweep_refs, zero_counts, read_counts)
+    del ksweep_refs
 
     for name, n in main_path.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
@@ -3175,7 +3480,7 @@ def main():
         check(main_path_wide[name] > 0, f"kernel {name} was not launched "
                                         f"past k = 32 on the main path")
 
-    # -- 10. report ------------------------------------------------------
+    # -- 11. report ------------------------------------------------------
     sources = {"K1 fused_mu_fro": ("fused_mu_fro.cu", "ops/fused_mu.py:50",
                                    ("fused_mu_fro", "fused_mu_fro_bf16",
                                     "fused_mu_fro_u8")),

@@ -9,7 +9,8 @@ The JAX package stays the reference; this package imports neither JAX nor
 from .config import NMFConfig, NMFkConfig, NotPortedError
 from .models.nmf import NMF
 from .models.nmfk import NMFk
+from .parallel.mesh import GridContext, initialize
 from .runner import Runner
 
-__all__ = ["NMFConfig", "NMFkConfig", "NotPortedError", "NMF", "NMFk",
-           "Runner"]
+__all__ = ["NMFConfig", "NMFkConfig", "NotPortedError", "GridContext",
+           "initialize", "NMF", "NMFk", "Runner"]

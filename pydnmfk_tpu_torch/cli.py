@@ -116,17 +116,22 @@ def build_parser():
                    help="a sparse A's format on a grid: auto (the dual "
                         "ELL on the card where every block packs, else the "
                         "triplet), ell or triplet")
-    p.add_argument("--k_sweep_batch", type=str2bool, default=None)
-    p.add_argument("--k_sweep_merge", type=str2bool, default=None)
+    p.add_argument("--k_sweep_batch", type=str2bool, default=None,
+                   help="true: the NMFk sweep solves every k's members at "
+                        "K = end_k columns under a column mask (the per-k "
+                        "sweep's results up to summation order); default: "
+                        "the per-k sweep")
+    p.add_argument("--k_sweep_merge", type=str2bool, default=None,
+                   help="under --k_sweep_batch=true: members of several ks "
+                        "in one batched solve (default: on when more than "
+                        "one k is swept)")
     return p
 
 
 def _jax_only_knobs(args):
     """The JAX Runner's knobs among the flags that the port has no
     counterpart for (``config.py::JAX_ONLY``), as Runner takes them."""
-    return dict(matmul_precision=args.matmul_precision,
-                k_sweep_batch=args.k_sweep_batch,
-                k_sweep_merge=args.k_sweep_merge)
+    return dict(matmul_precision=args.matmul_precision)
 
 
 def main(argv=None):
@@ -174,6 +179,7 @@ def _run(args):
                    if args.seed_grid else None),
         solve_checkpoint_every=args.solve_checkpoint_every,
         sparse_grid_format=args.sparse_grid_format,
+        k_sweep_batch=args.k_sweep_batch, k_sweep_merge=args.k_sweep_merge,
         **_jax_only_knobs(args))
     results = runner.run(
         grid=[args.p_r, args.p_c], fpath=args.fpath, ftype=args.ftype,

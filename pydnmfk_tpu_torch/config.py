@@ -1,12 +1,15 @@
 """Typed configuration for the PyTorch/CUDA port.
 
 The dataclasses of ``pydnmfk_tpu/config.py`` without the TPU knobs (the
-Pallas switch, matmul precision, the XLA compilation cache and the K-padded
-sweep), which the entry points reject with :class:`NotPortedError`, as
-they do the features not yet ported (the K-padded sweep's
-``k_sweep_batch`` and ``k_sweep_merge``). The ensemble axis ``p_e`` is no
-field here, as in the JAX package: it is the grid's
-(``parallel/mesh.py::initialize``), handed to ``NMF`` and ``NMFk``.
+Pallas switch, matmul precision and the XLA compilation cache), which the
+entry points reject with :class:`NotPortedError` at any value the port
+does not run the same as. The K-padded sweep's ``k_sweep_batch`` and
+``k_sweep_merge`` are fields of :class:`NMFkConfig`, with one default that
+differs: ``k_sweep_batch=None`` keeps the per-k sweep here (JAX: on), since
+on the card there is no compile for the padding to share; True runs it.
+The ensemble axis ``p_e`` is no field here, as in the JAX package: it is
+the grid's (``parallel/mesh.py::initialize``), handed to ``NMF`` and
+``NMFk``.
 """
 from __future__ import annotations
 
@@ -44,9 +47,6 @@ JAX_ONLY = {
     "use_pallas": ((None, False), '"Not to port"'),
     # the port's products run in true f32, which "highest" asks for
     "matmul_precision": ((None, "highest", "float32"), '"Not to port"'),
-    # the K-padded sweep gives the per-k path's results (tests/test_k_sweep.py)
-    "k_sweep_batch": ((None, False), "queue 1 item 10"),
-    "k_sweep_merge": ((None, False), "queue 1 item 10"),
 }
 
 
@@ -236,6 +236,14 @@ class NMFkConfig:
     # factors (pydnmfk_tpu/config.py:200-207); dense A only, dims divisible
     # by the grid. None or (1, 1): one stream over the whole member
     seed_grid: tuple | None = None
+    # the K-padded sweep (pydnmfk_tpu/config.py:188-201): True solves every
+    # k's members at K = max(k_range) columns under a column mask, with the
+    # per-k sweep's results up to summation order; None or False keeps the
+    # per-k sweep (in the JAX package None means on)
+    k_sweep_batch: bool | None = None
+    # merged multi-k batches of the K-padded sweep: None = on wherever it
+    # runs and more than one k is swept, as in JAX; False = one k a batch
+    k_sweep_merge: bool | None = None
 
     def __post_init__(self):
         if self.seed_grid is not None:

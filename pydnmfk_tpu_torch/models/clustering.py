@@ -23,6 +23,14 @@ perturbations align independently: their similarity matrices come from one
 batched product and the greedy assignments run on the host, one transfer of
 p k x k values per iteration.
 
+A K-padded ensemble (the NMFk sweep's ``k_sweep_batch``, ``models/nmfk.py``)
+clusters with an ``active`` mask of its k live columns: the padded columns
+are exact zeros, a +2 bias on the active x active similarities (in f32,
+before the greedy assignment) makes the assignment pick the actives in the
+unpadded order, and the silhouettes are averaged over the active clusters
+only (``clustering.py:71-86``, ``:208-215``); the caller slices off the
+padded columns.
+
 On a p_r x p_c grid (``grid``) W_all holds this rank's row block of every
 member and H_all its column block; the ensemble is never gathered. Every
 sum over W's rows (the column norms, the similarity matrices, the
@@ -80,19 +88,31 @@ def median0(x: torch.Tensor) -> torch.Tensor:
 N_ITER = 100
 
 
-def _cluster_loop(W_all, H_all, eps, grid=None):
-    """The alignment loop (reference :83-127); centroids restart from the
-    current first perturbation. Iteration 0's centroids are W_all[0], not
-    a median, so iterations 0 and 1 always run; after that an iteration
-    that moves no column is a fixed point and ends the loop."""
+def _cluster_loop(W_all, H_all, eps, grid=None, n_iter=N_ITER,
+                  active=None):
+    """The alignment loop (reference :83-127), at most ``n_iter``
+    iterations; centroids restart from the current first perturbation.
+    Iteration 0's centroids are W_all[0], not a median, so iterations 0 and
+    1 always run; after that an iteration that moves no column is a fixed
+    point and ends the loop. ``active`` (bool (K,)) marks the live columns
+    of a K-padded ensemble: the similarities of L2-normalized nonnegative
+    columns lie in [0, 1], so the +2 on active x active pairs puts the
+    actives first, in the unpadded order, and the padded columns pair among
+    themselves (``clustering.py:71-86``)."""
     p, _, k = W_all.shape
     centroids = W_all[0]
     ident = np.arange(k)
+    bias = None
+    if active is not None:
+        act = np.asarray(torch.as_tensor(active).cpu(), dtype=np.float32)
+        bias = 2.0 * np.outer(act, act)
     it, moved = 0, True
-    while it < N_ITER and (moved or it <= 1):
+    while it < n_iter and (moved or it <= 1):
         dist = _over_rows(linalg.matmul(centroids.mT, W_all), grid)  # (p,k,k)
-        perms = np.stack([greedy_assignment(d)
-                          for d in dist.to(torch.float32).cpu().numpy()])
+        dist = dist.to(torch.float32).cpu().numpy()
+        if bias is not None:
+            dist = dist + bias
+        perms = np.stack([greedy_assignment(d) for d in dist])
         moved = bool((perms != ident).any())
         idx = torch.as_tensor(perms, device=W_all.device)
         W_all = torch.gather(W_all, 2, idx[:, None, :].expand_as(W_all))
@@ -131,22 +151,61 @@ def _mad(data):
     return median0((data - med[..., None]).abs().movedim(-1, 0))
 
 
-def cluster_ensemble(W_all, H_all, eps, grid=None):
-    """Returns (centroids (m,k), cent_std (m,k), H_all (p,k,n),
-    cluster_sils (k,), avg_sil (scalar), sils (k,p)) as
-    ``pydnmfk_tpu.models.clustering.cluster_ensemble`` does; on a grid the
-    centroids and cent_std are this rank's row block, H_all its column
-    block, and the silhouettes the same on every rank."""
-    if W_all.dim() != 3 or H_all.dim() != 3:
-        raise ValueError("W_all/H_all must be rank-3 ensemble tensors")
-    if W_all.shape[0] != H_all.shape[0] or W_all.shape[2] != H_all.shape[1]:
-        raise ValueError(
-            f"layout mismatch: expected W_all (p,m,k), H_all (p,k,n); "
-            f"got {tuple(W_all.shape)} and {tuple(H_all.shape)}")
-    W_all, H_all = normalize_by_w(W_all, H_all, eps, grid)
-    W_all, H_all, centroids = _cluster_loop(W_all, H_all, eps, grid)
-    cent_std = _mad(W_all.movedim(0, -1))                        # (m, k)
-    W_all2, H_all2, _ = _cluster_loop(W_all, H_all, eps, grid)
-    sils = _silhouettes(W_all2, grid)                            # (k, p)
-    return (centroids, cent_std, H_all2, sils.mean(dim=1), sils.mean(),
-            sils)
+class CustomClustering:
+    """API mirror of reference custom_clustering.fit (:162-188;
+    ``clustering.py:176-222``): W_all (p, m, k) and H_all (p, k, n), with
+    the perturbation as the leading axis (``x.movedim(-1, 0)`` converts
+    the reference's (m, k, p) and (k, n, p) layout); ``n_iter`` bounds the
+    alignment loop; ``active`` (bool (k,)) marks the live columns of a
+    K-padded ensemble, whose statistics are taken over the active clusters
+    only (the caller slices the factors); ``grid`` as in the module's
+    docstring."""
+
+    def __init__(self, W_all, H_all, eps: float, n_iter: int = N_ITER,
+                 active=None, grid=None):
+        if W_all.dim() != 3 or H_all.dim() != 3:
+            raise ValueError("W_all/H_all must be rank-3 ensemble tensors")
+        if (W_all.shape[0] != H_all.shape[0]
+                or W_all.shape[2] != H_all.shape[1]):
+            raise ValueError(
+                f"layout mismatch: expected W_all (p,m,k), H_all (p,k,n); "
+                f"got {tuple(W_all.shape)} and {tuple(H_all.shape)}")
+        self.W_all, self.H_all = W_all, H_all
+        self.eps = eps
+        self.n_iter = n_iter
+        self.active = active
+        self.grid = grid
+
+    def fit(self):
+        """Returns (centroids (m,k), cent_std (m,k), H_all (p,k,n),
+        cluster_sils (k,), avg_sil (scalar), sils (k,p)); on a grid the
+        centroids and cent_std are this rank's row block, H_all its column
+        block, and the silhouettes the same on every rank. Under ``active``
+        a padded cluster's entry of cluster_sils is 0, and avg_sil is the
+        mean over the active clusters (``clustering.py:208-215``)."""
+        grid, eps = self.grid, self.eps
+        W_all, H_all = normalize_by_w(self.W_all, self.H_all, eps, grid)
+        W_all, H_all, centroids = _cluster_loop(W_all, H_all, eps, grid,
+                                                self.n_iter, self.active)
+        cent_std = _mad(W_all.movedim(0, -1))                    # (m, k)
+        # the reference clusters again inside dist_silhouettes (:140)
+        W_all2, H_all2, _ = _cluster_loop(W_all, H_all, eps, grid,
+                                          self.n_iter, self.active)
+        sils = _silhouettes(W_all2, grid)                        # (k, p)
+        if self.active is None:
+            return (centroids, cent_std, H_all2, sils.mean(dim=1),
+                    sils.mean(), sils)
+        # a padded cluster lies at the largest distance, pi/2, from every
+        # other, so the active clusters' silhouettes are those of the
+        # unpadded ensemble
+        w = torch.as_tensor(self.active, device=sils.device).to(sils.dtype)
+        P = sils.shape[1]
+        return (centroids, cent_std, H_all2, (sils * w[:, None]).sum(1) / P,
+                (sils * w[:, None]).sum() / (w.sum() * P), sils)
+
+
+def cluster_ensemble(W_all, H_all, eps, grid=None, n_iter=N_ITER,
+                     active=None):
+    """``CustomClustering(W_all, H_all, eps, n_iter, active, grid).fit()``,
+    as ``pydnmfk_tpu.models.clustering.cluster_ensemble``."""
+    return CustomClustering(W_all, H_all, eps, n_iter, active, grid).fit()

@@ -94,11 +94,22 @@ def step_for(A, W, norm: str, W_update: bool, chunk: int,
                    grid=grid)
 
 
+def mask_wh(W, H, col_mask):
+    """W's columns and H's rows outside ``col_mask`` (bool (K,), or (b, K)
+    for a stack of b members) set to exact zeros (``nmf.py:55-60``); no
+    mask returns them as they are."""
+    if col_mask is None:
+        return W, H
+    return (torch.where(col_mask.unsqueeze(-2), W, 0),
+            torch.where(col_mask.unsqueeze(-1), H, 0))
+
+
 def _solve(A, W, H, eps, *, norm: str, itr: int, W_update: bool, chunk: int,
            use_fused: bool | None = None, tol: float = 0.0,
            tol_check_every: int = 50, err_chunk: int = 0,
            method: str = "mu", bcd_obj: str = "gram",
-           hals_block: int | None = None, finalize: bool = True, grid=None):
+           hals_block: int | None = None, finalize: bool = True, grid=None,
+           col_mask=None):
     """The iteration loop of ``pydnmfk_tpu/models/nmf.py::_solve``. BCD is
     a whole inner solver (``updates.bcd_solve``): it ignores ``W_update``
     and ``tol``, as JAX's does (nmf.py:86-92), and clips once at the end,
@@ -107,16 +118,26 @@ def _solve(A, W, H, eps, *, norm: str, itr: int, W_update: bool, chunk: int,
     ``finalize=False`` returns the factors as the loop leaves them, without
     the final normalization and error (the error comes back as a zero):
     a chunk of a checkpointed solve, whose last call, with no iterations,
-    applies them once (nmf.py:139-146)."""
+    applies them once (nmf.py:139-146).
+
+    ``col_mask`` (bool (K,), or (b, K) for a stack) marks the active
+    columns of a K-padded solve (``nmf.py:40-61``): W's other columns and
+    H's other rows are set to exact zeros after every step's eps clip, and
+    once after BCD's inner solve and its clip. Zero columns add exact zeros
+    to every product the active columns take, so the active columns follow
+    the unpadded k-column solve up to summation order. The kernels are
+    picked at the padded K."""
     if method == "bcd":
         W, H = updates.bcd_solve(A, W, H, eps, itr=itr, obj_mode=bcd_obj,
-                                 chunk=err_chunk, grid=grid)
+                                 chunk=err_chunk, grid=grid,
+                                 col_mask=col_mask)
         if (itr - 1) % 10 == 0:
             W, H = W.clamp_min(eps), H.clamp_min(eps)
+        W, H = mask_wh(W, H, col_mask)
     else:
         W, H = _iterate(A, W, H, eps, norm, itr, W_update, chunk, use_fused,
                         tol, tol_check_every, err_chunk, method, hals_block,
-                        grid)
+                        grid, col_mask)
     if not finalize:
         return W, H, torch.zeros((), dtype=linalg.acc_dtype(A.dtype),
                                  device=W.device)
@@ -126,10 +147,12 @@ def _solve(A, W, H, eps, *, norm: str, itr: int, W_update: bool, chunk: int,
 
 
 def _iterate(A, W, H, eps, norm, itr, W_update, chunk, use_fused, tol,
-             tol_check_every, err_chunk, method, hals_block, grid=None):
+             tol_check_every, err_chunk, method, hals_block, grid=None,
+             col_mask=None):
     """The MU or HALS loop of :func:`_solve`: ``itr`` steps, the eps clip
-    at every tenth from the first, or the early stop under ``tol`` (on a
-    grid decided from the all-reduced error, alike on every rank)."""
+    at every tenth from the first, then ``col_mask``, or the early stop
+    under ``tol`` (on a grid decided from the all-reduced error, alike on
+    every rank)."""
     step = step_for(A, W, norm, W_update, chunk, use_fused, method,
                     hals_block, grid)
 
@@ -137,7 +160,7 @@ def _iterate(A, W, H, eps, norm, itr, W_update, chunk, use_fused, tol,
         W, H = step(A, W, H, eps)
         if i % 10 == 0:
             W, H = W.clamp_min(eps), H.clamp_min(eps)
-        return W, H
+        return mask_wh(W, H, col_mask)
 
     if tol <= 0.0:
         for i in range(itr):
@@ -176,19 +199,31 @@ def _iterate(A, W, H, eps, norm, itr, W_update, chunk, use_fused, tol,
     return W, H
 
 
-def solve(A, W, H, eps, cfg: NMFConfig, finalize: bool = True, grid=None):
+def solve(A, W, H, eps, cfg: NMFConfig, finalize: bool = True, grid=None,
+          col_mask=None):
     """Run the full iteration loop on one matrix, or on a stack of ensemble
     members along a leading axis of A, W and H (``nmf.py::solve``);
-    ``finalize`` as in :func:`_solve`; on a grid, this rank's blocks. A
-    sparse A comes in the format that its caller's ``_prepare`` chose
-    (``ops/sparse.py::densify_for_backend``), and needs no row chunks; it
-    takes MU and HALS, and BCD raises JAX's ValueError (nmf.py:186-189)."""
+    ``finalize`` and ``col_mask`` as in :func:`_solve` (a stack takes one
+    mask row a member, where JAX's ``solve`` refuses a batched mask and its
+    ensemble program maps the solve over the rows, nmf.py:170-177); on a
+    grid, this rank's blocks. A sparse A comes in the format that its
+    caller's ``_prepare`` chose (``ops/sparse.py::densify_for_backend``),
+    and needs no row chunks; it takes MU and HALS, and BCD raises JAX's
+    ValueError (nmf.py:186-189)."""
     m, n = A.shape[-2:]
     norm, method = cfg.norm.lower(), cfg.method.lower()
     if linalg.is_sparse(A) and method == "bcd":
         raise ValueError(
             "sparse A supports MU (fro/kl) and HALS; the BCD objective "
             "needs the dense residual every inner step")
+    if col_mask is not None:
+        col_mask = torch.as_tensor(col_mask, device=W.device)
+        if (col_mask.dtype != torch.bool or col_mask.shape[-1:] != W.shape[-1:]
+                or col_mask.dim() not in (1, W.dim() - 1)
+                or col_mask.shape[:-1] not in ((), W.shape[:-2])):
+            raise ValueError(f"col_mask must be bool (K,) or (b, K) for W "
+                             f"{tuple(W.shape)}, got {col_mask.dtype} "
+                             f"{tuple(col_mask.shape)}")
     dense_chunk = 0 if linalg.is_sparse(A) else linalg.error_chunk_rows(m, n)
     # the plain KL products' ratio slab: kl_chunk rows, else automatic
     # (nmf.py:238-242)
@@ -199,7 +234,7 @@ def solve(A, W, H, eps, cfg: NMFConfig, finalize: bool = True, grid=None):
                   tol_check_every=int(cfg.tol_check_every),
                   err_chunk=dense_chunk, method=method,
                   bcd_obj=cfg.bcd_obj or "gram", hals_block=cfg.hals_block,
-                  finalize=finalize, grid=grid)
+                  finalize=finalize, grid=grid, col_mask=col_mask)
 
 
 def init_factors_rand(generator: torch.Generator, m: int, n: int, k: int,
@@ -299,10 +334,14 @@ class NMF:
         W, H = DistSVD(k=cfg.k, eps=cfg.eps, grid=grid).nnsvd(A)
         return W.to(cfg.dtype), H.to(cfg.dtype)
 
-    def fit(self, A, factors: Optional[Tuple] = None):
+    def fit(self, A, factors: Optional[Tuple] = None, col_mask=None):
         """Returns (W, H, recon_err) as the reference PyNMF.fit does
         (pyDNMF.py:137-182). ``factors`` gives (W0, H0); otherwise
-        :meth:`init_factors` makes them from the whole A. With ``prune``
+        :meth:`init_factors` makes them from the whole A. ``col_mask``
+        (bool (K,)) marks the active columns of K-padded factors, as in
+        :func:`_solve` (the NMFk sweep's K-padded refit, nmf.py:341-347);
+        it takes no ``solve_checkpoint_every`` (JAX's ValueError,
+        :486-491). With ``prune``
         the solve then runs on A without its all-zero rows and columns
         (and W, H without the matching rows and columns), and the returned
         factors are put back at the full shape (nmf.py:426-427,
@@ -337,11 +376,14 @@ class NMF:
             A, a_scale = linalg.quantize_uint8(A, grid)
         with timing.timed("solve"):
             if cfg.solve_checkpoint_every > 0:
+                if col_mask is not None:
+                    raise ValueError("col_mask is incompatible with "
+                                     "solve_checkpoint_every")
                 W, H, err = self._solve_checkpointed(A, W.contiguous(),
                                                      H.contiguous(), shape)
             else:
                 W, H, err = solve(A, W.contiguous(), H.contiguous(), cfg.eps,
-                                  cfg, grid=grid)
+                                  cfg, grid=grid, col_mask=col_mask)
         self.recon_err = float(err)
         self._A, self._W, self._H = A, W, H       # Q-scale, for column_err
         if a_scale is not None:

@@ -48,6 +48,20 @@ and every group clusters and refits them; every group then takes group
 0's refit over 'e' (on the card a sparse refit's atomics may end in other
 bits in another process), so that all hold the same statistics; rank 0
 (of group 0) writes.
+
+With ``k_sweep_batch=True`` the sweep runs K-padded (``nmfk.py:767-786``):
+every k's members are drawn at k as in the per-k sweep, zero-padded to
+K = max(k_range) columns and solved under a column mask that holds the
+others at exact zeros (``models/nmf.py::_solve``), on every format and
+grid; the memory model, K4's slab plan and the dispatch of K1-K4 take K.
+The factors are sliced back to k before a part is saved, the clustering
+runs padded with an ``active`` mask where 1 < k < K, and the refit padded
+under the k's mask. With ``k_sweep_merge`` (on by default under
+``k_sweep_batch`` when more than one k is swept) members of several ks
+share one batched solve (:meth:`NMFk._solve_ensembles_merged`). A member is
+keyed by (seed, member) alone, so the K-padded and merged sweeps solve the
+per-k sweep's members, to summation order. ``k_sweep_batch=None`` keeps the
+per-k path: on the card there is no compile for the padding to share.
 """
 from __future__ import annotations
 
@@ -57,6 +71,7 @@ import shutil
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..config import NMFkConfig, check_device
 from ..ops import ell, ell_gather, linalg, sparse
@@ -87,9 +102,9 @@ def _ensemble_cfg_tag(ncfg, cfg, K=None, grid=None) -> str:
     """Everything that shapes a member's result (``nmfk.py:468-478``): a
     saved part replays only under the same tag. Unlike the JAX package's
     it holds ``bcd_obj``, ``hals_block``, ``use_fused``, ``kl_chunk``,
-    ``tol_check_every``, the width ``K`` the members are solved at (k
-    here; a K-padded sweep would solve at a larger one) and the grid with
-    its ensemble groups."""
+    ``tol_check_every``, the width ``K`` the members are solved at (k, or
+    a K-padded sweep's max(k_range): a part never replays into a sweep of
+    the other kind) and the grid with its ensemble groups."""
     return repr((ncfg.k, ncfg.itr, ncfg.norm.lower(), ncfg.method.lower(),
                  ncfg.init, ncfg.precision, ncfg.a_precision, ncfg.seed,
                  float(ncfg.tol), int(ncfg.tol_check_every), cfg.noise_var,
@@ -181,6 +196,7 @@ class NMFk:
                                      enabled=cfg.checkpoint,
                                      writer=is_proc0(grid))
         self.per_k_stats = {}
+        self._K = None        # the K-padded sweep's width, set by fit()
         self._ell = None      # the dual ELL of a sparse A and its perms
         self.prune_state = None
         self._orig_shape = None   # A's shape before pruning
@@ -204,10 +220,20 @@ class NMFk:
         check_device(self.device)
         os.makedirs(self.results_path, exist_ok=True)
         A = self._prepare(A)
+        # the K-padded sweep, and its merged batches where more than one k
+        # is left (nmfk.py:767-786); None keeps the per-k path
+        self._K = max(cfg.k_range) if cfg.k_sweep_batch and cfg.k_range \
+            else None
         start_k = self._rank0(self.checkpoint.resume_k(cfg.start_k,
                                                        cfg.step_k))
-        for k in range(start_k, cfg.end_k + 1, cfg.step_k):
-            self.pynmfk_per_k(A, k)
+        ks = list(range(start_k, cfg.end_k + 1, cfg.step_k))
+        if self._K is not None and len(ks) > 1 and (
+                cfg.k_sweep_merge is not False):
+            for k, ensemble in self._solve_ensembles_merged(A, ks):
+                self.pynmfk_per_k(A, k, ensemble=ensemble)
+        else:
+            for k in ks:
+                self.pynmfk_per_k(A, k)
         nopt = self._rank0(self.pvalue_analysis() if is_proc0(grid) else 0)
         if is_proc0(grid):
             try:
@@ -304,8 +330,10 @@ class NMFk:
             A = A.block
         return A.with_data(data)
 
-    def _ensemble_batch_size(self, A, k) -> int:
-        """Members per batched solve, of all ensemble groups together:
+    def _ensemble_batch_size(self, A, k, cap=None) -> int:
+        """Members per batched solve at k columns, of all ensemble groups
+        together, at most ``cap`` (default ``perturbations``; the merged
+        sweep's is all its members, nmfk.py:1039-1040):
         ``ensemble_batch``, or as many as fit the memory budget
         (``utils/memory.py``) of a rank p_e times over:
         ``hbm_budget``, else the ``PYDNMFK_HBM_BUDGET`` environment
@@ -317,6 +345,7 @@ class NMFk:
         p_e (``nmfk.py:799-828``)."""
         cfg, grid = self.cfg, self.grid
         p_e = grid.p_e if grid is not None else 1
+        cap = cap or cfg.perturbations
         if cfg.ensemble_batch:
             batch = int(cfg.ensemble_batch)
         else:
@@ -329,14 +358,14 @@ class NMFk:
                 free, _ = torch.cuda.mem_get_info(A.device)
                 share = (free // 2) // per_member
             else:
-                share = cfg.perturbations
-            share = max(1, min(int(share), cfg.perturbations))
+                share = cap
+            share = max(1, min(int(share), cap))
             if grid is not None:        # the least that any rank holds
                 share = -int(grid.max(torch.tensor(
                     [-share], dtype=torch.float64, device=A.device),
                     WORLD)[0])
             batch = share * p_e
-        batch = max(1, min(batch, cfg.perturbations))
+        batch = max(1, min(batch, cap))
         return max(p_e, batch // p_e * p_e)
 
     def _member_bytes(self, A, k) -> tuple:
@@ -393,7 +422,8 @@ class NMFk:
 
     def _solve_ensemble(self, A, k, members=None):
         """Sample and factorize all perturbations; returns (W_all (p,m,k),
-        H_all (p,k,n), errs (p,)).
+        H_all (p,k,n), errs (p,)); in a K-padded sweep solved at its K
+        (:meth:`_solve_members`).
 
         ``members=(A_ens, W0, H0)`` supplies the perturbed copies and init
         factors of all members instead of drawing them (parity tests feed
@@ -406,20 +436,21 @@ class NMFk:
         cfg, grid = self.cfg, self.grid
         ncfg = cfg.nmf.replace(k=k)
         n_pert = cfg.perturbations
+        K = self._K or k
         if members is not None:
             A_ens = as_tensor(members[0])
             lo, hi = grid.members(A_ens.shape[0]) if grid is not None \
                 else (0, A_ens.shape[0])
-            W, H, errs = self._solve_members(
-                A, ncfg, range(lo, hi), members=tuple(
+            [(W, H, errs)] = self._solve_members(
+                A, ncfg, [(k, range(lo, hi))], K, members=tuple(
                     None if x is None else as_tensor(x)[lo:hi]
                     for x in members))
             return self._gather_members(
                 torch.arange(lo, hi, device=self.device), W, H, errs,
                 A_ens.shape[0])
-        batch = self._ensemble_batch_size(A, k)
+        batch = self._ensemble_batch_size(A, K)
         self.last_batch_size = batch
-        tag = _ensemble_cfg_tag(ncfg, cfg, grid=grid)
+        tag = _ensemble_cfg_tag(ncfg, cfg, K, grid)
         parts_dir = os.path.join(self.results_path, str(k), "ensemble_parts")
         done, parts = 0, ([], [], [], [])     # member indices, W, H, errs
         if cfg.checkpoint:
@@ -443,7 +474,7 @@ class NMFk:
             idx = range(start + lo, start + hi)
             # a group without a member in this batch solves nothing (its
             # solve's collectives are its own) and saves an empty part
-            W, H, errs = self._solve_members(A, ncfg, idx)
+            [(W, H, errs)] = self._solve_members(A, ncfg, [(k, idx)], K)
             for got, x in zip(parts, (torch.arange(
                     idx.start, idx.stop, device=self.device), W, H, errs)):
                 got.append(x)
@@ -454,11 +485,103 @@ class NMFk:
         held, W, H, errs = (torch.cat(p) for p in parts)
         return self._gather_members(held, W, H, errs, n_pert)
 
-    def _solve_members(self, A, ncfg, idx, members=None):
-        """(W, H, errs) of the members ``idx`` (global indices): drawn, or
-        the supplied ``members`` (as in :meth:`_solve_ensemble`); on a
-        grid this rank's blocks. No member: empty tensors of their
-        shapes."""
+    def _solve_ensembles_merged(self, A, ks):
+        """Yield (k, (W_all, H_all, errs)) for each k of ``ks`` in turn,
+        the members of several ks solved together
+        (``nmfk.py::_solve_ensembles_merged``, :1010-1193): each k's
+        members still to solve are cut into chunks of at most ``batch``
+        (the memory model's at K, of at most perturbations x len(ks)
+        members), and the chunks packed, in k order, into batches of at
+        most ``batch`` members, each solved at K with its own row of the
+        column mask. A k is handed on as soon as all its members are
+        solved, and its clustering runs before the next batch. A member is
+        keyed by (seed, member), so it is the one the per-k K-padded sweep
+        solves. Under p_e groups a batch splits over the groups as in
+        :meth:`_solve_ensemble` (no padding), and each group saves, for
+        every k of the batch, a part of its share with the members' global
+        indices. Saved parts of every k replay on a resume.
+
+        FLAG_RUNNING names the smallest k not yet written, with its done
+        count: at the start, after every batch and before a k is handed
+        on, so that a crash between a k's solve and its results replays
+        that k's parts. (JAX's names the next k with members to solve,
+        which can be past ks solved but not written, and a resume then
+        skips them: ROADMAP queue 3, nmfk.py:1183-1190.)"""
+        cfg, grid = self.cfg, self.grid
+        K, n_pert, seed = self._K, cfg.perturbations, cfg.nmf.seed
+        batch = self._ensemble_batch_size(A, K, cap=n_pert * len(ks))
+        self.last_batch_size = batch
+        st = (self.checkpoint.state or self.checkpoint.load()) \
+            if cfg.checkpoint else None
+        state, chunks = {}, []           # chunks: (k, start, stop)
+        for k in ks:
+            tag = _ensemble_cfg_tag(cfg.nmf.replace(k=k), cfg, K, grid)
+            pdir = os.path.join(self.results_path, str(k), "ensemble_parts")
+            done, parts = 0, ([], [], [], [])
+            if (st is not None and st.seed == seed
+                    and (k > st.k or st.flag < FLAG_SAVED)):
+                done, *parts = _load_ensemble_parts(pdir, n_pert, seed, tag,
+                                                    self.device, grid)
+            if cfg.checkpoint and grid is not None:
+                done, *parts = _common_parts(grid, done, *parts)
+            state[k] = dict(done=done, parts=parts, tag=tag, dir=pdir)
+            chunks += [(k, off, min(off + batch, n_pert))
+                       for off in range(done, n_pert, batch)]
+        batches = []
+        for ch in chunks:
+            if batches and sum(stop - off for _, off, stop in batches[-1]) \
+                    + ch[2] - ch[1] <= batch:
+                batches[-1].append(ch)
+            else:
+                batches.append([ch])
+        pending = list(ks)
+
+        def running():
+            k = pending[0]
+            self.checkpoint.save(FLAG_RUNNING, state[k]["done"], k, seed)
+
+        for sb in [None] + batches:
+            if sb is not None:
+                b = sum(stop - off for _, off, stop in sb)
+                lo, hi = grid.members(b) if grid is not None else (0, b)
+                mine, pos = [], 0        # this group's share of each chunk
+                for k, off, stop in sb:
+                    a, z = max(lo - pos, 0), min(hi - pos, stop - off)
+                    mine.append((k, range(off + a, off + max(a, z))))
+                    pos += stop - off
+                with timing.timed("ensemble_solve"):
+                    solved = self._solve_members(A, cfg.nmf, mine, K)
+                for (k, off, stop), (_, idx), (W, H, errs) in zip(
+                        sb, mine, solved):
+                    s = state[k]
+                    for got, x in zip(s["parts"], (torch.arange(
+                            idx.start, idx.stop, device=self.device),
+                            W, H, errs)):
+                        got.append(x)
+                    if cfg.checkpoint:
+                        _save_ensemble_part(s["dir"], off, W, H, errs, seed,
+                                            s["tag"], grid, stop, idx)
+                    s["done"] = stop
+            while pending and state[pending[0]]["done"] >= n_pert:
+                running()
+                k = pending.pop(0)
+                with timing.timed("ensemble_solve"):
+                    held, W, H, errs = (torch.cat(p) for p in
+                                        state.pop(k)["parts"])
+                    ensemble = self._gather_members(held, W, H, errs, n_pert)
+                yield k, ensemble
+            if pending:
+                running()
+
+    def _solve_members(self, A, ncfg, chunks, K, members=None):
+        """[(W, H, errs)] of the members of each chunk (k, global indices)
+        of ``chunks``, solved together at K columns: drawn, or the supplied
+        ``members`` of one chunk (as in :meth:`_solve_ensemble`); on a grid
+        this rank's blocks. A member of a k below K starts from its init at
+        k zero-padded to K and runs under a row of the column mask that
+        holds its k columns active (``nmfk.py:157-163``, :177-182); its
+        factors come back sliced to k. A chunk without a member: empty
+        tensors of its shapes."""
         cfg, grid = self.cfg, self.grid
         sparse_A = linalg.is_sparse(A)
         # a sparse block's members draw the whole flat values and keep the
@@ -467,22 +590,25 @@ class NMFk:
         spans = self._spans or ((0, A.shape[0], A.shape[0]),
                                 (0, A.shape[1], A.shape[1]))
         shape = (spans[0][2], spans[1][2])
-        if not len(idx):
+        idx = [i for _, r in chunks for i in r]
+        if not idx:
             m, n = A.shape
-            return (torch.empty((0, m, ncfg.k), dtype=ncfg.dtype,
-                                device=self.device),
-                    torch.empty((0, ncfg.k, n), dtype=ncfg.dtype,
-                                device=self.device),
-                    torch.empty((0,), dtype=linalg.acc_dtype(ncfg.a_dtype),
-                                device=self.device))
+            return [(torch.empty((0, m, k), dtype=ncfg.dtype,
+                                 device=self.device),
+                     torch.empty((0, k, n), dtype=ncfg.dtype,
+                                 device=self.device),
+                     torch.empty((0,), dtype=linalg.acc_dtype(ncfg.a_dtype),
+                                 device=self.device)) for k, _ in chunks]
+        inits = []
         if members is not None:
             A_ens = members[0].to(self.device, ncfg.a_dtype).contiguous()
             if members[1] is None:
-                W0, H0 = self._init_members(ncfg, A_ens, None, shape, None,
-                                            grid=grid, spans=self._spans)
+                inits.append(self._init_members(
+                    ncfg.replace(k=chunks[0][0]), A_ens, None, shape, None,
+                    grid=grid, spans=self._spans))
             else:
-                W0, H0 = (x.to(self.device, ncfg.dtype).contiguous()
-                          for x in members[1:])
+                inits.append(tuple(x.to(self.device, ncfg.dtype).contiguous()
+                                   for x in members[1:]))
             if sparse_A and slots is not None:
                 A_ens = A_ens[..., slots]
         else:
@@ -494,12 +620,32 @@ class NMFk:
                                             grid=grid, spans=self._spans,
                                             slots=slots)
             with timing.timed("ensemble_init"):
-                W0, H0 = self._init_members(ncfg, A_ens, idx, shape,
-                                            A.device, cfg.seed_grid, grid,
-                                            self._spans)
+                pos = 0
+                for k, r in chunks:
+                    if len(r):
+                        inits.append(self._init_members(
+                            ncfg.replace(k=k), A_ens[pos:pos + len(r)], r,
+                            shape, A.device, cfg.seed_grid, grid,
+                            self._spans))
+                    pos += len(r)
+        W0 = torch.cat([F.pad(W, (0, K - W.shape[-1])) for W, _ in inits])
+        H0 = torch.cat([F.pad(H, (0, 0, 0, K - H.shape[-2]))
+                        for _, H in inits])
+        mask = None
+        if any(k < K for k, r in chunks if len(r)):
+            mask = torch.cat([torch.arange(K, device=self.device).expand(
+                len(r), K) < k for k, r in chunks])
         if sparse_A:
             A_ens = self._members(A, A_ens)
-        return nmf_mod.solve(A_ens, W0, H0, ncfg.eps, ncfg, grid=grid)
+        W, H, errs = nmf_mod.solve(A_ens, W0, H0, ncfg.eps, ncfg, grid=grid,
+                                   col_mask=mask)
+        out, pos = [], 0
+        for k, r in chunks:
+            sl = slice(pos, pos + len(r))
+            out.append((W[sl, :, :k].contiguous(), H[sl, :k].contiguous(),
+                        errs[sl]))
+            pos += len(r)
+        return out
 
     def _gather_members(self, held, W, H, errs, n_pert):
         """The first ``n_pert`` members, in global order, from this rank's
@@ -556,23 +702,40 @@ class NMFk:
         recon_errs = recon_errs.cpu().numpy()
         self.checkpoint.save(FLAG_PERTS_DONE, cfg.perturbations, k, seed)
 
+        # a K-padded sweep clusters the ensemble padded to K with the k's
+        # active mask where 1 < k < K, and refits at K under the k's column
+        # mask where k < K (nmfk.py:1227-1275); both sliced back to k
+        K = self._K or k
+        active = torch.arange(K, device=self.device) < k
         with timing.timed("clustering"):
-            (centroids, _cent_std, H_all_c, cluster_sils, avg_sil,
-             _sils) = cluster_ensemble(W_all, H_all, cfg.nmf.eps, grid)
+            if 1 < k < K:
+                (centroids, _cent_std, H_all_c, cluster_sils, avg_sil,
+                 _sils) = cluster_ensemble(
+                    F.pad(W_all, (0, K - k)), F.pad(H_all, (0, 0, 0, K - k)),
+                    cfg.nmf.eps, grid, active=active)
+                centroids, H_all_c = centroids[:, :k], H_all_c[:, :k]
+                cluster_sils = cluster_sils[:k]
+            else:
+                (centroids, _cent_std, H_all_c, cluster_sils, avg_sil,
+                 _sils) = cluster_ensemble(W_all, H_all, cfg.nmf.eps, grid)
         self.checkpoint.save(FLAG_CLUSTERED, cfg.perturbations, k, seed)
 
         # regression re-fit of H with W frozen (pyDNMFk.py:245-248); A is
         # pruned already, so the refit does not prune again. Under BCD the
         # refit moves W too, as JAX's does (ROADMAP queue 3)
         with timing.timed("regression"):
-            AvgH = median0(H_all_c)
-            reg = NMF(cfg.nmf.replace(k=k, W_update=False, prune=False),
+            AvgW = F.pad(centroids, (0, K - k))
+            AvgH = F.pad(median0(H_all_c), (0, 0, 0, K - k))
+            reg = NMF(cfg.nmf.replace(k=K, W_update=False, prune=False),
                       self.device, grid)
             # a sparse A refits on the format the sweep chose: the ELL it
             # packed, or on a grid the bundle, which holds the agreed one
             A_reg = A if self._ell is None or grid is not None \
                 else self._ell[0]
-            AvgW, AvgH, L_errDist = reg.fit(A_reg, factors=(centroids, AvgH))
+            AvgW, AvgH, L_errDist = reg.fit(
+                A_reg, factors=(AvgW, AvgH),
+                col_mask=active if k < K else None)
+            AvgW, AvgH = AvgW[:, :k], AvgH[:k]
             col_err = reg.column_err()
             if grid is not None and grid.p_e > 1:
                 AvgW, AvgH, col_err, L_errDist = self._from_group0(

@@ -231,7 +231,8 @@ def hals_step(A, W, H, eps, W_update: bool = True, block=None, grid=None):
 # whole inner solver.
 # ---------------------------------------------------------------------------
 def bcd_solve(A, W, H, eps, itr: int = 1000, rw: float = 1.0,
-              obj_mode: str = "gram", chunk: int = 0, grid=None):
+              obj_mode: str = "gram", chunk: int = 0, grid=None,
+              col_mask=None):
     """The BCD inner loop of ``updates.py:270-368``; returns the last
     iterate (W, H), as JAX does, also where the last step restored.
 
@@ -248,7 +249,13 @@ def bcd_solve(A, W, H, eps, itr: int = 1000, rw: float = 1.0,
     H H^T and A H^T; the state holds them at all times (HHT == gram_t(H_old),
     AHT == matmul_AHT(A, H_old): at init, after an extrapolate, which sets
     H_old = H, and after a restore, which keeps both), so the restore reads
-    no A. ``eps`` is unused: the final clip is the caller's."""
+    no A. ``eps`` is unused: the final clip is the caller's.
+
+    ``col_mask`` (bool (K,) or (b, K)) marks the active columns of a
+    K-padded solve (``models/nmf.py::_solve``): the masked-out columns of
+    W are all zero, and their sums, 0, divide as 1 in the L1
+    normalization (``updates.py:313-319``); the active columns keep the
+    reference's unguarded division."""
     del eps
     sdt = torch.float64 if A.dtype == torch.float64 else torch.float32
     # (..., 1, 1); on a grid a block sharded along ``over``
@@ -270,7 +277,10 @@ def bcd_solve(A, W, H, eps, itr: int = 1000, rw: float = 1.0,
         HHTnorm_old, HHTnorm = HHTnorm, torch.sqrt(sq_rep(HHT))
         GW = linalg.matmul(Wm, HHT) - AHT
         W = torch.clamp_min(Wm - GW / HHTnorm.to(GW.dtype), 0.0)
-        W = W / linalg.sum_axis(W, axis=-2, grid=grid).unsqueeze(-2)
+        colsum = linalg.sum_axis(W, axis=-2, grid=grid)
+        if col_mask is not None:
+            colsum = torch.where(col_mask, colsum, 1)
+        W = W / colsum.unsqueeze(-2)
         WTW = linalg.gram(W, grid)
         # H
         WTWnorm_old, WTWnorm = WTWnorm, torch.sqrt(sq_rep(WTW))

@@ -41,9 +41,7 @@ class Runner:
         # the JAX Runner's knobs (pydnmfk_tpu/runner.py:22-31) that the
         # port has no counterpart for, taken at the values it runs the same
         # as
-        check_jax_only(
-            matmul_precision=matmul_precision,
-            k_sweep_batch=k_sweep_batch, k_sweep_merge=k_sweep_merge)
+        check_jax_only(matmul_precision=matmul_precision)
         self.init = init
         self.itr = itr
         self.norm = norm
@@ -70,6 +68,9 @@ class Runner:
         self.solve_checkpoint_every = solve_checkpoint_every
         # a sparse A's format on a grid (config.py::SPARSE_GRID_FORMATS)
         self.sparse_grid_format = sparse_grid_format
+        # the K-padded sweep and its merged batches (config.py::NMFkConfig)
+        self.k_sweep_batch = k_sweep_batch
+        self.k_sweep_merge = k_sweep_merge
         self.device = torch.device(device)
         timing.enable(timing_stats)
 
@@ -104,7 +105,9 @@ class Runner:
                 sill_thr=self.sill_thr, checkpoint=self.checkpoint,
                 results_path=results_path, fname=fname,
                 ensemble_batch=self.ensemble_batch,
-                hbm_budget=self.hbm_budget, seed_grid=self.seed_grid)
+                hbm_budget=self.hbm_budget, seed_grid=self.seed_grid,
+                k_sweep_batch=self.k_sweep_batch,
+                k_sweep_merge=self.k_sweep_merge)
             results["nopt"] = NMFk(cfg, self.device, ctx).fit(A)
         else:
             W, H, err = NMF(nmf_cfg, self.device, ctx).fit(A)

@@ -146,7 +146,9 @@ def nmfk_sweeps(grid, A, sweeps):
     """Each sweep (name: (NMFkConfig keywords, NMFConfig keywords)) on this
     rank's block of A: (nopt, per-k statistics) by name. A sweep whose
     keywords hold ``break_after`` parts fails right after saving that many
-    ensemble parts and is run again, which resumes from them."""
+    ensemble parts and is run again, which resumes from them. The members
+    are those ``_solve_ensemble`` returns, or the merged sweep hands to
+    ``pynmfk_per_k``."""
     import pydnmfk_tpu_torch.models.nmfk as nmfk_mod
     from pydnmfk_tpu_torch import NMFConfig, NMFk, NMFkConfig
     from pydnmfk_tpu_torch.utils import io
@@ -170,7 +172,15 @@ def nmfk_sweeps(grid, A, sweeps):
         solved[k] = tuple(x.clone() for x in got)
         return got
 
+    real_per_k = nmfk_mod.NMFk.pynmfk_per_k
+
+    def per_k(self, A, k, ensemble=None):
+        if ensemble is not None:        # the merged K-padded sweep's
+            solved[k] = tuple(x.clone() for x in ensemble)
+        return real_per_k(self, A, k, ensemble)
+
     nmfk_mod.NMFk._solve_ensemble = solve_ensemble
+    nmfk_mod.NMFk.pynmfk_per_k = per_k
     for name, (kw, nmf_kw) in sweeps.items():
         kw = dict(kw)
         break_after = kw.pop("break_after", 0)
@@ -204,6 +214,7 @@ def nmfk_sweeps(grid, A, sweeps):
                                                     None)
     io.DataWriter.save_cluster_results = real_write
     nmfk_mod.NMFk._solve_ensemble = real_solve
+    nmfk_mod.NMFk.pynmfk_per_k = real_per_k
     return out
 
 

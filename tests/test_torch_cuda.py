@@ -705,6 +705,87 @@ def test_k4_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     assert out.dtype == torch.float64 and ell_gather.launches == before
 
 
+# (k active, K): a K-padded NMFk stack (models/nmfk.py, k_sweep_batch) at
+# K's register kernels, and past 32, where K2 takes its 3xTF32 kernels, K1
+# and K3 their KP = 64 kernels and K4 its slab kernels even for k = 3
+PADDED = [(3, 7), (3, 40)]
+
+
+def _padded(W, H, K):
+    """W (..., m, k) and H (..., k, n) zero-padded to K columns."""
+    k = W.shape[-1]
+    pad = lambda X, d: torch.cat([X, X.new_zeros(
+        X.shape[:d] + (K - k,) + X.shape[d + 1:])], d)
+    return pad(W, W.dim() - 1), pad(H, H.dim() - 2)
+
+
+def _check_padded(outs, unpadded, plain, k, tol):
+    """Each output's K axes (-1 for (..., K), -2 for (..., K, n), both for
+    (..., K, K)): exactly 0 past the k active columns, the active block
+    within ``tol`` of the unpadded call, the whole within ``tol`` of the
+    plain version on the padded inputs."""
+    active = []
+    for x in outs:
+        axes = [a for a in (-2, -1) if x.shape[a] != unpadded[len(active)]
+                .shape[a]]
+        sl = [slice(None)] * x.dim()
+        for a in axes:
+            rest = list(sl)
+            rest[a] = slice(k, None)
+            assert not x[tuple(rest)].any()
+            sl[a] = slice(None, k)
+        active.append(x[tuple(sl)])
+    assert _rel(active, unpadded) <= tol
+    assert _rel(outs, plain) <= tol
+
+
+@pytest.mark.parametrize("k,K", PADDED)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kernel", ["K1", "K2a", "K2b", "K3"])
+def test_padded_stack_keeps_inactive_columns_zero(cuda, kernel, dtype, k, K):
+    """K1, K2a, K2b and K3 on a 3-member stack of k = 3 factors padded
+    with zeros to K columns, as the K-padded sweep hands them on: the
+    outputs' inactive columns (W', U H^T, W'^T A, W'^T W', W^T U) are
+    exactly 0, the active ones within the kernel's limit (1e-4 with an f32
+    A and in K2; 1e-3 with a narrow A in K1 and K3) of the kernel on the
+    unpadded stack and of the plain version."""
+    A, W, H = _inputs(cuda, 3, 130, 97, k, dtype)
+    Wp, Hp = _padded(W, H, K)
+    hrs = lambda H: linalg.sum_axis(H, axis=-1).float()
+    run, plain = {
+        "K1": (lambda W, H: fused_mu.fused_w_pass(A, W, H, linalg.gram_t(H),
+                                                  EPS),
+               lambda W, H: fused_mu.fused_w_pass_plain(
+                   A, W, H, linalg.gram_t(H), EPS)),
+        "K2a": (lambda W, H: (kl.kl_uht(A, W, H, EPS),),
+                lambda W, H: (kl.kl_uht_plain(A, W, H, EPS),)),
+        "K2b": (lambda W, H: (kl.kl_wtu(A, W, H, EPS),),
+                lambda W, H: (kl.kl_wtu_plain(A, W, H, EPS),)),
+        "K3": (lambda W, H: fused_kl.fused_kl_pass(A, W, H, hrs(H), EPS),
+               lambda W, H: fused_kl.fused_kl_pass_plain(A, W, H, hrs(H),
+                                                         EPS, 50))}[kernel]
+    narrow = kernel in ("K1", "K3") and dtype != torch.float32
+    _check_padded(run(Wp, Hp), run(W, H), plain(Wp, Hp), k,
+                  1e-3 if narrow else 1e-4)
+
+
+@pytest.mark.parametrize("k,K", PADDED)
+@pytest.mark.parametrize("vals_dtype", VALS_DTYPES)
+def test_k4_padded_stack_keeps_inactive_columns_zero(cuda, vals_dtype, k, K):
+    """K4's four modes on a 10-member ELL stack with k = 3 factors padded
+    to K columns: the inactive columns exactly 0, the active ones within
+    1e-4 of K4 on the unpadded factors and of the plain version."""
+    E, W, H = _ell_inputs(cuda, 10, 513, 301, k, nnz_per_row=40, w_cap=150)
+    E = E.astype(vals_dtype)
+    Wp, Hp = _padded(W, H, K)
+    for padded, unpadded in zip(_k4_modes(E, Wp, Hp.mT.contiguous()),
+                                _k4_modes(E, W, H.mT.contiguous())):
+        _check_padded((ell_gather.ell_gather_product(*padded, EPS),),
+                      (ell_gather.ell_gather_product(*unpadded, EPS),),
+                      (ell_gather.ell_gather_product_plain(*padded, EPS),),
+                      k, 1e-4)
+
+
 @pytest.mark.parametrize("norm, kw, want, tol", [
     ("fro", {}, {"fused_mu_fro": 1}, 1e-5),
     ("fro", {"a_precision": "uint8"}, {"fused_mu_fro_u8": 1}, 1e-5),

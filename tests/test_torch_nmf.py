@@ -118,13 +118,14 @@ def test_rand_init_fit_converges():
 
 def test_config_from_jax_rejects_unported():
     """The knobs still to port raise NotPortedError; the methods, inits and
-    pruning of the JAX package carry across."""
+    pruning of the JAX package carry across, and so do the K-padded
+    sweep's knobs."""
     with pytest.raises(port.NotPortedError, match="ROADMAP"):
         config_from_jax(dataclasses.asdict(
             pydnmfk_tpu.NMFConfig(use_pallas=True)))
-    with pytest.raises(port.NotPortedError, match="ROADMAP"):
-        config_from_jax(dataclasses.asdict(pydnmfk_tpu.NMFkConfig(
-            k_sweep_batch=True)))
+    cfg = config_from_jax(dataclasses.asdict(pydnmfk_tpu.NMFkConfig(
+        k_sweep_batch=True, k_sweep_merge=False)))
+    assert cfg.k_sweep_batch is True and cfg.k_sweep_merge is False
     # seed_grid and solve_checkpoint_every are ported and carry across
     cfg = config_from_jax(dataclasses.asdict(pydnmfk_tpu.NMFkConfig(
         seed_grid=(2, 2), nmf=pydnmfk_tpu.NMFConfig(

@@ -179,13 +179,19 @@ def test_cli_rejects_unported_flags(tmp_path):
     # ported (tests/test_torch_solve_checkpoint.py, test_torch_seed_grid.py,
     # test_torch_io_folder.py), and so are grids and --multihost
     # (tests/test_torch_grid_cli.py)
-    for flag in ("--matmul_precision=bfloat16", "--k_sweep_batch=true",
-                 "--k_sweep_merge=true"):
-        with pytest.raises(port.NotPortedError, match="ROADMAP"):
-            cli.main(base + [flag])
+    with pytest.raises(port.NotPortedError, match="ROADMAP"):
+        cli.main(base + ["--matmul_precision=bfloat16"])
+    np.save(tmp_path / "X.npy", np.random.default_rng(0).random((12, 9)))
+    # --k_sweep_batch and --k_sweep_merge are ported
+    # (tests/test_torch_k_sweep.py): the K-padded merged sweep runs
+    out = cli.main(base + ["--process=pyDNMFk", "--ftype=npy", "--fname=X",
+                           "--norm=fro", "--itr=5", "--start_k=2",
+                           "--end_k=3", "--perturbations=4",
+                           f"--results_path={tmp_path}/sweep/",
+                           "--k_sweep_batch=true", "--k_sweep_merge=true"])
+    assert out["nopt"] in (2, 3)
     # --sparse_grid_format is ported (tests/test_torch_grid_sparse.py): a
     # dense A at 1x1 runs without it mattering, and a bad value raises
-    np.save(tmp_path / "X.npy", np.random.default_rng(0).random((12, 9)))
     run = base + ["--process=pyDNMF", "--ftype=npy", "--fname=X", "--k=2",
                   "--norm=fro", "--itr=5", f"--results_path={tmp_path}/res/"]
     assert cli.main(run + ["--sparse_grid_format=ell"])["W"].shape == (12, 2)

@@ -3,8 +3,9 @@ package's Runner and configs: at the values the port runs the same as they
 pass, and at any other value they raise NotPortedError naming the ROADMAP
 item that ports it (the check list of ``pydnmfk_tpu_torch/config.py``, which
 the CLI shares). ``prune``, ``bcd_obj``, the half precisions, ``hbm_budget``,
-``kl_chunk``, ``seed_grid``, ``solve_checkpoint_every`` and
-``sparse_grid_format`` are ported and run."""
+``kl_chunk``, ``seed_grid``, ``solve_checkpoint_every``,
+``sparse_grid_format``, ``k_sweep_batch`` and ``k_sweep_merge`` are ported
+and run."""
 import dataclasses
 import inspect
 
@@ -29,6 +30,16 @@ def _run(tmp_path, **knobs):
     return Runner(itr=5, device="cpu", **knobs).run(
         fpath=f"{tmp_path}/", ftype="npy", fname="X",
         results_path=f"{tmp_path}/res/", k=2)
+
+
+def _sweep(tmp_path, **knobs):
+    """An FRO NMFk sweep through Runner, ks 2..3, 4 members."""
+    rng = np.random.default_rng(0)
+    np.save(tmp_path / "X.npy", rng.random((12, 9)).astype(np.float32))
+    return Runner(itr=5, device="cpu", norm="fro", process="pyDNMFk",
+                  perturbations=4, **knobs).run(
+        fpath=f"{tmp_path}/", ftype="npy", fname="X",
+        results_path=f"{tmp_path}/res/", k_range=(2, 3))
 
 
 def _jax_cfg(**kw):
@@ -56,8 +67,13 @@ def _jax_cfg(**kw):
     # formats on grids)
     pytest.param(lambda p: _run(p, sparse_grid_format="ell"), None,
                  id="<lambda>-queue 1 item 15_0"),
-    (lambda p: _run(p, k_sweep_batch=True), "queue 1 item 10"),
-    (lambda p: _run(p, k_sweep_merge=True), "queue 1 item 10"),
+    # the K-padded sweep and its merged batches are ported: they run (the
+    # ids are those of their former refusal cases)
+    pytest.param(lambda p: _sweep(p, k_sweep_batch=True), None,
+                 id="<lambda>-queue 1 item 10_0"),
+    pytest.param(lambda p: _sweep(p, k_sweep_batch=True,
+                                  k_sweep_merge=True), None,
+                 id="<lambda>-queue 1 item 10_1"),
     pytest.param(lambda p: config_from_jax(_jax_cfg(sparse_grid_format="ell")),
                  None, id="<lambda>-queue 1 item 15_1"),
     (lambda p: config_from_jax(_jax_cfg(use_pallas=True)),
