@@ -187,6 +187,14 @@ class NMFConfig:
                              f"or take factors at {self.a_precision!r}")
 
     @property
+    def p_r(self) -> int:
+        return self.grid[0]
+
+    @property
+    def p_c(self) -> int:
+        return self.grid[1]
+
+    @property
     def dtype(self) -> torch.dtype:
         return _PRECISIONS[self.precision]
 

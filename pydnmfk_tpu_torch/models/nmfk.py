@@ -74,10 +74,10 @@ import torch
 import torch.nn.functional as F
 
 from ..config import NMFkConfig, check_device
-from ..ops import ell, ell_gather, linalg, sparse
+from ..ops import ell, linalg, sparse
 from ..parallel.mesh import WORLD, is_proc0, sync_processes
 from ..parallel.partition import block_range
-from ..utils import timing
+from ..utils import memory, timing
 from ..utils.checkpoint import (Checkpoint, FLAG_CLUSTERED, FLAG_PERTS_DONE,
                                 FLAG_RUNNING, FLAG_SAVED)
 from ..utils.convert import as_tensor
@@ -88,14 +88,6 @@ from . import sampler
 from .clustering import cluster_ensemble, median0
 from .nmf import NMF
 from .svd import nnsvd_factors
-
-
-# working-set multiple of the factors per ensemble member: W and H, the MU
-# numerators and denominators, the init draws (utils/memory.py's F_WORK)
-F_WORK = 8
-# the share of an explicit memory budget the batch may fill
-# (utils/memory.py's HEADROOM)
-HEADROOM = 0.85
 
 
 def _ensemble_cfg_tag(ncfg, cfg, K=None, grid=None) -> str:
@@ -334,91 +326,37 @@ class NMFk:
         """Members per batched solve at k columns, of all ensemble groups
         together, at most ``cap`` (default ``perturbations``; the merged
         sweep's is all its members, nmfk.py:1039-1040):
-        ``ensemble_batch``, or as many as fit the memory budget
-        (``utils/memory.py``) of a rank p_e times over:
-        ``hbm_budget``, else the ``PYDNMFK_HBM_BUDGET`` environment
-        variable, less the shared A (at the work precision) and a 15 %
-        headroom; else, on CUDA, half of the free device memory. Without a
-        budget the CPU takes all of them. A member's bytes are
-        :meth:`_member_bytes`. On a grid the least that any rank holds;
-        under p_e groups rounded down to a multiple of p_e, and at least
-        p_e (``nmfk.py:799-828``)."""
+        ``ensemble_batch``, or as many as the memory model
+        (``utils/memory.py``) fits in a rank, p_e times over. On a grid the
+        least that any rank holds; under p_e groups rounded down to a
+        multiple of p_e, and at least p_e (``nmfk.py:799-828``)."""
         cfg, grid = self.cfg, self.grid
         p_e = grid.p_e if grid is not None else 1
         cap = cap or cfg.perturbations
         if cfg.ensemble_batch:
             batch = int(cfg.ensemble_batch)
         else:
-            per_member, shared = self._member_bytes(A, k)
-            budget = cfg.hbm_budget or int(float(
-                os.environ.get("PYDNMFK_HBM_BUDGET") or 0))
-            if budget:
-                share = (budget * HEADROOM - shared) // per_member
-            elif A.device.type == "cuda":
-                free, _ = torch.cuda.mem_get_info(A.device)
-                share = (free // 2) // per_member
-            else:
-                share = cap
-            share = max(1, min(int(share), cap))
+            share = memory.members_within(*self._member_bytes(A, k), cap,
+                                          cfg.hbm_budget, A.device)
             if grid is not None:        # the least that any rank holds
                 share = -int(grid.max(torch.tensor(
                     [-share], dtype=torch.float64, device=A.device),
                     WORLD)[0])
             batch = share * p_e
-        batch = max(1, min(batch, cap))
-        return max(p_e, batch // p_e * p_e)
+        return memory.round_to_groups(batch, cap, p_e)
 
     def _member_bytes(self, A, k) -> tuple:
-        """(bytes of one member, bytes the batch shares) of the memory model.
-        A dense member costs its copy of A at ``a_dtype``; under KL the
-        plain products' f32 ratio slab (``kl_chunk`` rows, else the
-        automatic ones, else all m); under nnsvd its Gram, eigenvectors and
-        ``eigh``'s workspace (three min(m, n)^2 f32 arrays) and the f32
-        copy of a narrower member that the SVD takes; and its factors'
-        working set at their byte width. A sparse member
-        (utils/memory.py:67-87) costs its f32 noise draw and data copy, the
-        ELL value arrays of both orientations (on the card), under KL the
-        f32 workspace of K4's ratio where its plan takes more than one slab
-        (past k = 256: one (dim, w) array, the wider orientation's of those
-        that do, ``ops/ell_gather.py::slab_for``), and its factors'
-        working set.
-        A dense batch shares A at the work precision, a sparse one its
-        values and indices."""
-        ncfg = self.cfg.nmf
-        a_item = torch.empty((), dtype=ncfg.a_dtype).element_size()
-        w_item = torch.empty((), dtype=ncfg.dtype).element_size()
+        """(bytes of one member, bytes the batch shares) of this rank's A
+        at k columns (``utils/memory.py``): a dense A's, or a sparse A's on
+        the dual ELL it runs on (``self._ell``) or as the triplet."""
         m, n = A.shape
-        factors = (m + n) * k * w_item * F_WORK
-        if linalg.is_sparse(A):
-            slots = ws = 0
-            if self._ell is not None:
-                E = self._ell[0]
-                slots = sum(x.numel() for x in (E.rvals, E.rtail_d, E.cvals,
-                                                E.ctail_d))
-                if ncfg.norm.lower() == "kl":
-                    ws = max((vals.numel() * 4 for vals, dim_t in
-                              ((E.rvals, n), (E.cvals, m))
-                              if ell_gather.slab_for(dim_t, k, A.device,
-                                                     ratio=True)[1] > 1),
-                             default=0)
-            per_member = (A.nse * (a_item + 4) + slots * a_item + ws
-                          + factors)
-            shared = A.nse * (w_item + 8)
-            if isinstance(A, sparse.SparseGridInput):
-                # the whole flat values, one member's draw of them, and
-                # the block's slots in them
-                shared += A.flat.numel() * (w_item + 4) + A.nse * 8
-        else:
-            per_member = m * n * a_item + factors
-            if ncfg.norm.lower() == "kl":
-                rows = ncfg.kl_chunk or linalg.error_chunk_rows(m, n) or m
-                per_member += min(rows, m) * n * 4
-            if ncfg.init == "nnsvd":
-                per_member += 3 * min(m, n) ** 2 * 4
-                if a_item < 4:
-                    per_member += m * n * 4
-            shared = m * n * w_item
-        return per_member, shared
+        if not linalg.is_sparse(A):
+            return memory.dense_member_bytes(m, n, k, self.cfg.nmf)
+        flat = (A.flat.numel() if isinstance(A, sparse.SparseGridInput)
+                else 0)
+        return memory.sparse_member_bytes(
+            m, n, A.nse, k, self.cfg.nmf,
+            self._ell[0] if self._ell is not None else None, flat, A.device)
 
     def _solve_ensemble(self, A, k, members=None):
         """Sample and factorize all perturbations; returns (W_all (p,m,k),
@@ -437,8 +375,9 @@ class NMFk:
         ncfg = cfg.nmf.replace(k=k)
         n_pert = cfg.perturbations
         K = self._K or k
-        if members is not None:
+        if members is not None:          # one batch of all of them
             A_ens = as_tensor(members[0])
+            self.last_batch_size = A_ens.shape[0]
             lo, hi = grid.members(A_ens.shape[0]) if grid is not None \
                 else (0, A_ens.shape[0])
             [(W, H, errs)] = self._solve_members(

@@ -221,6 +221,15 @@ def sum_axis(X: torch.Tensor, axis: int, grid=None,
     return s.to(X.dtype)
 
 
+def col_sqnorms(X: torch.Tensor, grid=None) -> torch.Tensor:
+    """Squared L2 norms of X's columns with f32/f64 accumulation
+    (``linalg.py:155-158``): (n,) of one matrix, (b, n) of a stack of b
+    members; on a grid X is a block of rows, summed over 'r'."""
+    Xa = X.to(acc_dtype(X.dtype))
+    s = (Xa * Xa).sum(-2)
+    return s if grid is None else grid.sum(s, "r", everywhere=True)
+
+
 def _residual_sums(A, W, H, chunk, per_column, with_den=True):
     """Sums of (A - WH)^2 and A^2 (unless not ``with_den``) over rows, for
     all columns or per column, over row slabs of ``chunk`` rows so that the

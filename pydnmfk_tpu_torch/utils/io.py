@@ -91,6 +91,15 @@ class DataReader:
             return self._read_sparse(self._path())
         return self._cast(self._load(self._path()))
 
+    def read_global(self):
+        """The whole matrix, as :meth:`read` without a grid gives it (the
+        JAX package's single-host read, ``io.py:130-148``): a numpy array
+        (a bf16 tensor at bfloat16), a ``folder``'s chunks assembled, or a
+        SparseTriplet for npz; timed under ``read_global``."""
+        from . import timing
+        with timing.timed("read_global"):
+            return self.read()
+
     def _load(self, path):
         if self.ftype == "npy":
             return np.load(path)

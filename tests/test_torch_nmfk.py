@@ -287,7 +287,7 @@ def test_sparse_kl_budget_counts_k4s_ratio_workspace(tmp_path, monkeypatch,
     whatever the L2; not at k = 32 (no slabs) or up to k = 256, where the
     ratio takes one slab even on an L2 too small for the table. There the
     budget that holds three FRO members holds two KL ones."""
-    from pydnmfk_tpu_torch.models.nmfk import HEADROOM
+    from pydnmfk_tpu_torch.utils.memory import HEADROOM
     from pydnmfk_tpu_torch.ops import ell, ell_gather
     if l2:
         monkeypatch.setattr(ell_gather, "H100_L2_BYTES", l2)
