@@ -10,7 +10,9 @@ change, change, parent). The cases are those of ``chip_smoke.py``'s phase 2:
 an f32, a bf16 and a uint8 A at 57600 x 38400, k = 32, and an f32 and a bf16
 10-member 14400 x 9600, k = 8 stack, all drawn from the same seed. For each
 case it prints one JSON line: the kernel's ms (CUDA events, median of 7
-after a warm-up), its max relative error against the plain version, the
+after a warm-up), where the package runs K1 in two passes the ms of its
+second pass alone (``ops/strip.py``, W'^T A; else null), its max relative
+error against the plain version, the
 library call's ms (``torch.matmul`` of A H^T and W^T A, on bf16 factors for
 a bf16 or uint8 A) and the two-read floor (A read twice at 3.35 TB/s).
 """
@@ -58,6 +60,10 @@ def main():
         sys.exit("k1_bench: no CUDA device")
     sys.path.insert(0, os.path.abspath(args.root))
     from pydnmfk_tpu_torch.ops import fused_mu, linalg
+    try:        # the two-pass K1 (its second pass timed alone)
+        from pydnmfk_tpu_torch.ops import strip
+    except ImportError:
+        strip = None
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -72,6 +78,11 @@ def main():
         HHT = linalg.gram_t(H)
         out = fused_mu.fused_w_pass(A, W, H, HHT, eps)
         err = rel_err(out, fused_mu.fused_w_pass_plain(A, W, H, HHT, eps))
+        pass2_ms = None
+        if strip is not None:
+            Wn = out[0].float()
+            pass2_ms = median_ms(lambda: strip.wt_pass(A, Wn, None, eps, False))
+            del Wn
         del out
         ms = median_ms(lambda: fused_mu.fused_w_pass(A, W, H, HHT, eps))
         if A.dtype == torch.float32:
@@ -83,6 +94,7 @@ def main():
         del Al, Wl, Hl
         floor = 2 * A.numel() * A.element_size() / PEAK_BYTES * 1e3
         print(json.dumps({"label": args.label, "case": name, "ms": ms,
+                          "pass2_ms": pass2_ms,
                           "max_rel_err": err, "library_ms": lib_ms,
                           "two_read_floor_ms": floor, "card": smi}),
               flush=True)

@@ -14,7 +14,9 @@ rank-32 A and its ``quantize_uint8``), and a 10-member 14400 x 9600, k = 8
 stack in f32 and its bf16 copy (the NMFk ensemble's members under
 ``--a_precision=bfloat16``), all drawn from the same seed. For each case it prints one JSON
 line: K3's ms and K2a + K2b's ms on the same inputs (CUDA events, median of
-7 after a warm-up), the plain version's ms, K3's max relative error against
+7 after a warm-up), where the package runs K3 in two passes the ms of its
+second pass alone (``ops/strip.py``, W'^T U'; else null), the plain
+version's ms, K3's max relative error against
 the plain version, and its bound: the larger of 8 m n k operations over
 their peak (67 TFLOP/s f32 on the CUDA cores; 989 TFLOP/s bf16 for the bf16
 operands of a bf16 or uint8 A) and the bytes, each input read once and each
@@ -64,6 +66,10 @@ def main():
         sys.exit("k3_bench: no CUDA device")
     sys.path.insert(0, os.path.abspath(args.root))
     from pydnmfk_tpu_torch.ops import fused_kl, kl, linalg
+    try:        # the two-pass K3 (its second pass timed alone)
+        from pydnmfk_tpu_torch.ops import strip
+    except ImportError:
+        strip = None
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -81,6 +87,12 @@ def main():
         out = fused_kl.fused_kl_pass(A, W, H, hrs, eps)
         ref = fused_kl.fused_kl_pass_plain(A, W, H, hrs, eps, chunk)
         err = rel_err(out, ref)
+        pass2_ms = None
+        if strip is not None:
+            Wn = out[0].float()
+            Hq = H if A.dtype == torch.float32 else H.to(torch.bfloat16)
+            pass2_ms = median_ms(lambda: strip.wt_pass(A, Wn, Hq, eps, True))
+            del Wn, Hq
         del out, ref
         ms = median_ms(lambda: fused_kl.fused_kl_pass(A, W, H, hrs, eps))
         pair_ms = median_ms(lambda: (kl.kl_uht(A, W, H, eps),
@@ -95,7 +107,8 @@ def main():
         t_bytes = nbytes(A, W, H, hrs, W, H) / PEAK_BYTES * 1e3
         row = {"label": args.label, "case": name,
                "kernel": "K3 fused_mu_kl" + (" k>32" if wide else ""),
-               "ms": ms, "k2a_plus_k2b_ms": pair_ms, "plain_ms": plain_ms,
+               "ms": ms, "pass2_ms": pass2_ms, "k2a_plus_k2b_ms": pair_ms,
+               "plain_ms": plain_ms,
                "max_rel_err": err, "bound_ms": max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                "two_read_floor_ms": 2 * nbytes(A) / PEAK_BYTES * 1e3}

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Builds variants of kernel K3's source side by side and times their
-tensor-core kernel (a bf16 or uint8 A) on one GPU.
+"""Builds variants of kernel K3's source side by side and times K3 with
+their pass-1 tensor-core kernel (a bf16 or uint8 A) on one GPU.
 
     python3 bench_torch/k3_variants.py '{"NAME": [ENTRIES...], ...}'
 
@@ -13,11 +13,10 @@ its other entries (``-D`` switches of an edited copy), all at once, into
 spill bytes of the 12 tensor-core kernels (dtype, KP, ``v`` for 16-byte
 loads or ``s``), then loads it in place of the package's K3 library, checks
 it against the plain version on small ragged shapes (max relative error)
-and times it (CUDA events, median of 7) on a bf16 and a uint8 A at
-57600 x 38400 for k = 64, 32 and 16, and on the 10-member 14400 x 9600
-stacks at k = 8 in bf16 and uint8 and at k = 64 in bf16. For example,
-128-row panels with 2 row groups at KP = 64: ``["s|KP <= 16 ? 128 : 256|KP
-!= 32 ? 128 : 256|", "s|KP >= 32 ? 4 : 2|KP == 32 ? 4 : 2|"]``. The
+and times it (CUDA events, median of 7; both passes, pass 2 the package's
+own) on a bf16 and a uint8 A at 57600 x 38400 for k = 64, 32 and 16, and
+on the 10-member 14400 x 9600 stacks at k = 8 in bf16 and uint8 and at
+k = 64 in bf16. The variants edit pass 1 (K3 runs in two passes). The
 numbers compare variants within one run.
 """
 from __future__ import annotations
@@ -113,7 +112,7 @@ def main():
         lib = ctypes.CDLL(path)
         for suffix in cuda_lib.A_SUFFIX.values():
             fn = getattr(lib, f"fused_mu_kl_{suffix}")
-            fn.argtypes = [p, p, p, p, ctypes.c_float, i, i, i, i, p, p, p]
+            fn.argtypes = [p, p, p, p, ctypes.c_float, i, i, i, i, p, p]
             fn.restype = i
         lib.fused_mu_kl_error_string.argtypes = [i]
         lib.fused_mu_kl_error_string.restype = ctypes.c_char_p

@@ -44,6 +44,11 @@ Run from the root of a checkout, with no arguments:
      slabs) and on the 10-member stack at k = 34 and 64 (f32 and bf16), each
      within 1e-4 of the plain version,
      bound at 165 TFLOP/s (3xTF32) with the CUDA cores' 67 beside it;
+   - every case launched twice: K1's and K3's (two passes, every sum in a
+     fixed order) must give the same bits, and a member of the 10-member
+     stack (at k = 8, and K3's at k = 64) the bits it has alone; the
+     ordered scatter-adds of the sparse products (``ops/sparse.py``)
+     likewise, and their sums the CPU's bits (``[determinism]`` lines);
    profiles one batched FRO-MU and KL-MU step on that stack (wall and
    device ms, idle share, top kernels); checks NMF.fit on the card
    against the CPU path on a small input; and times one ``eigh`` of a
@@ -73,8 +78,8 @@ Run from the root of a checkout, with no arguments:
    choose k = 4; the FRO-MU sweep through the library with ``hbm_budget``
    set to hold 5 of the 10 members, which must run each k in two batches;
    the same KL-MU sweep through the library with ``use_fused=True``,
-   on f32 and on bf16 members (the latter twice), whose ensemble must
-   launch only K3 (for the
+   on f32 and on bf16 members (the latter twice, bitwise the same), whose
+   ensemble must launch only K3 (for the
    members' dtype) and whose refit only K2b; and one FRO-MU factorization
    of that matrix through the CLI with and without ``--a_precision=uint8``;
 4. the sparse main path, the same way: NMF.fit on the NYTimes-shaped matrix,
@@ -103,7 +108,9 @@ Run from the root of a checkout, with no arguments:
    launches, error within 1e-5, no checkpoint left), with the time of a
    save; the FRO-MU NMFk sweep on the planted 14400 x 9600 matrix (k =
    2..7, 10 perturbations in batches of 5, 400 iterations,
-   ``checkpoint=True``) unbroken, then failed right after k = 5's first
+   ``checkpoint=True``) unbroken, beside phase 3's sweep in batches of 10
+   (members within 1e-4, statistics within phase 9's limits, and whether
+   they came out bitwise), then failed right after k = 5's first
    part and run again (K1 exactly 2000: k = 5's second batch and k = 6
    and 7; none in the refits; nopt = 4, each k's statistics beside the
    unbroken sweep's, no ``ensemble_parts/`` left), then extended to k = 9
@@ -127,8 +134,10 @@ Run from the root of a checkout, with no arguments:
    1x1 ones, W's and H's replicas bitwise equal, K2a and K2b exactly 10
    each per rank in KL-MU and no other launch, one MU step's collectives,
    seconds per rank and stage; the FRO-MU NMFk sweep of the planted 14400 x
-   9600 matrix at k = 3..5 (GRID_SWEEP; since phase 8 came, three ks, not
-   k = 2..7) through ``-m pydnmfk_tpu_torch --p_r=2 --p_c=2`` under
+   9600 matrix at k = 3..5 and 150 iterations (GRID_SWEEP; three ks since
+   phase 8 came, 150 iterations to keep the smoke inside 900 s) through
+   ``-m
+   pydnmfk_tpu_torch --p_r=2 --p_c=2`` under
    torchrun (nopt 4 printed once, factors in the 2 x 2 chunk layout,
    per-k statistics beside a 1x1 sweep's) and the KL-MU one with exact K2
    launches on every rank; K2a and K2b against their plain versions on the
@@ -146,10 +155,11 @@ Run from the root of a checkout, with no arguments:
    equal, K4 exactly the 1x1 counts on every rank and no other launch, one
    MU step's collectives; FRO-MU on the 2 x 2 triplet blocks (no launch,
    within 1e-4 of the ELL fit); the NMFk sweeps of phase 5's topic .npz
-   through the CLI under torchrun at k = 3..5, each rank reading its row
-   panel: FRO-MU on 4 x 1 and KL-MU on 2 x 2, every block in the dual ELL
-   and K4 exact per rank, nopt 4 on every rank, per-k statistics beside
-   phase 5's 1x1 sweeps; K4 against its plain version on a 2 x 2 NYTimes
+   through the CLI under torchrun at k = 3..5 and 150 iterations, each
+   rank reading its row panel: FRO-MU on 4 x 1 and KL-MU on 2 x 2, every
+   block in the dual ELL and K4 exact per rank, nopt 4 on every rank,
+   per-k statistics beside 1x1 sweeps at the same settings (phase 5); K4
+   against its plain version on a 2 x 2 NYTimes
    block at k = 32 and a 4 x 1 block of the 10-member topic stack at
    k = 7 (its empty column lines padded), where each product in full is
    timed beside the triplet's;
@@ -157,14 +167,14 @@ Run from the root of a checkout, with no arguments:
    2 x 2 grid of an .npy (the native reader) and a .mat (its .npy cache),
    bitwise; then under torchrun four ranks sharing the card over gloo, with
    launch counters from zero in every rank, three NMFk sweeps through the
-   library at k = 3..5, 10 members, 400 iterations: the planted 14400 x
+   library at k = 3..5, 10 members, 150 iterations: the planted 14400 x
    9600 FRO-MU sweep on p_e = 4 groups of 1 x 1 (K1 on each rank's
    members), its KL-MU sweep on 2 groups of 2 x 1 (K2a/K2b on each rank's
    block) and phase 5's topic FRO-MU sweep on 4 groups of 1 x 1 (K4 on the
    ELL), each with exact launches per rank, nopt 4 on every rank, every
-   member's error beside the same member's in phase 3's or phase 5's 1x1
-   sweep (1e-5 on one rank a group, or twice the spread of two 1x1 sweeps
-   where phase 6 ran the second; 1e-3 on 2 x 1 blocks), per-k statistics
+   member's error beside the same member's in a 1x1 sweep at the same
+   settings (phase 3's or phase 5's; 1e-5 on one rank a group, 1e-3 on
+   2 x 1 blocks; and whether they came out bitwise), per-k statistics
    beside the 1x1 sweep's, group 0's refit (factors, column errors) bitwise
    on every rank (and whether each group's own refit was), results
    written by rank 0 alone and each rank's stage seconds;
@@ -181,13 +191,8 @@ Run from the root of a checkout, with no arguments:
    bf16 members merged (K3) and the topic .npz FRO-MU merged (K4 on the
    ELL), each with nopt 4, exact launches at K's dispatch from the batch
    it reports, every member's error beside the same member's in the per-k
-   sweep of phase 3 or 5 (1e-4, or twice the spread of two per-k sweeps
-   where a second ran: phase 6's FRO, phase 3's second use_fused sweep on
-   bf16 members), per-k statistics within phase 9's limits (or twice the
-   two per-k sweeps' own difference where that is more; on bf16 members
-   the errors within twice the largest spread of repeated per-k runs
-   where that is more, and the clustering's statistics at every k but
-   k = 6, where a repeated run changed a member's cluster), no
+   sweep of phase 3 or 5 (1e-4), per-k statistics within phase 9's limits
+   at every k, no
    ``ensemble_parts/`` left, and its seconds and stage seconds
    beside the per-k sweep's (no torchrun: the K-padded path on grids and
    p_e groups is held by the CPU tests);
@@ -245,12 +250,20 @@ PLANTED = dict(m=14400, n=9600, k=4)     # NMFk sweep input
 PRUNED = dict(m=4800, n=3200, k=4)       # the prune sweep's input, whose
 ZERO_EVERY = (97, 89)                    # every 97th row, 89th column is 0
 SWEEP = ["--start_k=2", "--end_k=7", "--perturbations=10", "--itr=400"]
-# the grid's CLI sweeps (phases 7 and 8), at three ks: four ranks sharing
-# the card over gloo take 5-8 times the 1x1 sweep's seconds
+# the sweeps of phases 7-9 (the grid's CLI sweeps, the p_e groups' library
+# sweeps), at three ks and GRID_SWEEP_ITR iterations: four ranks sharing
+# the card over gloo take 5-8 times the 1x1 sweep's seconds. Each is held
+# against a 1x1 sweep of the same settings (phase 7 runs its own; phases 3
+# and 5 those of phases 8 and 9). 150 iterations, not the 400 of phases 3
+# and 5, keep the smoke inside 900 s: 1x1 library sweeps of the planted
+# FRO and KL and the topic FRO and KL inputs at ks 3..5 chose 4 at 150 and
+# 200 iterations, and the planted KL 3 at 100 and 120 (H100 80GB HBM3,
+# 700 W; bench_torch/grid_sweep_itr_probe.py)
 GRID_SWEEP_KS = range(3, 6)
+GRID_SWEEP_ITR = 150
 GRID_SWEEP = [f"--start_k={GRID_SWEEP_KS[0]}",
               f"--end_k={GRID_SWEEP_KS[-1]}", "--perturbations=10",
-              "--itr=400"]
+              f"--itr={GRID_SWEEP_ITR}"]
 # NYTimes bag of words (UCI Machine Learning Repository, "Bag of Words"):
 # documents x vocabulary and nnz; drawn with replacement, ~79 k repeats drop
 NYT_M, NYT_N, NYT_NNZ = 300_000, 102_660, 69_679_427
@@ -258,10 +271,9 @@ TOPIC = dict(m=200_000, n=50_000, k=4, nnz_per_row=50)   # sparse sweep input
 TOPIC_K = 7                              # K4 stack check: the sweep's top k
 PROFILE_STEPS = 20                       # MU steps profiled on that stack
 # kernel vs plain, max |difference| / max |plain| over all outputs: f32
-# sums taken in another order (and, for K1's W'^T A and K3's W'^T U', with
-# atomics in an order that changes from run to run); a bf16 or uint8 A also
-# rounds factor operands (and K3's ratios) to bf16 where kernel and plain
-# values may differ in the last f32 bit
+# sums taken in another order (a fixed one: two launches give the same
+# bits); a bf16 or uint8 A also rounds factor operands (and K3's ratios) to
+# bf16 where kernel and plain values may differ in the last f32 bit
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3, torch.float16: 1e-3,
        torch.uint8: 1e-3}
 ITR = 10                                 # MU iterations of the NMF.fit runs
@@ -294,6 +306,14 @@ def median_ms(fn, reps=7):
         torch.cuda.synchronize()
         times.append(t0.elapsed_time(t1))
     return float(np.median(times))
+
+
+def bitwise(a, b):
+    """True where two outputs (a tensor or a tuple of them) have the same
+    bits."""
+    if isinstance(a, torch.Tensor):
+        a, b = (a,), (b,)
+    return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def compare(kernel_out, plain_out):
@@ -356,13 +376,31 @@ def ptxas_k1(log):
 
 
 def ptxas_k2(log):
-    """K2's kernels: the register kernels (KP <= 32), the 3xTF32 tensor-core
-    kernels (KP >= 64) and the split reduction, keyed (kernel, A dtype, KP,
-    vec)."""
-    return ptxas(log, r"(kl_\w+?_kernel)(?:I(f|13__nv_bfloat16|6__half|h)Li(\d+)E"
-                      r"(?:Lb([01])E)?)?",
+    """K2's kernels: the register kernels (KP <= 32; K2b's also without the
+    ratio at KP <= 64, the second pass of K1 on an f32 A), the 3xTF32
+    tensor-core kernels (KP >= 64) and the split reduction, keyed (kernel,
+    A dtype, KP, vec, ratio)."""
+    return ptxas(log, r"(kl_(?:uht|wtu)\w*?_kernel)"
+                      r"(?:I(f|13__nv_bfloat16|6__half|h)"
+                      r"Li(\d+)E(?:Lb([01])E)?(?:Lb([01])E)?)?",
                  lambda m: (m.group(1), MANGLED_A[m.group(2)],
-                            int(m.group(3) or 0), m.group(4) == "1"))
+                            int(m.group(3) or 0), m.group(4) == "1",
+                            m.group(5) != "0"))
+
+
+def ptxas_strip(log):
+    """The second pass of K1 and K3 on a bf16, f16 or uint8 A
+    (strip::wtu_strip_kernel in csrc/kl_ratio.cu), keyed (A dtype, operand
+    dtype, KP, ratio, vec); the operand repeats A's type as a mangled
+    substitution (S..._)."""
+    def key(m):
+        a = MANGLED_A[m.group(1)]
+        return (a, a if m.group(2).startswith("S") else MANGLED_A[m.group(2)],
+                int(m.group(3)), m.group(4) == "1", m.group(5) == "1")
+    return ptxas(log, r"wtu_strip_kernelI(13__nv_bfloat16|6__half|h)"
+                      r"(13__nv_bfloat16|6__half|S\d*_)"
+                      r"Li(\d+)ELb([01])ELb([01])E",
+                 key)
 
 
 def ptxas_k4(log):
@@ -464,7 +502,8 @@ GRID_METHODS = {"FRO-MU": dict(norm="fro"), "KL-MU": dict(norm="kl"),
                 "FRO-MU nnsvd": dict(norm="fro", init="nnsvd")}
 GRID_ERR_TOL = 1e-4          # grid error vs the 1x1 solve's, relative
 # gathered factors vs the 1x1 solve's, max |difference| / max |1x1|: f32
-# sums in another order (K1's atomics at 1x1) over 10 iterations, or twice
+# sums in another order (a block's products summed over ranks) over 10
+# iterations, or twice
 # what f32 itself moves the 1x1 factors (against the 1x1 solve at f64 from
 # the same init) where that is more: HALS's Gauss-Seidel chain and the
 # randomized SVD of nnsvd magnify a rounding difference in the factors far
@@ -954,11 +993,12 @@ def sparse_grid_phase(dev, smi, gen, nyt_ref, topic_ref, k4_cases,
                 with open(os.path.join(tmp, f"{norm}_ranks",
                                        f"cli_rank{rank}.json")) as f:
                     cli_ranks.append(json.load(f))
-            # a k: the ensemble's 400 steps of one batch of 10 and its final
-            # error, the refit's 400 H steps, its error and column error
-            # (phase 5's counts a k)
-            per_k = ({"ell_gather": 1203} if norm == "fro"
-                     else {"ell_gather": 3, "ell_gather_ratio": 1200})
+            # a k: the ensemble's steps of one batch of 10 (two K4 a step)
+            # and its final error, the refit's H steps, its error and
+            # column error
+            itr = GRID_SWEEP_ITR
+            per_k = ({"ell_gather": 3 * itr + 3} if norm == "fro"
+                     else {"ell_gather": 3, "ell_gather_ratio": 3 * itr})
             want = {key: n * len(ks) for key, n in per_k.items()}
             # one read a rank, of its rows alone
             panels = [r["rows_read"] for r in cli_ranks]
@@ -978,7 +1018,8 @@ def sparse_grid_phase(dev, smi, gen, nyt_ref, topic_ref, k4_cases,
             print(f"[grid-sparse] NMFk {norm.upper()}-MU sweep through the "
                   f"CLI "
                   f"under torchrun, {tag} grid, topic .npz {tshape[0]}x"
-                  f"{tshape[1]} k={ks[0]}..{ks[-1]}, 10 perturbations, 400 "
+                  f"{tshape[1]} k={ks[0]}..{ks[-1]}, 10 perturbations, "
+                  f"{GRID_SWEEP_ITR} "
                   f"iterations ({smi}): nopt "
                   f"{[r['nopt'] for r in cli_ranks]}, {secs:.2f} s for the "
                   f"torchrun (beside the other sweep's); rank 0 stage "
@@ -1061,6 +1102,44 @@ def sparse_grid_phase(dev, smi, gen, nyt_ref, topic_ref, k4_cases,
     torch.cuda.empty_cache()
 
 
+def sparse_determinism(topic, data, E, W, H, smi):
+    """The ordered scatter-adds of ``ops/sparse.py`` on the card, on the
+    planted topic stack (its anchor columns hold 50000 entries each): the
+    triplet's two products and the dual ELL's tails, each run twice, a
+    member alone, and the column tail's sums beside the CPU's on the same
+    values; the ms of each (CUDA events, median of 3)."""
+    from pydnmfk_tpu_torch.ops import sparse
+    m, n = topic.shape
+    pick = lambda x, i: x if i is None else x[i]
+    sums = {
+        "triplet W^T A": lambda i: sparse.wt_a(
+            pick(data, i), topic.rows, topic.cols, pick(W, i), n),
+        "triplet A H^T": lambda i: sparse.a_ht(
+            pick(data, i), topic.rows, topic.cols, pick(H, i), m),
+        "ELL column tail W^T A": lambda i: sparse.wt_a(
+            pick(E.ctail_d, i), E.ctail_r, E.ctail_c, pick(W, i), n),
+        "ELL row tail A H^T": lambda i: sparse.a_ht(
+            pick(E.rtail_d, i), E.rtail_r, E.rtail_c, pick(H, i), m)}
+    out = {}
+    for name, f in sums.items():
+        first = f(None)
+        out[name] = (bitwise(first, f(None)), bitwise(first[3], f(3)),
+                     median_ms(lambda: f(None), reps=3))
+    (sel, levels), = sparse.line_plan(E.ctail_c, n)
+    vals = E.ctail_d[..., sel, None] * W[:, E.ctail_r[sel], :]
+    cpu = bitwise(sparse.ordered_sum(vals, levels).cpu(), sparse.ordered_sum(
+        vals.cpu(), [x.cpu() for x in levels]))
+    print(f"[determinism] sparse sums in a fixed order on the 10-member "
+          f"topic stack, k={W.shape[-1]} ({smi}): (twice bitwise, a member "
+          f"alone bitwise, ms) " + "; ".join(
+              f"{name} {v[0]}, {v[1]}, {v[2]:.3f}" for name, v in out.items())
+          + f"; the column tail's {E.ctail_d.shape[-1]} entries, "
+          f"{len(levels)} levels: the card's sums the CPU's bits: {cpu}",
+          flush=True)
+    check(all(v[0] and v[1] for v in out.values()) and cpu,
+          f"the sparse sums are not in a fixed order: {out}, CPU {cpu}")
+
+
 # -- phase 9: the ensemble axis p_e, four ranks sharing the card ----------
 # each sweep: (p_e, (p_r, p_c), ftype, fname, norm); four groups of one rank
 # (K1, or K4 on the ELL, on each rank's members) and two groups of a 2 x 1
@@ -1068,13 +1147,12 @@ def sparse_grid_phase(dev, smi, gen, nyt_ref, topic_ref, k4_cases,
 ENSEMBLE_SWEEPS = {"e4 1x1 FRO-MU": (4, (1, 1), "npy", "X", "fro"),
                    "e2 2x1 KL-MU": (2, (2, 1), "npy", "X", "kl"),
                    "e4 1x1 sparse FRO-MU": (4, (1, 1), "npz", "T", "fro")}
-ENSEMBLE_MEMBERS, ENSEMBLE_ITR = 10, 400
+ENSEMBLE_MEMBERS, ENSEMBLE_ITR = 10, GRID_SWEEP_ITR
 # a member's error against the same member's in the 1x1 sweep, relative:
-# one rank a group runs the 1x1 arithmetic on a smaller batch; a 2 x 1
-# block sums its products in another order. Where a second 1x1 sweep of
-# the same members ran (phase 6's, in batches of 5), the limit is at least
-# twice the spread between the two, which K1's atomics (their order
-# changes from run to run) open over 400 iterations
+# one rank a group runs the 1x1 arithmetic on a smaller batch (K1's sums
+# are a member's own, but the library products around it, such as
+# torch.matmul of H H^T, may take other bits at another batch count); a
+# 2 x 1 block sums its products in another order
 ENSEMBLE_MEMBER_TOL = {(1, 1): 1e-5, (2, 1): 1e-3}
 
 
@@ -1186,8 +1264,7 @@ def ensemble_phase(smi, refs, main_path):
     blocks of an .npy by the native reader and of a .mat through its .npy
     cache, bitwise), then the sweeps of ``--ensemble-fits`` under torchrun
     against ``refs`` (by sweep name: the 1x1 sweep's results at
-    GRID_SWEEP_KS, its seconds, its stage seconds and, where one ran, a
-    second 1x1 sweep's results of the same members); the ranks' launches
+    GRID_SWEEP_KS, its seconds and its stage seconds); the ranks' launches
     go into ``main_path``."""
     import types
     from scipy import sparse as sp
@@ -1260,12 +1337,8 @@ def ensemble_phase(smi, refs, main_path):
         need = lambda cond, msg: cond or failed.append(msg)
         for name, (p_e, grid, ftype, fname, norm) in ENSEMBLE_SWEEPS.items():
             runs = [r[name] for r in ranks]
-            ref, ref_secs, ref_stages, *rerun = refs[name]
-            # two 1x1 sweeps of the same members, relative
-            spread = max(float(np.max(np.abs(
-                rerun[0][k]["ErrTol"] / ref[k]["ErrTol"] - 1)))
-                for k in GRID_SWEEP_KS) if rerun else 0.0
-            tol = max(ENSEMBLE_MEMBER_TOL[grid], 2 * spread)
+            ref, ref_secs, ref_stages = refs[name]
+            tol = ENSEMBLE_MEMBER_TOL[grid]
             want = [ensemble_launches(p_e, grid, norm, ftype, run["batch"],
                                       run["group"]) for run in runs]
             member = max(float(np.max(np.abs(
@@ -1282,8 +1355,8 @@ def ensemble_phase(smi, refs, main_path):
                 worst["sils"] = max(worst["sils"], float(np.max(np.abs(
                     a["clusterSilhouetteCoefficients"]
                     - b["clusterSilhouetteCoefficients"]))))
-            # each group's own refit (a sparse one sums with atomics on the
-            # card), and group 0's, which every group takes
+            # each group's own refit (bitwise alike since the sparse sums
+            # take a fixed order), and group 0's, which every group takes
             refits = {json.dumps(run["refits"]) for run in runs}
             taken = {json.dumps(run["taken"]) for run in runs}
             print(f"[ensemble] {name} ({p_e} groups of {grid[0]}x{grid[1]}"
@@ -1293,9 +1366,8 @@ def ensemble_phase(smi, refs, main_path):
                   f"{[run['nopt'] for run in runs]}, batch "
                   f"{runs[0]['batch']}; members' errors against the 1x1 "
                   f"sweep's, max relative difference {member:.2e} (limit "
-                  f"{tol:.2e}; two 1x1 sweeps of these members "
-                  + (f"{spread:.2e}" if rerun else "not run")
-                  + f"); per-k statistics, max difference over max "
+                  f"{tol:.2e}; bitwise: {member == 0}); per-k "
+                  f"statistics, max difference over max "
                   f"(silhouettes: absolute) {worst} (limits 1e-3, 1e-3, "
                   f"1e-2, 1e-3); the groups' own refits bitwise equal: "
                   f"{len(refits) == 1}, group 0's taken by every rank: "
@@ -1347,26 +1419,12 @@ KSWEEPS = {
         dict(norm="kl", use_fused=True, a_precision="bfloat16"), True),
     "topic FRO-MU merged": ("topic FRO-MU", "T", dict(norm="fro"), True)}
 KSWEEP_MEMBERS, KSWEEP_ITR = 10, 400
-# a member's error against the same member's in the per-k sweep, relative:
-# at least this, or twice the spread of two per-k sweeps of the same
-# members where a second ran (phase 6's FRO, phase 3's second use_fused
-# bf16 sweep): K1's and K3's atomics open such a spread (K3 on bf16
-# members 8.21e-4 over 400 iterations on an H100 80GB HBM3 at 700 W); the
-# per-k statistics likewise: phase 9's limits, or twice the two per-k
-# sweeps' own difference where it is larger
+# a member's error against the same member's in the per-k sweep, relative
+# (K-padded, in other batches: the library products around the kernels
+# may take other bits); the per-k statistics: phase 9's limits, at every k
 KSWEEP_MEMBER_TOL = 1e-4
 KSWEEP_STAT_TOL = {"ErrTol": 1e-3, "avgErr": 1e-3, "L_err": 1e-2,
                    "sils": 1e-3}
-# the use_fused bf16 sweep, three per-k runs and two merged of the same
-# members (bench_torch/bf16_sweep_spread_probe.py, H100 80GB HBM3, 700 W):
-# K3's f32 atomics move a member's error by up to 1.18e-3 from one per-k
-# run to the next (the per-k pair of phase 3 saw 8.21e-4, and the merged
-# sweep 1.89e-3 from the per-k one); at k = 6 one per-k run of four
-# clustered a member into the other cluster (L_err 0.276, a silhouette
-# 1.31 from the first run), while at every other k L_err stayed within
-# 2.02e-3 and the silhouettes within 3.94e-4 (ROADMAP queue 3)
-BF16_SWEEP_SPREAD = 1.18e-3
-BF16_SWEEP_FLIP_KS = (6,)
 
 
 def ksweep_solves(batch, merged, ks=KSWEEP_KS, n=KSWEEP_MEMBERS):
@@ -1423,9 +1481,8 @@ def ksweep_diffs(got, ref, ks=KSWEEP_KS):
 def k_sweep_phase(dev, smi, gen, refs, zero_counts, read_counts):
     """The [k-sweep] phase: the kernels on a K-padded stack, then the
     K-padded NMFk sweeps of KSWEEPS through the library against ``refs``
-    (by name: the per-k sweep's results at KSWEEP_KS, its seconds, its
-    stage seconds and, where one ran, a second per-k sweep's results of
-    the same members); each sweep's launches go to ``read_counts``."""
+    (by name: the per-k sweep's results at KSWEEP_KS, its seconds and its
+    stage seconds); each sweep's launches go to ``read_counts``."""
     from scipy import sparse as sp
     from pydnmfk_tpu_torch import NMFConfig, NMFk, NMFkConfig
     from pydnmfk_tpu_torch.ops import ell, ell_gather, fused_kl, fused_mu, kl
@@ -1547,7 +1604,7 @@ def k_sweep_phase(dev, smi, gen, refs, zero_counts, read_counts):
         inputs = {"X": DataReader(tmp + "/", "X", "npy").read(),
                   "T": DataReader(tmp + "/", "T", "npz").read()}
         for name, (ref_name, fname, nmf_kw, merged) in KSWEEPS.items():
-            ref, ref_secs, ref_stages, *rerun = refs[ref_name]
+            ref, ref_secs, ref_stages = refs[ref_name]
             cfg = NMFkConfig(nmf=NMFConfig(itr=KSWEEP_ITR, **nmf_kw),
                              start_k=KSWEEP_KS[0], end_k=KSWEEP_KS[-1],
                              perturbations=KSWEEP_MEMBERS,
@@ -1572,28 +1629,7 @@ def k_sweep_phase(dev, smi, gen, refs, zero_counts, read_counts):
             got = {kk: read_cluster_results(os.path.join(
                 cfg.results_path, fname, str(kk))) for kk in KSWEEP_KS}
             member, worst = ksweep_diffs(got, ref)
-            spread, twice = ksweep_diffs(rerun[0], ref) if rerun else (
-                0.0, {key: 0.0 for key in KSWEEP_STAT_TOL})
-            tol = max(KSWEEP_MEMBER_TOL, 2 * spread)
-            limits = {key: max(lim, 2 * twice[key])
-                      for key, lim in KSWEEP_STAT_TOL.items()}
-            scope = ""
-            if nmf_kw.get("a_precision") == "bfloat16":
-                # bf16 members under K3's f32 atomics: the errors are held
-                # to twice the largest spread of repeated per-k runs at
-                # every k, the clustering's statistics at every k but the
-                # one where a repeated run changed a member's cluster
-                kept = [kk for kk in KSWEEP_KS if kk not in BF16_SWEEP_FLIP_KS]
-                flip = ksweep_diffs(got, ref, BF16_SWEEP_FLIP_KS)[1]
-                worst = {**ksweep_diffs(got, ref, kept)[1],
-                         "ErrTol": worst["ErrTol"], "avgErr": worst["avgErr"]}
-                tol = max(tol, 2 * BF16_SWEEP_SPREAD)
-                for key in ("ErrTol", "avgErr"):
-                    limits[key] = max(limits[key], 2 * BF16_SWEEP_SPREAD)
-                scope = (f" (L_err and silhouettes at k = {kept}; at k = "
-                         f"{list(BF16_SWEEP_FLIP_KS)}, not checked: L_err "
-                         f"{flip['L_err']:.2e}, silhouettes "
-                         f"{flip['sils']:.2e})")
+            tol, limits = KSWEEP_MEMBER_TOL, KSWEEP_STAT_TOL
             left = [kk for kk in KSWEEP_KS if os.path.exists(os.path.join(
                 cfg.results_path, fname, str(kk), "ensemble_parts"))]
             print(f"[k-sweep] {name} ({fname}, k={KSWEEP_KS[0]}.."
@@ -1603,13 +1639,11 @@ def k_sweep_phase(dev, smi, gen, refs, zero_counts, read_counts):
                   f"solves), {secs:.2f} s (per-k {ref_secs:.2f} s), stage "
                   f"seconds {stages} (per-k {ref_stages}); members' errors "
                   f"against the per-k sweep's, max relative difference "
-                  f"{member:.2e} (limit {tol:.2e}; two per-k sweeps of "
-                  f"these members " + (f"{spread:.2e}" if rerun else
-                                       "not run")
-                  + f"); per-k statistics{scope}, max difference over max "
-                  f"(silhouettes: absolute) {worst} (limits {limits}; two "
-                  f"per-k sweeps " + (f"{twice}" if rerun else "not run")
-                  + f"); parts left {left}; launches {ran} "
+                  f"{member:.2e} (limit {tol:.2e}); per-k statistics at "
+                  f"every k, max difference over max (silhouettes: "
+                  f"absolute) {worst} (limits {limits}); bitwise the per-k "
+                  f"sweep's: {member == 0 and not any(worst.values())}; "
+                  f"parts left {left}; launches {ran} "
                   f"(expected {want})", flush=True)
             need(nopt == 4, f"{name} chose k={nopt}, not 4")
             need(member <= tol, f"{name}: a member's error is {member:.2e} "
@@ -2023,7 +2057,8 @@ def main():
     from pydnmfk_tpu_torch.utils import timing
     from pydnmfk_tpu_torch.utils.data_generator import (generate_data,
                                                         generate_topic_sparse)
-    from pydnmfk_tpu_torch.utils.io import RESULT_DATASETS, read_cluster_results
+    from pydnmfk_tpu_torch.utils.io import (RESULT_DATASETS, DataReader,
+                                            read_cluster_results)
 
     torch.backends.cuda.matmul.allow_tf32 = False     # true-f32 products
     torch.backends.cudnn.allow_tf32 = False
@@ -2083,14 +2118,18 @@ def main():
     eps = float(torch.finfo(torch.float32).eps)
     rows = {}
     case_ms = {}     # kernel ms of every case, by (kernel, label)
+    repeats = {}     # whether two launches gave the same bits, likewise
+    alone = {}       # whether a stack's member has its bits alone
 
     def kernel_case(name, label, kernel, plain, tol, work, library=None):
         """Checks kernel() against plain() and times both (and library(),
         the one PyTorch call that computes the same function); ``work`` is
-        the (flops, bytes[, peak]) the function needs. The first case of a
-        kernel is its headline in the JSON line."""
+        the (flops, bytes[, peak]) the function needs; a second launch
+        must give the same bits (checked for K1 and K3 after the phase).
+        The first case of a kernel is its headline in the JSON line."""
         k_out, p_out = kernel(), plain()
         abs_err, rel_err = compare(k_out, p_out)
+        repeats[name, label] = bitwise(k_out, kernel())
         del k_out, p_out
         ms, plain_ms = median_ms(kernel), median_ms(plain)
         lib_ms = median_ms(library) if library is not None else None
@@ -2130,17 +2169,33 @@ def main():
     # K2's kernels likewise: the register kernels (KP = 8, 16, 32; vec:
     # 16-byte loads), the 3xTF32 tensor-core kernels (KP = 64, 128, 256) and
     # K2b's split reduction
-    regs = ptxas_k2(cuda_lib.library_path("kl_ratio").with_suffix(
-        ".log").read_text())
+    log = cuda_lib.library_path("kl_ratio").with_suffix(".log").read_text()
+    regs = ptxas_k2(log)
     for name in sorted({key[0] for key in regs}):
         print(f"[ptxas] K2 {name} (registers, spill store / load bytes): "
-              + ", ".join(f"{dt} KP={kp}{' vec' if vec else ''} {r} "
+              + ", ".join(f"{dt} KP={kp}{' vec' if vec else ''}"
+                          f"{'' if ratio else ' no ratio'} {r} "
                           f"registers, {ss}/{sl} B spilled"
-                          for (nm, dt, kp, vec), (r, ss, sl)
+                          for (nm, dt, kp, vec, ratio), (r, ss, sl)
                           in sorted(regs.items()) if nm == name), flush=True)
-    check(len(regs) == 97 and not any(ss or sl for _, ss, sl in regs.values()),
-          f"K2 kernels: ptxas report {regs} (expected 97 instantiations, no "
-          f"spills)")
+    check(len(regs) == 105
+          and not any(ss or sl for _, ss, sl in regs.values()),
+          f"K2 kernels: ptxas report {regs} (expected 105 instantiations: "
+          f"97 of K2, 8 of K2b without the ratio; no spills)")
+    # the second pass of K1 and K3 on a bf16, f16 or uint8 A, in the same
+    # library: without the ratio (K1; f16 operands for an f16 A) and with it
+    # (K3; bf16 operands), KP = 8, 16, 32, 64, with and without 16-byte copies
+    regs = ptxas_strip(log)
+    for ratio in (False, True):
+        print(f"[ptxas] K{3 if ratio else 1} pass 2 wtu_strip_kernel "
+              f"(registers, spill store / load bytes): " + ", ".join(
+                  f"{dt}-A {op} KP={kp}{' vec' if vec else ''} {r} "
+                  f"registers, {ss}/{sl} B spilled"
+                  for (dt, op, kp, rt, vec), (r, ss, sl)
+                  in sorted(regs.items()) if rt == ratio), flush=True)
+    check(len(regs) == 48 and not any(ss or sl for _, ss, sl in regs.values()),
+          f"wtu_strip_kernel: ptxas report {regs} (expected 48 "
+          f"instantiations, no spills)")
 
     # K4's kernels likewise: the grouped kernel (KP = 4, 8, 16, 32 at every
     # member group it takes) and the slab kernel (KP = 32, 64, 128, 256),
@@ -2172,6 +2227,13 @@ def main():
     check(len(regs) == 32 and not any(ss or sl for _, ss, sl in regs.values()),
           f"K3 kernels: ptxas report {regs} (expected 32 kernels, no spills)")
 
+    def member_alone(name, label, fn, *args, i=3):
+        """Member i of a stack alone through ``fn`` against its slice of
+        the stack's outputs, bitwise (K1's and K3's second pass splits a
+        member's rows by its own shape, never by the number of members)."""
+        alone[name, label] = bitwise(tuple(x[i] for x in fn(*args)),
+                                     fn(*(x[i] for x in args)))
+
     def beside_pair(label, tag=""):
         """K3 does the four products of K2a + K2b (its yardstick: no one
         PyTorch call computes K3's function): their times on the same
@@ -2190,9 +2252,9 @@ def main():
         rows["K3 fused_mu_kl" + tag].setdefault("k2a_plus_k2b_ms", sum(pair))
 
     def two_read_floor(label, a, name="K1 fused_mu_fro"):
-        """K1 and K3 read A twice (sweep 2 needs all of A_i H^T, or of
-        U_i H^T, first): that traffic alone over the memory rate, beside the
-        function's bound."""
+        """K1 and K3 read A twice, once a pass (pass 2 needs W', which needs
+        all of A_i H^T, or of U_i H^T): that traffic alone over the memory
+        rate, beside the function's bound."""
         ms = 2 * nbytes(a) / PEAK_BYTES * 1e3
         print(f"[kernel] {name} {label}: two-read floor {ms:.3f} ms (A read "
               f"twice at {PEAK_BYTES / 1e12:g} TB/s)", flush=True)
@@ -2483,6 +2545,11 @@ def main():
         for label, a in (("f32", Ae), ("bf16-A", Ae16)):
             wide_k2_cases(f"{label} {ENS} x {EM}x{EN} k={k}", a, Wk, Hk, ech)
             wide_k3_case(f"{label} {ENS} x {EM}x{EN} k={k}", a, Wk, Hk, ech)
+            if k == WIDE_K:
+                member_alone("K3 fused_mu_kl k>32",
+                             f"{label} {ENS} x {EM}x{EN} k={k}",
+                             lambda *x: fused_kl.fused_kl_pass(*x, eps), a,
+                             Wk, Hk, linalg.sum_axis(Hk, axis=-1).float())
     del Wk, Hk, Ae16
     kernel_case("K3 fused_mu_kl", f"f32 {eshape}",
                 lambda: fused_kl.fused_kl_pass(Ae, We, He, hrse, eps),
@@ -2491,6 +2558,17 @@ def main():
                 TOL[torch.float32],
                 (2 * ework, nbytes(Ae, We, He, hrse, We, He)))
     beside_pair(f"f32 {eshape}")
+    for label, make in (("f32", lambda: Ae),
+                        ("bf16-A", lambda: Ae.to(torch.bfloat16)),
+                        ("f16-A", lambda: Ae.to(torch.float16))):
+        a = make()
+        member_alone("K1 fused_mu_fro", f"{label} {eshape}",
+                     lambda *x: fused_mu.fused_w_pass(*x, eps), a, We, He,
+                     HHTe)
+        member_alone("K3 fused_mu_kl", f"{label} {eshape}",
+                     lambda *x: fused_kl.fused_kl_pass(*x, eps), a, We, He,
+                     hrse)
+        del a
     del Ae, We, He, HHTe, hrse
     torch.cuda.empty_cache()
 
@@ -2628,12 +2706,35 @@ def main():
         k4_cases(f"{ENS} x {tshape[0]}x{tshape[1]} ({topic.nse} nnz) "
                  f"k={k} f32", stack, Ws, Hs, stack_lib,
                  "K4 ell_gather k>32" if k > 32 else "K4 ell_gather")
-    del S_r, S_c, data
+    del S_r, S_c
     # where the time of one batched MU step of the sparse sweep goes
     for norm in ("fro", "kl"):
         profile_step(norm, stack, Ws, Hs, eps)
-    del topic, Et, perms, noise, stack, Ws, Hs
+    sparse_determinism(topic, data, stack, Ws, Hs, smi)
+    del topic, Et, perms, noise, stack, Ws, Hs, data
     torch.cuda.empty_cache()
+
+    # K1 and K3 sum in a fixed order: every case gave the same bits twice,
+    # and a member of a stack its bits alone; K2's and K4's cases printed
+    k13 = {key: v for key, v in repeats.items()
+           if key[0].startswith(("K1", "K3"))}
+    rest = {key: v for key, v in repeats.items() if key not in k13}
+    print(f"[determinism] K1 and K3, every case of this phase launched "
+          f"twice ({smi}): bitwise equal in {sum(k13.values())} of "
+          f"{len(k13)}: " + "; ".join(f"{n} {lab}" + ("" if v else " NOT")
+                                      for (n, lab), v in k13.items()),
+          flush=True)
+    print(f"[determinism] a member of a 10-member stack alone, bitwise its "
+          f"share of the stack's outputs: " + "; ".join(
+              f"{n} {lab}: {v}" for (n, lab), v in alone.items()),
+          flush=True)
+    print(f"[determinism] K2 and K4, every case launched twice: bitwise "
+          f"equal in {sum(rest.values())} of {len(rest)}" + "".join(
+              f"; not {n} {lab}" for (n, lab), v in rest.items() if not v),
+          flush=True)
+    check(all(k13.values()) and all(alone.values()),
+          "K1 or K3 gave other bits on a second launch or for a member "
+          "alone")
 
     # NMF.fit through the kernels against the CPU path, small planted input
     _, _, X = generate_data(m=300, n=200, k=5)
@@ -2905,6 +3006,39 @@ def main():
                                                       str(k)))
                  for k in KSWEEP_KS}, *sweep_log[res_path])
 
+    def grid_ref(tmp, fname, ftype, norm):
+        """A 1x1 sweep through the library at the settings of phases 8's
+        and 9's sweeps (GRID_SWEEP_KS, ENSEMBLE_MEMBERS members,
+        GRID_SWEEP_ITR iterations, the CLI's defaults otherwise) on
+        ``tmp/fname``: its results at those ks, its seconds and its stage
+        seconds (nopt 4)."""
+        cfg = NMFkConfig(nmf=NMFConfig(norm=norm, itr=GRID_SWEEP_ITR),
+                         start_k=GRID_SWEEP_KS[0], end_k=GRID_SWEEP_KS[-1],
+                         perturbations=ENSEMBLE_MEMBERS, checkpoint=False,
+                         results_path=os.path.join(
+                             tmp, f"grid_ref_{norm}") + "/", fname=fname)
+        A_in = DataReader(tmp + "/", fname, ftype).read()
+        timing.reset()
+        zero_counts()
+        t0 = time.perf_counter()
+        nopt = NMFk(cfg, dev).fit(A_in)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        ran = {key: n for key, n in read_counts().items() if n}
+        stages = {st: round(timing.TIMINGS.get(st, 0.0), 3) for st in
+                  ("sparse_format", "ensemble_solve", "clustering",
+                   "regression")}
+        print(f"[nmfk] {norm.upper()}-MU (library) {ftype} 1x1 at the grid "
+              f"phases' settings, k={GRID_SWEEP_KS[0]}..{GRID_SWEEP_KS[-1]}, "
+              f"{ENSEMBLE_MEMBERS} perturbations, {GRID_SWEEP_ITR} "
+              f"iterations: nopt {nopt}, {secs:.2f} s, stage seconds "
+              f"{stages}, launches {ran}", flush=True)
+        check(nopt == 4, f"the 1x1 {norm} {ftype} sweep at the grid phases' "
+                         f"settings chose k={nopt}, not 4")
+        return ({k: read_cluster_results(os.path.join(
+            cfg.results_path, fname, str(k))) for k in GRID_SWEEP_KS},
+                secs, stages)
+
     def sweep(tmp, ftype, fname, norm, expect, shape, a_precision=None,
               flags=(), label=None, perturbations=10, nopt=4):
         """The NMFk sweep through the CLI entry point, counters from zero;
@@ -3067,12 +3201,16 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         np.save(os.path.join(tmp, "X.npy"), X.astype(np.float32))
         del X
-        # phase 9 holds its sweeps at ks 3..5 against these
-        ensemble_refs = {name: ensemble_ref(sweep(
+        # the [k-sweep] phase holds its sweeps against these, phase 9 its
+        # own against 1x1 sweeps at its settings
+        ksweep_refs = {name: ensemble_ref(sweep(
             tmp, "npy", "X", norm, expect, (PLANTED["m"], PLANTED["n"])), "X")
             for name, norm, expect in (
-                ("e4 1x1 FRO-MU", "fro", ("fused_mu_fro",)),
-                ("e2 2x1 KL-MU", "kl", ("kl_uht", "kl_wtu")))}
+                ("planted FRO-MU", "fro", ("fused_mu_fro",)),
+                ("planted KL-MU", "kl", ("kl_uht", "kl_wtu")))}
+        ensemble_refs = {name: grid_ref(tmp, "X", "npy", norm)
+                         for name, norm in (("e4 1x1 FRO-MU", "fro"),
+                                            ("e2 2x1 KL-MU", "kl"))}
         # the ensemble on bf16 members: K1's tensor-core kernel
         sweep(tmp, "npy", "X", "fro", ("fused_mu_fro_bf16",),
               (PLANTED["m"], PLANTED["n"]), a_precision="bfloat16")
@@ -3094,13 +3232,23 @@ def main():
               label="FRO-MU f16", nopt=None)
         budget_sweep(tmp)
         fused_sweep(tmp)
-        # the ensemble on bf16 members: K3's tensor-core kernel; the
-        # [k-sweep] phase holds its merged K-padded sweep against it, and
-        # against how far a second run of it lies (K3's atomics)
+        # the ensemble on bf16 members: K3's tensor-core kernel, which the
+        # [k-sweep] phase holds its merged K-padded sweep against; a second
+        # run of the same members in the same batches gives the same bits
+        # (every sum in a fixed order)
         fused_bf16_ref = ensemble_ref(
-            fused_sweep(tmp, "bfloat16", "fused_mu_kl_bf16"), "X") + (
-            ensemble_ref(fused_sweep(tmp, "bfloat16", "fused_mu_kl_bf16",
-                                     "_rerun"), "X")[0],)
+            fused_sweep(tmp, "bfloat16", "fused_mu_kl_bf16"), "X")
+        ksweep_refs["planted KL-MU use_fused bf16"] = fused_bf16_ref
+        again = ensemble_ref(fused_sweep(tmp, "bfloat16", "fused_mu_kl_bf16",
+                                         "_rerun"), "X")[0]
+        first = fused_bf16_ref[0]
+        same = {kk: all(np.array_equal(again[kk][key], first[kk][key])
+                        for key in again[kk]) for kk in KSWEEP_KS}
+        print(f"[determinism] KL-MU use_fused on bf16 members, the same "
+              f"sweep run again ({smi}): every result bitwise the first's, "
+              f"by k: {same}", flush=True)
+        check(all(same.values()), f"a second use_fused bf16 sweep is not "
+                                  f"bitwise the first: {same}")
         # one FRO factorization through the CLI, on the uint8-quantized A
         # (K1's uint8 instantiation) and on the f32 A (K1)
         cli_err = {}
@@ -3211,18 +3359,18 @@ def main():
         sp.save_npz(os.path.join(tmp, "T.npz"),
                     sp.csr_matrix((v, (r, c)), shape=tshape), compressed=False)
         del r, c, v
-        # phase 8 holds its grid sweeps at ks 3..5 against these ks of the
-        # 1x1 sweeps: a member is keyed by (seed, member) alone, whatever
-        # the other ks of its sweep
+        # phase 8 holds its grid sweeps against 1x1 sweeps at their
+        # settings, and phase 9 its sparse sweep; the [k-sweep] phase its
+        # own against the CLI's 1x1 FRO sweep
         topic_ref = {}
         for norm, expect in (("fro", ("ell_gather",)),
                              ("kl", ("ell_gather", "ell_gather_ratio"))):
             res_path = sweep(tmp, "npz", "T", norm, expect, tshape)
-            topic_ref[norm] = {k: read_cluster_results(
-                os.path.join(res_path, "T", str(k))) for k in GRID_SWEEP_KS}
-            if norm == "fro":       # and phase 9 its sparse sweep
-                ensemble_refs["e4 1x1 sparse FRO-MU"] = ensemble_ref(
-                    res_path, "T")
+            ref = grid_ref(tmp, "T", "npz", norm)
+            topic_ref[norm] = ref[0]
+            if norm == "fro":
+                ensemble_refs["e4 1x1 sparse FRO-MU"] = ref
+                ksweep_refs["topic FRO-MU"] = ensemble_ref(res_path, "T")
 
     # the HALS + nnsvd + prune sweep through the CLI: a planted matrix with
     # all-zero rows and columns, which the sweep prunes once and puts back
@@ -3443,11 +3591,22 @@ def main():
               f"launches {ran}", flush=True)
         check(nopt == 4 and ran == {"fused_mu_fro": 2 * 6 * 400},
               f"unbroken sweep: nopt {nopt}, launches {ran}")
-        # phase 3's FRO sweep of the same members, in batches of 5: how far
-        # two 1x1 sweeps lie apart, for phase 9's and the [k-sweep]
-        # phase's members
-        ensemble_refs["e4 1x1 FRO-MU"] += ({k: read_cluster_results(
-            os.path.join(tmp, "gold", "X", str(k))) for k in KSWEEP_KS},)
+        # the same members as phase 3's FRO sweep, in batches of 5 against
+        # its 10: K1's sums and the Grams are each member's own, the other
+        # library products around them may take other bits at another batch
+        # count: held to the per-k sweeps' limits of the [k-sweep] phase
+        member, worst = ksweep_diffs({k: read_cluster_results(os.path.join(
+            tmp, "gold", "X", str(k))) for k in KSWEEP_KS},
+            ksweep_refs["planted FRO-MU"][0])
+        print(f"[determinism] FRO-MU NMFk in batches of 5 against phase 3's "
+              f"batches of 10 ({smi}): members' errors, max relative "
+              f"difference {member:.2e} (limit {KSWEEP_MEMBER_TOL:.0e}); "
+              f"per-k statistics {worst} (limits {KSWEEP_STAT_TOL}); "
+              f"bitwise: {member == 0 and not any(worst.values())}",
+              flush=True)
+        check(member <= KSWEEP_MEMBER_TOL and all(
+            worst[key] <= lim for key, lim in KSWEEP_STAT_TOL.items()),
+            f"batches of 5 against 10: members {member:.2e}, stats {worst}")
         real_part = nmfk_mod._save_ensemble_part
 
         def failing_part(parts_dir, off, *a):
@@ -3496,9 +3655,12 @@ def main():
         check(nopt == 4, f"resumed sweep chose k={nopt}, not 4")
         check(ran == {"fused_mu_fro": want},
               f"resumed sweep launched {ran}, expected {want}")
-        # K1 adds W'^T A in atomic order, so the runs are not bitwise: the
-        # largest differences were 2.8e-6 (ErrTol), 7.2e-5 (L_err), 5.2e-7
-        # (avgErr) and 1.4e-6 (silhouettes, absolute) on an H100
+        # the same batches solved again: bitwise, printed; the limits, set
+        # when K1 summed W'^T A with atomics (the largest differences were
+        # 2.8e-6 ErrTol, 7.2e-5 L_err, 5.2e-7 avgErr and 1.4e-6 for the
+        # silhouettes, absolute, on an H100), hold the clustering too
+        print(f"[determinism] the resumed FRO-MU NMFk bitwise the unbroken "
+              f"one: {not any(worst.values())}", flush=True)
         check(worst["ErrTol"] <= 1e-4 and worst["avgErr"] <= 1e-4
               and worst["L_err"] <= 1e-3 and worst["sils"] <= 1e-4,
               f"resumed sweep's stats differ from the unbroken one's: "
@@ -3857,14 +4019,15 @@ def main():
         for r in range(GRID_RANKS):
             with open(os.path.join(tmp, f"cli_rank{r}.json")) as f:
                 cli_ranks.append(json.load(f))
-        per_k = 400 * len(GRID_SWEEP_KS)
+        per_k = GRID_SWEEP_ITR * len(GRID_SWEEP_KS)
         want = {"kl_uht": per_k, "kl_wtu": 2 * per_k}
         print(f"[grid] NMFk KL-MU sweep through the CLI under torchrun, 2x2 "
               f"grid: nopt {[r['nopt'] for r in cli_ranks]}, {kl_secs:.2f} "
               f"s for the torchrun (beside the FRO sweep's), "
               f"launches per rank {[r['launches'] for r in cli_ranks]} "
-              f"(expected {want}: 400 K2a + K2b a k in the ensemble, one "
-              f"batch of 10, and 400 K2b a k in the refit)", flush=True)
+              f"(expected {want}: {GRID_SWEEP_ITR} K2a + K2b a k in the "
+              f"ensemble, one batch of 10, and {GRID_SWEEP_ITR} K2b a k in "
+              f"the refit)", flush=True)
         check(all(r["nopt"] == 4 and r["launches"] == want
                   for r in cli_ranks), "grid KL sweep")
         for r in cli_ranks:
@@ -3906,10 +4069,6 @@ def main():
 
     # -- 9. the ensemble axis p_e: NMFk's members over groups of ranks ----
     ensemble_phase(smi, ensemble_refs, main_path)
-    ksweep_refs = {"planted FRO-MU": ensemble_refs["e4 1x1 FRO-MU"],
-                   "planted KL-MU": ensemble_refs["e2 2x1 KL-MU"],
-                   "planted KL-MU use_fused bf16": fused_bf16_ref,
-                   "topic FRO-MU": ensemble_refs["e4 1x1 sparse FRO-MU"]}
     del ensemble_refs, fused_bf16_ref
 
     # -- 10. the K-padded sweep: padded kernels, then the library sweeps ---
@@ -3967,11 +4126,30 @@ def main():
                                     "ell_gather_ratio_f16"))}
     narrow = {key: main_path[key] - main_path_wide.get(key, 0)
               for key in main_path}
+    # K1 and K3 run in two passes, every sum in a fixed order: the CUDA
+    # kernels of each (one call counts one launch under its key)
+    csrc = "pydnmfk_tpu_torch/csrc/"
+    passes = {
+        "K1": {"pass 1": f"{csrc}fused_mu_fro.cu: f32::fused_mu_fro_f32_kernel"
+                         f", tc::fused_mu_fro_tc_kernel, wtw_panel_sum_kernel",
+               "pass 2": f"{csrc}kl_ratio.cu: kl_wtu_reg_kernel (RATIO = "
+                         f"false; f32 A), strip::wtu_strip_kernel (RATIO = "
+                         f"false; bf16, f16, uint8 A), kl_wtu_reduce_kernel "
+                         f"(row splits)"},
+        "K3": {"pass 1": f"{csrc}fused_mu_kl.cu: f32::fused_mu_kl_f32_kernel, "
+                         f"tf::fused_mu_kl_tf32_kernel, "
+                         f"tc::fused_mu_kl_tc_kernel",
+               "pass 2": f"{csrc}kl_ratio.cu: kl_wtu_reg_kernel and "
+                         f"tf::kl_wtu_tc_kernel (f32 A), "
+                         f"strip::wtu_strip_kernel (RATIO = true; bf16, f16, "
+                         f"uint8 A), kl_wtu_reduce_kernel (row splits)"}}
     kernels = [{"name": name, "route": "cuda",
-                "source": f"pydnmfk_tpu_torch/csrc/{src}",
+                "source": f"{csrc}{src}",
                 "replaces": f"pydnmfk_tpu/{tpu}",
                 "launches": sum(counted[c] for c in keys),
                 "launches_by_mode": {c: counted[c] for c in keys},
+                **({"passes": passes[name[:2]]} if name[:2] in passes
+                   else {}),
                 **rows[name]}
                for table, counted in ((sources, narrow),
                                       (wide, main_path_wide))

@@ -276,7 +276,9 @@ struct WtuGeom {
   static constexpr int KH = KP < 16 ? KP : 16;   // factor rows per thread
   static constexpr int G = KP / KH;              // threads per column group
   static constexpr int SW = 4 * 32 / G;          // strip width: columns per block
-  static constexpr int CR = 256;                 // rows per staged W chunk
+  // rows per staged W chunk (128 at KP = 64, which only K1's second pass
+  // takes, without the ratio)
+  static constexpr int CR = KP == 64 ? 128 : 256;
   static constexpr int RPW = CR / NWARP;         // rows of a chunk per warp
   static constexpr size_t smem() {               // W chunks, then the reduction
     const size_t w = 2 * CR * KP, red = NWARP * KP * SW;
@@ -286,9 +288,15 @@ struct WtuGeom {
 
 // Block (strip x, member y, split z): rows [z R, min(m, (z + 1) R)) of
 // columns [x SW, x SW + SW); out is the (S, B, k, n) scratch when S > 1,
-// else the (B, k, n) result.
-template <typename T, int KP, bool VEC>
-__global__ void __launch_bounds__(NT, KP <= 8 ? 2 : 1)
+// else the (B, k, n) result. RATIO = false takes A itself as U (no W H, no
+// division, H unread): W^T A, the second pass of K1 on an f32 A
+// (ops/fused_mu.py), at KP <= 64, two blocks an SM. Rows of A in flight
+// (D): 8 at KP = 8; 2 above, where 4 spill beside the 64 registers of sums
+// at 128 a thread (at 57600 x 38400, k = 32: 6.89 ms; 4 rows and a spill
+// 5.78; one block an SM with 8 rows 8.02; H100 80GB HBM3 at 700 W,
+// bench_torch/k1_pass2_variants.py).
+template <typename T, int KP, bool VEC, bool RATIO = true>
+__global__ void __launch_bounds__(NT, KP <= 8 || !RATIO ? 2 : 1)
 kl_wtu_reg_kernel(const T* __restrict__ A, const float* __restrict__ W,
                   const float* __restrict__ H, float eps, int m, int n, int k,
                   int rows_per_split, float* __restrict__ out) {
@@ -296,7 +304,8 @@ kl_wtu_reg_kernel(const T* __restrict__ A, const float* __restrict__ W,
   using V = Vec4<T>;
   using Raw = typename V::raw;
   constexpr int KH = Gm::KH, G = Gm::G, SW = Gm::SW, CR = Gm::CR, RPW = Gm::RPW;
-  constexpr int D = sizeof(T) == 1 ? 8 : 4;      // rows of A in flight per thread
+  // rows of A in flight per thread
+  constexpr int D = sizeof(T) == 1 ? 8 : RATIO ? 4 : KP <= 8 ? 8 : 2;
   static_assert(RPW % D == 0, "a chunk holds whole prefetch groups");
   extern __shared__ __align__(16) float smem[];
   float* Ws = smem;                              // [2][CR][KP]
@@ -313,13 +322,13 @@ kl_wtu_reg_kernel(const T* __restrict__ A, const float* __restrict__ W,
   W += (size_t)b * m * k;
   H += (size_t)b * k * n;
 
-  float h[KH][4], acc[KH][4];
+  float h[RATIO ? KH : 1][4], acc[KH][4];
 #pragma unroll
   for (int cc = 0; cc < KH; ++cc)
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int c = c0 + cc;
-      h[cc][q] = (c < k && j + q < n) ? H[(size_t)c * n + j + q] : 0.f;
+      if constexpr (RATIO) h[cc][q] = (c < k && j + q < n) ? H[(size_t)c * n + j + q] : 0.f;
       acc[cc][q] = 0.f;
     }
 
@@ -366,21 +375,23 @@ kl_wtu_reg_kernel(const T* __restrict__ A, const float* __restrict__ W,
           const float4 t4 = *reinterpret_cast<const float4*>(wr + cc);
           wv[cc] = t4.x; wv[cc + 1] = t4.y; wv[cc + 2] = t4.z; wv[cc + 3] = t4.w;
         }
-        float wh[4] = {0.f, 0.f, 0.f, 0.f};
+        if constexpr (RATIO) {
+          float wh[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int cc = 0; cc < KH; ++cc)
+          for (int cc = 0; cc < KH; ++cc)
 #pragma unroll
-          for (int q = 0; q < 4; ++q) wh[q] = fmaf(wv[cc], h[cc][q], wh[q]);
+            for (int q = 0; q < 4; ++q) wh[q] = fmaf(wv[cc], h[cc][q], wh[q]);
 #pragma unroll
-        for (int off = 1; off < G; off <<= 1)
+          for (int off = 1; off < G; off <<= 1)
 #pragma unroll
-          for (int q = 0; q < 4; ++q) wh[q] += __shfl_xor_sync(FULL, wh[q], off);
+            for (int q = 0; q < 4; ++q) wh[q] += __shfl_xor_sync(FULL, wh[q], off);
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float u = ratio(a[q], wh[q] + eps);
-#pragma unroll
-          for (int cc = 0; cc < KH; ++cc) acc[cc][q] = fmaf(wv[cc], u, acc[cc][q]);
+          for (int q = 0; q < 4; ++q) a[q] = ratio(a[q], wh[q] + eps);
         }
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int cc = 0; cc < KH; ++cc) acc[cc][q] = fmaf(wv[cc], a[q], acc[cc][q]);
       }
     }
   }
@@ -1180,6 +1191,355 @@ kl_wtu_tc_kernel(const T* __restrict__ A, const float* __restrict__ W,
 
 }  // namespace tf
 
+// ---- the second pass of K1 and K3 on a bf16, f16 or uint8 A -----------------
+//
+// WTA = W'^T A (K1, RATIO = false) and WTU = W'^T (A / (W' H + eps)) (K3,
+// RATIO = true) for a bf16, f16 or uint8 A, by column strips walked over all
+// rows in order: a block owns a strip of TNP columns (128 bytes of each row:
+// 64 bf16 or f16 columns, 128 uint8 ones; 64 at KP = 64) of one member and a
+// range of its rows (the wrapper's split, ops/strip.py), so no two blocks
+// add into one output and the same inputs give the same bits. Each split
+// writes its slab of the (S, B, k, n) scratch, and kl_wtu_reduce_kernel adds
+// the slabs in order s = 0, 1, ..., as K2b's split does. Built from the
+// second sweep of the one-pass K1 and K3 tensor-core kernels, which it
+// replaces (their f32 atomics into WTA / WTU summed in an
+// order that changed from run to run).
+//
+// Numbers: the operands are W' rounded to the operand type OP (the caller
+// pads W' to KP columns with zeros and casts it: the plain versions'
+// rounding, ops/fused_mu.py::fused_w_pass_plain, ops/fused_kl.py::
+// fused_kl_pass_plain), A as it is (a uint8 value is a bf16 value), and in
+// ratio mode H in bf16 and U' = A / (W' H + eps) rounded to bf16; f32 sums.
+// OP is f16 for K1 on an f16 A, bf16 otherwise.
+//
+// What bounds it: 2 k flops per element of A (4 k in ratio mode), 32 per
+// byte of a bf16 A at k = 32, far below the ~295 bf16 tensor flops a byte:
+// the bytes of A, read once, bound it; W' (m x KP) is read once a strip,
+// from L2. The design, per block of 256 threads (8 warps):
+// - Chunks of RC = 64 rows (128 for a uint8 A at KP = 64: 8 KB of A
+//   either way) x TNP columns of A and the chunk's rows of W' land by
+//   cp.async.cg 16-byte copies in a ring of S stages (3, or 5 where
+//   one block fills an SM), zero-filled past the rows and columns; A's
+//   128-byte rows XOR-swizzled as K1-tc's tiles (csrc/tc_tiles.cuh), W'
+//   rows padded (LDWP) so that ldmatrix meets no bank conflict. A uint8
+//   chunk is widened into a bf16 chunk, each warp the rows and columns it
+//   multiplies (widen_part), as K1-tc does.
+// - Warp (rg, cw): rows rg RC / 2 .. of each chunk (steps of 16) and
+//   16-column blocks cw CBW .. of the strip. Per step: A^T's fragment by
+//   ldmatrix.trans of the row-major chunk (M = columns, K = rows); W''s as
+//   mma's B operand (K = rows, N = factors) by ldmatrix.trans; the product
+//   by mma.sync m16n8k16. In ratio mode the fragment is first read as the
+//   accumulator positions of (W' H)^T = H^T W'^T (M = columns, N = rows),
+//   which the warp forms on mma from H^T's fragments (held in registers for
+//   the strip, loaded once from the strip's H) and W''s (ldmatrix of the
+//   row-major chunk), and U'^T = A^T / ((W' H)^T + eps) packed to bf16 is
+//   the A operand of U'^T W' (flash attention's register reuse, K3-tc's
+//   transposed orientation).
+// - The tensor cores do not round their f32 sums to nearest, so a chunk's
+//   products start from zero and are added into the warp's f32 sums, which
+//   run over all of the block's rows in order. At the end the two row
+//   groups' sums meet in shared memory, row group 0 first, and the block
+//   writes its k x TNP outputs once.
+// - VEC: 16-byte copies when n % 8 == 0 (bf16, f16) or n % 16 == 0 (uint8)
+//   and A and H are 16-byte aligned; otherwise A and H are copied element
+//   by element into the same layouts. W' always arrives by 16-byte copies
+//   (its rows are KP values of OP).
+namespace strip {
+
+// the tile helpers (these names shadow the file's own cp.async helpers here)
+using tc::bits16;
+using tc::chunk_off;
+using tc::cp_async16;
+using tc::cp_async_commit;
+using tc::cp_async_wait;
+using tc::ldsm_x2;
+using tc::ldsm_x2_t;
+using tc::ldsm_x4_t;
+using tc::mma_bf16;
+using tc::mma_bf16_k8;
+using tc::mma_op;
+using tc::ratio_block;
+using tc::smem_u32;
+using tc::u8_off;
+using tc::unpack2;
+using tc::widen_part;
+
+constexpr int RG = 2;            // row groups of warps, RC / RG rows a chunk each
+constexpr int CG = NWARP / RG;   // column groups of warps
+
+template <typename T, int KP, bool RATIO>
+struct Cfg {
+  static constexpr bool U8 = std::is_same<T, uint8_t>::value;
+  static constexpr int TNP = U8 && KP <= 32 ? 128 : 64;   // strip width, columns
+  // rows of a chunk: 128 where a uint8 A's rows are 64 bytes (KP = 64), so
+  // that a chunk of A is 8 KB, as elsewhere
+  static constexpr int RC = U8 && KP == 64 ? 128 : 64;
+  static constexpr int CBW = TNP / 64;                     // 16-column blocks a warp
+  static constexpr int KS2 = RC / RG / 16;                 // 16-row steps a warp a chunk
+  static constexpr int KS = KP >= 16 ? KP / 16 : 1;        // k-steps over the factors
+  static constexpr int NF = KP / 8;                        // n8 tiles of factors
+  // one block an SM where the ratio mode's registers need it, else two
+  static constexpr int MINB = RATIO && CBW * KP >= 64 ? 1 : 2;
+  static constexpr int S = MINB == 1 ? 5 : 3;              // stages of the ring
+  static constexpr int LDWP = KP == 8 ? 24 : KP + 8;       // W' row stride, values
+  static constexpr int A_BYTES = RC * TNP * (int)sizeof(T);
+  static constexpr int STAGE = A_BYTES + RC * LDWP * 2;   // A and W' of a chunk
+  static constexpr int WIDE = U8 ? RC * TNP * 2 : 0;      // the widened uint8 chunk
+  static constexpr int O_WIDE = S * STAGE;
+  static constexpr int O_H = O_WIDE + WIDE;                // the strip's bf16 H
+  static constexpr int LDX = TNP + 4;                      // the row groups' sums
+  static constexpr int XBYTES = 4 * RG * KP * LDX;
+  static constexpr int END = O_H + (RATIO ? CBW * KP * 128 : 0);
+  static constexpr size_t SMEM = END > XBYTES ? END : XBYTES;
+  static_assert(STAGE % 16 == 0 && O_H % 16 == 0, "alignment");
+  static_assert(SMEM <= (MINB == 1 ? 227 : 113) * 1024, "shared memory");
+};
+
+// Block (strip x, member y, split z): rows [z R, min(m, (z + 1) R)) of the
+// strip's columns [x TNP, x TNP + TNP); out is the (S, B, k, n) scratch when
+// S > 1, else the (B, k, n) result. Wq is (B, m, KP) at OP, zeros past k;
+// Hq (RATIO) is (B, k, n) bf16.
+template <typename T, typename OP, int KP, bool RATIO, bool VEC>
+__global__ void __launch_bounds__(NT, (Cfg<T, KP, RATIO>::MINB))
+wtu_strip_kernel(const T* __restrict__ A, const OP* __restrict__ Wq,
+                 const __nv_bfloat16* __restrict__ Hq, float eps, int m, int n, int k,
+                 int rows_per_split, float* __restrict__ out) {
+  using C = Cfg<T, KP, RATIO>;
+  constexpr int RC = C::RC, TNP = C::TNP, CBW = C::CBW, KS2 = C::KS2, KS = C::KS;
+  constexpr int NF = C::NF;
+  constexpr int S = C::S, LDWP = C::LDWP;
+  static_assert(!RATIO || std::is_same<OP, __nv_bfloat16>::value, "ratio mode: bf16");
+  // the type of the multiplied A tile: the widened uint8 chunk is bf16
+  using AT = typename std::conditional<C::U8, __nv_bfloat16, T>::type;
+  extern __shared__ uint4 smem_st[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(smem_st);
+  unsigned char* wide = sm + C::O_WIDE;
+  const uint32_t h_s0 = smem_u32(sm + C::O_H);
+
+  const int b = blockIdx.y, split = blockIdx.z;
+  const int col0 = blockIdx.x * TNP;
+  const int rb = split * rows_per_split, re = min(m, rb + rows_per_split);
+  const int nch = (re - rb + RC - 1) / RC;
+  const T* Ab = A + (size_t)b * m * n;
+  const OP* Wb = Wq + (size_t)b * m * KP;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int l7 = lane & 7, q1 = (lane >> 3) & 1, q2 = lane >> 4;
+  const int cw = warp % CG, rg = warp / CG;
+
+  // chunk c (rows rb + c RC ..) of A and W' into stage c % S
+  const auto load = [&](int c) {
+    unsigned char* st = sm + (c % S) * C::STAGE;
+    const int r0 = rb + c * RC, rows = min(RC, re - r0);
+    const T* src = Ab + (size_t)r0 * n;
+    if constexpr (VEC) {
+      constexpr int CW = 16 / (int)sizeof(T), CPR = TNP / CW;   // 16-byte chunks a row
+      const uint32_t s0 = smem_u32(st);
+#pragma unroll
+      for (int i = 0; i < RC * CPR / NT; ++i) {
+        const int e = tid + NT * i, r = e / CPR, ch = e % CPR, j = col0 + CW * ch;
+        const bool ok = r < rows && j < n;
+        cp_async16(s0 + (C::U8 ? u8_off<TNP>(r, ch) : chunk_off(r, ch)),
+                   ok ? src + (size_t)r * n + j : A, ok);
+      }
+    } else {
+#pragma unroll 1
+      for (int e = tid; e < RC * TNP; e += NT) {
+        const int r = e / TNP, jj = e % TNP, j = col0 + jj;
+        const bool ok = r < rows && j < n;
+        if constexpr (C::U8) {
+          st[u8_off<TNP>(r, jj >> 4) + (jj & 15)] = ok ? src[(size_t)r * n + j] : 0;
+        } else {
+          *reinterpret_cast<unsigned short*>(st + chunk_off(r, jj >> 3) + 2 * (jj & 7)) =
+              ok ? bits16(src[(size_t)r * n + j]) : 0;
+        }
+      }
+    }
+    const uint32_t w0 = smem_u32(st + C::A_BYTES);
+    for (int e = tid; e < RC * KP / 8; e += NT) {
+      const int r = e / (KP / 8), ch = e % (KP / 8);
+      const bool ok = r < rows;
+      cp_async16(w0 + 2 * r * LDWP + 16 * ch, ok ? Wb + (size_t)(r0 + r) * KP + 8 * ch : Wq,
+                 ok);
+    }
+  };
+
+  if constexpr (RATIO) {   // the strip's H: CBW tiles of KP rows x 64 columns
+    const __nv_bfloat16* hb = Hq + (size_t)b * k * n;
+    if constexpr (VEC) {
+      for (int e = tid; e < CBW * KP * 8; e += NT) {
+        const int u = e / (KP * 8), c = (e >> 3) % KP, ch = e & 7;
+        const int j = col0 + 64 * u + 8 * ch;
+        const bool ok = c < k && j < n;
+        cp_async16(h_s0 + u * KP * 128 + chunk_off(c, ch), ok ? hb + (size_t)c * n + j : Hq,
+                   ok);
+      }
+    } else {
+      unsigned char* hs = sm + C::O_H;
+#pragma unroll 1
+      for (int e = tid; e < CBW * KP * 64; e += NT) {
+        const int u = e / (KP * 64), c = e / 64 % KP, jj = e % 64, j = col0 + 64 * u + jj;
+        const bool ok = c < k && j < n;
+        *reinterpret_cast<unsigned short*>(hs + u * KP * 128 + chunk_off(c, jj >> 3) +
+                                           2 * (jj & 7)) =
+            ok ? __bfloat16_as_ushort(hb[(size_t)c * n + j]) : 0;
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < S - 1; ++c) {
+    if (c < nch) load(c);
+    cp_async_commit();
+  }
+
+  float acc[CBW][NF][4];
+#pragma unroll
+  for (int v = 0; v < CBW; ++v)
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[v][f][e] = 0.f;
+  // ratio mode: H^T's fragments of the warp's column blocks (A operand of
+  // H^T W'^T: M = columns, K = factors), for the whole strip
+  uint32_t ht[RATIO ? CBW : 1][KS][4];
+
+#pragma unroll 1
+  for (int c = 0; c < nch; ++c) {
+    cp_async_wait<S - 2>();      // chunk c (and, with chunk 0, H) has landed
+    __syncthreads();             // and every warp is done with chunk c - 1
+    if (c + S - 1 < nch) load(c + S - 1);
+    cp_async_commit();
+    const unsigned char* st = sm + (c % S) * C::STAGE;
+    if constexpr (RATIO) {
+      if (c == 0) {
+#pragma unroll
+        for (int v = 0; v < CBW; ++v) {
+          const int cb = cw * CBW + v;
+          const uint32_t h_s = h_s0 + (cb / 4) * KP * 128;
+          if constexpr (KP == 8) {
+            ldsm_x2_t(h_s + chunk_off(l7, 2 * (cb % 4) + q1), ht[v][0][0], ht[v][0][1]);
+          } else {
+#pragma unroll
+            for (int ks = 0; ks < KS; ++ks)
+              ldsm_x4_t(h_s + chunk_off(16 * ks + q2 * 8 + l7, 2 * (cb % 4) + q1), ht[v][ks]);
+          }
+        }
+      }
+    }
+    if constexpr (C::U8) {     // each warp widens what it multiplies
+      widen_part<RC, TNP, RC / RG, CBW>(st, wide, rg * (RC / RG), cw * CBW, lane);
+      __syncwarp();
+    }
+    const uint32_t a_s = smem_u32(C::U8 ? wide : st);
+    const uint32_t w_s = smem_u32(st + C::A_BYTES);
+    float p[CBW][NF][4];        // this chunk's products, from zero
+#pragma unroll
+    for (int v = 0; v < CBW; ++v)
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[v][f][e] = 0.f;
+#pragma unroll
+    for (int s2 = 0; s2 < KS2; ++s2) {
+      const int rl = rg * (RC / RG) + 16 * s2;   // the step's first row in the chunk
+      // W''s fragments of these 16 rows: B operand of the product (K = rows,
+      // N = factors) ...
+      uint32_t wb2[NF][2];
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+        ldsm_x2_t(w_s + 2 * ((rl + q1 * 8 + l7) * LDWP + 8 * f), wb2[f][0], wb2[f][1]);
+      // ... and, in ratio mode, of H^T W'^T (K = factors, N = rows), two n8
+      // tiles of rows
+      uint32_t wb1[RATIO ? 2 : 1][KS][2];
+      if constexpr (RATIO) {
+        if constexpr (KP == 8) {
+          ldsm_x2(w_s + 2 * (rl + q1 * 8 + l7) * LDWP, wb1[0][0][0], wb1[1][0][0]);
+        } else {
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int ks = 0; ks < KS; ++ks)
+              ldsm_x2(w_s + 2 * ((rl + 8 * nt + l7) * LDWP + 16 * ks + q1 * 8),
+                      wb1[nt][ks][0], wb1[nt][ks][1]);
+        }
+      }
+#pragma unroll
+      for (int v = 0; v < CBW; ++v) {
+        const int cb = cw * CBW + v;   // 16-column block of the strip
+        // A^T's fragment: M = columns 16 cb .., K = the step's rows; equally
+        // the accumulator positions of two n8 tiles of rows
+        uint32_t x[4];
+        ldsm_x4_t(a_s + (cb / 4) * RC * 128 + chunk_off(rl + q2 * 8 + l7, 2 * (cb % 4) + q1), x);
+        if constexpr (RATIO) {
+          float pr[2][4], a[2][4];
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) pr[nt][e] = eps;
+            if constexpr (KP == 8) {
+              mma_bf16_k8(pr[nt], ht[v][0][0], ht[v][0][1], wb1[nt][0][0]);
+            } else {
+#pragma unroll
+              for (int ks = 0; ks < KS; ++ks)
+                mma_bf16(pr[nt], ht[v][ks], wb1[nt][ks][0], wb1[nt][ks][1]);
+            }
+          }
+          unpack2<AT>(x[0], a[0][0], a[0][1]);
+          unpack2<AT>(x[1], a[0][2], a[0][3]);
+          unpack2<AT>(x[2], a[1][0], a[1][1]);
+          unpack2<AT>(x[3], a[1][2], a[1][3]);
+          ratio_block(x, a, pr);   // U'^T, the A operand of U'^T W'
+        }
+#pragma unroll
+        for (int f = 0; f < NF; ++f) mma_op<OP>(p[v][f], x, wb2[f][0], wb2[f][1]);
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < CBW; ++v)
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[v][f][e] += p[v][f][e];
+  }
+
+  // the row groups' sums meet in shared memory, X[rg][factor][column], and
+  // are added in row-group order; element e of fragment (v, f): column
+  // 16 cb + g + 8 (e >> 1), factor 8 f + 2 t4 + (e & 1)
+  __syncthreads();             // every warp is done with the ring
+  float* X = reinterpret_cast<float*>(sm);
+#pragma unroll
+  for (int v = 0; v < CBW; ++v)
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        X[(rg * KP + 8 * f + 2 * t4 + (e & 1)) * C::LDX + 16 * (cw * CBW + v) + g +
+          8 * (e >> 1)] = acc[v][f][e];
+  __syncthreads();
+  float* dst = out + ((size_t)split * gridDim.y + b) * k * n;
+  for (int q = tid; q < KP * TNP / 4; q += NT) {
+    const int c = q / (TNP / 4), jq = 4 * (q % (TNP / 4)), j = col0 + jq;
+    if (c >= k || j >= n) continue;
+    float4 v = *reinterpret_cast<const float4*>(X + c * C::LDX + jq);
+#pragma unroll
+    for (int h = 1; h < RG; ++h) {
+      const float4 w = *reinterpret_cast<const float4*>(X + (h * KP + c) * C::LDX + jq);
+      v = make_float4(v.x + w.x, v.y + w.y, v.z + w.z, v.w + w.w);
+    }
+    float* o = dst + (size_t)c * n + j;
+    if constexpr (VEC) {
+      *reinterpret_cast<float4*>(o) = v;   // n % 8 == 0: j + 3 < n, aligned
+    } else {
+      o[0] = v.x;
+      if (j + 1 < n) o[1] = v.y;
+      if (j + 2 < n) o[2] = v.z;
+      if (j + 3 < n) o[3] = v.w;
+    }
+  }
+}
+
+}  // namespace strip
+
 template <typename T, int KP, bool VEC>
 cudaError_t launch_uht_tc(const T* A, const float* W, const float* H, float eps,
                           int B, int m, int n, int k, float* out, cudaStream_t stream) {
@@ -1233,7 +1593,7 @@ cudaError_t launch_uht(const T* A, const float* W, const float* H, float eps,
   return cudaGetLastError();
 }
 
-template <typename T, int KP, bool VEC>
+template <typename T, int KP, bool VEC, bool RATIO = true>
 cudaError_t launch_wtu(const T* A, const float* W, const float* H, float eps,
                        int B, int m, int n, int k, int rows_per_split,
                        float* scratch, float* out, cudaStream_t stream) {
@@ -1241,7 +1601,7 @@ cudaError_t launch_wtu(const T* A, const float* W, const float* H, float eps,
   constexpr size_t smem = Gm::smem();
   const int S = (m + rows_per_split - 1) / rows_per_split;
   if (S > 1 && scratch == nullptr) return cudaErrorInvalidValue;
-  const auto kernel = &kl_wtu_reg_kernel<T, KP, VEC>;
+  const auto kernel = &kl_wtu_reg_kernel<T, KP, VEC, RATIO>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -1254,6 +1614,80 @@ cudaError_t launch_wtu(const T* A, const float* W, const float* H, float eps,
   const int blocks = (int)((len + NT - 1) / NT < 4096 ? (len + NT - 1) / NT : 4096);
   kl_wtu_reduce_kernel<<<blocks, NT, 0, stream>>>(scratch, S, len, out);
   return cudaGetLastError();
+}
+
+// K1's second pass on an f32 A, W'^T A: kl_wtu_reg_kernel without the ratio,
+// at KP = 8, 16, 32, 64
+cudaError_t wta_f32(const float* A, const float* W, int B, int m, int n, int k,
+                    int rows_per_split, float* scratch, float* out, cudaStream_t s) {
+  if (B < 1 || m < 1 || n < 1 || k < 1 || k > 64 || rows_per_split < 1)
+    return cudaErrorInvalidValue;
+  const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0;
+  const auto go = [&](auto kp) {
+    constexpr int KP = decltype(kp)::value;
+    return vec ? launch_wtu<float, KP, true, false>(A, W, nullptr, 0.f, B, m, n, k,
+                                                    rows_per_split, scratch, out, s)
+               : launch_wtu<float, KP, false, false>(A, W, nullptr, 0.f, B, m, n, k,
+                                                     rows_per_split, scratch, out, s);
+  };
+  if (k <= 8) return go(std::integral_constant<int, 8>{});
+  if (k <= 16) return go(std::integral_constant<int, 16>{});
+  if (k <= 32) return go(std::integral_constant<int, 32>{});
+  return go(std::integral_constant<int, 64>{});
+}
+
+template <typename T, typename OP, int KP, bool RATIO, bool VEC>
+cudaError_t launch_strip(const T* A, const OP* Wq, const __nv_bfloat16* Hq, float eps,
+                         int B, int m, int n, int k, int rows_per_split,
+                         float* scratch, float* out, cudaStream_t stream) {
+  using C = strip::Cfg<T, KP, RATIO>;
+  const int S = (m + rows_per_split - 1) / rows_per_split;
+  if (S > 1 && scratch == nullptr) return cudaErrorInvalidValue;
+  if (S > 65535) return cudaErrorInvalidValue;
+  const auto kernel = &strip::wtu_strip_kernel<T, OP, KP, RATIO, VEC>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + C::TNP - 1) / C::TNP, B, S);
+  kernel<<<grid, NT, C::SMEM, stream>>>(A, Wq, Hq, eps, m, n, k, rows_per_split,
+                                        S > 1 ? scratch : out);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || S == 1) return err;
+  const size_t len = (size_t)B * k * n;
+  const int blocks = (int)((len + NT - 1) / NT < 4096 ? (len + NT - 1) / NT : 4096);
+  kl_wtu_reduce_kernel<<<blocks, NT, 0, stream>>>(scratch, S, len, out);
+  return cudaGetLastError();
+}
+
+// the strip kernel for an A of type T: K1's (RATIO = false; operands f16 for
+// an f16 A, bf16 otherwise) or K3's (RATIO = true; bf16 operands)
+template <typename T, bool RATIO>
+cudaError_t strip_dispatch(const void* A_, const void* Wq_, const void* Hq_, float eps,
+                           int B, int m, int n, int k, int rows_per_split,
+                           void* scratch, void* out, cudaStream_t s) {
+  using OP = typename std::conditional<!RATIO && std::is_same<T, __half>::value, __half,
+                                       __nv_bfloat16>::type;
+  if (B < 1 || m < 1 || n < 1 || k < 1 || k > 64 || rows_per_split < 1)
+    return cudaErrorInvalidValue;
+  const T* A = static_cast<const T*>(A_);
+  const OP* Wq = static_cast<const OP*>(Wq_);
+  const __nv_bfloat16* Hq = static_cast<const __nv_bfloat16*>(Hq_);
+  float* sc = static_cast<float*>(scratch);
+  float* o = static_cast<float*>(out);
+  if (RATIO && Hq == nullptr) return cudaErrorInvalidValue;
+  const bool vec = n % (16 / (int)sizeof(T)) == 0 &&
+      (reinterpret_cast<uintptr_t>(A) | reinterpret_cast<uintptr_t>(Hq)) % 16 == 0;
+  const auto go = [&](auto kp) {
+    constexpr int KP = decltype(kp)::value;
+    return vec ? launch_strip<T, OP, KP, RATIO, true>(A, Wq, Hq, eps, B, m, n, k,
+                                                      rows_per_split, sc, o, s)
+               : launch_strip<T, OP, KP, RATIO, false>(A, Wq, Hq, eps, B, m, n, k,
+                                                       rows_per_split, sc, o, s);
+  };
+  if (k <= 8) return go(std::integral_constant<int, 8>{});
+  if (k <= 16) return go(std::integral_constant<int, 16>{});
+  if (k <= 32) return go(std::integral_constant<int, 32>{});
+  return go(std::integral_constant<int, 64>{});
 }
 
 template <typename T, int KP>
@@ -1360,6 +1794,65 @@ extern "C" int kl_wtu_geometry(int k, int* strip, int* chunk) {
     } else {
       *strip = WtuGeom<KP>::SW;
       *chunk = WtuGeom<KP>::CR;
+    }
+    return cudaSuccess;
+  });
+}
+
+// The second pass of K1 and K3 (ops/strip.py), with the row split of
+// kl_wtu: rows_per_split rows of each member per block, and, when S =
+// ceil(m / rows_per_split) > 1, an f32 scratch of S * B * k * n elements;
+// out is (B, k, n) f32, every element written; 1 <= k <= 64.
+// kl_wta_f32: W'^T A for an f32 A (B, m, n) and W' (B, m, k) f32.
+extern "C" int kl_wta_f32(const void* A, const void* W, int B, int m, int n, int k,
+                          int rows_per_split, void* scratch, void* out, void* stream) {
+  return (int)wta_f32(static_cast<const float*>(A), static_cast<const float*>(W), B, m, n,
+                      k, rows_per_split, static_cast<float*>(scratch),
+                      static_cast<float*>(out), static_cast<cudaStream_t>(stream));
+}
+
+// wtu_strip_<A>: A (B, m, n) bf16, f16 or uint8; Wq (B, m, KP), W' rounded to
+// the operand type and zero-padded to KP = 8, 16, 32 or 64 columns (f16
+// for K1 on an f16 A, bf16 otherwise); ratio 0: W'^T A (K1); ratio 1: W'^T
+// (A / (W' H + eps)) (K3), Hq (B, k, n) bf16.
+#define WTU_STRIP(SUFFIX, T)                                                       \
+  extern "C" int wtu_strip_##SUFFIX(const void* A, const void* Wq, const void* Hq, \
+                                    float eps, int ratio, int B, int m, int n,    \
+                                    int k, int rows_per_split, void* scratch,     \
+                                    void* out, void* stream) {                    \
+    const auto s = static_cast<cudaStream_t>(stream);                             \
+    return (int)(ratio ? strip_dispatch<T, true>(A, Wq, Hq, eps, B, m, n, k,      \
+                                                 rows_per_split, scratch, out, s) \
+                       : strip_dispatch<T, false>(A, Wq, Hq, eps, B, m, n, k,     \
+                                                  rows_per_split, scratch, out, s)); \
+  }
+WTU_STRIP(bf16, __nv_bfloat16)
+WTU_STRIP(f16, __half)
+WTU_STRIP(u8, uint8_t)
+
+// The second pass's geometry for an A of a_bytes bytes an element (4, 2 or
+// 1), ratio or not, at factor width k (1 <= k <= 64), for the wrapper's row
+// split (ops/strip.py::split_plan): *strip columns per block and *chunk
+// rows staged at a time. Returns 0, or the error code of an invalid value.
+extern "C" int wtu_pass_geometry(int a_bytes, int ratio, int k, int* strip, int* chunk) {
+  if (k < 1 || k > 64) return (int)cudaErrorInvalidValue;
+  return (int)with_kp(k, [&](auto kp) {
+    constexpr int KP = decltype(kp)::value;
+    if (a_bytes == 4) {
+      if (ratio && KP > 32) {
+        *strip = tf::SW;
+        *chunk = tf::CR;
+      } else {
+        *strip = WtuGeom<KP <= 64 ? KP : 64>::SW;
+        *chunk = WtuGeom<KP <= 64 ? KP : 64>::CR;
+      }
+    } else if (a_bytes == 2 || a_bytes == 1) {
+      using U = strip::Cfg<uint8_t, KP <= 64 ? KP : 64, false>;
+      using F = strip::Cfg<__half, KP <= 64 ? KP : 64, false>;
+      *strip = a_bytes == 1 ? U::TNP : F::TNP;
+      *chunk = a_bytes == 1 ? U::RC : F::RC;
+    } else {
+      return cudaErrorInvalidValue;
     }
     return cudaSuccess;
   });

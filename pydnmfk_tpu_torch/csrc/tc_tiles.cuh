@@ -1,8 +1,9 @@
 // Tile helpers of the tensor-core kernels (K1's and K3's, csrc/fused_mu_fro.cu
-// and csrc/fused_mu_kl.cu; K2's at k > 32, csrc/kl_ratio.cu): swizzled
-// shared-memory tiles of 128-byte rows, cp.async copies, ldmatrix, bf16 and
-// f16 mma.sync, the exact widening of uint8 values, and 3xTF32 products
-// (TF32 splits of f32 operands, TF32 mma.sync, split fragment loads).
+// and csrc/fused_mu_kl.cu; K2's at k > 32 and the second pass of K1 and K3,
+// csrc/kl_ratio.cu): swizzled shared-memory tiles of 128-byte rows, cp.async
+// copies, ldmatrix, bf16 and f16 mma.sync, the exact widening of uint8
+// values, the KL ratio on a fragment, and 3xTF32 products (TF32 splits of
+// f32 operands, TF32 mma.sync, split fragment loads).
 // Included inside a namespace of each file's anonymous namespace, so each
 // library keeps its own internal copy; the library hash
 // (ops/cuda_lib.py::library_path) covers this header.
@@ -125,6 +126,45 @@ __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// c += a b on the tensor cores at the operand type of T: f16 for T = __half,
+// bf16 otherwise (a bf16 or uint8 A, whose values are bf16 values)
+template <typename T>
+__device__ __forceinline__ void mma_op(float (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same<T, __half>::value) {
+    mma_f16(c, a, b0, b1);
+  } else {
+    mma_bf16(c, a, b0, b1);
+  }
+}
+
+// the two 16-bit values of A in w (lo, hi) as f32, exactly: a bf16 is the
+// upper half of the f32 with the same value, and every f16 value is an f32
+// value
+template <typename T>
+__device__ __forceinline__ void unpack2(uint32_t w, float& lo, float& hi) {
+  if constexpr (std::is_same<T, __half>::value) {
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&w));
+    lo = f.x;
+    hi = f.y;
+  } else {
+    lo = __uint_as_float(w << 16);
+    hi = __uint_as_float(w & 0xffff0000u);
+  }
+}
+
+// U = A / P on one m16 x k16 block: a[nt][e] is A at the position of
+// accumulator element p[nt][e] of the two n8 tiles; the ratios, rounded to
+// bf16, are the m16k16 A operand of the next product
+__device__ __forceinline__ void ratio_block(uint32_t (&u)[4], const float (&a)[2][4],
+                                            const float (&p)[2][4]) {
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+    u[2 * nt] = bf16x2(__fdividef(a[nt][0], p[nt][0]), __fdividef(a[nt][1], p[nt][1]));
+    u[2 * nt + 1] = bf16x2(__fdividef(a[nt][2], p[nt][2]), __fdividef(a[nt][3], p[nt][3]));
+  }
+}
+
 // bytes 2 i and 2 i + 1 of w as packed bf16, exactly: a byte permute makes
 // byte x the f32 2^23 + x, one subtraction leaves the f32 x, and since x has
 // at most 8 significant bits, the upper half of that f32 is its bf16 (no
@@ -133,6 +173,26 @@ __device__ __forceinline__ uint32_t widen2(uint32_t w, int i) {
   const float lo = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7440 + 2 * i)) - 8388608.f;
   const float hi = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7441 + 2 * i)) - 8388608.f;
   return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// The rows r0 .. r0 + ROWS - 1 x 16-byte chunks c0 .. c0 + CPW - 1 of a
+// landed uint8 tile (TM rows of TNP bytes) into the TNP / 64 swizzled bf16
+// tiles of 64 columns, by one warp: the part of the tile it multiplies
+template <int TM, int TNP, int ROWS, int CPW>
+__device__ __forceinline__ void widen_part(const unsigned char* src, unsigned char* dst,
+                                           int r0, int c0, int lane) {
+#pragma unroll
+  for (int i = 0; i < ROWS * CPW / 32; ++i) {
+    // rows fastest: 8 lanes take one chunk of 8 rows, which the swizzles
+    // spread over all banks, both here and in the bf16 tile
+    const int e = lane + 32 * i, r = r0 + e % ROWS, c = c0 + e / ROWS;
+    const uint4 v = *reinterpret_cast<const uint4*>(src + u8_off<TNP>(r, c));
+    unsigned char* d = dst + c / 4 * TM * 128;
+    *reinterpret_cast<uint4*>(d + chunk_off(r, 2 * (c % 4))) =
+        make_uint4(widen2(v.x, 0), widen2(v.x, 1), widen2(v.y, 0), widen2(v.y, 1));
+    *reinterpret_cast<uint4*>(d + chunk_off(r, 2 * (c % 4) + 1)) =
+        make_uint4(widen2(v.z, 0), widen2(v.z, 1), widen2(v.w, 0), widen2(v.w, 1));
+  }
 }
 
 

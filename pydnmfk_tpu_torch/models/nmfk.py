@@ -45,9 +45,10 @@ evenly as they can, none padded, and every group runs every batch, a
 group without a member in one too. After the last batch the members' W
 blocks, H blocks and errors are gathered over 'e' in global member order,
 and every group clusters and refits them; every group then takes group
-0's refit over 'e' (on the card a sparse refit's atomics may end in other
-bits in another process), so that all hold the same statistics; rank 0
-(of group 0) writes.
+0's refit over 'e', so that all hold the same statistics (a guard from
+when a sparse refit's scatter-adds summed with atomics on the card; they
+now sum in a fixed order, so the groups' refits agree and the broadcast
+can go); rank 0 (of group 0) writes.
 
 With ``k_sweep_batch=True`` the sweep runs K-padded (``nmfk.py:767-786``):
 every k's members are drawn at k as in the per-k sweep, zero-padded to
@@ -717,9 +718,10 @@ class NMFk:
 
     def _from_group0(self, W, H, col_err, err):
         """Group 0's refit (its factors, column errors and error) on every
-        ensemble group: each group refits the same members alike, but on
-        the card a sum taken with atomics (a sparse tail's ``index_add_``)
-        may end in other bits in another process."""
+        ensemble group: each group refits the same members alike, and
+        since the sparse scatter-adds sum in a fixed order
+        (``ops/sparse.py::line_plan``) to the same bits; the broadcast is
+        a guard that can go (ROADMAP)."""
         grid, dev = self.grid, self.device
         col = grid.broadcast(torch.as_tensor(col_err, device=dev), "e")
         err = grid.broadcast(torch.tensor([err], dtype=torch.float64,

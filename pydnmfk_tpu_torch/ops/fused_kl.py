@@ -1,14 +1,20 @@
-"""One-pass KL-MU iteration: kernel K3 (``csrc/fused_mu_kl.cu``).
+"""The fused KL-MU iteration: kernel K3 (``csrc/fused_mu_kl.cu`` and, for
+its second pass, ``csrc/kl_ratio.cu``).
 
 Port of ``pydnmfk_tpu/ops/fused_kl.py``. The updated W row panel depends
 only on its own rows,
 
     W'_i = W_i * (U_i H^T) / (rowsum(H) + eps),   U_i = A_i / (W_i H + eps),
 
-so one pass over the row panels of A yields W' and also sums W'^T U' with
-U' = A / (W' H + eps), which the H update needs:
+and the H update needs W'^T U' with U' = A / (W' H + eps):
 
     H' = H * (W'^T U') / (colsum(W') + eps).
+
+On the card K3 runs in two passes over A, every sum in a fixed order, so
+that the same call on the same inputs gives the same bits: pass 1, one
+block a row panel, forms W'; pass 2 (``ops/strip.py``), one block a column
+strip, forms W'^T U' over all rows in order. One call counts one launch
+under its A dtype's key, whatever CUDA launches it makes.
 
 :func:`fused_kl_pass` is the dispatch: for a CPU tensor it runs
 :func:`fused_kl_pass_plain`; for a CUDA tensor it launches K3 or raises.
@@ -39,11 +45,11 @@ import functools
 
 import torch
 
-from . import linalg
+from . import linalg, strip
 from .cuda_lib import A_SUFFIX, check, check_operands, load
 from .linalg import HALF
 
-# K3 launches since the last reset (counted where the kernel is launched):
+# K3 calls since the last reset (counted where the kernel is launched):
 # f32 A, bf16 A, f16 A and uint8 A
 launches = {"fused_mu_kl": 0, "fused_mu_kl_bf16": 0, "fused_mu_kl_f16": 0,
             "fused_mu_kl_u8": 0}
@@ -97,7 +103,7 @@ def _lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     for suffix in A_SUFFIX.values():
         fn = getattr(lib, f"fused_mu_kl_{suffix}")
-        fn.argtypes = [p, p, p, p, ctypes.c_float, i, i, i, i, p, p, p]
+        fn.argtypes = [p, p, p, p, ctypes.c_float, i, i, i, i, p, p]
         fn.restype = i
     lib.fused_mu_kl_error_string.argtypes = [i]
     lib.fused_mu_kl_error_string.restype = ctypes.c_char_p
@@ -122,15 +128,14 @@ def _fused_kl_pass_cuda(A, W, H, hrs, eps):
     if A.dtype != torch.float32:       # the bf16 kernels' operand
         H = H.to(torch.bfloat16)
     W_out = torch.empty_like(W)
-    WTU = torch.zeros((B, k, n), dtype=torch.float32, device=A.device)
     lib = _lib()
     fn = getattr(lib, f"fused_mu_kl_{A_SUFFIX[A.dtype]}")
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
         rc = fn(A.data_ptr(), W.data_ptr(), H.data_ptr(), hrs.data_ptr(),
-                float(eps), B, m, n, k, W_out.data_ptr(), WTU.data_ptr(),
-                stream)
+                float(eps), B, m, n, k, W_out.data_ptr(), stream)
     check(rc, lib, "fused_mu_kl_error_string", "K3 fused_mu_kl")
+    WTU = strip.wt_pass(A, W_out, H, eps, ratio=True)
     launches[_KEY[A.dtype]] += 1
     if k > 32:
         wide_launches[_KEY[A.dtype]] += 1

@@ -1,14 +1,21 @@
-"""One-pass Frobenius-MU W pass: kernel K1 (``csrc/fused_mu_fro.cu``).
+"""The fused Frobenius-MU W pass: kernel K1 (``csrc/fused_mu_fro.cu`` and,
+for its second pass, ``csrc/kl_ratio.cu``).
 
 Port of ``pydnmfk_tpu/ops/fused_mu.py``. The updated W row panel depends
 only on its own rows of A H^T,
 
     W'_i = W_i * (A_i H^T) / (W_i (H H^T) + eps),
 
-so one pass over the row panels of A yields W' and also sums W'^T A and
-W'^T W', which the H update needs:
+and the H update needs W'^T A and W'^T W':
 
     H' = H * (W'^T A) / ((W'^T W') H + eps).
+
+On the card K1 runs in two passes over A, every sum in a fixed order, so
+that the same call on the same inputs gives the same bits: pass 1, one
+block a row panel, forms W' and each panel's W'^T W', which are summed in
+panel order; pass 2 (``ops/strip.py``), one block a column strip, forms
+W'^T A over all rows in order. One call counts one launch under its A
+dtype's key, whatever CUDA launches it makes.
 
 :func:`fused_w_pass` is the dispatch: for a CPU tensor it runs
 :func:`fused_w_pass_plain`, the same maths as two plain products; for a CUDA
@@ -20,8 +27,9 @@ under its own key. The products take operands at the compute dtype of
 (:func:`compute_dtype`): f32 for an f32 A, f16 for an f16 A, bf16 for a bf16
 or uint8 A, with f32 sums. A narrow A takes the tensor-core kernel, which
 gets H rounded to that dtype here (the JAX package's rule, ``fused_mu.py:
-170-173``) and rounds W' to it for W'^T A (``fused_mu.py:74-77``); the plain
-version rounds the same operands, so both compute the same function. The
+170-173``), and pass 2 takes W' rounded to it for W'^T A (``fused_mu.py:
+74-77``); the plain version rounds the same operands, so both compute the
+same function. The
 factors are f32, or bf16 / f16 with a bf16, f16 or uint8 A
 (``cuda_lib.kernel_types``): half factors are widened to f32 for the launch
 and W' is rounded once to their dtype, as the TPU kernel's
@@ -34,11 +42,11 @@ import functools
 
 import torch
 
-from . import linalg
+from . import linalg, strip
 from .cuda_lib import A_SUFFIX, check, check_operands, load
 from .linalg import HALF
 
-# K1 launches since the last reset (counted where the kernel is launched):
+# K1 calls since the last reset (counted where the kernel is launched):
 # f32 A, bf16 A, f16 A and uint8 A
 launches = {"fused_mu_fro": 0, "fused_mu_fro_bf16": 0, "fused_mu_fro_f16": 0,
             "fused_mu_fro_u8": 0}
@@ -77,9 +85,22 @@ def _lib():
         fn = getattr(lib, f"fused_mu_fro_{suffix}")
         fn.argtypes = [p, p, p, p, ctypes.c_float, i, i, i, i, p, p, p, p]
         fn.restype = i
+    lib.fused_mu_fro_geometry.argtypes = [i, i, p]
+    lib.fused_mu_fro_geometry.restype = i
     lib.fused_mu_fro_error_string.argtypes = [i]
     lib.fused_mu_fro_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def panel_rows(a_bytes: int, k: int) -> int:
+    """Rows per panel of pass 1 for an A of ``a_bytes`` bytes an element at
+    factor width k, as the source exports them (the panels of W'^T W')."""
+    lib = _lib()
+    rows = ctypes.c_int()
+    check(lib.fused_mu_fro_geometry(a_bytes, k, ctypes.byref(rows)), lib,
+          "fused_mu_fro_error_string", "K1 fused_mu_fro_geometry")
+    return rows.value
 
 
 def _fused_w_pass_cuda(A, W, H, HHT, eps):
@@ -99,16 +120,18 @@ def _fused_w_pass_cuda(A, W, H, HHT, eps):
         W, H = W.float(), H.float()
     H = H.to(compute_dtype(A.dtype))   # the tensor-core kernel's operand
     W_out = torch.empty_like(W)
-    WTA = torch.zeros((B, k, n), dtype=torch.float32, device=A.device)
-    WTW = torch.zeros((B, k, k), dtype=torch.float32, device=A.device)
+    panels = -(-m // panel_rows(A.element_size(), k))
+    WTWp = torch.empty((B, panels, k, k), dtype=torch.float32, device=A.device)
+    WTW = torch.empty((B, k, k), dtype=torch.float32, device=A.device)
     lib = _lib()
     fn = getattr(lib, f"fused_mu_fro_{A_SUFFIX[A.dtype]}")
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
         rc = fn(A.data_ptr(), W.data_ptr(), H.data_ptr(), HHT.data_ptr(),
-                float(eps), B, m, n, k, W_out.data_ptr(), WTA.data_ptr(),
+                float(eps), B, m, n, k, W_out.data_ptr(), WTWp.data_ptr(),
                 WTW.data_ptr(), stream)
     check(rc, lib, "fused_mu_fro_error_string", "K1 fused_mu_fro")
+    WTA = strip.wt_pass(A, W_out, None, eps, ratio=False)
     launches[_KEY[A.dtype]] += 1
     W_out = W_out.to(w_dtype)
     if single:

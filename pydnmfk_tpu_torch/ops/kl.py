@@ -32,7 +32,10 @@ K2b splits each member's rows over several blocks where its strips of
 columns alone would leave SMs idle (the single-member refit of NMFk):
 :func:`wtu_split_plan` picks the split from the kernel's geometry (which
 the source exports), the wrapper allocates the partial sums, and the kernel
-adds them in a fixed order, so two launches give the same bits.
+adds them in a fixed order, so two launches give the same bits. The plan
+counts the whole stack's blocks, so a member of a stack may sum in another
+order than alone; the second pass of K1 and K3, which reuses K2b's kernels,
+splits by one member's shape instead (``ops/strip.py``).
 """
 from __future__ import annotations
 

@@ -138,15 +138,30 @@ def _summed(a, b, grid, over):
         result_dtype(a.dtype, b.dtype))
 
 
+def _gram(a, b, grid, over):
+    """:func:`_summed` of a Gram X^T X or X X^T; of a member stack on the
+    card one member at a time: a batched cuBLAS product picks its kernel,
+    and with it the order of the long sum (over m or n), by the member
+    count, so a member's Gram would take other bits in another batch. One
+    member at a time it has the bits it has alone (on a grid the stack of
+    local products is summed at once, as one product's)."""
+    if a.dim() < 3 or a.device.type == "cpu":
+        return _summed(a, b, grid, over)
+    local = lambda acc: torch.stack([matmul(x, y, acc) for x, y in zip(a, b)])
+    if grid is None:
+        return local(False)
+    return grid.sum(local(True), over).to(result_dtype(a.dtype, b.dtype))
+
+
 def gram(X: torch.Tensor, grid=None) -> torch.Tensor:
     """X^T X -> (k, k); on a grid X is a row block, summed over 'r'."""
-    return _summed(X.mT, X, grid, "r")
+    return _gram(X.mT, X, grid, "r")
 
 
 def gram_t(X: torch.Tensor, grid=None) -> torch.Tensor:
     """X X^T -> (k, k) for row-major factors H (k, n); on a grid X is a
     column block, summed over 'c'."""
-    return _summed(X, X.mT, grid, "c")
+    return _gram(X, X.mT, grid, "c")
 
 
 def _sparse_product(A, F, orient: str, grid):

@@ -6,9 +6,14 @@ unique (row, col) pairs in row-major order, as ``utils/io.py::_read_sparse``
 makes a BCOO. ``data`` may carry a leading member axis, (B, nnz) over shared
 indices: the NMFk ensemble perturbs only the values.
 
-The products are gathers and ``index_add_`` scatters over the nnz entries,
-as the JAX package writes them with gathers and ``segment_sum``: the dense
-m x n product never exists, and a stack of members is one more leading axis.
+The products are gathers and scatter-adds over the nnz entries, as the JAX
+package writes them with gathers and ``segment_sum``: the dense m x n
+product never exists, and a stack of members is one more leading axis. Every
+scatter-add sums each output line's entries in a fixed order
+(:func:`line_plan`, :func:`ordered_sum`), which depends on the index array
+alone: the same product on the same inputs gives the same bits on the card,
+as XLA's scatters do on a TPU, and a member's bits do not depend on how many
+members share the stack.
 KL on sparse data is exact against the dense formula: the ratio
 U = A / (W H + eps) is zero wherever A is, so U shares A's pattern and both
 KL products touch only the nnz entries (reference: dist_nmf.py:803-811).
@@ -66,6 +71,74 @@ class SparseTriplet:
                              self.cols.to(device), self.shape)
 
 
+# entries that one thread sums in order before the next level of the sum
+RUN = 256
+
+
+def _levels(key, nlines: int) -> list:
+    """The lengths of each level of the ordered sum of entries sorted by
+    their line ``key``: each line's entries are cut into runs of at most
+    RUN, in order, each run summed in order; then the runs' sums the same
+    way, until a line holds at most RUN of them. The last level's lengths
+    are the lines' (zero for a line with no entry)."""
+    counts = torch.bincount(key, minlength=nlines)
+    levels = []
+    while counts.numel() and int(counts.max()) > RUN:
+        runs = -(-counts // RUN)
+        line = torch.repeat_interleave(
+            torch.arange(nlines, device=key.device), runs)
+        pos = torch.arange(line.numel(), device=key.device) - (
+            torch.cumsum(runs, 0) - runs)[line]
+        full = counts // RUN
+        levels.append(torch.where(pos < full[line], RUN,
+                                  (counts - full * RUN)[line]))
+        counts = runs
+    levels.append(counts)
+    return levels
+
+
+def line_plan(idx, nlines: int, chunk: int = 0) -> list:
+    """The fixed order in which a scatter-add over the lines ``idx`` (an
+    entry's row or column, 0 <= idx < nlines) sums its entries: the entries
+    sorted stably by line, cut into the nnz chunks of ``chunk`` (0: one),
+    and for each chunk (sel, levels): ``sel`` the chunk's entries (a slice
+    where idx is sorted already, else their indices) and the
+    :func:`_levels` of its sum. It depends on idx alone, so it is made once
+    and kept on the index tensor (a format's indices are fixed once it is
+    built)."""
+    cache = idx.__dict__.setdefault("_line_plans", {})
+    plan = cache.get((nlines, chunk))
+    if plan is None:
+        key = idx.long()
+        order = None
+        if key.numel() > 1 and not bool((key[1:] >= key[:-1]).all()):
+            order = torch.argsort(key, stable=True)
+            key = key[order]
+        plan = [(slice(s, e) if order is None else order[s:e],
+                 _levels(key[s:e], nlines))
+                for s, e in _spans(key.shape[0], chunk)]
+        cache[(nlines, chunk)] = plan
+    return plan
+
+
+def ordered_sum(vals, levels):
+    """(..., nlines, d) sums of the entries ``vals`` (..., e, d), sorted by
+    line, in :func:`_levels`'s order: every level a segmented sum in which
+    one thread adds a segment's values in order (``torch.segment_reduce``
+    on data of two or more dims), so that neither the run nor the number of
+    leading (member) axes changes the bits."""
+    x = vals
+    for lengths in levels:
+        # segment_reduce reads the data by its strides as if they were the
+        # shape's own: a size-1 axis with another stride (a broadcast's
+        # result) or a broadcast axis is laid out anew first
+        if x.stride() != torch.empty(x.shape, device="meta").stride():
+            x = x.clone(memory_format=torch.contiguous_format)
+        x = torch.segment_reduce(x, "sum", lengths=lengths.expand(
+            *x.shape[:-2], -1), axis=x.dim() - 2, unsafe=True)
+    return x
+
+
 def from_coo(rows, cols, data, shape) -> SparseTriplet:
     """A canonical triplet from COO arrays in any order: sorted row-major,
     duplicate (row, col) pairs summed (``utils/io.py:150-161``)."""
@@ -75,8 +148,8 @@ def from_coo(rows, cols, data, shape) -> SparseTriplet:
     data = data[order]
     key, inverse = torch.unique_consecutive(key, return_inverse=True)
     if key.numel() < order.numel():
-        data = torch.zeros(key.numel(), dtype=data.dtype,
-                           device=data.device).index_add_(0, inverse, data)
+        (_, levels), = line_plan(inverse, key.numel())
+        data = ordered_sum(data[:, None], levels)[:, 0]
     return SparseTriplet(data, (key // n).to(torch.int32),
                          (key % n).to(torch.int32), (m, n))
 
@@ -106,33 +179,37 @@ def sddmm(W, H, rows, cols, chunk: int = 0):
     return parts[0] if len(parts) == 1 else torch.cat(parts, -1)
 
 
-def a_ht(data, rows, cols, H, m: int, chunk: int = 0):
-    """A @ H^T -> (..., m, k) from triplet A; scatter-add over rows."""
-    acc = acc_dtype(H.dtype)
-    batch = torch.broadcast_shapes(data.shape[:-1], H.shape[:-2])
-    out = torch.zeros((*batch, m, H.shape[-2]), dtype=acc, device=H.device)
-    for s, e in _spans(rows.shape[0], chunk):
-        vals = data[..., s:e, None].to(acc) * H[..., :, cols[s:e]].mT.to(acc)
-        out.index_add_(out.dim() - 2, rows[s:e], vals.expand(*batch, e - s, -1))
+def _scatter(data, idx, other, F, nlines: int, chunk: int, rows_of_f: bool):
+    """sum over the entries e of line l: data[..., e] F-row(other[e]) ->
+    (..., nlines, k), each line's entries summed in :func:`line_plan`'s
+    order; F's rows are its columns (H^T) unless ``rows_of_f``."""
+    acc = acc_dtype(F.dtype)
+    batch = torch.broadcast_shapes(data.shape[:-1], F.shape[:-2])
+    out = None
+    for sel, levels in line_plan(idx, nlines, chunk):
+        f = F[..., other[sel], :] if rows_of_f else F[..., :, other[sel]].mT
+        vals = data[..., sel, None].to(acc) * f.to(acc)
+        part = ordered_sum(vals.expand(*batch, -1, -1), levels)
+        out = part if out is None else out + part
     return out
 
 
+def a_ht(data, rows, cols, H, m: int, chunk: int = 0):
+    """A @ H^T -> (..., m, k) from triplet A; ordered scatter-add over rows."""
+    return _scatter(data, rows, cols, H, m, chunk, rows_of_f=False)
+
+
 def wt_a(data, rows, cols, W, n: int, chunk: int = 0):
-    """W^T @ A -> (..., k, n) from triplet A; scatter-add over cols."""
-    acc = acc_dtype(W.dtype)
-    batch = torch.broadcast_shapes(data.shape[:-1], W.shape[:-2])
-    out = torch.zeros((*batch, n, W.shape[-1]), dtype=acc, device=W.device)
-    for s, e in _spans(rows.shape[0], chunk):
-        vals = data[..., s:e, None].to(acc) * W[..., rows[s:e], :].to(acc)
-        out.index_add_(out.dim() - 2, cols[s:e], vals.expand(*batch, e - s, -1))
-    return out.mT
+    """W^T @ A -> (..., k, n) from triplet A; ordered scatter-add over cols."""
+    return _scatter(data, cols, rows, W, n, chunk, rows_of_f=True).mT
 
 
 def col_sqsum(data, cols, n: int):
-    """Per-column sum of squares -> (..., n), f32/f64 accumulation."""
+    """Per-column sum of squares -> (..., n), f32/f64 accumulation, each
+    column's entries summed in :func:`line_plan`'s order."""
     d = data.to(acc_dtype(data.dtype))
-    out = torch.zeros((*d.shape[:-1], n), dtype=d.dtype, device=d.device)
-    return out.index_add_(out.dim() - 1, cols, d * d)
+    (sel, levels), = line_plan(cols, n)
+    return ordered_sum((d * d)[..., sel, None], levels)[..., 0]
 
 
 # triplet-facing wrappers (the JAX package's a_ht_bcoo, wt_a_bcoo, ...);

@@ -5,7 +5,7 @@ stacks. These need a CUDA device and nvcc and skip without them; on a
 machine with a card run ``python -m pytest -m gpu tests/test_torch_cuda.py``.
 
 Tolerance: max |kernel - plain| / max |plain| <= 1e-4 with an f32 A (sums in
-another order; K1's W'^T A and K3's W'^T U' also in atomic order), 1e-3 with
+another order, fixed: two launches give the same bits), 1e-3 with
 a bf16, f16 or uint8 A in K1 and K3 (operands rounded to bf16 or f16 where
 kernel and plain values may differ in the last f32 bit). K2 computes in f32
 for every A dtype: 1e-4. K4 sums in another order only: 1e-4 for f32, bf16
@@ -21,7 +21,7 @@ import torch
 
 from _k2_plan import PLAN_CASES, check_plan
 from pydnmfk_tpu_torch.ops import (ell, ell_gather, fused_kl, fused_mu, kl,
-                                   linalg, sparse)
+                                   linalg, sparse, strip)
 
 pytestmark = pytest.mark.gpu
 EPS = 1.19e-7
@@ -204,6 +204,149 @@ def test_k3_wide_launches_count_the_calls_past_k32(cuda, dtype):
     assert fused_kl.launches == {**before, key: before[key] + len(ks)}
     assert fused_kl.wide_launches == {
         **wide, key: wide[key] + sum(k > 32 for k in ks)}
+
+
+# K1 and K3 sum in a fixed order (two passes, no atomics): two launches give
+# the same bits at every A dtype and padded width, and a member of a stack
+# the bits it has alone (the second pass's row split comes from one
+# member's shape, ops/strip.py::split_plan). Tall members, so that the
+# second pass splits their rows; n = 777 takes the element-by-element path,
+# 640 the 16-byte one.
+ORDER_K = [1, 8, 32, 64]
+
+
+def _fused(kernel, A, W, H):
+    """K1 or K3 on (A, W, H), and the function that repeats it on the same
+    (or a member's) inputs: (outputs, fn(A, W, H, member=None))."""
+    if kernel == "K1":
+        aux = linalg.gram_t(H)
+        call = lambda a, w, h, x: fused_mu.fused_w_pass(a, w, h, x, EPS)
+        plain = fused_mu.fused_w_pass_plain(A, W, H, aux, EPS)
+    else:
+        aux = linalg.sum_axis(H, axis=-1).float()
+        call = lambda a, w, h, x: fused_kl.fused_kl_pass(a, w, h, x, EPS)
+        plain = fused_kl.fused_kl_pass_plain(A, W, H, aux, EPS, 500)
+
+    def fn(i=None):
+        if i is None:
+            return call(A, W, H, aux)
+        return call(A[i], W[i], H[i], aux[i])
+    return fn, plain
+
+
+@pytest.mark.parametrize("n", [777, 640])
+@pytest.mark.parametrize("k", ORDER_K)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kernel", ["K1", "K3"])
+def test_k1_k3_launches_are_bitwise_equal(cuda, kernel, dtype, k, n):
+    fn, plain = _fused(kernel, *_inputs(cuda, 2, 3000, n, k, dtype))
+    first, second = fn(), fn()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert _rel(first, plain) <= (1e-4 if dtype == torch.float32 else 1e-3)
+
+
+@pytest.mark.parametrize("k", [8, 32, 64])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kernel", ["K1", "K3"])
+def test_k1_k3_member_in_a_stack_is_bitwise_alone(cuda, kernel, dtype, k):
+    fn, _ = _fused(kernel, *_inputs(cuda, 10, 1500, 640, k, dtype))
+    stack = fn()
+    for i in (0, 7):
+        alone = fn(i)
+        assert all(torch.equal(s[i], a) for s, a in zip(stack, alone))
+
+
+def test_second_pass_plan_on_the_exported_geometry(cuda):
+    """The second pass's geometry as the source exports it (a strip of whole
+    4-column groups and a chunk for every A width, ratio and k <= 64) and a
+    split that does not depend on the number of members, at the smoke's
+    shapes."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for a_bytes in (4, 2, 1):
+        for ratio in (False, True):
+            for k in range(1, 65):
+                s, c = strip.geometry(a_bytes, ratio, k)
+                assert s > 0 and s % 4 == 0 and c > 0
+            for m, n, k in ((57600, 38400, 32), (14400, 9600, 8),
+                            (57600, 38400, 64), (14400, 9600, 64)):
+                geo = strip.geometry(a_bytes, ratio, k)
+                plan = strip.split_plan((1, m, n), k, *geo, sms)
+                assert plan == strip.split_plan((10, m, n), k, *geo, sms)
+                splits, rows = plan
+                assert splits == -(-m // rows) and rows % geo[1] == 0
+    with pytest.raises(RuntimeError, match="wtu_pass_geometry"):
+        strip.geometry(4, False, 65)
+
+
+def test_gram_of_a_member_is_bitwise_alone(cuda):
+    """The Grams of the MU updates (W^T W, H H^T) of a member stack on the
+    card: a member's is the one it has alone, as K1's and K3's sums are
+    (a batched product's kernel, and its order, follow the member count)."""
+    g = torch.Generator(cuda)
+    g.manual_seed(3)
+    W = torch.rand((10, 200000, 7), generator=g, device=cuda)
+    H = torch.rand((10, 8, 9600), generator=g, device=cuda)
+    assert torch.equal(linalg.gram(W)[3], linalg.gram(W[3:4])[0])
+    assert torch.equal(linalg.gram_t(H)[3], linalg.gram_t(H[3:4])[0])
+    assert torch.equal(linalg.gram_t(H)[3], linalg.gram_t(H[3]))
+
+
+def _hot_triplet(dev):
+    """A 4000 x 3000 triplet with a full row and a full column over 12000
+    random entries (f32 values): each orientation's ELL tail holds a line
+    of 3000-4000 entries, several levels of the ordered sum."""
+    import numpy as np
+    rng = np.random.default_rng(23)
+    m, n = 4000, 3000
+    rows = np.concatenate([rng.integers(0, m, 12000), np.full(n, 5),
+                           np.arange(m)])
+    cols = np.concatenate([rng.integers(0, n, 12000), np.arange(n),
+                           np.full(m, 9)])
+    t = lambda x, dt: torch.tensor(x, dtype=dt, device=dev)
+    return sparse.from_coo(t(rows, torch.int32), t(cols, torch.int32),
+                           t(rng.random(rows.size), torch.float32), (m, n))
+
+
+@pytest.mark.parametrize("k", [3, 8, 33])
+def test_sparse_sums_repeat_bitwise_and_match_the_cpu(cuda, k):
+    """The ordered scatter-adds of the triplet's products and of the dual
+    ELL's tails: two runs on the card give the same bits, a member of a
+    stack the bits it has alone, and the sums themselves (one thread adds a
+    run in order) the CPU's bits on the same values. The whole ELL products
+    (K4 and the tails) repeat bitwise too."""
+    A = _hot_triplet(cuda)
+    (m, n), g = A.shape, torch.Generator(cuda)
+    g.manual_seed(k)
+    W = torch.rand((3, m, k), generator=g, device=cuda)
+    H = torch.rand((3, k, n), generator=g, device=cuda)
+    E = ell.ell_pack(A)
+    assert E.rtail_d.numel() > 2000 and E.ctail_d.numel() > 2000
+    sums = [
+        lambda W, H: sparse.a_ht_triplet(A, H),
+        lambda W, H: sparse.wt_a_triplet(A, W),
+        lambda W, H: sparse.kl_uht_sparse(A, W, H, EPS),
+        lambda W, H: sparse.kl_wtu_sparse(A, W, H, EPS),
+        lambda W, H: sparse.a_ht(E.rtail_d, E.rtail_r, E.rtail_c, H, m),
+        lambda W, H: sparse.wt_a(E.ctail_d, E.ctail_r, E.ctail_c, W, n)]
+    for f in sums:
+        first = f(W, H)
+        assert torch.equal(first, f(W, H))
+        assert torch.equal(first[1], f(W[1], H[1]))
+    W0, H0 = W[0], H[0]        # K4 takes one member on one ELL
+    for f in (lambda: sparse.col_sqsum(A.data, A.cols, n),
+              lambda: ell.ell_col_sqsum(E), lambda: ell.ell_wt_a(E, W0),
+              lambda: ell.ell_a_ht(E, H0),
+              lambda: ell.ell_kl_uht(E, W0, H0, EPS),
+              lambda: ell.ell_kl_wtu(E, W0, H0, EPS)):
+        assert torch.equal(f(), f())
+    for idx, other, nlines in ((A.rows, A.cols, m), (A.cols, A.rows, n),
+                               (E.ctail_c, E.ctail_r, n)):
+        (sel, levels), = sparse.line_plan(idx, nlines)
+        assert len(levels) > 1
+        vals = W[:, other[sel], :]
+        got = sparse.ordered_sum(vals, levels)
+        want = sparse.ordered_sum(vals.cpu(), [x.cpu() for x in levels])
+        assert torch.equal(got.cpu(), want)
 
 
 # K2's register kernels (k <= 32), as UhtGeom and WtuGeom in
